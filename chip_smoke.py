@@ -1,0 +1,385 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (``deepbedmap_tpu_torch``) on one CUDA card.
+
+Run from the repository root on a machine with an NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases (any failure ends the run with a non-zero exit code):
+
+0. setup: print the card's name and power limit (nvidia-smi), turn TF32 off
+   (the JAX reference computes in fp32);
+1. build the CUDA kernels from ``deepbedmap_tpu_torch/csrc`` with nvcc;
+2. K1 ``rdb_forward`` vs ``rdb_reference`` at (1,13,14,64) and (2,286,286,64);
+3. K2 ``deform64_lrelu`` vs the plain masked-shift sampler + LeakyReLU at
+   (1,20,130,64) and (2,1144,1144,64);
+4. K3 ``deform_zproj1`` vs its plain version at the same shapes;
+5. the whole 12-RRDB generator at full width on a 64-px crop: the card
+   (kernels) against the same port on the CPU (plain versions);
+6. the main path: ``DeepBedMap.predict_continent`` on a 2 x 2-tile region
+   (2000^2 output, 1000-px tiles, 18-px halo, 288-px crops, 2 tiles per
+   forward), with every kernel's launch count checked, the output held
+   against the untiled ``predict_region``, and the warm per-tile time.
+
+It prints one JSON line with each kernel's launches, error and times, and
+ends with ``{"ok": true, "device": {...}}``. It refuses to run without a
+CUDA device and imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# tolerances, relative to the reference output's largest magnitude: every
+# comparison is fp32 against fp32 with the sums taken in another order
+# (cuDNN / cuBLAS / CPU kernels vs the hand-written ones), which costs a few
+# units of 1e-7 per term; 1e-4 leaves room for the longest chains (1728-term
+# conv sums, 36 chained dense blocks) while any indexing or layout fault
+# gives errors of the order of the output itself
+TOL_KERNEL = 1e-4
+TOL_GENERATOR = 1e-4
+# tiled vs untiled region: the same, plus the generator's far field beyond
+# the 18-px halo, which the seeded weights (init scale 0.1) damp far below it
+TOL_SEAM = 1e-4
+
+DEVICE = "cuda"
+SMALL_RDB, MAIN_RDB = (1, 13, 14, 64), (2, 286, 286, 64)
+SMALL_TAIL, MAIN_TAIL = (1, 20, 130, 64), (2, 1144, 1144, 64)
+GEN_LR = 64  # phase 5 crop: latent 62, output 248^2
+TILE_OUT, HALO_LR, TILES_PER_DISPATCH = 1000, 18, 2  # phase 6, 288-px crops
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def compare(label: str, got, want, rel_tol: float) -> float:
+    import torch
+
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: non-finite values")
+    err = float((got.double() - want.double()).abs().max())
+    scale = float(want.abs().max())
+    tol = rel_tol * scale
+    log(f"  {label}: max_abs_err {err:.3e} (tolerance {tol:.3e} = {rel_tol:g} x "
+        f"max|ref| {scale:.3e})")
+    if not err <= tol:
+        raise AssertionError(f"{label}: error {err:.3e} above tolerance {tol:.3e}")
+    return err
+
+
+def time_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean device time of ``fn()`` over ``reps`` calls, by CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _randn(shape, gen, scale=1.0):
+    import torch
+
+    return (torch.randn(shape, generator=gen) * scale).to(DEVICE)
+
+
+def _offsets(shape, gen):
+    """std-1.5 offsets, some beyond the +/-2 clamp, some exact integers."""
+    import torch
+
+    off = torch.randn(shape, generator=gen) * 1.5
+    flat = off.view(-1)
+    idx = torch.randperm(flat.numel(), generator=gen)[: flat.numel() // 20]
+    vals = torch.tensor([-3.7, -2.0, -1.0, 0.0, 1.0, 2.0, 4.2])
+    flat[idx] = vals[torch.randint(len(vals), (len(idx),), generator=gen)]
+    return off.to(DEVICE)
+
+
+def check_rdb(shape, gen, timed: bool) -> dict:
+    import torch
+
+    from deepbedmap_tpu_torch.ops.rdb import pack_rdb_weights, rdb_fused, rdb_reference
+
+    f, g = 64, 32
+    cins, couts = [f + g * j for j in range(5)], [g, g, g, g, f]
+    kernels = [_randn((co, ci, 3, 3), gen, 0.05) for ci, co in zip(cins, couts)]
+    biases = [_randn((co,), gen, 0.1) for co in couts]
+    x = _randn(shape, gen)
+    packed = pack_rdb_weights(kernels, biases)
+    got = rdb_fused(x, kernels, biases, 0.1, packed)
+    want = rdb_reference(x, kernels, biases, 0.1)
+    torch.cuda.synchronize()
+    res = {"max_abs_err": compare(f"K1 rdb_forward {shape}", got, want, TOL_KERNEL)}
+    if timed:
+        res["ms"] = time_ms(lambda: rdb_fused(x, kernels, biases, 0.1, packed), 10)
+        res["plain_ms"] = time_ms(lambda: rdb_reference(x, kernels, biases, 0.1), 10)
+    return res
+
+
+def check_deform64(shape, gen, timed: bool) -> dict:
+    import torch
+
+    from deepbedmap_tpu_torch.ops.deform_conv import deform_conv_shifts
+    from deepbedmap_tpu_torch.ops.tail import deform64_lrelu, pack_deform64_weight
+
+    n, h, w, c = shape
+    x = _randn(shape, gen)
+    off = _offsets((n, h, w, 18), gen)
+    w1, b1 = _randn((c, c, 3, 3), gen, 0.05), _randn((c,), gen, 0.1)
+    packed = pack_deform64_weight(w1)
+
+    def plain():
+        y = deform_conv_shifts(x, off, w1, b1, 1, 2)
+        return torch.where(y >= 0, y, 0.2 * y)
+
+    got = deform64_lrelu(x, off, w1, b1, 2, packed)
+    want = plain()
+    torch.cuda.synchronize()
+    res = {"max_abs_err": compare(f"K2 deform64_lrelu {shape}", got, want, TOL_KERNEL)}
+    del want
+    if timed:
+        res["ms"] = time_ms(lambda: deform64_lrelu(x, off, w1, b1, 2, packed), 5)
+        res["plain_ms"] = time_ms(plain, 2)
+    return res
+
+
+def check_zproj1(shape, gen, timed: bool) -> dict:
+    import torch
+
+    from deepbedmap_tpu_torch.ops.deform_conv import sample_tap_fields
+    from deepbedmap_tpu_torch.ops.tail import deform_zproj1
+
+    n, h, w, _ = shape
+    z = _randn((n, h, w, 9), gen)
+    off = _offsets((n, h, w, 18), gen)
+    b2 = _randn((1,), gen, 0.1)
+    got = deform_zproj1(z, off, b2, 2)
+    want = sample_tap_fields(z[..., None], off, b2, 1, 2)
+    torch.cuda.synchronize()
+    res = {"max_abs_err": compare(f"K3 deform_zproj1 {(n, h, w, 9)}", got, want, TOL_KERNEL)}
+    if timed:
+        res["ms"] = time_ms(lambda: deform_zproj1(z, off, b2, 2), 20)
+        res["plain_ms"] = time_ms(lambda: sample_tap_fields(z[..., None], off, b2, 1, 2), 3)
+    return res
+
+
+def _crop_inputs(lr: int, batch: int, seed: int):
+    rs = np.random.RandomState(seed)
+    shapes = [(batch, lr, lr, 1), (batch, 10 * lr, 10 * lr, 1),
+              (batch, 2 * lr, 2 * lr, 2), (batch, lr, lr, 1)]
+    return [rs.rand(*s).astype(np.float32) for s in shapes]
+
+
+def check_generator(init_scale: float) -> float:
+    """Phase 5: full-width, full-depth generator, card kernels vs CPU plain."""
+    import torch
+
+    from deepbedmap_tpu_torch.config import GeneratorConfig
+    from deepbedmap_tpu_torch.models import build_generator
+
+    cpu_model = build_generator(GeneratorConfig(init_scale=init_scale), seed=0).eval()
+    gpu_model = copy.deepcopy(cpu_model).to(DEVICE)
+    xs = [torch.from_numpy(a) for a in _crop_inputs(GEN_LR, 1, seed=1)]
+    with torch.inference_mode():
+        want = cpu_model(*xs)
+        got = gpu_model(*[a.to(DEVICE) for a in xs])
+        torch.cuda.synchronize()
+    return compare(
+        f"generator 12 RRDB, init_scale {init_scale}, {GEN_LR}-px crop -> {tuple(got.shape)}",
+        got.cpu(), want, TOL_GENERATOR,
+    )
+
+
+def forward_breakdown(model, xs, reps: int = 3) -> dict:
+    """Device time of each stage of one forward, by CUDA events."""
+    import torch
+
+    from deepbedmap_tpu_torch.ops.resize import nearest_upsample
+    from deepbedmap_tpu_torch.ops.tail import fused_deform_tail
+
+    def stages():
+        a1 = model.pre_residual_conv_layer(model.input_block(*xs))
+        yield "input block + pre-residual conv"
+        t = a1.contiguous()
+        for block in model.residual_network:
+            t = block(t)
+        yield "trunk: 36 x K1 + RRDB skips"
+        a4 = model.post_upsample_conv_layer_1(
+            nearest_upsample(model.post_residual_conv_layer(t, residual=a1), 2))
+        a4 = model.post_upsample_conv_layer_2(nearest_upsample(a4, 2))
+        yield "post-residual conv + 2 x (upsample + conv)"
+        l1, l2 = model.final_conv_layer1, model.final_conv_layer2
+        fused_deform_tail(a4, *l1.tensors(), *l2.tensors(),
+                          clamp=model.cfg.deform_clamp, w1_packed=l1.packed_weight())
+        yield "tail: offset convs + K2 + projection + K3"
+
+    totals: dict = {}
+    with torch.inference_mode():
+        for _ in range(reps):
+            prev = torch.cuda.Event(enable_timing=True)
+            prev.record()
+            marks = []
+            for name in stages():
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                marks.append((name, ev))
+            torch.cuda.synchronize()
+            for name, ev in marks:
+                totals[name] = totals.get(name, 0.0) + prev.elapsed_time(ev) / reps
+                prev = ev
+    return totals
+
+
+def check_launches(launches: dict, expected: dict) -> None:
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches} != expected {expected}")
+
+
+def main_path(card_name: str) -> dict:
+    """Phase 6: DeepBedMap.predict_continent on a 2 x 2-tile region; returns
+    the kernels' launch counts in that run."""
+    import torch
+
+    from deepbedmap_tpu_torch import DeepBedMap
+    from deepbedmap_tpu_torch.config import GeneratorConfig
+    from deepbedmap_tpu_torch.inference import TilePlan, predict_region
+    from deepbedmap_tpu_torch.ops import _kernels
+
+    res_m, tile_out, halo_lr, tpd = 250.0, TILE_OUT, HALO_LR, TILES_PER_DISPATCH
+    out = 2 * tile_out
+    lh = out // 4
+    rng = np.random.default_rng(2)
+    inputs = {
+        "X": rng.random((1, 1, lh, lh), dtype=np.float32),
+        "W1": rng.random((1, 1, 10 * lh, 10 * lh), dtype=np.float32),
+        "W2": rng.random((1, 2, 2 * lh, 2 * lh), dtype=np.float32),
+        "W3": rng.random((1, 1, lh, lh), dtype=np.float32),
+    }
+    bounds = (0.0, 0.0, out * res_m, out * res_m)
+    dbm = DeepBedMap(cfg=GeneratorConfig(), device=DEVICE)
+    kw = dict(tile_out=tile_out, halo_lr=halo_lr, tiles_per_dispatch=tpd)
+
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    raster = dbm.predict_continent(inputs, bounds, **kw)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = dict(_kernels.launches)
+
+    plan = TilePlan(out_h=out, out_w=out, tile_out=tile_out, halo_lr=halo_lr)
+    forwards = plan.grid[0] * -(-plan.grid[1] // tpd)
+    expected = {"rdb_forward": 36 * forwards, "deform64_lrelu": forwards,
+                "deform_zproj1": forwards}
+    log(f"  launches in predict_continent ({forwards} forwards): {launches}")
+    check_launches(launches, expected)
+    got = torch.from_numpy(raster.data)
+    if raster.data.shape != (out, out) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"bad continent output {raster.data.shape}")
+
+    dev = {k: torch.from_numpy(np.ascontiguousarray(v.transpose(0, 2, 3, 1))).to(DEVICE)
+           for k, v in inputs.items()}
+    whole = predict_region(dbm.forward_fn(), dev, plan)[0, :, :, 0].cpu()
+    compare(f"continent {out}x{out} tiled vs untiled predict_region", got, whole, TOL_SEAM)
+
+    t0 = time.perf_counter()
+    dbm.predict_continent(inputs, bounds, **kw)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    per_tile_ms = 1e3 * warm_s / plan.num_tiles
+    log(f"  predict_continent {plan.num_tiles} tiles: cold {cold_s:.3f} s, warm "
+        f"{warm_s:.3f} s = {per_tile_ms:.1f} ms/tile  [{card_name}]")
+
+    xs = [torch.from_numpy(a).to(DEVICE) for a in _crop_inputs(plan.crop_lr, tpd, seed=3)]
+    for name, ms in forward_breakdown(dbm.model, xs).items():
+        log(f"  forward at batch {tpd} x {plan.crop_lr} px, {name}: {ms:.2f} ms  "
+            f"[{card_name}]")
+    return launches
+
+
+KERNELS = [
+    ("rdb_forward", "deepbedmap_tpu_torch/csrc/rdb.cu",
+     "deepbedmap_tpu/ops/pallas_rdb.py:635", check_rdb, SMALL_RDB, MAIN_RDB),
+    ("deform64_lrelu", "deepbedmap_tpu_torch/csrc/deform_tail.cu",
+     "deepbedmap_tpu/ops/pallas_tail.py:196", check_deform64, SMALL_TAIL, MAIN_TAIL),
+    ("deform_zproj1", "deepbedmap_tpu_torch/csrc/deform_tail.cu",
+     "deepbedmap_tpu/ops/pallas_tail.py:275", check_zproj1, SMALL_TAIL, MAIN_TAIL),
+]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py: no CUDA device; it does not run on the CPU")
+    from deepbedmap_tpu_torch.ops import _kernels
+
+    log("phase 0: setup")
+    card_name = card()
+    log(card_name)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+
+    log("phase 1: build")
+    t0 = time.perf_counter()
+    _kernels.library()
+    log(f"  kernels built and loaded in {time.perf_counter() - t0:.1f} s")
+    for line in _kernels.build_log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    results = {}
+    for i, (name, _, _, check, small, main_shape) in enumerate(KERNELS, start=2):
+        log(f"phase {i}: {name}")
+        gen = torch.Generator().manual_seed(i)
+        check(small, gen, timed=False)
+        results[name] = check(main_shape, gen, timed=True)
+        r = results[name]
+        log(f"  {name} at the main-path shape: kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms  [{card_name}]")
+
+    log("phase 5: whole generator, card vs CPU")
+    check_generator(0.1)
+    check_generator(1.0)
+
+    log("phase 6: main path")
+    launches = main_path(card_name)
+
+    kernels = [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[name], **results[name]}
+        for name, src, rep, *_ in KERNELS
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,21 @@
+"""deepbedmap_tpu_torch: the PyTorch + CUDA port of ``deepbedmap_tpu``.
+
+The JAX package stays the reference; this package runs the same models on an
+NVIDIA H100. It imports torch and numpy only, never JAX. Layout mirrors the
+JAX package:
+
+- ``config``    : GeneratorConfig / InferenceConfig (copied field for field)
+- ``ops``       : resize, dense block (K1), deformable conv and tail (K2, K3),
+                  the CUDA build and binding (``ops._kernels``)
+- ``csrc``      : the hand-written CUDA C++ kernels (sm_90a)
+- ``models``    : generator building blocks and the generator
+- ``bridge``    : JAX flax params <-> the port's state_dict
+- ``inference`` : halo'd tile engine and band-streamed continent inference
+- ``data``      : Raster
+- ``api``       : DeepBedMap
+"""
+
+__version__ = "0.1.0"
+
+from deepbedmap_tpu_torch.config import GeneratorConfig, InferenceConfig  # noqa: F401
+from deepbedmap_tpu_torch.api import DeepBedMap  # noqa: F401

@@ -1,0 +1,130 @@
+"""Top-level user API of the PyTorch port.
+
+Counterpart of ``deepbedmap_tpu/api.py:DeepBedMap`` (constructor,
+``forward_fn``, ``predict_continent`` on the single-device buffered path):
+
+    from deepbedmap_tpu_torch import DeepBedMap
+
+    dbm = DeepBedMap(device="cuda")                      # seeded random weights
+    dbm = DeepBedMap.from_jax_params(tree, device="cuda")  # JAX-trained weights
+    dem = dbm.predict_continent(rasters, bounds)         # band-streamed -> Raster
+
+On a CUDA device the generator runs the hand-written kernels. For results
+that match the fp32 JAX reference, turn TF32 off in the caller
+(``torch.backends.cudnn.allow_tf32 = False`` and
+``torch.backends.cuda.matmul.allow_tf32 = False``); cuDNN convs default to it.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from deepbedmap_tpu_torch.bridge import jax_params_to_state_dict
+from deepbedmap_tpu_torch.config import GeneratorConfig
+from deepbedmap_tpu_torch.data.raster import Raster
+from deepbedmap_tpu_torch.inference.continent import predict_continent
+from deepbedmap_tpu_torch.inference.engine import TilePlan
+from deepbedmap_tpu_torch.models.api import build_generator
+from deepbedmap_tpu_torch.models.generator import Generator
+
+Bounds = Tuple[float, float, float, float]  # (xmin, ymin, xmax, ymax)
+
+
+class DeepBedMap:
+    """A trained (or fresh) super-resolution bed-DEM model on one device."""
+
+    def __init__(
+        self,
+        params: Optional[Mapping[str, torch.Tensor]] = None,
+        cfg: GeneratorConfig = GeneratorConfig(),
+        resolution: float = 250.0,
+        device="cpu",
+    ):
+        """``params``: a port ``state_dict``; None draws seeded random
+        weights (``models.build_generator``'s default seed)."""
+        self.cfg = cfg
+        self.resolution = resolution
+        self.device = torch.device(device)
+        if params is None:
+            self.model = build_generator(cfg)
+        else:
+            self.model = Generator(cfg)
+            self.model.load_state_dict(params)
+        self.model.to(self.device).eval()
+
+    @classmethod
+    def from_jax_params(
+        cls,
+        tree: Mapping,
+        cfg: GeneratorConfig = GeneratorConfig(),
+        resolution: float = 250.0,
+        device="cpu",
+    ) -> "DeepBedMap":
+        """From the JAX generator's flax params (nested dicts of numpy arrays)."""
+        return cls(jax_params_to_state_dict(tree), cfg, resolution, device)
+
+    def forward_fn(self):
+        """(x, w1, w2, w3) NHWC tensors on ``self.device`` -> NHWC prediction."""
+        model = self.model
+
+        def fwd(x, w1, w2, w3):
+            with torch.inference_mode():
+                return model(x, w1, w2, w3)
+
+        return fwd
+
+    def predict_continent(
+        self,
+        inputs_nchw: Dict[str, np.ndarray],  # X/W1/W2/W3 full-region stacks
+        bounds: Bounds,
+        outfilepath: Optional[str] = None,
+        tile_out: int = 1000,
+        halo_lr: int = 18,
+        mesh=None,
+        stream_product: bool = False,
+        tile_loop: str = "scan",
+        prefetch: int = 1,
+        rows_per_strip: Optional[int] = None,
+        overviews: int = 0,
+        predictor: bool = False,
+        tiles_per_dispatch: int = 2,
+        multihost: bool = False,
+    ) -> Raster:
+        """Band-streamed whole-region prediction on ``self.device``. Inputs
+        follow the reference NCHW contract, unpadded (covering exactly
+        ``bounds``). The GeoTIFF product (``outfilepath``, ``stream_product``,
+        ``rows_per_strip``, ``overviews``, ``predictor``) and the multi-device
+        paths (``mesh``, ``multihost``) are not ported and raise."""
+        unported = {
+            "outfilepath": outfilepath is not None,
+            "mesh": mesh is not None,
+            "stream_product": stream_product,
+            "rows_per_strip": rows_per_strip is not None,
+            "overviews": bool(overviews),
+            "predictor": predictor,
+            "multihost": multihost,
+        }
+        bad = [k for k, on in unported.items() if on]
+        if bad:
+            raise NotImplementedError(
+                "not ported to the PyTorch package yet: " + ", ".join(bad)
+            )
+        xmin, ymin, xmax, ymax = bounds
+        plan = TilePlan(
+            out_h=int(round((ymax - ymin) / self.resolution)),
+            out_w=int(round((xmax - xmin) / self.resolution)),
+            tile_out=tile_out,
+            halo_lr=halo_lr,
+        )
+        host_inputs = {
+            k: np.asarray(v).transpose(0, 2, 3, 1) for k, v in inputs_nchw.items()
+        }
+        canvas = predict_continent(
+            self.forward_fn(), host_inputs, plan, tile_loop=tile_loop,
+            prefetch=prefetch, tiles_per_dispatch=tiles_per_dispatch,
+            device=self.device,
+        )
+        return Raster(canvas, left=xmin, top=ymax, res=self.resolution)

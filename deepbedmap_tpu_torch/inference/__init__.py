@@ -1,0 +1,10 @@
+"""Tiled inference engine and band-streamed continent inference."""
+
+from deepbedmap_tpu_torch.inference.continent import predict_continent  # noqa: F401
+from deepbedmap_tpu_torch.inference.engine import (  # noqa: F401
+    TilePlan,
+    make_tile_forward,
+    make_tile_group_forward,
+    predict_region,
+    predict_region_tiled,
+)

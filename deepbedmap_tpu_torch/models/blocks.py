@@ -1,0 +1,186 @@
+"""Generator building blocks (NHWC activations, OIHW weights).
+
+Counterpart of ``deepbedmap_tpu/models/blocks.py``:
+
+- Chainer He-normal initialisation, std = scale * sqrt(2 / fan_in);
+- the input block, kept as space-to-depth + 3x3 VALID conv so the JAX HWIO
+  kernels map onto these by a plain HWIO -> OIHW transpose;
+- the dense-block parameter holders, whose forward dispatches by device to
+  the K1 kernel (CUDA) or its plain version (CPU) through ``ops.rdb``;
+- ``FusedConv3x3`` as a plain conv with its bias / residual / LeakyReLU
+  epilogue (its TPU kernel is off by default and not ported);
+- the deformable layers' parameter holder, applied by ``ops.tail``.
+
+Parameter names follow the JAX tree (``bridge.py`` maps one onto the other).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from deepbedmap_tpu_torch.ops.conv import conv_nhwc, leaky_relu
+from deepbedmap_tpu_torch.ops.rdb import pack_rdb_weights, rdb_fused
+from deepbedmap_tpu_torch.ops.resize import space_to_depth
+from deepbedmap_tpu_torch.ops.tail import pack_deform64_weight
+
+
+def he_normal_chainer_(
+    weight: torch.Tensor, scale: float, generator: torch.Generator
+) -> torch.Tensor:
+    """Chainer HeNormal(scale, fan_option='fan_in') on an OIHW weight, in place."""
+    fan_in = weight.shape[1] * weight.shape[2] * weight.shape[3]
+    std = scale * math.sqrt(2.0 / fan_in)
+    with torch.no_grad():
+        return weight.normal_(0.0, std, generator=generator)
+
+
+class _Cached:
+    """Weights repacked for a kernel, recomputed only when a source parameter
+    changes (a new ``load_state_dict``, a move to another device)."""
+
+    def __init__(self, pack):
+        self._pack = pack
+        self._key = None
+        self._value = None
+
+    def get(self, params: Sequence[torch.Tensor]):
+        key = tuple((p.device, p.data_ptr(), p._version) for p in params)
+        if key != self._key:
+            self._value = self._pack(*params)
+            self._key = key
+        return self._value
+
+
+class Conv3x3(nn.Module):
+    """A 3x3 conv's parameters: ``weight`` OIHW and ``bias``."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, 3, 3))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def reset_parameters(self, init_scale: float, generator: torch.Generator) -> None:
+        he_normal_chainer_(self.weight, init_scale, generator)
+        with torch.no_grad():
+            self.bias.zero_()
+
+
+class StridedInputConv(Conv3x3):
+    """VALID conv with kernel 3b x 3b and stride b, computed as
+    space_to_depth(b) + 3x3 VALID conv (reference srgan_train.py:223-254)."""
+
+    def __init__(self, in_channels: int, out_channels: int, block: int):
+        super().__init__(block * block * in_channels, out_channels)
+        self.block = block
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.block > 1:
+            x = space_to_depth(x, self.block)
+        return conv_nhwc(x, self.weight, self.bias, 0)
+
+
+class InputBlock(nn.Module):
+    """Four-branch input block -> concat (reference srgan_train.py:201-266).
+    x (N,h,w,1), w1 (N,10h,10w,1), w2 (N,2h,2w,2), w3 (N,h,w,1)
+    -> (N, h-2, w-2, 4 * out_channels)."""
+
+    def __init__(self, out_channels: int = 32):
+        super().__init__()
+        self.conv_on_X = StridedInputConv(1, out_channels, 1)
+        self.conv_on_W1 = StridedInputConv(1, out_channels, 10)
+        self.conv_on_W2 = StridedInputConv(2, out_channels, 2)
+        self.conv_on_W3 = StridedInputConv(1, out_channels, 1)
+
+    def forward(self, x, w1, w2, w3) -> torch.Tensor:
+        return torch.cat(
+            [self.conv_on_X(x), self.conv_on_W1(w1), self.conv_on_W2(w2),
+             self.conv_on_W3(w3)],
+            dim=-1,
+        )
+
+
+class FusedConv3x3(Conv3x3):
+    """3x3 SAME conv with optional residual-add and LeakyReLU epilogues
+    (reference layers srgan_train.py:470-505)."""
+
+    def __init__(self, in_channels: int, out_channels: int, leaky: bool = False):
+        super().__init__(in_channels, out_channels)
+        self.leaky = leaky
+
+    def forward(
+        self, x: torch.Tensor, residual: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        z = conv_nhwc(x, self.weight, self.bias, 1)
+        if residual is not None:
+            z = z + residual
+        return leaky_relu(z) if self.leaky else z
+
+
+class ResidualDenseBlock(nn.Module):
+    """5-conv dense block with residual scaling (reference
+    srgan_train.py:275-360): one K1 launch on the card."""
+
+    def __init__(self, features: int = 64, growth: int = 32, residual_scaling: float = 0.1):
+        super().__init__()
+        f, g = features, growth
+        c_ins = (f, f + g, f + 2 * g, f + 3 * g, f + 4 * g)
+        c_outs = (g, g, g, g, f)
+        for i, (ci, co) in enumerate(zip(c_ins, c_outs), start=1):
+            setattr(self, f"conv_layer{i}", Conv3x3(ci, co))
+        self.residual_scaling = residual_scaling
+        self._packed = _Cached(lambda *p: pack_rdb_weights(p[:5], p[5:]))
+
+    def convs(self) -> Tuple[Conv3x3, ...]:
+        return tuple(getattr(self, f"conv_layer{i}") for i in range(1, 6))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        kernels = [c.weight for c in self.convs()]
+        biases = [c.bias for c in self.convs()]
+        packed = self._packed.get(kernels + biases) if x.is_cuda else None
+        return rdb_fused(x, kernels, biases, self.residual_scaling, packed)
+
+
+class ResInResDenseBlock(nn.Module):
+    """3 chained dense blocks + scaled outer skip (reference srgan_train.py:364-404)."""
+
+    def __init__(self, features: int = 64, growth: int = 32, residual_scaling: float = 0.1):
+        super().__init__()
+        self.residual_dense_block1 = ResidualDenseBlock(features, growth, residual_scaling)
+        self.residual_dense_block2 = ResidualDenseBlock(features, growth, residual_scaling)
+        self.residual_dense_block3 = ResidualDenseBlock(features, growth, residual_scaling)
+        self.residual_scaling = residual_scaling
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a = self.residual_dense_block1(x)
+        a = self.residual_dense_block2(a)
+        a = self.residual_dense_block3(a)
+        return x + self.residual_scaling * a
+
+
+class DeformableConvParams(nn.Module):
+    """Parameters of one deformable conv layer (reference srgan_train.py:506-523):
+    ``offset_conv`` (18 offsets), ``weight`` OIHW and ``bias``. The fused tail
+    (``ops.tail.fused_deform_tail``) applies them."""
+
+    def __init__(self, in_channels: int, features: int):
+        super().__init__()
+        self.offset_conv = Conv3x3(in_channels, 18)
+        self.weight = nn.Parameter(torch.empty(features, in_channels, 3, 3))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self._packed = _Cached(pack_deform64_weight)
+
+    def reset_parameters(self, init_scale: float, generator: torch.Generator) -> None:
+        """Own weight and bias; ``offset_conv`` is a ``Conv3x3`` of its own."""
+        he_normal_chainer_(self.weight, init_scale, generator)
+        with torch.no_grad():
+            self.bias.zero_()
+
+    def tensors(self):
+        return (self.offset_conv.weight, self.offset_conv.bias, self.weight, self.bias)
+
+    def packed_weight(self) -> torch.Tensor:
+        return self._packed.get([self.weight])

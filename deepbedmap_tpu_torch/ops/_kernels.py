@@ -1,0 +1,142 @@
+"""Build, load and launch the hand-written CUDA kernels of the port.
+
+The sources live in ``deepbedmap_tpu_torch/csrc``. On first use they are
+compiled by ``nvcc`` for ``sm_90a`` into one shared library with a plain C
+interface under ``build/kernels/`` (git-ignored; override with
+``DEEPBEDMAP_TORCH_BUILD_DIR``) and loaded with ``ctypes``. Nothing here runs
+at import time, so the CPU-only test suite can import every module.
+
+Each ``launch_*`` function is the one place its kernel is launched: it adds one
+to ``launches[name]`` and raises if the C entry point reports a CUDA error.
+Tensor checks (device, dtype, shape, contiguity) are the callers' job
+(``ops.rdb``, ``ops.tail``); outputs and scratch are allocated by the callers
+with ``torch.empty``. Kernels run on ``torch.cuda.current_stream()``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+_SOURCES = ("rdb.cu", "deform_tail.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+# launches of each kernel since the last reset_launches()
+launches = {"rdb_forward": 0, "deform64_lrelu": 0, "deform_zproj1": 0}
+
+_lib = None
+build_log = ""  # nvcc's output (with -Xptxas -v) of the build this process made
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # x, ws, out, w_packed, bias, N, H, W, scaling, stream
+    "rdb_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # x, off, w_packed, bias, out, N, H, W, clamp, stream
+    "deform64_lrelu": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # z, off, bias, out, N, H, W, clamp, stream
+    "deform_zproj1": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def check_tensor(t: torch.Tensor, name: str, shape: tuple) -> None:
+    """What every kernel takes: fp32, contiguous, 16-byte aligned, on the
+    current CUDA device, of exactly ``shape``."""
+    if t.device.type != "cuda" or t.device.index != torch.cuda.current_device():
+        raise ValueError(f"{name} must be on the current CUDA device, got {t.device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def check_image_shape(n: int, h: int, w: int, channels: int) -> None:
+    """The kernels index with 32-bit pixel and element offsets and put rows
+    and images on the grid's y and z axes (at most 65535 blocks each)."""
+    if min(n, h, w) < 1 or n * h * w * channels >= 2**31 or h > 65535 or n > 32767:
+        raise ValueError(f"unsupported image shape {(n, h, w, channels)}")
+
+
+def _build_dir() -> Path:
+    default = Path(__file__).resolve().parents[2] / "build" / "kernels"
+    return Path(os.environ.get("DEEPBEDMAP_TORCH_BUILD_DIR", default))
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    found = shutil.which("nvcc") or str(Path(cuda_home) / "bin" / "nvcc")
+    if not Path(found).exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def library():
+    """The loaded kernel library, built from ``csrc`` on first use."""
+    global _lib, build_log
+    if _lib is not None:
+        return _lib
+    srcs = [_CSRC / s for s in _SOURCES]
+    digest = hashlib.sha256(
+        b"".join(p.read_bytes() for p in srcs) + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    out_dir = _build_dir()
+    so = out_dir / f"libdbm_kernels_{digest}.so"
+    if not so.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out_dir / f".{so.name}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+               *map(str, srcs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def _call(name: str, *args) -> None:
+    fn = getattr(library(), name)
+    stream = torch.cuda.current_stream().cuda_stream
+    launches[name] += 1
+    err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed with cudaError {err}")
+
+
+def launch_rdb_forward(x, ws, out, w_packed, bias, n, h, w, scaling) -> None:
+    _call("rdb_forward", x.data_ptr(), ws.data_ptr(), out.data_ptr(),
+          w_packed.data_ptr(), bias.data_ptr(), n, h, w, float(scaling))
+
+
+def launch_deform64_lrelu(x, off, w_packed, bias, out, n, h, w, clamp) -> None:
+    _call("deform64_lrelu", x.data_ptr(), off.data_ptr(), w_packed.data_ptr(),
+          bias.data_ptr(), out.data_ptr(), n, h, w, float(clamp))
+
+
+def launch_deform_zproj1(z, off, bias, out, n, h, w, clamp) -> None:
+    _call("deform_zproj1", z.data_ptr(), off.data_ptr(), bias.data_ptr(),
+          out.data_ptr(), n, h, w, float(clamp))

@@ -1,0 +1,126 @@
+"""The generator tail: both deformable output layers, and the K2/K3 wrappers.
+
+Counterpart of ``deepbedmap_tpu/ops/pallas_tail.py``. ``tail_reference`` is
+the port of ``_tail_reference`` (offset conv -> masked-shift sampler ->
+LeakyReLU -> offset conv -> projection-first sampler), the numerical oracle.
+``fused_deform_tail`` is the port of ``fused_deform_tail``: on a CUDA tensor
+it runs
+
+1. offset conv 1 (``F.conv2d``);
+2. K2 ``deform64_lrelu`` (``csrc/deform_tail.cu``): 64 -> 64 deformable conv,
+   bias and LeakyReLU in one kernel;
+3. offset conv 2 (``F.conv2d``);
+4. the tap projection z_t = a5 . W2_t (a matmul, as JAX computes it outside
+   Pallas);
+5. K3 ``deform_zproj1`` (``csrc/deform_tail.cu``): the clamped bilinear
+   samples of the nine tap fields, summed, plus the bias.
+
+The TPU version tiles the image into halo'd lane frames and masks the emitted
+halo by hand; here each kernel reads the whole NHWC image, so zero padding
+outside the image needs no extra step. On a CPU tensor the K2/K3 wrappers use
+their plain versions, so the same sequence runs on both devices.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from deepbedmap_tpu_torch.ops import _kernels
+from deepbedmap_tpu_torch.ops.conv import conv_nhwc, leaky_relu
+from deepbedmap_tpu_torch.ops.deform_conv import (
+    deform_conv_shifts,
+    deform_conv_shifts_zproj,
+    sample_tap_fields,
+)
+
+_TAPS = 9
+_C = 64
+
+
+def tail_reference(x, o1k, o1b, w1, b1, o2k, o2b, w2, b2, padding=1, clamp=2):
+    """Plain composition of the two deformable layers (OIHW weights, NHWC x)."""
+    off1 = conv_nhwc(x, o1k, o1b)
+    a5 = leaky_relu(deform_conv_shifts(x, off1, w1, b1, padding, clamp))
+    off2 = conv_nhwc(a5, o2k, o2b)
+    return deform_conv_shifts_zproj(a5, off2, w2, b2, padding, clamp)
+
+
+def pack_deform64_weight(w1: torch.Tensor) -> torch.Tensor:
+    """OIHW (64, 64, 3, 3) -> (9 * 64, 64), row t * 64 + c_in (K2's layout)."""
+    c_out, c_in = w1.shape[:2]
+    return w1.detach().permute(2, 3, 1, 0).reshape(_TAPS * c_in, c_out).contiguous()
+
+
+def deform64_lrelu(
+    x: torch.Tensor,  # (N, H, W, 64)
+    offsets: torch.Tensor,  # (N, H, W, 18), [:9] dy, [9:] dx
+    w1: torch.Tensor,  # (64, 64, 3, 3) OIHW
+    b1: torch.Tensor,  # (64,)
+    clamp: int = 2,
+    w_packed: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """lrelu(deform_conv(x, offsets, w1) + b1): K2 on a CUDA tensor, the plain
+    masked-shift version on a CPU tensor. ``w_packed`` is
+    ``pack_deform64_weight(w1)``, cached by the caller."""
+    if x.device.type == "cpu":
+        return leaky_relu(deform_conv_shifts(x, offsets, w1, b1, 1, clamp))
+    if x.device.type != "cuda":
+        raise ValueError(f"deform64_lrelu: unsupported device {x.device}")
+    n, h, w, _ = x.shape
+    _kernels.check_tensor(x, "x", (n, h, w, _C))
+    _kernels.check_tensor(offsets, "offsets", (n, h, w, 2 * _TAPS))
+    _kernels.check_image_shape(n, h, w, _C)
+    if w_packed is None:
+        w_packed = pack_deform64_weight(w1)
+    _kernels.check_tensor(w_packed, "packed weight", (_TAPS * _C, _C))
+    _kernels.check_tensor(b1, "bias", (_C,))
+    out = torch.empty_like(x)
+    _kernels.launch_deform64_lrelu(x, offsets, w_packed, b1, out, n, h, w, clamp)
+    return out
+
+
+def deform_zproj1(
+    z: torch.Tensor,  # (N, H, W, 9) tap fields
+    offsets: torch.Tensor,  # (N, H, W, 18)
+    b2: torch.Tensor,  # (1,)
+    clamp: int = 2,
+) -> torch.Tensor:
+    """sum_t bilinear(z_t, p + tap_t + clamp(offset_t)) + b2 -> (N, H, W, 1):
+    K3 on a CUDA tensor, the plain ``sample_tap_fields`` on a CPU tensor."""
+    if z.device.type == "cpu":
+        return sample_tap_fields(z[..., None], offsets, b2, 1, clamp)
+    if z.device.type != "cuda":
+        raise ValueError(f"deform_zproj1: unsupported device {z.device}")
+    n, h, w, _ = z.shape
+    _kernels.check_tensor(z, "z", (n, h, w, _TAPS))
+    _kernels.check_tensor(offsets, "offsets", (n, h, w, 2 * _TAPS))
+    _kernels.check_image_shape(n, h, w, 2 * _TAPS)
+    _kernels.check_tensor(b2, "bias", (1,))
+    out = torch.empty((n, h, w, 1), device=z.device)
+    _kernels.launch_deform_zproj1(z, offsets, b2, out, n, h, w, clamp)
+    return out
+
+
+def fused_deform_tail(
+    x: torch.Tensor,  # (N, H, W, 64), the last upsample conv's activation
+    o1k: torch.Tensor,  # (18, 64, 3, 3) first offset conv
+    o1b: torch.Tensor,  # (18,)
+    w1: torch.Tensor,  # (64, 64, 3, 3) deform64 kernel
+    b1: torch.Tensor,  # (64,)
+    o2k: torch.Tensor,  # (18, 64, 3, 3) second offset conv
+    o2b: torch.Tensor,  # (18,)
+    w2: torch.Tensor,  # (1, 64, 3, 3) final deform kernel
+    b2: torch.Tensor,  # (1,)
+    clamp: int = 2,
+    w1_packed: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Both deformable output layers (module docstring) -> (N, H, W, 1)."""
+    if w2.shape[0] != 1:
+        raise ValueError("the fused tail needs a single output channel")
+    off1 = conv_nhwc(x, o1k, o1b).contiguous()
+    a5 = deform64_lrelu(x.contiguous(), off1, w1, b1, clamp, w1_packed)
+    off2 = conv_nhwc(a5, o2k, o2b).contiguous()
+    z = (a5 @ w2[0].reshape(w2.shape[1], _TAPS)).contiguous()  # (N, H, W, 9)
+    return deform_zproj1(z, off2, b2, clamp)

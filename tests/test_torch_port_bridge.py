@@ -1,0 +1,130 @@
+"""PyTorch port: weight bridge, parameter count, config guards, and that the
+port package never loads JAX."""
+
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from deepbedmap_tpu.config import GeneratorConfig as JaxGeneratorConfig
+from deepbedmap_tpu.models import build_generator as jax_build_generator
+from deepbedmap_tpu.models.api import count_params as jax_count_params
+from deepbedmap_tpu_torch.bridge import (
+    jax_params_to_state_dict,
+    state_dict_to_jax_params,
+)
+from deepbedmap_tpu_torch.config import GeneratorConfig
+from deepbedmap_tpu_torch.models import Generator, build_generator, count_params
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def jax_tree():
+    _, params = jax_build_generator(JaxGeneratorConfig(num_residual_blocks=2))
+    return params, jax.tree_util.tree_map(np.asarray, params)
+
+
+def _leaves(tree):
+    flat = jax.tree_util.tree_flatten_with_path(tree)[0]
+    return {jax.tree_util.keystr(p): np.asarray(v) for p, v in flat}
+
+
+def test_bridge_round_trips_exactly(jax_tree):
+    _, tree = jax_tree
+    sd = jax_params_to_state_dict(tree)
+    back = state_dict_to_jax_params(sd)
+    a, b = _leaves(tree), _leaves(back)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert a[k].shape == b[k].shape, k
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    # every bridged key is a parameter of the port's generator, and vice versa
+    model = Generator(GeneratorConfig(num_residual_blocks=2))
+    model.load_state_dict(sd, strict=True)
+    # conv kernels become OIHW; the offset convs keep JAX's [:9]=dy, [9:]=dx
+    np.testing.assert_array_equal(
+        sd["final_conv_layer1.offset_conv.weight"].numpy(),
+        tree["final_conv_layer1"]["offset_conv"]["kernel"].transpose(3, 2, 0, 1),
+    )
+    np.testing.assert_array_equal(
+        sd["residual_network.1.residual_dense_block3.conv_layer5.weight"].numpy(),
+        tree["residual_network"]["block"]["residual_dense_block3"]["conv_layer5"][
+            "kernel"][1].transpose(3, 2, 0, 1),
+    )
+
+
+def test_count_params_matches_jax(jax_tree):
+    params, tree = jax_tree
+    n_jax = jax_count_params(params)
+    assert n_jax == 1_713_509
+    assert count_params(jax_params_to_state_dict(tree)) == n_jax
+    assert count_params(build_generator(GeneratorConfig(num_residual_blocks=2))) == n_jax
+
+
+def test_seeded_init_is_deterministic_and_chainer_scaled():
+    a = build_generator(GeneratorConfig(num_residual_blocks=1), seed=3)
+    b = build_generator(GeneratorConfig(num_residual_blocks=1), seed=3)
+    for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
+        assert ka == kb
+        torch.testing.assert_close(va, vb, rtol=0, atol=0)
+    w = a.residual_network[0].residual_dense_block1.conv_layer5.weight
+    expected_std = 0.1 * np.sqrt(2.0 / (192 * 9))
+    assert abs(w.std().item() / expected_std - 1.0) < 0.05
+    assert torch.all(a.pre_residual_conv_layer.bias == 0)
+
+
+def test_port_import_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import deepbedmap_tpu_torch, deepbedmap_tpu_torch.api\n"
+        "import deepbedmap_tpu_torch.bridge, deepbedmap_tpu_torch.inference\n"
+        "import deepbedmap_tpu_torch.ops.tail, deepbedmap_tpu_torch.ops._kernels\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'deepbedmap_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [
+        dict(upsample_phase_conv=True),
+        dict(tail_hcw=True),
+        dict(rrdb_fused=True),
+        dict(rrdb_sweep=True),
+        dict(fused_conv="auto"),
+        dict(compute_dtype="bfloat16"),
+        dict(tail_fused=False),
+        dict(fused_rdb="never"),
+        dict(rdb_resident="never"),
+    ],
+)
+def test_unported_config_flags_raise(flags):
+    with pytest.raises(NotImplementedError):
+        Generator(GeneratorConfig(num_residual_blocks=1, **flags))
+
+
+def test_config_fields_match_jax():
+    import dataclasses
+
+    from deepbedmap_tpu.config import InferenceConfig as JaxInferenceConfig
+    from deepbedmap_tpu_torch.config import InferenceConfig
+
+    for ours, theirs in ((GeneratorConfig, JaxGeneratorConfig),
+                         (InferenceConfig, JaxInferenceConfig)):
+        assert [(f.name, f.default) for f in dataclasses.fields(ours)] == [
+            (f.name, f.default) for f in dataclasses.fields(theirs)
+        ]

@@ -1,0 +1,117 @@
+"""PyTorch port: the tile engine, band-streamed continent inference and the
+DeepBedMap API on the CPU, against the JAX package on a small multi-tile
+region, plus the port's own seam equivalence (tiled == untiled)."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from deepbedmap_tpu import DeepBedMap as JaxDeepBedMap
+from deepbedmap_tpu.config import GeneratorConfig as JaxGeneratorConfig
+from deepbedmap_tpu.models import build_generator as jax_build_generator
+from deepbedmap_tpu_torch import DeepBedMap
+from deepbedmap_tpu_torch.config import GeneratorConfig
+from deepbedmap_tpu_torch.inference import (
+    TilePlan,
+    make_tile_group_forward,
+    predict_continent,
+    predict_region,
+    predict_region_tiled,
+)
+from deepbedmap_tpu_torch.inference.engine import pad_inputs
+
+CFG = dict(num_residual_blocks=2)
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    # init_scale=1.0 only draws O(1) weights, so outputs are O(1) and the
+    # tolerances below bite; the forward config is CFG on both sides
+    _, params = jax_build_generator(JaxGeneratorConfig(**CFG, init_scale=1.0))
+    return params
+
+
+@pytest.fixture(scope="module")
+def port(jax_params):
+    return DeepBedMap.from_jax_params(
+        jax.tree_util.tree_map(np.asarray, jax_params), GeneratorConfig(**CFG)
+    )
+
+
+def _inputs_nchw(lh, lw, seed):
+    rs = np.random.RandomState(seed)
+    return {
+        "X": rs.rand(1, 1, lh, lw).astype(np.float32),
+        "W1": (rs.rand(1, 1, 10 * lh, 10 * lw) - 0.2).astype(np.float32),
+        "W2": (rs.rand(1, 2, 2 * lh, 2 * lw) - 0.2).astype(np.float32),
+        "W3": rs.rand(1, 1, lh, lw).astype(np.float32),
+    }
+
+
+def test_predict_continent_matches_jax(jax_params, port):
+    # 2 bands x 3 tiles: band halos, the B=2 remainder clamp and the
+    # conditioning clip (the inputs go below zero) all run on both sides
+    res = 250.0
+    bounds = (0.0, 0.0, 96 * res, 64 * res)
+    inputs = _inputs_nchw(16, 24, seed=0)
+    kw = dict(tile_out=32, halo_lr=3, tiles_per_dispatch=2)
+    want = JaxDeepBedMap(jax_params, JaxGeneratorConfig(**CFG)).predict_continent(
+        inputs, bounds, **kw
+    )
+    got = port.predict_continent(inputs, bounds, **kw)
+    assert got.data.shape == want.data.shape == (64, 96)
+    assert got.bounds == want.bounds
+    scale = np.abs(want.data).max()
+    assert scale > 0.5
+    # fp32 on both sides in another summation order; atol 1e-5 of the range
+    np.testing.assert_allclose(got.data, want.data, rtol=1e-4, atol=1e-5 * scale)
+
+
+def test_port_tiled_equals_untiled():
+    # the port's own seeded weights (init_scale 0.1): the generator's far
+    # field then decays fast, so an 8-px halo makes tiles match the untiled
+    # region to ~2e-7 of the range (with a 3-px halo they differ by ~7e-3)
+    dbm = DeepBedMap(cfg=GeneratorConfig(**CFG))
+    plan = TilePlan(out_h=64, out_w=96, tile_out=32, halo_lr=8)
+    nchw = _inputs_nchw(16, 24, seed=3)
+    host = {k: np.maximum(v, 0).transpose(0, 2, 3, 1) for k, v in nchw.items()}
+    dev = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in host.items()}
+    fwd = dbm.forward_fn()
+    whole = predict_region(fwd, dev, plan)[0, ..., 0].numpy()
+    tiled = predict_region_tiled(fwd, dev, plan)[0, ..., 0].numpy()
+    assert whole.shape == (64, 96)
+    scale = np.abs(whole).max()
+    np.testing.assert_allclose(tiled, whole, rtol=1e-4, atol=1e-5 * scale)
+    # the band loop and batched tile groups compute the same crops as the
+    # tile loop: equal up to the round-off of another batch size
+    for b in (1, 2):
+        banded = predict_continent(fwd, host, plan, tiles_per_dispatch=b, prefetch=b - 1)
+        np.testing.assert_allclose(banded, tiled, rtol=1e-6, atol=1e-6 * scale)
+    pair = make_tile_group_forward(fwd, plan)(pad_inputs(dev, plan), [1, 0], [2, 1])
+    np.testing.assert_allclose(pair[0].numpy(), tiled[32:64, 64:96], rtol=1e-6,
+                               atol=1e-6 * scale)
+    np.testing.assert_allclose(pair[1].numpy(), tiled[0:32, 32:64], rtol=1e-6,
+                               atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize(
+    "option",
+    [dict(outfilepath="x"), dict(mesh=object()), dict(stream_product=True),
+     dict(overviews=1), dict(predictor=True), dict(multihost=True)],
+)
+def test_unported_continent_options_raise(port, option):
+    with pytest.raises(NotImplementedError):
+        port.predict_continent(_inputs_nchw(8, 8, 0), (0.0, 0.0, 8000.0, 8000.0),
+                               tile_out=32, halo_lr=3, **option)
+
+
+def test_band_predictor_rejects_bad_arguments(port):
+    plan = TilePlan(out_h=32, out_w=32, tile_out=32, halo_lr=3)
+    host = {k: v.transpose(0, 2, 3, 1) for k, v in _inputs_nchw(8, 8, 0).items()}
+    with pytest.raises(ValueError):
+        predict_continent(port.forward_fn(), host, plan, tile_loop="bogus")
+    with pytest.raises(ValueError):
+        predict_continent(port.forward_fn(), host, plan, tiles_per_dispatch=0)
+    with pytest.raises(ValueError):
+        TilePlan(out_h=33, out_w=32, tile_out=32)

@@ -1,0 +1,57 @@
+"""PyTorch port: the whole generator on the CPU (plain versions of K1-K3)
+with bridged weights against the JAX generator."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepbedmap_tpu.config import GeneratorConfig as JaxGeneratorConfig
+from deepbedmap_tpu.models import build_generator as jax_build_generator
+from deepbedmap_tpu.models.generator import Generator as JaxGenerator
+from deepbedmap_tpu_torch.bridge import jax_params_to_state_dict
+from deepbedmap_tpu_torch.config import GeneratorConfig
+from deepbedmap_tpu_torch.models import Generator
+
+
+@pytest.mark.parametrize(
+    "flags,lr",
+    [
+        # JAX runs its K1 Pallas kernel (interpreted) on the resident trunk;
+        # bf16 multiplicands off so both sides compute in fp32
+        (dict(num_residual_blocks=2, rdb_resident="always", fused_rdb="always",
+              rdb_mxu_bf16=False), 16),
+        # the defaults: 12 RRDBs, the XLA trunk and tail on the CPU
+        ({}, 11),
+    ],
+)
+def test_generator_matches_jax(flags, lr):
+    # weights drawn at init_scale=1.0 (init only; the forward is the same
+    # config) so activations and offsets are O(1) and the tolerance bites:
+    # at the default 0.1 the output is ~1e-6 and atol alone would pass it
+    _, params = jax_build_generator(JaxGeneratorConfig(**flags, init_scale=1.0), lr=lr)
+    rs = np.random.RandomState(42)
+    xs = [rs.rand(1, lr, lr, 1), rs.rand(1, 10 * lr, 10 * lr, 1),
+          rs.rand(1, 2 * lr, 2 * lr, 2), rs.rand(1, lr, lr, 1)]
+    xs = [a.astype(np.float32) for a in xs]
+    want = np.asarray(
+        JaxGenerator(JaxGeneratorConfig(**flags)).apply(
+            {"params": params}, *map(jnp.asarray, xs)
+        )
+    )
+    model = Generator(GeneratorConfig(**flags))
+    model.load_state_dict(
+        jax_params_to_state_dict(jax.tree_util.tree_map(np.asarray, params))
+    )
+    with torch.inference_mode():
+        got = model(*map(torch.from_numpy, xs)).numpy()
+    out = 4 * (lr - 2)
+    assert got.shape == want.shape == (1, out, out, 1)
+    scale = np.abs(want).max()
+    assert scale > 0.5  # a meaningful scale for the tolerance
+    # fp32 on both sides in another summation order through 2 or 12 RRDBs
+    # and two deformable layers: rtol 1e-4 as tests/test_torch_parity.py:186,
+    # atol 1e-5 of the output's range (outputs cancel to ~0 in places, and
+    # the round-off there grows with depth: 3e-5 at 12 RRDBs on a range of 7)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5 * scale)
