@@ -19,11 +19,25 @@ Phases (any failure ends the run with a non-zero exit code):
 6. the main path: ``DeepBedMap.predict_continent`` on a 2 x 2-tile region
    (2000^2 output, 1000-px tiles, 18-px halo, 288-px crops, 2 tiles per
    forward), with every kernel's launch count checked, the output held
-   against the untiled ``predict_region``, and the warm per-tile time.
+   against the untiled ``predict_region``, and the warm per-tile time;
+7. K4 ``rrdb_forward`` vs ``rrdb_reference`` at (1,13,14,64) and
+   (2,286,286,64);
+8. K10 ``conv3x3_forward`` vs ``conv3x3_reference`` at a small odd shape and
+   at the four shapes and epilogues of one main-path forward, with
+   ``F.conv2d`` (cuDNN) timed beside it;
+9. K7 ``deform_conv`` vs the plain ``deform_conv_shifts`` at (1,20,130,64)
+   and (2,1144,1144,64);
+10. K8 ``deform_conv_zproj1`` (tap projection + K3's kernel) vs the plain
+    ``deform_conv_shifts_zproj`` at the same shapes;
+11. phase 5 for the opt-in kernel configuration ``GeneratorConfig(
+    rrdb_fused=True, fused_conv="always", tail_fused=False)``;
+12. the second main path: phase 6 in that configuration, with phase 6's
+    weights: its launch counts, tiled vs untiled, and its output against
+    phase 6's (the two configurations compute one function).
 
-It prints one JSON line with each kernel's launches, error and times, and
-ends with ``{"ok": true, "device": {...}}``. It refuses to run without a
-CUDA device and imports nothing of JAX.
+It prints one JSON line with each kernel's launches (from the main path that
+runs it), error, times and bound, and ends with ``{"ok": true, "device":
+{...}}``. It refuses to run without a CUDA device and imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -51,8 +65,25 @@ TOL_SEAM = 1e-4
 DEVICE = "cuda"
 SMALL_RDB, MAIN_RDB = (1, 13, 14, 64), (2, 286, 286, 64)
 SMALL_TAIL, MAIN_TAIL = (1, 20, 130, 64), (2, 1144, 1144, 64)
+SMALL_CONV = (1, 13, 21, 128, True, False)  # (N, H, W, C_in, leaky, residual)
+# K10's four calls in one main-path forward: pre-residual, post-residual,
+# post-upsample 1 and 2
+MAIN_CONVS = [(2, 286, 286, 128, True, False), (2, 286, 286, 64, False, True),
+              (2, 572, 572, 64, True, False), (2, 1144, 1144, 64, True, False)]
 GEN_LR = 64  # phase 5 crop: latent 62, output 248^2
 TILE_OUT, HALO_LR, TILES_PER_DISPATCH = 1000, 18, 2  # phase 6, 288-px crops
+
+# the H100 SXM's published peaks (at its 700 W limit): fp32 outside the tensor
+# cores and HBM bandwidth. A kernel's bound is the larger of its operations
+# over the first and its bytes (inputs read once, outputs written once) over
+# the second.
+PEAK_FP32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+KERNEL_CFG = dict(rrdb_fused=True, fused_conv="always", tail_fused=False)
+
+# operations per pixel: a 3x3 conv with C_in -> C_out channels does
+# 2 * 9 * C_in * C_out; a bilinear sample of one channel 8 (4 FMAs)
+RDB_MACS = 9 * sum((64 + 32 * j) * (32 if j < 4 else 64) for j in range(5))
 
 
 def log(msg: str) -> None:
@@ -100,6 +131,17 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(flops: float, nbytes: float) -> dict:
+    t_ops = 1e3 * flops / PEAK_FP32_FLOPS
+    t_bytes = 1e3 * nbytes / PEAK_HBM_BYTES
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _numel(*tensors) -> int:
+    return sum(t.numel() for t in tensors)
+
+
 def _randn(shape, gen, scale=1.0):
     import torch
 
@@ -136,14 +178,17 @@ def check_rdb(shape, gen, timed: bool) -> dict:
     if timed:
         res["ms"] = time_ms(lambda: rdb_fused(x, kernels, biases, 0.1, packed), 10)
         res["plain_ms"] = time_ms(lambda: rdb_reference(x, kernels, biases, 0.1), 10)
+        pix = x.numel() // 64
+        res.update(bound(2 * pix * RDB_MACS, 4 * (2 * x.numel() + _numel(*packed))),
+                   library_ms=None)
     return res
 
 
 def check_deform64(shape, gen, timed: bool) -> dict:
     import torch
 
-    from deepbedmap_tpu_torch.ops.deform_conv import deform_conv_shifts
-    from deepbedmap_tpu_torch.ops.tail import deform64_lrelu, pack_deform64_weight
+    from deepbedmap_tpu_torch.ops.deform_conv import deform_conv_shifts, pack_deform64_weight
+    from deepbedmap_tpu_torch.ops.tail import deform64_lrelu
 
     n, h, w, c = shape
     x = _randn(shape, gen)
@@ -163,7 +208,16 @@ def check_deform64(shape, gen, timed: bool) -> dict:
     if timed:
         res["ms"] = time_ms(lambda: deform64_lrelu(x, off, w1, b1, 2, packed), 5)
         res["plain_ms"] = time_ms(plain, 2)
+        res.update(_deform64_bound(x, off, packed, b1), library_ms=None)
     return res
+
+
+def _deform64_bound(x, off, packed, bias) -> dict:
+    """64 -> 64 deformable conv: the 576 -> 64 contraction and 9 x 64 bilinear
+    samples per pixel; x and the offsets read, the output written."""
+    pix = x.numel() // 64
+    return bound(pix * (2 * 576 * 64 + 9 * 64 * 8),
+                 4 * (2 * x.numel() + off.numel() + _numel(packed, bias)))
 
 
 def check_zproj1(shape, gen, timed: bool) -> dict:
@@ -183,6 +237,134 @@ def check_zproj1(shape, gen, timed: bool) -> dict:
     if timed:
         res["ms"] = time_ms(lambda: deform_zproj1(z, off, b2, 2), 20)
         res["plain_ms"] = time_ms(lambda: sample_tap_fields(z[..., None], off, b2, 1, 2), 3)
+        res.update(bound(n * h * w * 9 * 8, 4 * (z.numel() + off.numel() + n * h * w + 1)),
+                   library_ms=None)
+    return res
+
+
+def check_rrdb(shape, gen, timed: bool) -> dict:
+    import torch
+
+    from deepbedmap_tpu_torch.ops.rdb import pack_rrdb_weights, rrdb_fused, rrdb_reference
+
+    f, g = 64, 32
+    cins, couts = [f + g * j for j in range(5)], [g, g, g, g, f]
+    kernels = [[_randn((co, ci, 3, 3), gen, 0.05) for ci, co in zip(cins, couts)]
+               for _ in range(3)]
+    biases = [[_randn((co,), gen, 0.1) for co in couts] for _ in range(3)]
+    x = _randn(shape, gen)
+    packed = pack_rrdb_weights(kernels, biases)
+    got = rrdb_fused(x, kernels, biases, 0.1, packed)
+    want = rrdb_reference(x, kernels, biases, 0.1)
+    torch.cuda.synchronize()
+    res = {"max_abs_err": compare(f"K4 rrdb_forward {shape}", got, want, TOL_KERNEL)}
+    if timed:
+        res["ms"] = time_ms(lambda: rrdb_fused(x, kernels, biases, 0.1, packed), 10)
+        res["plain_ms"] = time_ms(lambda: rrdb_reference(x, kernels, biases, 0.1), 10)
+        pix = x.numel() // 64
+        res.update(bound(3 * 2 * pix * RDB_MACS, 4 * (2 * x.numel() + _numel(*packed))),
+                   library_ms=None)
+    return res
+
+
+def _check_conv(shape, gen, timed: bool) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from deepbedmap_tpu_torch.ops.conv3x3 import (
+        conv3x3_fused,
+        conv3x3_reference,
+        pack_conv_weight,
+    )
+
+    n, h, w, cin, leaky, residual = shape
+    x = _randn((n, h, w, cin), gen)
+    wt, b = _randn((64, cin, 3, 3), gen, 0.05), _randn((64,), gen, 0.1)
+    r = _randn((n, h, w, 64), gen) if residual else None
+    packed = pack_conv_weight(wt).contiguous()
+    got = conv3x3_fused(x, wt, b, leaky, r, packed)
+    want = conv3x3_reference(x, wt, b, leaky, r)
+    torch.cuda.synchronize()
+    res = {"max_abs_err": compare(
+        f"K10 conv3x3_forward {(n, h, w, cin)} -> 64, leaky {leaky}, residual {residual}",
+        got, want, TOL_KERNEL)}
+    if timed:
+        x_nchw = x.permute(0, 3, 1, 2)  # channels_last, as the port keeps it
+        res["ms"] = time_ms(lambda: conv3x3_fused(x, wt, b, leaky, r, packed), 10)
+        res["plain_ms"] = time_ms(lambda: conv3x3_reference(x, wt, b, leaky, r), 10)
+        res["library_ms"] = time_ms(lambda: F.conv2d(x_nchw, wt, b, padding=1), 10)
+        res["flops"] = 2 * n * h * w * 9 * cin * 64
+        res["bytes"] = 4 * (x.numel() + n * h * w * 64 * (2 if residual else 1)
+                            + _numel(packed, b))
+    return res
+
+
+def check_conv3x3(shapes, gen, timed: bool) -> dict:
+    """K10 at each shape; timed, the entry is one main-path forward's four
+    calls: their summed times and bound, and the largest error."""
+    if not timed:
+        return _check_conv(shapes, gen, False)
+    parts = [_check_conv(s, gen, True) for s in shapes]
+    for s, p in zip(shapes, parts):
+        log(f"  K10 at {s}: kernel {p['ms']:.3f} ms, plain {p['plain_ms']:.3f} ms, "
+            f"F.conv2d {p['library_ms']:.3f} ms, bound "
+            f"{bound(p['flops'], p['bytes'])['bound_ms']:.3f} ms")
+    res = {"max_abs_err": max(p["max_abs_err"] for p in parts)}
+    for key in ("ms", "plain_ms", "library_ms"):
+        res[key] = sum(p[key] for p in parts)
+    res.update(bound(sum(p["flops"] for p in parts), sum(p["bytes"] for p in parts)))
+    return res
+
+
+def check_deform_conv(shape, gen, timed: bool) -> dict:
+    import torch
+
+    from deepbedmap_tpu_torch.ops.deform_conv import (
+        deform_conv2d,
+        deform_conv_shifts,
+        pack_deform64_weight,
+    )
+
+    n, h, w, c = shape
+    x = _randn(shape, gen)
+    off = _offsets((n, h, w, 18), gen)
+    wt, b = _randn((c, c, 3, 3), gen, 0.05), _randn((c,), gen, 0.1)
+    packed = pack_deform64_weight(wt)
+    got = deform_conv2d(x, off, wt, b, 1, 2, packed)
+    want = deform_conv_shifts(x, off, wt, b, 1, 2)
+    torch.cuda.synchronize()
+    res = {"max_abs_err": compare(f"K7 deform_conv {shape}", got, want, TOL_KERNEL)}
+    del want
+    if timed:
+        res["ms"] = time_ms(lambda: deform_conv2d(x, off, wt, b, 1, 2, packed), 5)
+        res["plain_ms"] = time_ms(lambda: deform_conv_shifts(x, off, wt, b, 1, 2), 2)
+        res.update(_deform64_bound(x, off, packed, b), library_ms=None)
+    return res
+
+
+def check_deform_conv_zproj1(shape, gen, timed: bool) -> dict:
+    import torch
+
+    from deepbedmap_tpu_torch.ops.deform_conv import deform_conv2d, deform_conv_shifts_zproj
+
+    n, h, w, c = shape
+    x = _randn(shape, gen)
+    off = _offsets((n, h, w, 18), gen)
+    wt, b = _randn((1, c, 3, 3), gen, 0.05), _randn((1,), gen, 0.1)
+    got = deform_conv2d(x, off, wt, b, 1, 2)
+    want = deform_conv_shifts_zproj(x, off, wt, b, 1, 2)
+    torch.cuda.synchronize()
+    res = {"max_abs_err": compare(f"K8 deform_conv_zproj1 {shape} -> 1", got, want,
+                                  TOL_KERNEL)}
+    if timed:
+        res["ms"] = time_ms(lambda: deform_conv2d(x, off, wt, b, 1, 2), 20)
+        res["plain_ms"] = time_ms(lambda: deform_conv_shifts_zproj(x, off, wt, b, 1, 2), 3)
+        # the whole layer: the 64 -> 9 projection and 9 bilinear samples per
+        # pixel; x and the offsets read, the one-channel output written
+        pix = n * h * w
+        res.update(bound(pix * (2 * 64 * 9 + 9 * 8),
+                         4 * (x.numel() + off.numel() + pix + _numel(wt, b))),
+                   library_ms=None)
     return res
 
 
@@ -193,14 +375,16 @@ def _crop_inputs(lr: int, batch: int, seed: int):
     return [rs.rand(*s).astype(np.float32) for s in shapes]
 
 
-def check_generator(init_scale: float) -> float:
-    """Phase 5: full-width, full-depth generator, card kernels vs CPU plain."""
+def check_generator(init_scale: float, flags: dict) -> float:
+    """Phases 5 and 11: full-width, full-depth generator, card kernels vs CPU
+    plain versions."""
     import torch
 
     from deepbedmap_tpu_torch.config import GeneratorConfig
     from deepbedmap_tpu_torch.models import build_generator
 
-    cpu_model = build_generator(GeneratorConfig(init_scale=init_scale), seed=0).eval()
+    cfg = GeneratorConfig(init_scale=init_scale, **flags)
+    cpu_model = build_generator(cfg, seed=0, device="cpu").eval()
     gpu_model = copy.deepcopy(cpu_model).to(DEVICE)
     xs = [torch.from_numpy(a) for a in _crop_inputs(GEN_LR, 1, seed=1)]
     with torch.inference_mode():
@@ -208,7 +392,8 @@ def check_generator(init_scale: float) -> float:
         got = gpu_model(*[a.to(DEVICE) for a in xs])
         torch.cuda.synchronize()
     return compare(
-        f"generator 12 RRDB, init_scale {init_scale}, {GEN_LR}-px crop -> {tuple(got.shape)}",
+        f"generator 12 RRDB {flags or 'defaults'}, init_scale {init_scale}, "
+        f"{GEN_LR}-px crop -> {tuple(got.shape)}",
         got.cpu(), want, TOL_GENERATOR,
     )
 
@@ -217,24 +402,33 @@ def forward_breakdown(model, xs, reps: int = 3) -> dict:
     """Device time of each stage of one forward, by CUDA events."""
     import torch
 
+    from deepbedmap_tpu_torch.ops.conv import leaky_relu
     from deepbedmap_tpu_torch.ops.resize import nearest_upsample
     from deepbedmap_tpu_torch.ops.tail import fused_deform_tail
 
+    cfg = model.cfg
+    k10 = cfg.fused_conv != "never"
+    conv = "K10" if k10 else "cuDNN conv"
+
     def stages():
         a1 = model.pre_residual_conv_layer(model.input_block(*xs))
-        yield "input block + pre-residual conv"
+        yield f"input block + pre-residual conv ({conv})"
         t = a1.contiguous()
         for block in model.residual_network:
             t = block(t)
-        yield "trunk: 36 x K1 + RRDB skips"
+        yield ("trunk: 12 x K4" if cfg.rrdb_fused else "trunk: 36 x K1 + RRDB skips")
         a4 = model.post_upsample_conv_layer_1(
             nearest_upsample(model.post_residual_conv_layer(t, residual=a1), 2))
         a4 = model.post_upsample_conv_layer_2(nearest_upsample(a4, 2))
-        yield "post-residual conv + 2 x (upsample + conv)"
+        yield f"post-residual conv + 2 x (upsample + conv) ({conv})"
         l1, l2 = model.final_conv_layer1, model.final_conv_layer2
-        fused_deform_tail(a4, *l1.tensors(), *l2.tensors(),
-                          clamp=model.cfg.deform_clamp, w1_packed=l1.packed_weight())
-        yield "tail: offset convs + K2 + projection + K3"
+        if cfg.tail_fused:
+            fused_deform_tail(a4, *l1.tensors(), *l2.tensors(),
+                              clamp=cfg.deform_clamp, w1_packed=l1.packed_weight())
+            yield "tail: offset convs + K2 + projection + K3"
+        else:
+            l2(leaky_relu(l1(a4)))
+            yield "tail: offset conv + K7 + LeakyReLU + offset conv + projection + K8"
 
     totals: dict = {}
     with torch.inference_mode():
@@ -258,9 +452,11 @@ def check_launches(launches: dict, expected: dict) -> None:
         raise AssertionError(f"launch counts {launches} != expected {expected}")
 
 
-def main_path(card_name: str) -> dict:
-    """Phase 6: DeepBedMap.predict_continent on a 2 x 2-tile region; returns
-    the kernels' launch counts in that run."""
+def main_path(card_name: str, flags: dict, params=None, want=None):
+    """Phases 6 and 12: DeepBedMap.predict_continent in the configuration
+    ``flags`` on a 2 x 2-tile region, with ``params`` (a state_dict) or the
+    seeded weights; its output is held against ``want`` when given. Returns
+    the kernels' launch counts in that run, the model and the output."""
     import torch
 
     from deepbedmap_tpu_torch import DeepBedMap
@@ -279,7 +475,7 @@ def main_path(card_name: str) -> dict:
         "W3": rng.random((1, 1, lh, lh), dtype=np.float32),
     }
     bounds = (0.0, 0.0, out * res_m, out * res_m)
-    dbm = DeepBedMap(cfg=GeneratorConfig(), device=DEVICE)
+    dbm = DeepBedMap(params, cfg=GeneratorConfig(**flags), device=DEVICE)
     kw = dict(tile_out=tile_out, halo_lr=halo_lr, tiles_per_dispatch=tpd)
 
     _kernels.reset_launches()
@@ -291,13 +487,20 @@ def main_path(card_name: str) -> dict:
 
     plan = TilePlan(out_h=out, out_w=out, tile_out=tile_out, halo_lr=halo_lr)
     forwards = plan.grid[0] * -(-plan.grid[1] // tpd)
-    expected = {"rdb_forward": 36 * forwards, "deform64_lrelu": forwards,
-                "deform_zproj1": forwards}
+    per_forward = (
+        {"rrdb_forward": 12, "conv3x3_forward": 4, "deform_conv": 1,
+         "deform_conv_zproj1": 1} if flags
+        else {"rdb_forward": 36, "deform64_lrelu": 1, "deform_zproj1": 1}
+    )
+    expected = {k: forwards * per_forward.get(k, 0) for k in _kernels.launches}
     log(f"  launches in predict_continent ({forwards} forwards): {launches}")
     check_launches(launches, expected)
     got = torch.from_numpy(raster.data)
     if raster.data.shape != (out, out) or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"bad continent output {raster.data.shape}")
+    if want is not None:
+        compare(f"continent {out}x{out} in {flags} vs the default configuration",
+                got, want, TOL_GENERATOR)
 
     dev = {k: torch.from_numpy(np.ascontiguousarray(v.transpose(0, 2, 3, 1))).to(DEVICE)
            for k, v in inputs.items()}
@@ -313,20 +516,49 @@ def main_path(card_name: str) -> dict:
         f"{warm_s:.3f} s = {per_tile_ms:.1f} ms/tile  [{card_name}]")
 
     xs = [torch.from_numpy(a).to(DEVICE) for a in _crop_inputs(plan.crop_lr, tpd, seed=3)]
-    for name, ms in forward_breakdown(dbm.model, xs).items():
+    stage_ms = forward_breakdown(dbm.model, xs)
+    for name, ms in stage_ms.items():
         log(f"  forward at batch {tpd} x {plan.crop_lr} px, {name}: {ms:.2f} ms  "
             f"[{card_name}]")
-    return launches
+    log(f"  forward total: {sum(stage_ms.values()):.2f} ms  [{card_name}]")
+    return launches, dbm.model, got
 
 
+# (launch-counter name, source, TPU kernel it replaces, check, small shape,
+# main-path shape, phase); phase 2-4 kernels run on phase 6's main path,
+# phase 7-10 kernels on phase 12's
 KERNELS = [
     ("rdb_forward", "deepbedmap_tpu_torch/csrc/rdb.cu",
-     "deepbedmap_tpu/ops/pallas_rdb.py:635", check_rdb, SMALL_RDB, MAIN_RDB),
+     "deepbedmap_tpu/ops/pallas_rdb.py:635", check_rdb, SMALL_RDB, MAIN_RDB, 2),
     ("deform64_lrelu", "deepbedmap_tpu_torch/csrc/deform_tail.cu",
-     "deepbedmap_tpu/ops/pallas_tail.py:196", check_deform64, SMALL_TAIL, MAIN_TAIL),
+     "deepbedmap_tpu/ops/pallas_tail.py:196", check_deform64, SMALL_TAIL, MAIN_TAIL, 3),
     ("deform_zproj1", "deepbedmap_tpu_torch/csrc/deform_tail.cu",
-     "deepbedmap_tpu/ops/pallas_tail.py:275", check_zproj1, SMALL_TAIL, MAIN_TAIL),
+     "deepbedmap_tpu/ops/pallas_tail.py:275", check_zproj1, SMALL_TAIL, MAIN_TAIL, 4),
+    ("rrdb_forward", "deepbedmap_tpu_torch/csrc/rdb.cu",
+     "deepbedmap_tpu/ops/pallas_rdb.py:908", check_rrdb, SMALL_RDB, MAIN_RDB, 7),
+    ("conv3x3_forward", "deepbedmap_tpu_torch/csrc/conv3x3.cu",
+     "deepbedmap_tpu/ops/pallas_conv.py:166", check_conv3x3, SMALL_CONV, MAIN_CONVS, 8),
+    ("deform_conv", "deepbedmap_tpu_torch/csrc/deform_tail.cu",
+     "deepbedmap_tpu/ops/pallas_kernels.py:330", check_deform_conv, SMALL_TAIL,
+     MAIN_TAIL, 9),
+    ("deform_conv_zproj1", "deepbedmap_tpu_torch/csrc/deform_tail.cu",
+     "deepbedmap_tpu/ops/pallas_kernels.py:882", check_deform_conv_zproj1, SMALL_TAIL,
+     MAIN_TAIL, 10),
 ]
+
+
+def check_kernel(name, check, small, main_shape, phase: int, card_name: str) -> dict:
+    import torch
+
+    log(f"phase {phase}: {name}")
+    gen = torch.Generator().manual_seed(phase)
+    check(small, gen, timed=False)
+    r = check(main_shape, gen, timed=True)
+    lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.3f} ms"
+    log(f"  {name} at the main-path shape: kernel {r['ms']:.3f} ms, plain "
+        f"{r['plain_ms']:.3f} ms{lib}, bound {r['bound_ms']:.3f} ms "
+        f"({r['bound_by']})  [{card_name}]")
+    return r
 
 
 def main() -> int:
@@ -353,21 +585,28 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
 
     results = {}
-    for i, (name, _, _, check, small, main_shape) in enumerate(KERNELS, start=2):
-        log(f"phase {i}: {name}")
-        gen = torch.Generator().manual_seed(i)
-        check(small, gen, timed=False)
-        results[name] = check(main_shape, gen, timed=True)
-        r = results[name]
-        log(f"  {name} at the main-path shape: kernel {r['ms']:.3f} ms, plain "
-            f"{r['plain_ms']:.3f} ms  [{card_name}]")
+    for name, _, _, check, small, main_shape, phase in KERNELS[:3]:
+        results[name] = check_kernel(name, check, small, main_shape, phase, card_name)
 
     log("phase 5: whole generator, card vs CPU")
-    check_generator(0.1)
-    check_generator(1.0)
+    check_generator(0.1, {})
+    check_generator(1.0, {})
 
     log("phase 6: main path")
-    launches = main_path(card_name)
+    launches, model, default_out = main_path(card_name, {})
+
+    for name, _, _, check, small, main_shape, phase in KERNELS[3:]:
+        results[name] = check_kernel(name, check, small, main_shape, phase, card_name)
+
+    log(f"phase 11: whole generator in {KERNEL_CFG}, card vs CPU")
+    check_generator(0.1, KERNEL_CFG)
+    check_generator(1.0, KERNEL_CFG)
+
+    log(f"phase 12: second main path, {KERNEL_CFG}")
+    launches2, _, _ = main_path(card_name, KERNEL_CFG, params=model.state_dict(),
+                                want=default_out)
+    for name, *_ in KERNELS[3:]:
+        launches[name] = launches2[name]
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

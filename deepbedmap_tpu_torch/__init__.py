@@ -5,14 +5,16 @@ NVIDIA H100. It imports torch and numpy only, never JAX. Layout mirrors the
 JAX package:
 
 - ``config``    : GeneratorConfig / InferenceConfig (copied field for field)
-- ``ops``       : resize, dense block (K1), deformable conv and tail (K2, K3),
-                  the CUDA build and binding (``ops._kernels``)
+- ``ops``       : resize, dense block and whole RRDB (K1, K4), fused 3x3 conv
+                  (K10), deformable conv (K7, K8) and fused tail (K2, K3), the
+                  CUDA build and binding (``ops._kernels``)
 - ``csrc``      : the hand-written CUDA C++ kernels (sm_90a)
 - ``models``    : generator building blocks and the generator
 - ``bridge``    : JAX flax params <-> the port's state_dict
 - ``inference`` : halo'd tile engine and band-streamed continent inference
 - ``data``      : Raster
 - ``api``       : DeepBedMap
+- ``device``    : the entry points' device (the card by default)
 """
 
 __version__ = "0.1.0"

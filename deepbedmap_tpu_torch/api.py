@@ -5,13 +5,14 @@ Counterpart of ``deepbedmap_tpu/api.py:DeepBedMap`` (constructor,
 
     from deepbedmap_tpu_torch import DeepBedMap
 
-    dbm = DeepBedMap(device="cuda")                      # seeded random weights
-    dbm = DeepBedMap.from_jax_params(tree, device="cuda")  # JAX-trained weights
+    dbm = DeepBedMap()                                   # seeded random weights
+    dbm = DeepBedMap.from_jax_params(tree)               # JAX-trained weights
     dem = dbm.predict_continent(rasters, bounds)         # band-streamed -> Raster
 
-On a CUDA device the generator runs the hand-written kernels. For results
-that match the fp32 JAX reference, turn TF32 off in the caller
-(``torch.backends.cudnn.allow_tf32 = False`` and
+The device defaults to ``"cuda"`` and a missing card raises; pass
+``device="cpu"`` for the CPU. On a CUDA device the generator runs the
+hand-written kernels. For results that match the fp32 JAX reference, turn
+TF32 off in the caller (``torch.backends.cudnn.allow_tf32 = False`` and
 ``torch.backends.cuda.matmul.allow_tf32 = False``); cuDNN convs default to it.
 """
 
@@ -25,6 +26,7 @@ import torch
 from deepbedmap_tpu_torch.bridge import jax_params_to_state_dict
 from deepbedmap_tpu_torch.config import GeneratorConfig
 from deepbedmap_tpu_torch.data.raster import Raster
+from deepbedmap_tpu_torch.device import resolve_device
 from deepbedmap_tpu_torch.inference.continent import predict_continent
 from deepbedmap_tpu_torch.inference.engine import TilePlan
 from deepbedmap_tpu_torch.models.api import build_generator
@@ -41,15 +43,17 @@ class DeepBedMap:
         params: Optional[Mapping[str, torch.Tensor]] = None,
         cfg: GeneratorConfig = GeneratorConfig(),
         resolution: float = 250.0,
-        device="cpu",
+        device="cuda",
     ):
         """``params``: a port ``state_dict``; None draws seeded random
-        weights (``models.build_generator``'s default seed)."""
+        weights (``models.build_generator``'s default seed). ``device``
+        defaults to the card and raises where there is none; pass
+        ``device="cpu"`` for the CPU."""
         self.cfg = cfg
         self.resolution = resolution
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if params is None:
-            self.model = build_generator(cfg)
+            self.model = build_generator(cfg, device=self.device)
         else:
             self.model = Generator(cfg)
             self.model.load_state_dict(params)
@@ -61,7 +65,7 @@ class DeepBedMap:
         tree: Mapping,
         cfg: GeneratorConfig = GeneratorConfig(),
         resolution: float = 250.0,
-        device="cpu",
+        device="cuda",
     ) -> "DeepBedMap":
         """From the JAX generator's flax params (nested dicts of numpy arrays)."""
         return cls(jax_params_to_state_dict(tree), cfg, resolution, device)

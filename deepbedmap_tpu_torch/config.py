@@ -7,9 +7,16 @@ copied rather than imported because importing anything from ``deepbedmap_tpu``
 loads JAX, which the port never needs.
 
 Several generator fields select JAX code paths that the port does not have yet
-(Pallas schedule variants, bf16 compute, the unfused tail). ``check_supported``
-rejects them when a ``Generator`` is built instead of silently taking another
-path.
+(some Pallas schedule variants, bf16 compute, the channels-before-width tail
+layout, the phase convs). ``check_supported`` rejects them when a
+``Generator`` is built instead of silently taking another path.
+
+Kernel dispatch flags (``fused_rdb``, ``rdb_resident``, ``rrdb_fused``,
+``fused_conv``): in the port ``'auto'`` and ``'always'`` (or True) both mean
+"the hand-written kernel on a CUDA tensor, its plain PyTorch version on a CPU
+tensor". The JAX package's rule that takes a Pallas kernel only on a TPU and
+only for images of at least 256^2 does not carry over: on the card every
+image size goes through the kernel.
 """
 
 from __future__ import annotations
@@ -41,17 +48,21 @@ class GeneratorConfig:
     rdb_mxu_bf16: bool = True
     # resident trunk layout: 'auto'/'always' as fused_rdb; 'never' not ported
     rdb_resident: str = "auto"
-    # whole-RRDB launches (TPU kernels K4/K5): not ported
+    # one launch per RRDB (kernel K4, csrc/rdb.cu rrdb_forward) instead of
+    # three dense-block launches; the single-sweep K5 variant is not ported
     rrdb_fused: bool = False
     rrdb_sweep: bool = False
-    # fused 3x3-conv kernel (TPU kernel K10): only 'never' is ported
+    # the four 64-channel 3x3 convs: 'auto'/'always' take the hand-written
+    # kernel K10 (csrc/conv3x3.cu) as fused_rdb does; 'never' keeps cuDNN
     fused_conv: str = "never"
+    # bf16 multiplicands inside the TPU conv kernel; inert here
     conv_mxu_bf16: bool = False
     # deformable-conv offset clamp in px
     deform_clamp: int = 2
     # channels-before-width tail layout: not ported
     tail_hcw: bool = False
-    # both deformable output layers as one fused tail: only True is ported
+    # both deformable output layers as one fused tail (K2 + K3); False runs
+    # them as two deformable convs (K7, then the projection + K8)
     tail_fused: bool = True
     # tap-packed body of the TPU deform kernel; the CUDA kernel has one body
     tail_pack_taps: bool = True
@@ -78,11 +89,8 @@ def check_supported(cfg: GeneratorConfig) -> None:
     unported = {
         "upsample_phase_conv": cfg.upsample_phase_conv,
         "tail_hcw": cfg.tail_hcw,
-        "rrdb_fused": cfg.rrdb_fused,
         "rrdb_sweep": cfg.rrdb_sweep,
-        "fused_conv != 'never'": cfg.fused_conv != "never",
         "compute_dtype != 'float32'": cfg.compute_dtype != "float32",
-        "tail_fused=False": not cfg.tail_fused,
         "fused_rdb='never'": cfg.fused_rdb == "never",
         "rdb_resident='never'": cfg.rdb_resident == "never",
     }
@@ -93,5 +101,5 @@ def check_supported(cfg: GeneratorConfig) -> None:
             + ", ".join(bad)
         )
     if cfg.out_channels != 1:
-        raise NotImplementedError("the fused tail needs out_channels=1")
+        raise NotImplementedError("the generator tail needs out_channels=1")
 

@@ -12,6 +12,10 @@
 // deepbedmap_tpu/ops/pallas_tail.py:_fused_tail_pallas, the body
 // deepbedmap_tpu/ops/pallas_kernels.py:_deform_stacked_kernel (pack_taps,
 // apply_lrelu): a 64 -> 64 deformable conv with the bias and LeakyReLU(0.2).
+// K7 deform_conv replaces deepbedmap_tpu/ops/pallas_kernels.py:
+// deform_conv2d_pallas, whose default body is the same _deform_stacked_kernel
+// without the LeakyReLU: it is the same kernel with the LeakyReLU switched off
+// at compile time (the unfused tail applies it outside, as JAX does).
 // What bounds it on an H100: arithmetic. At the main-path shape
 // (2 x 1144 x 1144 x 64) the 576 -> 64 tap contraction is 193 GFLOP while the
 // bilinear gathers read ~4 x 9 x 64 floats per pixel, mostly from L2.
@@ -32,6 +36,10 @@
 // kernel does by hand. What bounds it: memory. It reads ~4 x 9 gathered
 // floats and 18 offsets per pixel and does a few FLOPs on each, so one thread
 // per pixel is enough; the gathers hit neighbouring pixels and stay in L1/L2.
+// K8 (deepbedmap_tpu/ops/pallas_kernels.py:deform_conv2d_pallas_zproj1) is
+// the same function behind a standalone 64 -> 1 deformable conv: its wrapper
+// computes z with a matmul and launches this same entry. On the TPU the two
+// also share one body (_deform_zproj1_kernel).
 
 #include <cuda_runtime.h>
 
@@ -68,8 +76,9 @@ __device__ __forceinline__ void tap_corners(const float* __restrict__ off,
     }
 }
 
+template <bool kApplyLrelu>
 __global__ void __launch_bounds__(kThreads2)
-deform64_lrelu_kernel(const float* __restrict__ x, const float* __restrict__ off,
+deform64_kernel(const float* __restrict__ x, const float* __restrict__ off,
                       const float* __restrict__ w,  // [9][64 ci][64 co]
                       const float* __restrict__ bias, float* __restrict__ out,
                       int H, int W, float clamp) {
@@ -146,8 +155,10 @@ deform64_lrelu_kernel(const float* __restrict__ x, const float* __restrict__ off
     if (gx >= W) continue;
     float v[4] = {acc[i][0] + b.x, acc[i][1] + b.y, acc[i][2] + b.z,
                   acc[i][3] + b.w};
+    if (kApplyLrelu) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = v[j] >= 0.f ? v[j] : 0.2f * v[j];
+      for (int j = 0; j < 4; ++j) v[j] = v[j] >= 0.f ? v[j] : 0.2f * v[j];
+    }
     const size_t pix = (size_t)(n * H + y) * W + gx;
     *reinterpret_cast<float4*>(out + pix * kC + cg * 4) =
         make_float4(v[0], v[1], v[2], v[3]);
@@ -176,18 +187,34 @@ deform_zproj1_kernel(const float* __restrict__ z, const float* __restrict__ off,
   out[i] = acc + bias[0];
 }
 
+template <bool kApplyLrelu>
+int launch_deform64(const float* x, const float* off, const float* w_packed,
+                    const float* bias, float* out, int N, int H, int W,
+                    float clamp, void* stream) {
+  const dim3 grid((W + kPX - 1) / kPX, H, N);
+  deform64_kernel<kApplyLrelu>
+      <<<grid, kThreads2, 0, static_cast<cudaStream_t>(stream)>>>(
+          x, off, w_packed, bias, out, H, W, clamp);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// x, out: (N, H, W, 64); off: (N, H, W, 18); w_packed: (9 * 64, 64) with row
-// t * 64 + ci; bias: (64,). Returns cudaGetLastError().
+// Both: x, out: (N, H, W, 64); off: (N, H, W, 18); w_packed: (9 * 64, 64)
+// with row t * 64 + ci; bias: (64,). Return cudaGetLastError().
+// K2: out = lrelu(deform_conv(x) + bias).
 extern "C" int deform64_lrelu(const float* x, const float* off,
                               const float* w_packed, const float* bias,
                               float* out, int N, int H, int W, float clamp,
                               void* stream) {
-  const dim3 grid((W + kPX - 1) / kPX, H, N);
-  deform64_lrelu_kernel<<<grid, kThreads2, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, off, w_packed, bias, out, H, W, clamp);
-  return (int)cudaGetLastError();
+  return launch_deform64<true>(x, off, w_packed, bias, out, N, H, W, clamp, stream);
+}
+
+// K7: out = deform_conv(x) + bias.
+extern "C" int deform_conv(const float* x, const float* off,
+                           const float* w_packed, const float* bias, float* out,
+                           int N, int H, int W, float clamp, void* stream) {
+  return launch_deform64<false>(x, off, w_packed, bias, out, N, H, W, clamp, stream);
 }
 
 // z: (N, H, W, 9); off: (N, H, W, 18); bias: (1,); out: (N, H, W, 1).

@@ -17,6 +17,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from deepbedmap_tpu_torch.device import resolve_device
 from deepbedmap_tpu_torch.inference.engine import INPUT_RATIOS, TilePlan, pad_edge
 
 
@@ -108,7 +109,7 @@ def _run_band_pipeline(
 
 
 def _band_inputs(
-    inputs_host: Dict[str, np.ndarray], plan: TilePlan, band: int, device="cpu"
+    inputs_host: Dict[str, np.ndarray], plan: TilePlan, band: int, device="cuda"
 ) -> Dict[str, torch.Tensor]:
     """Slice one vertical-halo'd row band out of the host rasters (edge
     padding at region borders) and move it to ``device``."""
@@ -141,15 +142,17 @@ def predict_continent(
     tile_loop: str = "scan",
     prefetch: int = 1,
     tiles_per_dispatch: int = 2,
-    device="cpu",
+    device="cuda",
 ) -> np.ndarray:
-    """Predict the full (out_h, out_w) DEM band by band on ``device``;
+    """Predict the full (out_h, out_w) DEM band by band on ``device`` (the
+    card unless the caller asks for the CPU; see ``device.resolve_device``);
     returns the host canvas (float32)."""
     gy, _ = plan.grid
     band_predict = _make_band_predictor(
         forward_fn, plan, clip_conditioning, tile_loop=tile_loop,
         tiles_per_dispatch=tiles_per_dispatch,
     )
+    device = resolve_device(device)
     canvas = np.empty((plan.out_h, plan.out_w), np.float32)
 
     def consume(band: int, strip: np.ndarray) -> None:

@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from deepbedmap_tpu_torch.config import GeneratorConfig
+from deepbedmap_tpu_torch.device import resolve_device
 from deepbedmap_tpu_torch.models.generator import Generator
 
 
@@ -23,10 +24,12 @@ def count_params(model: Union[nn.Module, Mapping[str, torch.Tensor]]) -> int:
 
 
 def build_generator(
-    cfg: GeneratorConfig = GeneratorConfig(), seed: int = 42, device="cpu"
+    cfg: GeneratorConfig = GeneratorConfig(), seed: int = 42, device="cuda"
 ) -> Generator:
-    """The generator with seeded initial weights, on ``device``. The weights
-    are drawn on the CPU, so every device gets the same numbers."""
+    """The generator with seeded initial weights, on ``device`` (the card
+    unless the caller asks for the CPU; see ``device.resolve_device``). The
+    weights are drawn on the CPU, so every device gets the same numbers."""
+    dev = resolve_device(device)
     model = Generator(cfg)
     model.reset_parameters(torch.Generator().manual_seed(seed))
-    return model.to(device)
+    return model.to(dev)

@@ -5,11 +5,14 @@ Counterpart of ``deepbedmap_tpu/models/blocks.py``:
 - Chainer He-normal initialisation, std = scale * sqrt(2 / fan_in);
 - the input block, kept as space-to-depth + 3x3 VALID conv so the JAX HWIO
   kernels map onto these by a plain HWIO -> OIHW transpose;
-- the dense-block parameter holders, whose forward dispatches by device to
-  the K1 kernel (CUDA) or its plain version (CPU) through ``ops.rdb``;
-- ``FusedConv3x3`` as a plain conv with its bias / residual / LeakyReLU
-  epilogue (its TPU kernel is off by default and not ported);
-- the deformable layers' parameter holder, applied by ``ops.tail``.
+- the dense blocks and the residual-in-residual block, whose forward
+  dispatches by device to the K1 / K4 kernels (CUDA) or their plain versions
+  (CPU) through ``ops.rdb``;
+- ``FusedConv3x3``: with ``fused='never'`` a cuDNN conv and its bias /
+  residual / LeakyReLU epilogue in PyTorch, otherwise ``ops.conv3x3`` (K10 on
+  the card);
+- the deformable conv layer, applied as one layer (``ops.deform_conv``, K7 /
+  K8 on the card) or, with its partner, by the fused tail (``ops.tail``).
 
 Parameter names follow the JAX tree (``bridge.py`` maps one onto the other).
 """
@@ -23,9 +26,15 @@ import torch
 from torch import nn
 
 from deepbedmap_tpu_torch.ops.conv import conv_nhwc, leaky_relu
-from deepbedmap_tpu_torch.ops.rdb import pack_rdb_weights, rdb_fused
+from deepbedmap_tpu_torch.ops.conv3x3 import conv3x3_fused, pack_conv_weight
+from deepbedmap_tpu_torch.ops.deform_conv import deform_conv2d, pack_deform64_weight
+from deepbedmap_tpu_torch.ops.rdb import (
+    pack_rdb_weights,
+    pack_rrdb_weights,
+    rdb_fused,
+    rrdb_fused,
+)
 from deepbedmap_tpu_torch.ops.resize import space_to_depth
-from deepbedmap_tpu_torch.ops.tail import pack_deform64_weight
 
 
 def he_normal_chainer_(
@@ -105,15 +114,28 @@ class InputBlock(nn.Module):
 
 class FusedConv3x3(Conv3x3):
     """3x3 SAME conv with optional residual-add and LeakyReLU epilogues
-    (reference layers srgan_train.py:470-505)."""
+    (reference layers srgan_train.py:470-505). ``fused`` is the config's
+    ``fused_conv``: 'auto' / 'always' run ``conv3x3_fused`` (K10 on a CUDA
+    tensor, its plain version on a CPU tensor), 'never' the cuDNN conv."""
 
-    def __init__(self, in_channels: int, out_channels: int, leaky: bool = False):
+    def __init__(
+        self, in_channels: int, out_channels: int, leaky: bool = False,
+        fused: str = "never",
+    ):
         super().__init__(in_channels, out_channels)
         self.leaky = leaky
+        self.fused = fused in ("auto", "always")
+        self._packed = _Cached(lambda w: pack_conv_weight(w).contiguous())
 
     def forward(
         self, x: torch.Tensor, residual: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
+        if self.fused:
+            packed = self._packed.get([self.weight]) if x.is_cuda else None
+            return conv3x3_fused(
+                x.contiguous(), self.weight, self.bias, self.leaky,
+                None if residual is None else residual.contiguous(), packed,
+            )
         z = conv_nhwc(x, self.weight, self.bias, 1)
         if residual is not None:
             z = z + residual
@@ -145,33 +167,65 @@ class ResidualDenseBlock(nn.Module):
 
 
 class ResInResDenseBlock(nn.Module):
-    """3 chained dense blocks + scaled outer skip (reference srgan_train.py:364-404)."""
+    """3 chained dense blocks + scaled outer skip (reference srgan_train.py:364-404).
+    With ``rrdb_fused`` one K4 launch on the card runs all of it; otherwise
+    three K1 launches and the skip in PyTorch."""
 
-    def __init__(self, features: int = 64, growth: int = 32, residual_scaling: float = 0.1):
+    def __init__(
+        self, features: int = 64, growth: int = 32, residual_scaling: float = 0.1,
+        rrdb_fused: bool = False,
+    ):
         super().__init__()
         self.residual_dense_block1 = ResidualDenseBlock(features, growth, residual_scaling)
         self.residual_dense_block2 = ResidualDenseBlock(features, growth, residual_scaling)
         self.residual_dense_block3 = ResidualDenseBlock(features, growth, residual_scaling)
         self.residual_scaling = residual_scaling
+        self.rrdb_fused = rrdb_fused
+        self._packed = _Cached(lambda *p: pack_rrdb_weights(
+            [p[i:i + 5] for i in (0, 10, 20)], [p[i + 5:i + 10] for i in (0, 10, 20)]
+        ))
+
+    def blocks(self) -> Tuple[ResidualDenseBlock, ...]:
+        return (self.residual_dense_block1, self.residual_dense_block2,
+                self.residual_dense_block3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        a = self.residual_dense_block1(x)
-        a = self.residual_dense_block2(a)
-        a = self.residual_dense_block3(a)
+        if self.rrdb_fused:
+            kernels = [[c.weight for c in b.convs()] for b in self.blocks()]
+            biases = [[c.bias for c in b.convs()] for b in self.blocks()]
+            packed = (
+                self._packed.get([t for k, b in zip(kernels, biases) for t in k + b])
+                if x.is_cuda else None
+            )
+            return rrdb_fused(x, kernels, biases, self.residual_scaling, packed)
+        a = x
+        for block in self.blocks():
+            a = block(a)
         return x + self.residual_scaling * a
 
 
-class DeformableConvParams(nn.Module):
-    """Parameters of one deformable conv layer (reference srgan_train.py:506-523):
-    ``offset_conv`` (18 offsets), ``weight`` OIHW and ``bias``. The fused tail
-    (``ops.tail.fused_deform_tail``) applies them."""
+class DeformableConv(nn.Module):
+    """One deformable conv layer (reference srgan_train.py:506-523):
+    ``offset_conv`` (18 offsets), ``weight`` OIHW and ``bias``. Its forward is
+    the JAX ``models.blocks.DeformableConv``: the offset conv (cuDNN), then
+    ``ops.deform_conv.deform_conv2d`` (K7 or K8 on the card). The fused tail
+    (``ops.tail.fused_deform_tail``) applies two of them at once instead."""
 
-    def __init__(self, in_channels: int, features: int):
+    def __init__(self, in_channels: int, features: int, clamp: int = 2):
         super().__init__()
         self.offset_conv = Conv3x3(in_channels, 18)
         self.weight = nn.Parameter(torch.empty(features, in_channels, 3, 3))
         self.bias = nn.Parameter(torch.zeros(features))
+        self.clamp = clamp
         self._packed = _Cached(pack_deform64_weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        offsets = conv_nhwc(x, self.offset_conv.weight, self.offset_conv.bias)
+        packed = (
+            self.packed_weight() if x.is_cuda and self.weight.shape[0] > 1 else None
+        )
+        return deform_conv2d(x.contiguous(), offsets.contiguous(), self.weight,
+                             self.bias, 1, self.clamp, packed)
 
     def reset_parameters(self, init_scale: float, generator: torch.Generator) -> None:
         """Own weight and bias; ``offset_conv`` is a ``Conv3x3`` of its own."""

@@ -1,16 +1,18 @@
 """Build, load and launch the hand-written CUDA kernels of the port.
 
-The sources live in ``deepbedmap_tpu_torch/csrc``. On first use they are
-compiled by ``nvcc`` for ``sm_90a`` into one shared library with a plain C
+The sources live in ``deepbedmap_tpu_torch/csrc``. On first use each ``.cu``
+file is compiled by its own ``nvcc`` process for ``sm_90a`` (all started
+together), and the objects are linked into one shared library with a plain C
 interface under ``build/kernels/`` (git-ignored; override with
-``DEEPBEDMAP_TORCH_BUILD_DIR``) and loaded with ``ctypes``. Nothing here runs
-at import time, so the CPU-only test suite can import every module.
+``DEEPBEDMAP_TORCH_BUILD_DIR``), loaded with ``ctypes``. Nothing here runs at
+import time, so the CPU-only test suite can import every module.
 
 Each ``launch_*`` function is the one place its kernel is launched: it adds one
 to ``launches[name]`` and raises if the C entry point reports a CUDA error.
 Tensor checks (device, dtype, shape, contiguity) are the callers' job
-(``ops.rdb``, ``ops.tail``); outputs and scratch are allocated by the callers
-with ``torch.empty``. Kernels run on ``torch.cuda.current_stream()``.
+(``ops.rdb``, ``ops.conv3x3``, ``ops.deform_conv``, ``ops.tail``); outputs
+and scratch are allocated by the callers with ``torch.empty``. Kernels run on
+``torch.cuda.current_stream()``.
 """
 
 from __future__ import annotations
@@ -25,14 +27,21 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_SOURCES = ("rdb.cu", "deform_tail.cu")
+_SOURCES = ("rdb.cu", "conv3x3.cu", "deform_tail.cu")
+_HEADERS = ("conv3x3.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
-# launches of each kernel since the last reset_launches()
-launches = {"rdb_forward": 0, "deform64_lrelu": 0, "deform_zproj1": 0}
+# launches of each kernel since the last reset_launches(), by kernel name
+# (K8 "deform_conv_zproj1" launches K3's C entry "deform_zproj1" but counts
+# under its own name)
+launches = {
+    "rdb_forward": 0, "deform64_lrelu": 0, "deform_zproj1": 0,
+    "rrdb_forward": 0, "conv3x3_forward": 0, "deform_conv": 0,
+    "deform_conv_zproj1": 0,
+}
 
 _lib = None
 build_log = ""  # nvcc's output (with -Xptxas -v) of the build this process made
@@ -43,8 +52,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # x, ws, out, w_packed, bias, N, H, W, scaling, stream
     "rdb_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # x, ws_a, ws_b, out, w_packed, bias, N, H, W, scaling, stream
+    "rrdb_forward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # x, w_packed, bias, res (or NULL), out, N, H, W, cin, leaky, stream
+    "conv3x3_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, off, w_packed, bias, out, N, H, W, clamp, stream
     "deform64_lrelu": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    "deform_conv": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     # z, off, bias, out, N, H, W, clamp, stream
     "deform_zproj1": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
 }
@@ -88,6 +102,38 @@ def _nvcc() -> str:
     return found
 
 
+def _build(srcs, out_dir: Path, so: Path) -> str:
+    """One ``nvcc -c`` per source, all running at once, then one link into
+    ``so``. Returns nvcc's output (``-Xptxas -v`` register and spill lines)."""
+    nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}"
+    objs = [out_dir / f".{src.stem}.{tag}.o" for src in srcs]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for src, obj in zip(srcs, objs)
+    ]
+    log, failed = [], []
+    for src, proc in zip(srcs, procs):
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
+    if failed:
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n" + "".join(log))
+    tmp = out_dir / f".{tag}.so.tmp"
+    link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    log.append(link.stdout + link.stderr)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n" + "".join(log))
+    os.replace(tmp, so)
+    for obj in objs:
+        obj.unlink()
+    return "".join(log)
+
+
 def library():
     """The loaded kernel library, built from ``csrc`` on first use."""
     global _lib, build_log
@@ -95,20 +141,14 @@ def library():
         return _lib
     srcs = [_CSRC / s for s in _SOURCES]
     digest = hashlib.sha256(
-        b"".join(p.read_bytes() for p in srcs) + " ".join(NVCC_FLAGS).encode()
+        b"".join(p.read_bytes() for p in srcs + [_CSRC / h for h in _HEADERS])
+        + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     out_dir = _build_dir()
     so = out_dir / f"libdbm_kernels_{digest}.so"
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f".{so.name}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-               *map(str, srcs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-        os.replace(tmp, so)
+        build_log = _build(srcs, out_dir, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -118,8 +158,9 @@ def library():
     return lib
 
 
-def _call(name: str, *args) -> None:
-    fn = getattr(library(), name)
+def _call(name: str, *args, entry: str | None = None) -> None:
+    """Launch C entry ``entry`` (default ``name``), counted under ``name``."""
+    fn = getattr(library(), entry or name)
     stream = torch.cuda.current_stream().cuda_stream
     launches[name] += 1
     err = fn(*args, stream)
@@ -132,11 +173,28 @@ def launch_rdb_forward(x, ws, out, w_packed, bias, n, h, w, scaling) -> None:
           w_packed.data_ptr(), bias.data_ptr(), n, h, w, float(scaling))
 
 
-def launch_deform64_lrelu(x, off, w_packed, bias, out, n, h, w, clamp) -> None:
-    _call("deform64_lrelu", x.data_ptr(), off.data_ptr(), w_packed.data_ptr(),
-          bias.data_ptr(), out.data_ptr(), n, h, w, float(clamp))
+def launch_rrdb_forward(x, ws_a, ws_b, out, w_packed, bias, n, h, w, scaling) -> None:
+    _call("rrdb_forward", x.data_ptr(), ws_a.data_ptr(), ws_b.data_ptr(),
+          out.data_ptr(), w_packed.data_ptr(), bias.data_ptr(), n, h, w,
+          float(scaling))
 
 
-def launch_deform_zproj1(z, off, bias, out, n, h, w, clamp) -> None:
-    _call("deform_zproj1", z.data_ptr(), off.data_ptr(), bias.data_ptr(),
-          out.data_ptr(), n, h, w, float(clamp))
+def launch_conv3x3_forward(x, w_packed, bias, res, out, n, h, w, cin, leaky) -> None:
+    _call("conv3x3_forward", x.data_ptr(), w_packed.data_ptr(), bias.data_ptr(),
+          None if res is None else res.data_ptr(), out.data_ptr(), n, h, w, cin,
+          int(bool(leaky)))
+
+
+def launch_deform64(x, off, w_packed, bias, out, n, h, w, clamp, lrelu: bool) -> None:
+    """K2 ``deform64_lrelu`` (lrelu) or K7 ``deform_conv``: one kernel."""
+    _call("deform64_lrelu" if lrelu else "deform_conv", x.data_ptr(),
+          off.data_ptr(), w_packed.data_ptr(), bias.data_ptr(), out.data_ptr(),
+          n, h, w, float(clamp))
+
+
+def launch_deform_zproj1(z, off, bias, out, n, h, w, clamp,
+                         name: str = "deform_zproj1") -> None:
+    """K3's C entry, counted as K3 ``deform_zproj1`` or K8
+    ``deform_conv_zproj1``."""
+    _call(name, z.data_ptr(), off.data_ptr(), bias.data_ptr(), out.data_ptr(),
+          n, h, w, float(clamp), entry="deform_zproj1")

@@ -1,0 +1,85 @@
+"""The fused 3x3 conv: the plain version and the K10 kernel wrapper.
+
+Counterpart of ``deepbedmap_tpu/ops/pallas_conv.py``. ``conv3x3_reference`` is
+the port of its ``conv3x3_reference``: a 3x3 SAME conv, then + bias, then
+[+ residual], then [LeakyReLU 0.2], in that order. ``conv3x3_fused`` takes the
+hand-written CUDA kernel ``csrc/conv3x3.cu`` for a CUDA tensor and the plain
+version for a CPU tensor; it computes the same function as the JAX
+``conv3x3_pallas``. There is no size rule and no fallback.
+
+Layout: NHWC activations, OIHW weights. ``pack_conv_weight`` is the packed
+layout of the port's one direct conv (``csrc/conv3x3.cuh``), which the dense
+blocks (``ops.rdb``) use too.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from deepbedmap_tpu_torch.ops import _kernels
+from deepbedmap_tpu_torch.ops.conv import leaky_relu
+
+C_OUT = 64
+C_INS = (64, 128)
+
+
+def conv3x3_reference(
+    x: torch.Tensor,  # (N, H, W, C_in)
+    weight: torch.Tensor,  # (C_out, C_in, 3, 3) OIHW
+    bias: torch.Tensor,  # (C_out,)
+    leaky: bool = False,
+    residual: Optional[torch.Tensor] = None,  # (N, H, W, C_out)
+) -> torch.Tensor:
+    """[lrelu]((conv3x3_same(x) + bias) [+ residual])."""
+    z = F.conv2d(x.permute(0, 3, 1, 2), weight, padding=1).permute(0, 2, 3, 1) + bias
+    if residual is not None:
+        z = z + residual
+    return leaky_relu(z) if leaky else z
+
+
+def pack_conv_weight(weight: torch.Tensor) -> torch.Tensor:
+    """OIHW (C_out, C_in, 3, 3) -> flat [C_out/32][C_in][9][32], the layout
+    the direct conv stages one 32-channel output tile from."""
+    co, ci = weight.shape[:2]
+    return (
+        weight.detach().reshape(co // 32, 32, ci, 9).permute(0, 2, 3, 1).reshape(-1)
+    )
+
+
+def conv3x3_fused(
+    x: torch.Tensor,  # (N, H, W, C_in) float32, C_in in {64, 128}
+    weight: torch.Tensor,  # (64, C_in, 3, 3)
+    bias: torch.Tensor,  # (64,)
+    leaky: bool = False,
+    residual: Optional[torch.Tensor] = None,
+    w_packed: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K10 (``csrc/conv3x3.cu``) on a CUDA tensor, the plain
+    ``conv3x3_reference`` on a CPU tensor. Shapes the kernel does not take
+    (C_in not in {64, 128}, C_out != 64) raise ``ValueError`` on either
+    device. ``w_packed`` is ``pack_conv_weight(weight)``, cached by the
+    caller."""
+    n, h, w, c_in = x.shape
+    if c_in not in C_INS or tuple(weight.shape) != (C_OUT, c_in, 3, 3):
+        raise ValueError(
+            f"conv3x3_fused takes C_in in {C_INS} and a ({C_OUT}, C_in, 3, 3) "
+            f"weight, got x {tuple(x.shape)} and weight {tuple(weight.shape)}"
+        )
+    if x.device.type == "cpu":
+        return conv3x3_reference(x, weight, bias, leaky, residual)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3_fused: unsupported device {x.device}")
+    _kernels.check_tensor(x, "x", (n, h, w, c_in))
+    _kernels.check_image_shape(n, h, w, max(c_in, C_OUT))
+    if w_packed is None:
+        w_packed = pack_conv_weight(weight).contiguous()
+    _kernels.check_tensor(w_packed, "packed weight", (C_OUT * c_in * 9,))
+    _kernels.check_tensor(bias, "bias", (C_OUT,))
+    if residual is not None:
+        _kernels.check_tensor(residual, "residual", (n, h, w, C_OUT))
+    out = torch.empty((n, h, w, C_OUT), device=x.device)
+    _kernels.launch_conv3x3_forward(x, w_packed, bias, residual, out, n, h, w, c_in, leaky)
+    return out

@@ -1,9 +1,10 @@
-"""Deformable convolution v1 by masked shifts: the plain versions of K2 and K3.
+"""Deformable convolution v1: the masked-shift plain versions of K2, K3, K7
+and K8, and the layer-level ``deform_conv2d`` with the K7 / K8 wrappers.
 
-Counterpart of ``deepbedmap_tpu/ops/deform_conv.py:_deform_conv_shifts`` and
-``_deform_conv_shifts_zproj``. Offsets are clamped to [-clamp, clamp] and the
-bilinear sample decomposes over the (2*clamp+2)^2 integer shifts as sliced
-reads weighted by per-position masks:
+Counterpart of ``deepbedmap_tpu/ops/deform_conv.py`` (``_deform_conv_shifts``,
+``_deform_conv_shifts_zproj``, ``deform_conv2d``). Offsets are clamped to
+[-clamp, clamp] and the bilinear sample decomposes over the (2*clamp+2)^2
+integer shifts as sliced reads weighted by per-position masks:
 
     y_t(p) = sum_{sy,sx} wy[sy](p) * wx[sx](p) * x(p + tap_t + (sy, sx))
     wy[s]  = (1-fy) * [floor(dy) == s] + fy * [floor(dy) == s-1]
@@ -12,6 +13,12 @@ Offset layout as in the JAX package: ``offsets[..., :K]`` are row (y)
 displacements and ``offsets[..., K:]`` column (x) displacements, taps
 row-major over the kernel grid. Zero padding outside the image. Weights are
 OIHW ``(C_out, C_in, kh, kw)``; activations NHWC.
+
+The CUDA kernels (``csrc/deform_tail.cu``) take the 64-channel deformable
+conv (K2 with its LeakyReLU, K7 without) and the nine-tap-field sampler (K3,
+and K8 behind a projection); ``deform64`` and ``deform_tap_fields`` here are
+their launchers for CUDA tensors, shared by ``deform_conv2d`` and the fused
+tail (``ops.tail``).
 """
 
 from __future__ import annotations
@@ -20,6 +27,11 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from deepbedmap_tpu_torch.ops import _kernels
+
+_TAPS = 9
+_C = 64
 
 
 def _shift_weights(off_y: torch.Tensor, off_x: torch.Tensor, clamp: int):
@@ -112,3 +124,95 @@ def deform_conv_shifts_zproj(
     rhs = weight.permute(2, 3, 1, 0).reshape(kh * kw, c_in, c_out)
     z = torch.einsum("nhwc,kcd->nhwkd", x.float(), rhs)
     return sample_tap_fields(z, offsets, bias, padding, clamp, kw)
+
+
+def pack_deform64_weight(weight: torch.Tensor) -> torch.Tensor:
+    """OIHW (64, 64, 3, 3) -> (9 * 64, 64), row t * 64 + c_in (the layout of
+    the 64-channel deformable kernel, K2 and K7)."""
+    c_out, c_in = weight.shape[:2]
+    return weight.detach().permute(2, 3, 1, 0).reshape(_TAPS * c_in, c_out).contiguous()
+
+
+def deform64(
+    x: torch.Tensor,  # (N, H, W, 64) on the card
+    offsets: torch.Tensor,  # (N, H, W, 18)
+    weight: torch.Tensor,  # (64, 64, 3, 3) OIHW
+    bias: torch.Tensor,  # (64,)
+    clamp: int,
+    lrelu: bool,
+    w_packed: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """[lrelu](deform_conv(x) + bias) on the card: K2 with ``lrelu``, K7
+    without. ``w_packed`` is ``pack_deform64_weight(weight)``."""
+    n, h, w, _ = x.shape
+    _kernels.check_tensor(x, "x", (n, h, w, _C))
+    _kernels.check_tensor(offsets, "offsets", (n, h, w, 2 * _TAPS))
+    _kernels.check_image_shape(n, h, w, _C)
+    if w_packed is None:
+        w_packed = pack_deform64_weight(weight)
+    _kernels.check_tensor(w_packed, "packed weight", (_TAPS * _C, _C))
+    _kernels.check_tensor(bias, "bias", (_C,))
+    out = torch.empty_like(x)
+    _kernels.launch_deform64(x, offsets, w_packed, bias, out, n, h, w, clamp, lrelu)
+    return out
+
+
+def deform_tap_fields(
+    z: torch.Tensor,  # (N, H, W, 9) tap fields on the card
+    offsets: torch.Tensor,  # (N, H, W, 18)
+    bias: torch.Tensor,  # (1,)
+    clamp: int,
+    name: str,
+) -> torch.Tensor:
+    """``sample_tap_fields`` of one-channel fields on the card (K3's kernel),
+    its launches counted under ``name`` (K3 or K8) -> (N, H, W, 1)."""
+    n, h, w, _ = z.shape
+    _kernels.check_tensor(z, "z", (n, h, w, _TAPS))
+    _kernels.check_tensor(offsets, "offsets", (n, h, w, 2 * _TAPS))
+    _kernels.check_image_shape(n, h, w, 2 * _TAPS)
+    _kernels.check_tensor(bias, "bias", (1,))
+    out = torch.empty((n, h, w, 1), device=z.device)
+    _kernels.launch_deform_zproj1(z, offsets, bias, out, n, h, w, clamp, name)
+    return out
+
+
+def tap_projection(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """z_t = x . W[0, :, t] for a one-output-channel OIHW weight -> the nine
+    tap fields (N, H, W, 9), as JAX computes them outside Pallas."""
+    return (x @ weight[0].reshape(weight.shape[1], _TAPS)).contiguous()
+
+
+def deform_conv2d(
+    x: torch.Tensor,  # (N, H, W, 64)
+    offsets: torch.Tensor,  # (N, H, W, 18), [:9] dy, [9:] dx
+    weight: torch.Tensor,  # (C_out, 64, 3, 3) OIHW, C_out in {1, 64}
+    bias: torch.Tensor,  # (C_out,)
+    padding: int = 1,
+    clamp: int = 2,
+    w_packed: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One deformable conv layer (the JAX ``deform_conv2d``'s Pallas path):
+    on a CUDA tensor K7 (``deform_conv``) for C_out = 64, and for C_out = 1
+    the tap projection (a matmul) followed by K8 (``deform_conv_zproj1``, K3's
+    kernel); on a CPU tensor the plain ``deform_conv_shifts`` /
+    ``deform_conv_shifts_zproj``. Shapes the kernels do not take raise
+    ``ValueError`` on either device: padding != 1, a kernel that is not 3x3,
+    C_in != 64, C_out not in {1, 64}. ``w_packed`` is
+    ``pack_deform64_weight(weight)`` for C_out = 64, cached by the caller."""
+    c_out, c_in, kh, kw = weight.shape
+    if padding != 1 or (kh, kw) != (3, 3) or c_in != _C or x.shape[-1] != _C \
+            or c_out not in (1, _C):
+        raise ValueError(
+            "deform_conv2d takes padding 1, a 3x3 kernel, 64 input channels and "
+            f"1 or 64 output channels; got padding {padding}, weight "
+            f"{tuple(weight.shape)}, x {tuple(x.shape)}"
+        )
+    if x.device.type == "cpu":
+        plain = deform_conv_shifts_zproj if c_out == 1 else deform_conv_shifts
+        return plain(x, offsets, weight, bias, padding, clamp)
+    if x.device.type != "cuda":
+        raise ValueError(f"deform_conv2d: unsupported device {x.device}")
+    if c_out == 1:
+        z = tap_projection(x, weight)
+        return deform_tap_fields(z, offsets, bias, clamp, "deform_conv_zproj1")
+    return deform64(x, offsets, weight, bias, clamp, False, w_packed)

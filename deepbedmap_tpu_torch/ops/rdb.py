@@ -1,13 +1,18 @@
-"""Residual dense block: the plain version and the K1 kernel wrapper.
+"""Residual dense blocks: the plain versions and the K1 and K4 kernel wrappers.
 
 Counterpart of ``deepbedmap_tpu/ops/pallas_rdb.py``. ``rdb_reference`` is the
 port of its ``rdb_reference`` (the plain composition of five 3x3 SAME convs);
-``rdb_fused`` takes the hand-written CUDA kernel ``csrc/rdb.cu`` for a CUDA
-tensor and the plain version for a CPU tensor. There is no size rule and no
-fallback: any N, H, W >= 1 go through the kernel on the card.
+``rdb_fused`` takes the hand-written CUDA kernel K1 (``csrc/rdb.cu``
+``rdb_forward``) for a CUDA tensor and the plain version for a CPU tensor.
+``rrdb_reference`` / ``rrdb_fused`` do the same for a whole residual-in-
+residual block (three dense blocks and the scaled outer skip), the function of
+the JAX ``rrdb_pallas_flat``, with K4 (``rrdb_forward``) on the card. There is
+no size rule and no fallback: any N, H, W >= 1 go through the kernels on the
+card.
 
-Layout: NHWC at both functions. Conv weights are OIHW, as everywhere in the
-port; ``pack_rdb_weights`` repacks them once for the kernel.
+Layout: NHWC at every function; the JAX kernels' flat row-band layout is not
+carried over. Conv weights are OIHW, as everywhere in the port;
+``pack_rdb_weights`` repacks them once for the kernels.
 """
 
 from __future__ import annotations
@@ -19,9 +24,15 @@ import torch.nn.functional as F
 
 from deepbedmap_tpu_torch.ops import _kernels
 from deepbedmap_tpu_torch.ops.conv import leaky_relu
+from deepbedmap_tpu_torch.ops.conv3x3 import pack_conv_weight
 
 FEATURES = 64
 GROWTH = 32
+WORKSPACE = FEATURES + 4 * GROWTH  # channels of the kernels' dense workspace
+# floats of one block's packed weights: 9 x sum_j C_in_j x C_out_j
+_BLOCK_WEIGHTS = sum(
+    9 * (FEATURES + GROWTH * j) * (GROWTH if j < 4 else FEATURES) for j in range(5)
+)
 
 
 def rdb_reference(
@@ -43,17 +54,20 @@ def rdb_reference(
 def pack_rdb_weights(
     kernels: Sequence[torch.Tensor], biases: Sequence[torch.Tensor]
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's weight layout: each stage as [C_out/32][C_in][9][32],
-    the five stages back to back, and the five biases concatenated."""
-    blocks = []
-    for k in kernels:
-        co, ci = k.shape[:2]
-        blocks.append(
-            k.detach().reshape(co // 32, 32, ci, 9).permute(0, 2, 3, 1).reshape(-1)
-        )
-    w = torch.cat(blocks).contiguous()
+    """The kernel's weight layout: each stage as ``pack_conv_weight`` packs
+    it, the five stages back to back, and the five biases concatenated."""
+    w = torch.cat([pack_conv_weight(k) for k in kernels]).contiguous()
     b = torch.cat([b_.detach() for b_ in biases]).contiguous()
     return w, b
+
+
+def _check_block_input(x: torch.Tensor, name: str) -> tuple:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    n, h, w, _ = x.shape
+    _kernels.check_tensor(x, "x", (n, h, w, FEATURES))
+    _kernels.check_image_shape(n, h, w, WORKSPACE)
+    return n, h, w
 
 
 def rdb_fused(
@@ -68,19 +82,63 @@ def rdb_fused(
     result, cached by the caller so the repack happens once per load."""
     if x.device.type == "cpu":
         return rdb_reference(x, kernels, biases, scaling)
-    if x.device.type != "cuda":
-        raise ValueError(f"rdb_fused: unsupported device {x.device}")
-    n, h, w, _ = x.shape
-    _kernels.check_tensor(x, "x", (n, h, w, FEATURES))
-    _kernels.check_image_shape(n, h, w, FEATURES + 4 * GROWTH)
+    n, h, w = _check_block_input(x, "rdb_fused")
     w_packed, b_packed = packed if packed is not None else pack_rdb_weights(
         kernels, biases
     )
-    n_w = sum(9 * (FEATURES + GROWTH * j) * (GROWTH if j < 4 else FEATURES)
-              for j in range(5))
-    _kernels.check_tensor(w_packed, "packed weights", (n_w,))
-    _kernels.check_tensor(b_packed, "packed biases", (4 * GROWTH + FEATURES,))
-    ws = torch.empty((n, h, w, FEATURES + 4 * GROWTH), device=x.device)
+    _kernels.check_tensor(w_packed, "packed weights", (_BLOCK_WEIGHTS,))
+    _kernels.check_tensor(b_packed, "packed biases", (WORKSPACE,))
+    ws = torch.empty((n, h, w, WORKSPACE), device=x.device)
     out = torch.empty_like(x)
     _kernels.launch_rdb_forward(x, ws, out, w_packed, b_packed, n, h, w, scaling)
+    return out
+
+
+def rrdb_reference(
+    x: torch.Tensor,  # (N, H, W, F)
+    kernels: Sequence[Sequence[torch.Tensor]],  # three blocks' five OIHW kernels
+    biases: Sequence[Sequence[torch.Tensor]],  # three blocks' five biases
+    scaling: float,
+) -> torch.Tensor:
+    """x + scaling * rdb3(rdb2(rdb1(x))): three ``rdb_reference`` calls and
+    the scaled outer skip."""
+    a = x
+    for ks, bs in zip(kernels, biases):
+        a = rdb_reference(a, ks, bs, scaling)
+    return x + scaling * a
+
+
+def pack_rrdb_weights(
+    kernels: Sequence[Sequence[torch.Tensor]], biases: Sequence[Sequence[torch.Tensor]]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's layout: the three blocks' ``pack_rdb_weights`` back to back."""
+    packs = [pack_rdb_weights(ks, bs) for ks, bs in zip(kernels, biases)]
+    return (torch.cat([w for w, _ in packs]).contiguous(),
+            torch.cat([b for _, b in packs]).contiguous())
+
+
+def rrdb_fused(
+    x: torch.Tensor,  # (N, H, W, 64) float32
+    kernels: Sequence[Sequence[torch.Tensor]],
+    biases: Sequence[Sequence[torch.Tensor]],
+    scaling: float,
+    packed: Tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """One whole RRDB: K4 (``csrc/rdb.cu`` ``rrdb_forward``) on a CUDA
+    tensor, the plain ``rrdb_reference`` on a CPU tensor. ``packed`` is
+    ``pack_rrdb_weights``'s result, cached by the caller. The kernel runs on
+    two (N, H, W, 192) workspaces and writes a new output tensor."""
+    if x.device.type == "cpu":
+        return rrdb_reference(x, kernels, biases, scaling)
+    n, h, w = _check_block_input(x, "rrdb_fused")
+    w_packed, b_packed = packed if packed is not None else pack_rrdb_weights(
+        kernels, biases
+    )
+    _kernels.check_tensor(w_packed, "packed weights", (3 * _BLOCK_WEIGHTS,))
+    _kernels.check_tensor(b_packed, "packed biases", (3 * WORKSPACE,))
+    ws_a = torch.empty((n, h, w, WORKSPACE), device=x.device)
+    ws_b = torch.empty_like(ws_a)
+    out = torch.empty_like(x)
+    _kernels.launch_rrdb_forward(x, ws_a, ws_b, out, w_packed, b_packed, n, h, w,
+                                 scaling)
     return out

@@ -27,16 +27,15 @@ from typing import Optional
 
 import torch
 
-from deepbedmap_tpu_torch.ops import _kernels
 from deepbedmap_tpu_torch.ops.conv import conv_nhwc, leaky_relu
 from deepbedmap_tpu_torch.ops.deform_conv import (
+    deform64,
     deform_conv_shifts,
     deform_conv_shifts_zproj,
+    deform_tap_fields,
     sample_tap_fields,
+    tap_projection,
 )
-
-_TAPS = 9
-_C = 64
 
 
 def tail_reference(x, o1k, o1b, w1, b1, o2k, o2b, w2, b2, padding=1, clamp=2):
@@ -45,12 +44,6 @@ def tail_reference(x, o1k, o1b, w1, b1, o2k, o2b, w2, b2, padding=1, clamp=2):
     a5 = leaky_relu(deform_conv_shifts(x, off1, w1, b1, padding, clamp))
     off2 = conv_nhwc(a5, o2k, o2b)
     return deform_conv_shifts_zproj(a5, off2, w2, b2, padding, clamp)
-
-
-def pack_deform64_weight(w1: torch.Tensor) -> torch.Tensor:
-    """OIHW (64, 64, 3, 3) -> (9 * 64, 64), row t * 64 + c_in (K2's layout)."""
-    c_out, c_in = w1.shape[:2]
-    return w1.detach().permute(2, 3, 1, 0).reshape(_TAPS * c_in, c_out).contiguous()
 
 
 def deform64_lrelu(
@@ -63,22 +56,12 @@ def deform64_lrelu(
 ) -> torch.Tensor:
     """lrelu(deform_conv(x, offsets, w1) + b1): K2 on a CUDA tensor, the plain
     masked-shift version on a CPU tensor. ``w_packed`` is
-    ``pack_deform64_weight(w1)``, cached by the caller."""
+    ``ops.deform_conv.pack_deform64_weight(w1)``, cached by the caller."""
     if x.device.type == "cpu":
         return leaky_relu(deform_conv_shifts(x, offsets, w1, b1, 1, clamp))
     if x.device.type != "cuda":
         raise ValueError(f"deform64_lrelu: unsupported device {x.device}")
-    n, h, w, _ = x.shape
-    _kernels.check_tensor(x, "x", (n, h, w, _C))
-    _kernels.check_tensor(offsets, "offsets", (n, h, w, 2 * _TAPS))
-    _kernels.check_image_shape(n, h, w, _C)
-    if w_packed is None:
-        w_packed = pack_deform64_weight(w1)
-    _kernels.check_tensor(w_packed, "packed weight", (_TAPS * _C, _C))
-    _kernels.check_tensor(b1, "bias", (_C,))
-    out = torch.empty_like(x)
-    _kernels.launch_deform64_lrelu(x, offsets, w_packed, b1, out, n, h, w, clamp)
-    return out
+    return deform64(x, offsets, w1, b1, clamp, True, w_packed)
 
 
 def deform_zproj1(
@@ -93,14 +76,7 @@ def deform_zproj1(
         return sample_tap_fields(z[..., None], offsets, b2, 1, clamp)
     if z.device.type != "cuda":
         raise ValueError(f"deform_zproj1: unsupported device {z.device}")
-    n, h, w, _ = z.shape
-    _kernels.check_tensor(z, "z", (n, h, w, _TAPS))
-    _kernels.check_tensor(offsets, "offsets", (n, h, w, 2 * _TAPS))
-    _kernels.check_image_shape(n, h, w, 2 * _TAPS)
-    _kernels.check_tensor(b2, "bias", (1,))
-    out = torch.empty((n, h, w, 1), device=z.device)
-    _kernels.launch_deform_zproj1(z, offsets, b2, out, n, h, w, clamp)
-    return out
+    return deform_tap_fields(z, offsets, b2, clamp, "deform_zproj1")
 
 
 def fused_deform_tail(
@@ -122,5 +98,4 @@ def fused_deform_tail(
     off1 = conv_nhwc(x, o1k, o1b).contiguous()
     a5 = deform64_lrelu(x.contiguous(), off1, w1, b1, clamp, w1_packed)
     off2 = conv_nhwc(a5, o2k, o2b).contiguous()
-    z = (a5 @ w2[0].reshape(w2.shape[1], _TAPS)).contiguous()  # (N, H, W, 9)
-    return deform_zproj1(z, off2, b2, clamp)
+    return deform_zproj1(tap_projection(a5, w2), off2, b2, clamp)

@@ -63,12 +63,14 @@ def test_count_params_matches_jax(jax_tree):
     n_jax = jax_count_params(params)
     assert n_jax == 1_713_509
     assert count_params(jax_params_to_state_dict(tree)) == n_jax
-    assert count_params(build_generator(GeneratorConfig(num_residual_blocks=2))) == n_jax
+    assert count_params(
+        build_generator(GeneratorConfig(num_residual_blocks=2), device="cpu")
+    ) == n_jax
 
 
 def test_seeded_init_is_deterministic_and_chainer_scaled():
-    a = build_generator(GeneratorConfig(num_residual_blocks=1), seed=3)
-    b = build_generator(GeneratorConfig(num_residual_blocks=1), seed=3)
+    a = build_generator(GeneratorConfig(num_residual_blocks=1), seed=3, device="cpu")
+    b = build_generator(GeneratorConfig(num_residual_blocks=1), seed=3, device="cpu")
     for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
         assert ka == kb
         torch.testing.assert_close(va, vb, rtol=0, atol=0)
@@ -84,6 +86,8 @@ def test_port_import_loads_no_jax():
         "import deepbedmap_tpu_torch, deepbedmap_tpu_torch.api\n"
         "import deepbedmap_tpu_torch.bridge, deepbedmap_tpu_torch.inference\n"
         "import deepbedmap_tpu_torch.ops.tail, deepbedmap_tpu_torch.ops._kernels\n"
+        "import deepbedmap_tpu_torch.ops.conv3x3, deepbedmap_tpu_torch.ops.deform_conv\n"
+        "import deepbedmap_tpu_torch.models, deepbedmap_tpu_torch.device\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'deepbedmap_tpu')]\n"
         "assert not bad, bad\n"
@@ -103,11 +107,8 @@ def test_port_import_loads_no_jax():
     [
         dict(upsample_phase_conv=True),
         dict(tail_hcw=True),
-        dict(rrdb_fused=True),
         dict(rrdb_sweep=True),
-        dict(fused_conv="auto"),
         dict(compute_dtype="bfloat16"),
-        dict(tail_fused=False),
         dict(fused_rdb="never"),
         dict(rdb_resident="never"),
     ],
@@ -115,6 +116,26 @@ def test_port_import_loads_no_jax():
 def test_unported_config_flags_raise(flags):
     with pytest.raises(NotImplementedError):
         Generator(GeneratorConfig(num_residual_blocks=1, **flags))
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [
+        dict(rrdb_fused=True),
+        dict(fused_conv="auto"),
+        dict(fused_conv="always"),
+        dict(tail_fused=False),
+        dict(rrdb_fused=True, fused_conv="always", tail_fused=False),
+    ],
+)
+def test_ported_config_flags_build(flags):
+    # the kernel flags change the forward only: the parameter tree (keys and
+    # shapes) is the default configuration's, as in JAX, so one state_dict
+    # (and one bridged JAX tree) serves every configuration
+    want = Generator(GeneratorConfig(num_residual_blocks=1)).state_dict()
+    got = Generator(GeneratorConfig(num_residual_blocks=1, **flags)).state_dict()
+    assert list(got) == list(want)
+    assert {k: v.shape for k, v in got.items()} == {k: v.shape for k, v in want.items()}
 
 
 def test_config_fields_match_jax():

@@ -20,6 +20,7 @@ from deepbedmap_tpu_torch.inference import (
     predict_region_tiled,
 )
 from deepbedmap_tpu_torch.inference.engine import pad_inputs
+from deepbedmap_tpu_torch.models import build_generator
 
 CFG = dict(num_residual_blocks=2)
 
@@ -35,7 +36,8 @@ def jax_params():
 @pytest.fixture(scope="module")
 def port(jax_params):
     return DeepBedMap.from_jax_params(
-        jax.tree_util.tree_map(np.asarray, jax_params), GeneratorConfig(**CFG)
+        jax.tree_util.tree_map(np.asarray, jax_params), GeneratorConfig(**CFG),
+        device="cpu",
     )
 
 
@@ -72,7 +74,7 @@ def test_port_tiled_equals_untiled():
     # the port's own seeded weights (init_scale 0.1): the generator's far
     # field then decays fast, so an 8-px halo makes tiles match the untiled
     # region to ~2e-7 of the range (with a 3-px halo they differ by ~7e-3)
-    dbm = DeepBedMap(cfg=GeneratorConfig(**CFG))
+    dbm = DeepBedMap(cfg=GeneratorConfig(**CFG), device="cpu")
     plan = TilePlan(out_h=64, out_w=96, tile_out=32, halo_lr=8)
     nchw = _inputs_nchw(16, 24, seed=3)
     host = {k: np.maximum(v, 0).transpose(0, 2, 3, 1) for k, v in nchw.items()}
@@ -86,7 +88,8 @@ def test_port_tiled_equals_untiled():
     # the band loop and batched tile groups compute the same crops as the
     # tile loop: equal up to the round-off of another batch size
     for b in (1, 2):
-        banded = predict_continent(fwd, host, plan, tiles_per_dispatch=b, prefetch=b - 1)
+        banded = predict_continent(fwd, host, plan, tiles_per_dispatch=b,
+                                   prefetch=b - 1, device="cpu")
         np.testing.assert_allclose(banded, tiled, rtol=1e-6, atol=1e-6 * scale)
     pair = make_tile_group_forward(fwd, plan)(pad_inputs(dev, plan), [1, 0], [2, 1])
     np.testing.assert_allclose(pair[0].numpy(), tiled[32:64, 64:96], rtol=1e-6,
@@ -115,3 +118,24 @@ def test_band_predictor_rejects_bad_arguments(port):
         predict_continent(port.forward_fn(), host, plan, tiles_per_dispatch=0)
     with pytest.raises(ValueError):
         TilePlan(out_h=33, out_w=32, tile_out=32)
+
+
+@pytest.mark.parametrize("entry", ["DeepBedMap", "from_jax_params", "build_generator",
+                                   "predict_continent"])
+def test_entry_points_default_to_the_card(entry, jax_params):
+    # every entry point defaults to device "cuda"; without a card it raises
+    # rather than carrying on on the CPU
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default does not raise")
+    cfg = GeneratorConfig(num_residual_blocks=1)
+    plan = TilePlan(out_h=32, out_w=32, tile_out=32, halo_lr=3)
+    host = {k: v.transpose(0, 2, 3, 1) for k, v in _inputs_nchw(8, 8, 0).items()}
+    calls = {
+        "DeepBedMap": lambda: DeepBedMap(cfg=cfg),
+        "from_jax_params": lambda: DeepBedMap.from_jax_params(
+            jax.tree_util.tree_map(np.asarray, jax_params), GeneratorConfig(**CFG)),
+        "build_generator": lambda: build_generator(cfg),
+        "predict_continent": lambda: predict_continent(lambda *a: None, host, plan),
+    }
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[entry]()

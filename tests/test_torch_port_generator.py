@@ -22,6 +22,12 @@ from deepbedmap_tpu_torch.models import Generator
         # bf16 multiplicands off so both sides compute in fp32
         (dict(num_residual_blocks=2, rdb_resident="always", fused_rdb="always",
               rdb_mxu_bf16=False), 16),
+        # the opt-in kernel configuration: JAX runs K4 (whole RRDB) and K10
+        # (the four 3x3 convs) interpreted and the unfused deformable tail;
+        # the port runs their plain versions and the two layers one at a time
+        (dict(num_residual_blocks=2, rdb_resident="always", fused_rdb="always",
+              rdb_mxu_bf16=False, rrdb_fused=True, fused_conv="always",
+              tail_fused=False), 16),
         # the defaults: 12 RRDBs, the XLA trunk and tail on the CPU
         ({}, 11),
     ],

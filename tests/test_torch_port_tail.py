@@ -20,13 +20,13 @@ from deepbedmap_tpu.ops.pallas_tail import _tail_reference, fused_deform_tail as
 from deepbedmap_tpu_torch.ops.deform_conv import (
     deform_conv_shifts,
     deform_conv_shifts_zproj,
+    pack_deform64_weight,
     sample_tap_fields,
 )
 from deepbedmap_tpu_torch.ops.tail import (
     deform64_lrelu,
     deform_zproj1,
     fused_deform_tail,
-    pack_deform64_weight,
     tail_reference,
 )
 
