@@ -33,16 +33,31 @@ Phases (any failure ends the run with a non-zero exit code):
     rrdb_fused=True, fused_conv="always", tail_fused=False)``;
 12. the second main path: phase 6 in that configuration, with phase 6's
     weights: its launch counts, tiled vs untiled, and its output against
-    phase 6's (the two configurations compute one function).
+    phase 6's (the two configurations compute one function);
+13. K6 ``rdb_banded_forward`` vs ``rdb_reference`` at (1,13,14,64) and
+    (2,286,286,64);
+14. K5 ``rrdb_sweep_forward`` vs ``rrdb_reference`` at (1,13,14,64),
+    (2,22,14,64) and (2,286,286,64) (heights of 2, 3 and 36 bands, none a
+    multiple of the 8-row band);
+15. K9 ``deform_zform`` vs ``deform_conv_shifts_zproj`` at (1,9,13,8->16)
+    and (1,20,130,64->64); its own path, ``deform_conv2d_zform`` at the
+    tail's two shapes (2,1144,1144,64)->64 and ->1, counted and then held
+    against the plain version;
+16. phase 5 for ``GeneratorConfig(rdb_resident="never")`` (K6 per dense
+    block) and ``GeneratorConfig(rrdb_sweep=True)`` (K5 per RRDB);
+17. and 18. phase 12 in those two configurations, with phase 6's weights.
 
+Each main path checks its own configuration's launch counts (``PER_FORWARD``).
 It prints one JSON line with each kernel's launches (from the main path that
-runs it), error, times and bound, and ends with ``{"ok": true, "device":
-{...}}``. It refuses to run without a CUDA device and imports nothing of JAX.
+runs it), error, times and bound, then the script's wall time, and ends with
+``{"ok": true, "device": {...}}``. It refuses to run without a CUDA device and
+imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import subprocess
 import sys
@@ -64,8 +79,13 @@ TOL_SEAM = 1e-4
 
 DEVICE = "cuda"
 SMALL_RDB, MAIN_RDB = (1, 13, 14, 64), (2, 286, 286, 64)
+SWEEP_RDB = (2, 22, 14, 64)  # three bands of K5's 8 rows, the last one short
 SMALL_TAIL, MAIN_TAIL = (1, 20, 130, 64), (2, 1144, 1144, 64)
 SMALL_CONV = (1, 13, 21, 128, True, False)  # (N, H, W, C_in, leaky, residual)
+# K9 (N, H, W, C_in, C_out): the JAX test's shape, a 64-channel one, and the
+# tail's two layers at the main-path shape
+SMALL_ZFORM = [(1, 9, 13, 8, 16), (1, 20, 130, 64, 64)]
+MAIN_ZFORM = [(2, 1144, 1144, 64, 64), (2, 1144, 1144, 64, 1)]
 # K10's four calls in one main-path forward: pre-residual, post-residual,
 # post-upsample 1 and 2
 MAIN_CONVS = [(2, 286, 286, 128, True, False), (2, 286, 286, 64, False, True),
@@ -79,7 +99,22 @@ TILE_OUT, HALO_LR, TILES_PER_DISPATCH = 1000, 18, 2  # phase 6, 288-px crops
 # the second.
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-KERNEL_CFG = dict(rrdb_fused=True, fused_conv="always", tail_fused=False)
+
+# the four ported generator configurations and the kernels one forward of
+# each launches (every other counter must stay 0)
+CONFIGS = {
+    "default": {},
+    "kernel": dict(rrdb_fused=True, fused_conv="always", tail_fused=False),
+    "banded": dict(rdb_resident="never"),
+    "sweep": dict(rrdb_sweep=True),
+}
+PER_FORWARD = {
+    "default": {"rdb_forward": 36, "deform64_lrelu": 1, "deform_zproj1": 1},
+    "kernel": {"rrdb_forward": 12, "conv3x3_forward": 4, "deform_conv": 1,
+               "deform_conv_zproj1": 1},
+    "banded": {"rdb_banded_forward": 36, "deform64_lrelu": 1, "deform_zproj1": 1},
+    "sweep": {"rrdb_sweep_forward": 12, "deform64_lrelu": 1, "deform_zproj1": 1},
+}
 
 # operations per pixel: a 3x3 conv with C_in -> C_out channels does
 # 2 * 9 * C_in * C_out; a bilinear sample of one channel 8 (4 FMAs)
@@ -160,10 +195,15 @@ def _offsets(shape, gen):
     return off.to(DEVICE)
 
 
-def check_rdb(shape, gen, timed: bool) -> dict:
+def check_rdb(shape, gen, timed: bool, kernel: str = "rdb_fused") -> dict:
+    """K1 (``rdb_fused``) or K6 (``rdb_banded``): one dense block."""
     import torch
 
-    from deepbedmap_tpu_torch.ops.rdb import pack_rdb_weights, rdb_fused, rdb_reference
+    from deepbedmap_tpu_torch.ops import rdb
+    from deepbedmap_tpu_torch.ops.rdb import pack_rdb_weights, rdb_reference
+
+    fn = getattr(rdb, kernel)
+    label = {"rdb_fused": "K1 rdb_forward", "rdb_banded": "K6 rdb_banded_forward"}[kernel]
 
     f, g = 64, 32
     cins, couts = [f + g * j for j in range(5)], [g, g, g, g, f]
@@ -171,12 +211,12 @@ def check_rdb(shape, gen, timed: bool) -> dict:
     biases = [_randn((co,), gen, 0.1) for co in couts]
     x = _randn(shape, gen)
     packed = pack_rdb_weights(kernels, biases)
-    got = rdb_fused(x, kernels, biases, 0.1, packed)
+    got = fn(x, kernels, biases, 0.1, packed)
     want = rdb_reference(x, kernels, biases, 0.1)
     torch.cuda.synchronize()
-    res = {"max_abs_err": compare(f"K1 rdb_forward {shape}", got, want, TOL_KERNEL)}
+    res = {"max_abs_err": compare(f"{label} {shape}", got, want, TOL_KERNEL)}
     if timed:
-        res["ms"] = time_ms(lambda: rdb_fused(x, kernels, biases, 0.1, packed), 10)
+        res["ms"] = time_ms(lambda: fn(x, kernels, biases, 0.1, packed), 10)
         res["plain_ms"] = time_ms(lambda: rdb_reference(x, kernels, biases, 0.1), 10)
         pix = x.numel() // 64
         res.update(bound(2 * pix * RDB_MACS, 4 * (2 * x.numel() + _numel(*packed))),
@@ -242,10 +282,15 @@ def check_zproj1(shape, gen, timed: bool) -> dict:
     return res
 
 
-def check_rrdb(shape, gen, timed: bool) -> dict:
+def check_rrdb(shape, gen, timed: bool, kernel: str = "rrdb_fused") -> dict:
+    """K4 (``rrdb_fused``) or K5 (``rrdb_sweep``): one whole RRDB."""
     import torch
 
-    from deepbedmap_tpu_torch.ops.rdb import pack_rrdb_weights, rrdb_fused, rrdb_reference
+    from deepbedmap_tpu_torch.ops import rdb
+    from deepbedmap_tpu_torch.ops.rdb import pack_rrdb_weights, rrdb_reference
+
+    fn = getattr(rdb, kernel)
+    label = {"rrdb_fused": "K4 rrdb_forward", "rrdb_sweep": "K5 rrdb_sweep_forward"}[kernel]
 
     f, g = 64, 32
     cins, couts = [f + g * j for j in range(5)], [g, g, g, g, f]
@@ -254,12 +299,12 @@ def check_rrdb(shape, gen, timed: bool) -> dict:
     biases = [[_randn((co,), gen, 0.1) for co in couts] for _ in range(3)]
     x = _randn(shape, gen)
     packed = pack_rrdb_weights(kernels, biases)
-    got = rrdb_fused(x, kernels, biases, 0.1, packed)
+    got = fn(x, kernels, biases, 0.1, packed)
     want = rrdb_reference(x, kernels, biases, 0.1)
     torch.cuda.synchronize()
-    res = {"max_abs_err": compare(f"K4 rrdb_forward {shape}", got, want, TOL_KERNEL)}
+    res = {"max_abs_err": compare(f"{label} {shape}", got, want, TOL_KERNEL)}
     if timed:
-        res["ms"] = time_ms(lambda: rrdb_fused(x, kernels, biases, 0.1, packed), 10)
+        res["ms"] = time_ms(lambda: fn(x, kernels, biases, 0.1, packed), 10)
         res["plain_ms"] = time_ms(lambda: rrdb_reference(x, kernels, biases, 0.1), 10)
         pix = x.numel() // 64
         res.update(bound(3 * 2 * pix * RDB_MACS, 4 * (2 * x.numel() + _numel(*packed))),
@@ -368,6 +413,74 @@ def check_deform_conv_zproj1(shape, gen, timed: bool) -> dict:
     return res
 
 
+def _zform_case(shape, gen):
+    n, h, w, cin, cout = shape
+    return (_randn((n, h, w, cin), gen), _offsets((n, h, w, 18), gen),
+            _randn((cout, cin, 3, 3), gen, 0.05), _randn((cout,), gen, 0.1))
+
+
+def _check_zform(shape, case, timed: bool) -> dict:
+    import torch
+
+    from deepbedmap_tpu_torch.ops.deform_conv import (
+        deform_conv2d_zform,
+        deform_conv_shifts_zproj,
+    )
+
+    n, h, w, cin, cout = shape
+    x, off, wt, b = case
+    got = deform_conv2d_zform(x, off, wt, b, 1, 2)
+    want = deform_conv_shifts_zproj(x, off, wt, b, 1, 2)
+    torch.cuda.synchronize()
+    res = {"max_abs_err": compare(f"K9 deform_zform {(n, h, w, cin)} -> {cout}", got,
+                                  want, TOL_KERNEL)}
+    del want
+    if timed:
+        res["ms"] = time_ms(lambda: deform_conv2d_zform(x, off, wt, b, 1, 2), 5)
+        res["plain_ms"] = time_ms(lambda: deform_conv_shifts_zproj(x, off, wt, b, 1, 2), 2)
+        # the deformable conv's own work, as K7's and K8's: the C_in*9 -> C_out
+        # contraction and 9 x C_out bilinear samples per pixel; x and the
+        # offsets read, the output written
+        pix = n * h * w
+        res["flops"] = pix * (2 * 9 * cin * cout + 9 * cout * 8)
+        res["bytes"] = 4 * (x.numel() + off.numel() + pix * cout + _numel(wt, b))
+    return res
+
+
+def check_zform(shapes, gen, timed: bool) -> dict:
+    """K9 at one shape; timed, its own path first: ``deform_conv2d_zform``
+    once at each main shape (the tail's two layers), its launches counted,
+    then each shape against the plain version. The entry sums the two calls'
+    times and bounds, as K10's sums one forward's four."""
+    import torch
+
+    from deepbedmap_tpu_torch.ops import _kernels
+    from deepbedmap_tpu_torch.ops.deform_conv import deform_conv2d_zform
+
+    if not timed:
+        return _check_zform(shapes, _zform_case(shapes, gen), False)
+    cases = [_zform_case(s, gen) for s in shapes]
+    _kernels.reset_launches()
+    for case in cases:
+        deform_conv2d_zform(*case, 1, 2)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launches)
+    log(f"  launches on deform_conv2d_zform's path: {launches}")
+    check_launches(launches, {k: len(shapes) if k == "deform_zform" else 0
+                              for k in launches})
+    parts = [_check_zform(s, c, True) for s, c in zip(shapes, cases)]
+    for s, p in zip(shapes, parts):
+        b = bound(p["flops"], p["bytes"])
+        log(f"  K9 at {s}: kernel {p['ms']:.3f} ms, plain {p['plain_ms']:.3f} ms, "
+            f"bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
+    res = {"max_abs_err": max(p["max_abs_err"] for p in parts),
+           "launches": launches["deform_zform"], "library_ms": None}
+    for key in ("ms", "plain_ms"):
+        res[key] = sum(p[key] for p in parts)
+    res.update(bound(sum(p["flops"] for p in parts), sum(p["bytes"] for p in parts)))
+    return res
+
+
 def _crop_inputs(lr: int, batch: int, seed: int):
     rs = np.random.RandomState(seed)
     shapes = [(batch, lr, lr, 1), (batch, 10 * lr, 10 * lr, 1),
@@ -376,8 +489,8 @@ def _crop_inputs(lr: int, batch: int, seed: int):
 
 
 def check_generator(init_scale: float, flags: dict) -> float:
-    """Phases 5 and 11: full-width, full-depth generator, card kernels vs CPU
-    plain versions."""
+    """Phases 5, 11 and 16: full-width, full-depth generator, card kernels vs
+    CPU plain versions."""
     import torch
 
     from deepbedmap_tpu_torch.config import GeneratorConfig
@@ -402,6 +515,7 @@ def forward_breakdown(model, xs, reps: int = 3) -> dict:
     """Device time of each stage of one forward, by CUDA events."""
     import torch
 
+    from deepbedmap_tpu_torch.config import trunk_kernel
     from deepbedmap_tpu_torch.ops.conv import leaky_relu
     from deepbedmap_tpu_torch.ops.resize import nearest_upsample
     from deepbedmap_tpu_torch.ops.tail import fused_deform_tail
@@ -409,6 +523,10 @@ def forward_breakdown(model, xs, reps: int = 3) -> dict:
     cfg = model.cfg
     k10 = cfg.fused_conv != "never"
     conv = "K10" if k10 else "cuDNN conv"
+    blocks = cfg.num_residual_blocks
+    trunk = {"rdb": f"{3 * blocks} x K1 + RRDB skips",
+             "rdb_banded": f"{3 * blocks} x K6 + RRDB skips",
+             "rrdb_fused": f"{blocks} x K4", "rrdb_sweep": f"{blocks} x K5"}[trunk_kernel(cfg)]
 
     def stages():
         a1 = model.pre_residual_conv_layer(model.input_block(*xs))
@@ -416,7 +534,7 @@ def forward_breakdown(model, xs, reps: int = 3) -> dict:
         t = a1.contiguous()
         for block in model.residual_network:
             t = block(t)
-        yield ("trunk: 12 x K4" if cfg.rrdb_fused else "trunk: 36 x K1 + RRDB skips")
+        yield f"trunk: {trunk}"
         a4 = model.post_upsample_conv_layer_1(
             nearest_upsample(model.post_residual_conv_layer(t, residual=a1), 2))
         a4 = model.post_upsample_conv_layer_2(nearest_upsample(a4, 2))
@@ -452,11 +570,13 @@ def check_launches(launches: dict, expected: dict) -> None:
         raise AssertionError(f"launch counts {launches} != expected {expected}")
 
 
-def main_path(card_name: str, flags: dict, params=None, want=None):
-    """Phases 6 and 12: DeepBedMap.predict_continent in the configuration
-    ``flags`` on a 2 x 2-tile region, with ``params`` (a state_dict) or the
-    seeded weights; its output is held against ``want`` when given. Returns
-    the kernels' launch counts in that run, the model and the output."""
+def main_path(card_name: str, config: str, params=None, want=None):
+    """Phases 6, 12, 17 and 18: DeepBedMap.predict_continent in the
+    configuration ``CONFIGS[config]`` on a 2 x 2-tile region, with ``params``
+    (a state_dict) or the seeded weights; its launch counts are held against
+    ``PER_FORWARD[config]`` and its output against ``want`` when given.
+    Returns the kernels' launch counts in that run, the model and the
+    output."""
     import torch
 
     from deepbedmap_tpu_torch import DeepBedMap
@@ -475,6 +595,7 @@ def main_path(card_name: str, flags: dict, params=None, want=None):
         "W3": rng.random((1, 1, lh, lh), dtype=np.float32),
     }
     bounds = (0.0, 0.0, out * res_m, out * res_m)
+    flags = CONFIGS[config]
     dbm = DeepBedMap(params, cfg=GeneratorConfig(**flags), device=DEVICE)
     kw = dict(tile_out=tile_out, halo_lr=halo_lr, tiles_per_dispatch=tpd)
 
@@ -487,12 +608,7 @@ def main_path(card_name: str, flags: dict, params=None, want=None):
 
     plan = TilePlan(out_h=out, out_w=out, tile_out=tile_out, halo_lr=halo_lr)
     forwards = plan.grid[0] * -(-plan.grid[1] // tpd)
-    per_forward = (
-        {"rrdb_forward": 12, "conv3x3_forward": 4, "deform_conv": 1,
-         "deform_conv_zproj1": 1} if flags
-        else {"rdb_forward": 36, "deform64_lrelu": 1, "deform_zproj1": 1}
-    )
-    expected = {k: forwards * per_forward.get(k, 0) for k in _kernels.launches}
+    expected = {k: forwards * PER_FORWARD[config].get(k, 0) for k in _kernels.launches}
     log(f"  launches in predict_continent ({forwards} forwards): {launches}")
     check_launches(launches, expected)
     got = torch.from_numpy(raster.data)
@@ -524,35 +640,52 @@ def main_path(card_name: str, flags: dict, params=None, want=None):
     return launches, dbm.model, got
 
 
-# (launch-counter name, source, TPU kernel it replaces, check, small shape,
-# main-path shape, phase); phase 2-4 kernels run on phase 6's main path,
-# phase 7-10 kernels on phase 12's
+# (launch-counter name, source, TPU kernel it replaces, check, small shapes,
+# main-path shape, phase, the configuration whose main path gives its
+# launches); K9's launches come from its own path in phase 15
 KERNELS = [
     ("rdb_forward", "deepbedmap_tpu_torch/csrc/rdb.cu",
-     "deepbedmap_tpu/ops/pallas_rdb.py:635", check_rdb, SMALL_RDB, MAIN_RDB, 2),
+     "deepbedmap_tpu/ops/pallas_rdb.py:635", check_rdb, [SMALL_RDB], MAIN_RDB, 2,
+     "default"),
     ("deform64_lrelu", "deepbedmap_tpu_torch/csrc/deform_tail.cu",
-     "deepbedmap_tpu/ops/pallas_tail.py:196", check_deform64, SMALL_TAIL, MAIN_TAIL, 3),
+     "deepbedmap_tpu/ops/pallas_tail.py:196", check_deform64, [SMALL_TAIL], MAIN_TAIL, 3,
+     "default"),
     ("deform_zproj1", "deepbedmap_tpu_torch/csrc/deform_tail.cu",
-     "deepbedmap_tpu/ops/pallas_tail.py:275", check_zproj1, SMALL_TAIL, MAIN_TAIL, 4),
+     "deepbedmap_tpu/ops/pallas_tail.py:275", check_zproj1, [SMALL_TAIL], MAIN_TAIL, 4,
+     "default"),
     ("rrdb_forward", "deepbedmap_tpu_torch/csrc/rdb.cu",
-     "deepbedmap_tpu/ops/pallas_rdb.py:908", check_rrdb, SMALL_RDB, MAIN_RDB, 7),
+     "deepbedmap_tpu/ops/pallas_rdb.py:908", check_rrdb, [SMALL_RDB], MAIN_RDB, 7,
+     "kernel"),
     ("conv3x3_forward", "deepbedmap_tpu_torch/csrc/conv3x3.cu",
-     "deepbedmap_tpu/ops/pallas_conv.py:166", check_conv3x3, SMALL_CONV, MAIN_CONVS, 8),
+     "deepbedmap_tpu/ops/pallas_conv.py:166", check_conv3x3, [SMALL_CONV], MAIN_CONVS, 8,
+     "kernel"),
     ("deform_conv", "deepbedmap_tpu_torch/csrc/deform_tail.cu",
-     "deepbedmap_tpu/ops/pallas_kernels.py:330", check_deform_conv, SMALL_TAIL,
-     MAIN_TAIL, 9),
+     "deepbedmap_tpu/ops/pallas_kernels.py:330", check_deform_conv, [SMALL_TAIL],
+     MAIN_TAIL, 9, "kernel"),
     ("deform_conv_zproj1", "deepbedmap_tpu_torch/csrc/deform_tail.cu",
-     "deepbedmap_tpu/ops/pallas_kernels.py:882", check_deform_conv_zproj1, SMALL_TAIL,
-     MAIN_TAIL, 10),
+     "deepbedmap_tpu/ops/pallas_kernels.py:882", check_deform_conv_zproj1, [SMALL_TAIL],
+     MAIN_TAIL, 10, "kernel"),
+    ("rdb_banded_forward", "deepbedmap_tpu_torch/csrc/rdb_banded.cu",
+     "deepbedmap_tpu/ops/pallas_rdb.py:391",
+     functools.partial(check_rdb, kernel="rdb_banded"), [SMALL_RDB], MAIN_RDB, 13,
+     "banded"),
+    ("rrdb_sweep_forward", "deepbedmap_tpu_torch/csrc/rrdb_sweep.cu",
+     "deepbedmap_tpu/ops/pallas_rdb.py:1234",
+     functools.partial(check_rrdb, kernel="rrdb_sweep"), [SMALL_RDB, SWEEP_RDB],
+     MAIN_RDB, 14, "sweep"),
+    ("deform_zform", "deepbedmap_tpu_torch/csrc/deform_zform.cu",
+     "deepbedmap_tpu/ops/pallas_kernels.py:1119", check_zform, SMALL_ZFORM, MAIN_ZFORM,
+     15, None),
 ]
 
 
-def check_kernel(name, check, small, main_shape, phase: int, card_name: str) -> dict:
+def check_kernel(name, check, smalls, main_shape, phase: int, card_name: str) -> dict:
     import torch
 
     log(f"phase {phase}: {name}")
     gen = torch.Generator().manual_seed(phase)
-    check(small, gen, timed=False)
+    for small in smalls:
+        check(small, gen, timed=False)
     r = check(main_shape, gen, timed=True)
     lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.3f} ms"
     log(f"  {name} at the main-path shape: kernel {r['ms']:.3f} ms, plain "
@@ -568,6 +701,7 @@ def main() -> int:
         raise SystemExit("chip_smoke.py: no CUDA device; it does not run on the CPU")
     from deepbedmap_tpu_torch.ops import _kernels
 
+    t_start = time.perf_counter()
     log("phase 0: setup")
     card_name = card()
     log(card_name)
@@ -585,35 +719,52 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
 
     results = {}
-    for name, _, _, check, small, main_shape, phase in KERNELS[:3]:
-        results[name] = check_kernel(name, check, small, main_shape, phase, card_name)
 
+    def kernels(*phases):
+        for name, _, _, check, smalls, main_shape, phase, _ in KERNELS:
+            if phase in phases:
+                results[name] = check_kernel(name, check, smalls, main_shape, phase,
+                                             card_name)
+
+    kernels(2, 3, 4)
     log("phase 5: whole generator, card vs CPU")
     check_generator(0.1, {})
     check_generator(1.0, {})
 
     log("phase 6: main path")
-    launches, model, default_out = main_path(card_name, {})
+    path_launches = {}
+    path_launches["default"], model, default_out = main_path(card_name, "default")
+    params = model.state_dict()
 
-    for name, _, _, check, small, main_shape, phase in KERNELS[3:]:
-        results[name] = check_kernel(name, check, small, main_shape, phase, card_name)
+    kernels(7, 8, 9, 10)
+    log(f"phase 11: whole generator in {CONFIGS['kernel']}, card vs CPU")
+    check_generator(0.1, CONFIGS["kernel"])
+    check_generator(1.0, CONFIGS["kernel"])
 
-    log(f"phase 11: whole generator in {KERNEL_CFG}, card vs CPU")
-    check_generator(0.1, KERNEL_CFG)
-    check_generator(1.0, KERNEL_CFG)
+    log(f"phase 12: second main path, {CONFIGS['kernel']}")
+    path_launches["kernel"], _, _ = main_path(card_name, "kernel", params, default_out)
 
-    log(f"phase 12: second main path, {KERNEL_CFG}")
-    launches2, _, _ = main_path(card_name, KERNEL_CFG, params=model.state_dict(),
-                                want=default_out)
-    for name, *_ in KERNELS[3:]:
-        launches[name] = launches2[name]
+    kernels(13, 14, 15)
+    log(f"phase 16: whole generator in {CONFIGS['banded']} and {CONFIGS['sweep']}, "
+        "card vs CPU")
+    for config in ("banded", "sweep"):
+        check_generator(0.1, CONFIGS[config])
+        check_generator(1.0, CONFIGS[config])
 
-    kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **results[name]}
-        for name, src, rep, *_ in KERNELS
-    ]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    for phase, config in ((17, "banded"), (18, "sweep")):
+        log(f"phase {phase}: main path in {CONFIGS[config]}")
+        path_launches[config], _, _ = main_path(card_name, config, params, default_out)
+
+    rows = []
+    for name, src, rep, *_, path in KERNELS:
+        r = dict(results[name])
+        launches = r.pop("launches") if path is None else path_launches[path][name]
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                     "launches": launches, **r})
+    if not all(row["launches"] > 0 for row in rows):
+        raise AssertionError("a kernel was never launched on its path")
+    log(f"total wall time {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

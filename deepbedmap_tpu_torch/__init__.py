@@ -5,9 +5,9 @@ NVIDIA H100. It imports torch and numpy only, never JAX. Layout mirrors the
 JAX package:
 
 - ``config``    : GeneratorConfig / InferenceConfig (copied field for field)
-- ``ops``       : resize, dense block and whole RRDB (K1, K4), fused 3x3 conv
-                  (K10), deformable conv (K7, K8) and fused tail (K2, K3), the
-                  CUDA build and binding (``ops._kernels``)
+- ``ops``       : resize, dense block (K1, K6) and whole RRDB (K4, K5), fused
+                  3x3 conv (K10), deformable conv (K7, K8, K9) and fused tail
+                  (K2, K3), the CUDA build and binding (``ops._kernels``)
 - ``csrc``      : the hand-written CUDA C++ kernels (sm_90a)
 - ``models``    : generator building blocks and the generator
 - ``bridge``    : JAX flax params <-> the port's state_dict

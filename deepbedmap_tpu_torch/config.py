@@ -7,16 +7,26 @@ copied rather than imported because importing anything from ``deepbedmap_tpu``
 loads JAX, which the port never needs.
 
 Several generator fields select JAX code paths that the port does not have yet
-(some Pallas schedule variants, bf16 compute, the channels-before-width tail
-layout, the phase convs). ``check_supported`` rejects them when a
-``Generator`` is built instead of silently taking another path.
+(the plain XLA dense block ``fused_rdb='never'``, bf16 compute, the
+channels-before-width tail layout, the phase convs). ``check_supported``
+rejects them when a ``Generator`` is built instead of silently taking another
+path.
 
 Kernel dispatch flags (``fused_rdb``, ``rdb_resident``, ``rrdb_fused``,
-``fused_conv``): in the port ``'auto'`` and ``'always'`` (or True) both mean
-"the hand-written kernel on a CUDA tensor, its plain PyTorch version on a CPU
-tensor". The JAX package's rule that takes a Pallas kernel only on a TPU and
-only for images of at least 256^2 does not carry over: on the card every
-image size goes through the kernel.
+``rrdb_sweep``, ``fused_conv``): in the port ``'auto'`` and ``'always'`` (or
+True) both mean "the hand-written kernel on a CUDA tensor, its plain PyTorch
+version on a CPU tensor". The JAX package's rule that takes a Pallas kernel
+only on a TPU and only for images of at least 256^2 does not carry over: on
+the card every image size goes through the kernel. The trunk follows the JAX
+precedence (``models/generator.py``, ``models/blocks.py``):
+
+- the trunk is resident unless ``rdb_resident='never'``;
+- a resident trunk runs each RRDB as K5 (``rrdb_sweep``), else as K4
+  (``rrdb_fused``), else as three K1 dense blocks; the sweep wins over
+  ``rrdb_fused``;
+- a non-resident trunk ignores ``rrdb_sweep`` and ``rrdb_fused`` and runs
+  each dense block as K6, so ``rdb_resident='never', rrdb_fused=True`` is
+  36 K6 launches, not 12 K4.
 """
 
 from __future__ import annotations
@@ -46,11 +56,15 @@ class GeneratorConfig:
     fused_rdb: str = "auto"
     # bf16 multiplicands inside the TPU dense-block kernel; inert here
     rdb_mxu_bf16: bool = True
-    # resident trunk layout: 'auto'/'always' as fused_rdb; 'never' not ported
+    # resident trunk: 'auto'/'always' run the dense blocks as K1 (or whole
+    # RRDBs as K4 / K5); 'never' runs each dense block as K6
+    # (csrc/rdb_banded.cu) and ignores rrdb_fused / rrdb_sweep
     rdb_resident: str = "auto"
-    # one launch per RRDB (kernel K4, csrc/rdb.cu rrdb_forward) instead of
-    # three dense-block launches; the single-sweep K5 variant is not ported
+    # one launch per RRDB of a resident trunk (kernel K4, csrc/rdb.cu
+    # rrdb_forward) instead of three dense-block launches
     rrdb_fused: bool = False
+    # one single-sweep launch per RRDB of a resident trunk (kernel K5,
+    # csrc/rrdb_sweep.cu); takes precedence over rrdb_fused
     rrdb_sweep: bool = False
     # the four 64-channel 3x3 convs: 'auto'/'always' take the hand-written
     # kernel K10 (csrc/conv3x3.cu) as fused_rdb does; 'never' keeps cuDNN
@@ -89,10 +103,8 @@ def check_supported(cfg: GeneratorConfig) -> None:
     unported = {
         "upsample_phase_conv": cfg.upsample_phase_conv,
         "tail_hcw": cfg.tail_hcw,
-        "rrdb_sweep": cfg.rrdb_sweep,
         "compute_dtype != 'float32'": cfg.compute_dtype != "float32",
         "fused_rdb='never'": cfg.fused_rdb == "never",
-        "rdb_resident='never'": cfg.rdb_resident == "never",
     }
     bad = [name for name, on in unported.items() if on]
     if bad:
@@ -103,3 +115,13 @@ def check_supported(cfg: GeneratorConfig) -> None:
     if cfg.out_channels != 1:
         raise NotImplementedError("the generator tail needs out_channels=1")
 
+
+def trunk_kernel(cfg: GeneratorConfig) -> str:
+    """Which kernel runs the trunk, by the JAX precedence: ``'rrdb_sweep'``
+    (K5), ``'rrdb_fused'`` (K4) or ``'rdb'`` (K1) on a resident trunk,
+    ``'rdb_banded'`` (K6) on a non-resident one."""
+    if cfg.rdb_resident == "never":
+        return "rdb_banded"
+    if cfg.rrdb_sweep:
+        return "rrdb_sweep"
+    return "rrdb_fused" if cfg.rrdb_fused else "rdb"

@@ -6,8 +6,8 @@ Counterpart of ``deepbedmap_tpu/models/blocks.py``:
 - the input block, kept as space-to-depth + 3x3 VALID conv so the JAX HWIO
   kernels map onto these by a plain HWIO -> OIHW transpose;
 - the dense blocks and the residual-in-residual block, whose forward
-  dispatches by device to the K1 / K4 kernels (CUDA) or their plain versions
-  (CPU) through ``ops.rdb``;
+  dispatches by device to the K1 / K6 (dense block) or K4 / K5 (whole RRDB)
+  kernels (CUDA) or their plain versions (CPU) through ``ops.rdb``;
 - ``FusedConv3x3``: with ``fused='never'`` a cuDNN conv and its bias /
   residual / LeakyReLU epilogue in PyTorch, otherwise ``ops.conv3x3`` (K10 on
   the card);
@@ -31,8 +31,10 @@ from deepbedmap_tpu_torch.ops.deform_conv import deform_conv2d, pack_deform64_we
 from deepbedmap_tpu_torch.ops.rdb import (
     pack_rdb_weights,
     pack_rrdb_weights,
+    rdb_banded,
     rdb_fused,
     rrdb_fused,
+    rrdb_sweep,
 )
 from deepbedmap_tpu_torch.ops.resize import space_to_depth
 
@@ -144,9 +146,11 @@ class FusedConv3x3(Conv3x3):
 
 class ResidualDenseBlock(nn.Module):
     """5-conv dense block with residual scaling (reference
-    srgan_train.py:275-360): one K1 launch on the card."""
+    srgan_train.py:275-360): one K1 launch on the card, or one K6 launch
+    with ``banded`` (the non-resident trunk)."""
 
-    def __init__(self, features: int = 64, growth: int = 32, residual_scaling: float = 0.1):
+    def __init__(self, features: int = 64, growth: int = 32, residual_scaling: float = 0.1,
+                 banded: bool = False):
         super().__init__()
         f, g = features, growth
         c_ins = (f, f + g, f + 2 * g, f + 3 * g, f + 4 * g)
@@ -154,6 +158,7 @@ class ResidualDenseBlock(nn.Module):
         for i, (ci, co) in enumerate(zip(c_ins, c_outs), start=1):
             setattr(self, f"conv_layer{i}", Conv3x3(ci, co))
         self.residual_scaling = residual_scaling
+        self.banded = banded
         self._packed = _Cached(lambda *p: pack_rdb_weights(p[:5], p[5:]))
 
     def convs(self) -> Tuple[Conv3x3, ...]:
@@ -163,24 +168,29 @@ class ResidualDenseBlock(nn.Module):
         kernels = [c.weight for c in self.convs()]
         biases = [c.bias for c in self.convs()]
         packed = self._packed.get(kernels + biases) if x.is_cuda else None
-        return rdb_fused(x, kernels, biases, self.residual_scaling, packed)
+        block = rdb_banded if self.banded else rdb_fused
+        return block(x, kernels, biases, self.residual_scaling, packed)
 
 
 class ResInResDenseBlock(nn.Module):
     """3 chained dense blocks + scaled outer skip (reference srgan_train.py:364-404).
-    With ``rrdb_fused`` one K4 launch on the card runs all of it; otherwise
-    three K1 launches and the skip in PyTorch."""
+    ``kernel`` (``config.trunk_kernel``) picks what runs it on the card:
+    'rrdb_sweep' one K5 launch, 'rrdb_fused' one K4 launch, 'rdb' three K1
+    launches and 'rdb_banded' three K6 launches (the skip in PyTorch)."""
 
     def __init__(
         self, features: int = 64, growth: int = 32, residual_scaling: float = 0.1,
-        rrdb_fused: bool = False,
+        kernel: str = "rdb",
     ):
         super().__init__()
-        self.residual_dense_block1 = ResidualDenseBlock(features, growth, residual_scaling)
-        self.residual_dense_block2 = ResidualDenseBlock(features, growth, residual_scaling)
-        self.residual_dense_block3 = ResidualDenseBlock(features, growth, residual_scaling)
+        if kernel not in ("rdb", "rdb_banded", "rrdb_fused", "rrdb_sweep"):
+            raise ValueError(f"unknown trunk kernel {kernel!r}")
+        banded = kernel == "rdb_banded"
+        self.residual_dense_block1 = ResidualDenseBlock(features, growth, residual_scaling, banded)
+        self.residual_dense_block2 = ResidualDenseBlock(features, growth, residual_scaling, banded)
+        self.residual_dense_block3 = ResidualDenseBlock(features, growth, residual_scaling, banded)
         self.residual_scaling = residual_scaling
-        self.rrdb_fused = rrdb_fused
+        self.kernel = kernel
         self._packed = _Cached(lambda *p: pack_rrdb_weights(
             [p[i:i + 5] for i in (0, 10, 20)], [p[i + 5:i + 10] for i in (0, 10, 20)]
         ))
@@ -190,14 +200,15 @@ class ResInResDenseBlock(nn.Module):
                 self.residual_dense_block3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.rrdb_fused:
+        whole = {"rrdb_fused": rrdb_fused, "rrdb_sweep": rrdb_sweep}.get(self.kernel)
+        if whole is not None:
             kernels = [[c.weight for c in b.convs()] for b in self.blocks()]
             biases = [[c.bias for c in b.convs()] for b in self.blocks()]
             packed = (
                 self._packed.get([t for k, b in zip(kernels, biases) for t in k + b])
                 if x.is_cuda else None
             )
-            return rrdb_fused(x, kernels, biases, self.residual_scaling, packed)
+            return whole(x, kernels, biases, self.residual_scaling, packed)
         a = x
         for block in self.blocks():
             a = block(a)

@@ -10,7 +10,9 @@ offset convs and the tap projection are plain PyTorch. With
 ``GeneratorConfig(rrdb_fused=True, fused_conv='always', tail_fused=False)``:
 K4 for each RRDB, K10 for the four 64-channel 3x3 convs, and the two
 deformable layers one at a time, K7 (then the LeakyReLU in PyTorch, where JAX
-has it) and K8. The parameters are the same under every config. On CPU
+has it) and K8. ``rdb_resident='never'`` runs each dense block as K6 instead
+of K1, and ``rrdb_sweep=True`` each RRDB as K5 (``config.trunk_kernel`` has
+the precedence). The parameters are the same under every config. On CPU
 tensors the kernels' plain versions run instead.
 """
 
@@ -19,7 +21,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from deepbedmap_tpu_torch.config import GeneratorConfig, check_supported
+from deepbedmap_tpu_torch.config import GeneratorConfig, check_supported, trunk_kernel
 from deepbedmap_tpu_torch.models.blocks import (
     Conv3x3,
     DeformableConv,
@@ -44,7 +46,7 @@ class Generator(nn.Module):
             cfg.concat_channels, c, leaky=True, fused=fc)
         self.residual_network = nn.ModuleList(
             ResInResDenseBlock(c, cfg.growth_channels, cfg.residual_scaling,
-                               rrdb_fused=cfg.rrdb_fused)
+                               kernel=trunk_kernel(cfg))
             for _ in range(cfg.num_residual_blocks)
         )
         self.post_residual_conv_layer = FusedConv3x3(c, c, fused=fc)
@@ -64,8 +66,9 @@ class Generator(nn.Module):
         w2 (N,2h,2w,2) velocity, w3 (N,h,w,1) accumulation -> (N,4(h-2),4(w-2),1)."""
         a0 = self.input_block(x, w1, w2, w3)
         a1 = self.pre_residual_conv_layer(a0)
-        # enter K1's layout (contiguous NHWC fp32) once; every dense block and
-        # every RRDB skip keeps it, so the trunk leaves it without a copy
+        # enter the trunk kernels' layout (contiguous NHWC fp32) once; every
+        # dense block and every RRDB skip keeps it, so the trunk leaves it
+        # without a copy
         t = a1.contiguous()
         for block in self.residual_network:
             t = block(t)

@@ -27,8 +27,9 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_SOURCES = ("rdb.cu", "conv3x3.cu", "deform_tail.cu")
-_HEADERS = ("conv3x3.cuh",)
+_SOURCES = ("rdb.cu", "conv3x3.cu", "deform_tail.cu", "rdb_banded.cu",
+            "rrdb_sweep.cu", "deform_zform.cu")
+_HEADERS = ("conv3x3.cuh", "rdb_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -40,7 +41,8 @@ NVCC_FLAGS = (
 launches = {
     "rdb_forward": 0, "deform64_lrelu": 0, "deform_zproj1": 0,
     "rrdb_forward": 0, "conv3x3_forward": 0, "deform_conv": 0,
-    "deform_conv_zproj1": 0,
+    "deform_conv_zproj1": 0, "rdb_banded_forward": 0, "rrdb_sweep_forward": 0,
+    "deform_zform": 0,
 }
 
 _lib = None
@@ -61,6 +63,12 @@ _SIGNATURES = {
     "deform_conv": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     # z, off, bias, out, N, H, W, clamp, stream
     "deform_zproj1": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # x, out, w_packed, bias, N, H, W, scaling, stream
+    "rdb_banded_forward": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # x, ring1, ring2, out, w_packed, bias, N, H, W, scaling, stream
+    "rrdb_sweep_forward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # x, off, w_packed, bias, out, N, H, W, cin, cout, clamp, stream
+    "deform_zform": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
 }
 
 
@@ -198,3 +206,21 @@ def launch_deform_zproj1(z, off, bias, out, n, h, w, clamp,
     ``deform_conv_zproj1``."""
     _call(name, z.data_ptr(), off.data_ptr(), bias.data_ptr(), out.data_ptr(),
           n, h, w, float(clamp), entry="deform_zproj1")
+
+
+def launch_rdb_banded_forward(x, out, w_packed, bias, n, h, w, scaling) -> None:
+    _call("rdb_banded_forward", x.data_ptr(), out.data_ptr(), w_packed.data_ptr(),
+          bias.data_ptr(), n, h, w, float(scaling))
+
+
+def launch_rrdb_sweep_forward(x, ring1, ring2, out, w_packed, bias, n, h, w,
+                              scaling) -> None:
+    _call("rrdb_sweep_forward", x.data_ptr(), ring1.data_ptr(), ring2.data_ptr(),
+          out.data_ptr(), w_packed.data_ptr(), bias.data_ptr(), n, h, w,
+          float(scaling))
+
+
+def launch_deform_zform(x, off, w_packed, bias, out, n, h, w, cin, cout,
+                        clamp) -> None:
+    _call("deform_zform", x.data_ptr(), off.data_ptr(), w_packed.data_ptr(),
+          bias.data_ptr(), out.data_ptr(), n, h, w, cin, cout, float(clamp))

@@ -18,7 +18,10 @@ The CUDA kernels (``csrc/deform_tail.cu``) take the 64-channel deformable
 conv (K2 with its LeakyReLU, K7 without) and the nine-tap-field sampler (K3,
 and K8 behind a projection); ``deform64`` and ``deform_tap_fields`` here are
 their launchers for CUDA tensors, shared by ``deform_conv2d`` and the fused
-tail (``ops.tail``).
+tail (``ops.tail``). ``deform_conv2d_zform`` is the port of the JAX
+``deform_conv2d_pallas_zform``: the same deformable conv with the tap
+projection inside the kernel (K9, ``csrc/deform_zform.cu``). No model path
+takes it, as in JAX; it is a public function of its own.
 """
 
 from __future__ import annotations
@@ -127,8 +130,8 @@ def deform_conv_shifts_zproj(
 
 
 def pack_deform64_weight(weight: torch.Tensor) -> torch.Tensor:
-    """OIHW (64, 64, 3, 3) -> (9 * 64, 64), row t * 64 + c_in (the layout of
-    the 64-channel deformable kernel, K2 and K7)."""
+    """OIHW (C_out, C_in, 3, 3) -> (9 * C_in, C_out), row t * C_in + c_in (the
+    layout of the 64-channel deformable kernel, K2 and K7, and of K9)."""
     c_out, c_in = weight.shape[:2]
     return weight.detach().permute(2, 3, 1, 0).reshape(_TAPS * c_in, c_out).contiguous()
 
@@ -216,3 +219,54 @@ def deform_conv2d(
         z = tap_projection(x, weight)
         return deform_tap_fields(z, offsets, bias, clamp, "deform_conv_zproj1")
     return deform64(x, offsets, weight, bias, clamp, False, w_packed)
+
+
+ZFORM_C_OUTS = (1, 16, 64)  # output widths K9 is built for
+ZFORM_MAX_C_IN = 64
+ZFORM_MAX_CLAMP = 2  # K9's sample window reaches 2 px of clamp
+
+
+def deform_conv2d_zform(
+    x: torch.Tensor,  # (N, H, W, C_in)
+    offsets: torch.Tensor,  # (N, H, W, 18), [:9] dy, [9:] dx
+    weight: torch.Tensor,  # (C_out, C_in, 3, 3) OIHW
+    bias: Optional[torch.Tensor],  # (C_out,) or None
+    padding: int = 1,
+    clamp: int = 2,
+) -> torch.Tensor:
+    """The deformable conv computed projection first inside one kernel (the
+    JAX ``deform_conv2d_pallas_zform``): on a CUDA tensor K9
+    (``csrc/deform_zform.cu``), on a CPU tensor its plain version
+    ``deform_conv_shifts_zproj``. Takes a 3x3 kernel, padding 1, C_in a
+    multiple of 4 up to 64, C_out in {1, 16, 64} and an integer clamp in
+    [0, 2]; anything else raises ``ValueError`` on either device."""
+    c_out, c_in, kh, kw = weight.shape
+    n, h, w = x.shape[:3]
+    if padding != 1 or (kh, kw) != (3, 3) or x.shape[-1] != c_in \
+            or c_in % 4 or not 4 <= c_in <= ZFORM_MAX_C_IN or c_out not in ZFORM_C_OUTS \
+            or int(clamp) != clamp or not 0 <= clamp <= ZFORM_MAX_CLAMP \
+            or tuple(offsets.shape) != (n, h, w, 2 * _TAPS) \
+            or (bias is not None and tuple(bias.shape) != (c_out,)):
+        raise ValueError(
+            "deform_conv2d_zform takes padding 1, a 3x3 kernel, C_in a multiple "
+            f"of 4 up to {ZFORM_MAX_C_IN}, C_out in {ZFORM_C_OUTS}, an integer clamp in "
+            f"[0, {ZFORM_MAX_CLAMP}] and (N, H, W, 18) offsets; got padding "
+            f"{padding}, weight {tuple(weight.shape)}, x {tuple(x.shape)}, offsets "
+            f"{tuple(offsets.shape)}, clamp {clamp}"
+        )
+    if x.device.type == "cpu":
+        return deform_conv_shifts_zproj(x, offsets, weight, bias, padding, clamp)
+    if x.device.type != "cuda":
+        raise ValueError(f"deform_conv2d_zform: unsupported device {x.device}")
+    _kernels.check_tensor(x, "x", (n, h, w, c_in))
+    _kernels.check_tensor(offsets, "offsets", (n, h, w, 2 * _TAPS))
+    _kernels.check_image_shape(n, h, w, max(c_in, 2 * _TAPS, c_out))
+    w_packed = pack_deform64_weight(weight)
+    _kernels.check_tensor(w_packed, "packed weight", (_TAPS * c_in, c_out))
+    if bias is None:
+        bias = torch.zeros(c_out, device=x.device)
+    _kernels.check_tensor(bias, "bias", (c_out,))
+    out = torch.empty((n, h, w, c_out), device=x.device)
+    _kernels.launch_deform_zform(x, offsets, w_packed, bias, out, n, h, w, c_in,
+                                 c_out, clamp)
+    return out

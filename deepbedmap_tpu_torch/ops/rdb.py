@@ -1,14 +1,21 @@
-"""Residual dense blocks: the plain versions and the K1 and K4 kernel wrappers.
+"""Residual dense blocks: the plain versions and the K1, K4, K5 and K6 kernel
+wrappers.
 
 Counterpart of ``deepbedmap_tpu/ops/pallas_rdb.py``. ``rdb_reference`` is the
-port of its ``rdb_reference`` (the plain composition of five 3x3 SAME convs);
-``rdb_fused`` takes the hand-written CUDA kernel K1 (``csrc/rdb.cu``
-``rdb_forward``) for a CUDA tensor and the plain version for a CPU tensor.
-``rrdb_reference`` / ``rrdb_fused`` do the same for a whole residual-in-
-residual block (three dense blocks and the scaled outer skip), the function of
-the JAX ``rrdb_pallas_flat``, with K4 (``rrdb_forward``) on the card. There is
-no size rule and no fallback: any N, H, W >= 1 go through the kernels on the
-card.
+port of its ``rdb_reference`` (the plain composition of five 3x3 SAME convs).
+Two kernels compute it on the card: ``rdb_fused``, K1 (``csrc/rdb.cu``
+``rdb_forward``, the resident trunk's block: five conv launches on a dense
+(N, H, W, 192) workspace in device memory), and ``rdb_banded``, K6
+(``csrc/rdb_banded.cu``, the non-resident trunk's block: one launch, the
+intermediates of each 8 x 8 tile in shared memory). ``rrdb_reference`` is a
+whole residual-in-residual block (three dense blocks and the scaled outer
+skip), the function of the JAX ``rrdb_pallas_flat`` and
+``rrdb_sweep_pallas_flat``; ``rrdb_fused`` runs it as K4 (``rrdb_forward``,
+two workspaces in ping-pong) and ``rrdb_sweep`` as K5
+(``csrc/rrdb_sweep.cu``, one cooperative launch sweeping row bands, the
+block outputs in band rings). Each wrapper takes its kernel for a CUDA tensor
+and the plain version for a CPU tensor. There is no size rule and no
+fallback: any N, H, W >= 1 go through the kernels on the card.
 
 Layout: NHWC at every function; the JAX kernels' flat row-band layout is not
 carried over. Conv weights are OIHW, as everywhere in the port;
@@ -61,13 +68,22 @@ def pack_rdb_weights(
     return w, b
 
 
-def _check_block_input(x: torch.Tensor, name: str) -> tuple:
+def _kernel_args(x: torch.Tensor, kernels, biases, packed, name: str,
+                 blocks: int) -> tuple:
+    """What every dense-block kernel takes, checked: (N, H, W) and the packed
+    weights of ``blocks`` dense blocks (1, or 3 for a whole RRDB), from
+    ``packed`` when the caller cached them."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     n, h, w, _ = x.shape
     _kernels.check_tensor(x, "x", (n, h, w, FEATURES))
     _kernels.check_image_shape(n, h, w, WORKSPACE)
-    return n, h, w
+    if packed is None:
+        packed = (pack_rdb_weights if blocks == 1 else pack_rrdb_weights)(kernels, biases)
+    w_packed, b_packed = packed
+    _kernels.check_tensor(w_packed, "packed weights", (blocks * _BLOCK_WEIGHTS,))
+    _kernels.check_tensor(b_packed, "packed biases", (blocks * WORKSPACE,))
+    return n, h, w, w_packed, b_packed
 
 
 def rdb_fused(
@@ -82,12 +98,8 @@ def rdb_fused(
     result, cached by the caller so the repack happens once per load."""
     if x.device.type == "cpu":
         return rdb_reference(x, kernels, biases, scaling)
-    n, h, w = _check_block_input(x, "rdb_fused")
-    w_packed, b_packed = packed if packed is not None else pack_rdb_weights(
-        kernels, biases
-    )
-    _kernels.check_tensor(w_packed, "packed weights", (_BLOCK_WEIGHTS,))
-    _kernels.check_tensor(b_packed, "packed biases", (WORKSPACE,))
+    n, h, w, w_packed, b_packed = _kernel_args(x, kernels, biases, packed,
+                                               "rdb_fused", 1)
     ws = torch.empty((n, h, w, WORKSPACE), device=x.device)
     out = torch.empty_like(x)
     _kernels.launch_rdb_forward(x, ws, out, w_packed, b_packed, n, h, w, scaling)
@@ -130,15 +142,58 @@ def rrdb_fused(
     two (N, H, W, 192) workspaces and writes a new output tensor."""
     if x.device.type == "cpu":
         return rrdb_reference(x, kernels, biases, scaling)
-    n, h, w = _check_block_input(x, "rrdb_fused")
-    w_packed, b_packed = packed if packed is not None else pack_rrdb_weights(
-        kernels, biases
-    )
-    _kernels.check_tensor(w_packed, "packed weights", (3 * _BLOCK_WEIGHTS,))
-    _kernels.check_tensor(b_packed, "packed biases", (3 * WORKSPACE,))
+    n, h, w, w_packed, b_packed = _kernel_args(x, kernels, biases, packed,
+                                               "rrdb_fused", 3)
     ws_a = torch.empty((n, h, w, WORKSPACE), device=x.device)
     ws_b = torch.empty_like(ws_a)
     out = torch.empty_like(x)
     _kernels.launch_rrdb_forward(x, ws_a, ws_b, out, w_packed, b_packed, n, h, w,
                                  scaling)
+    return out
+
+
+def rdb_banded(
+    x: torch.Tensor,  # (N, H, W, 64) float32
+    kernels: Sequence[torch.Tensor],
+    biases: Sequence[torch.Tensor],
+    scaling: float,
+    packed: Tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """One dense block: K6 (``csrc/rdb_banded.cu``) on a CUDA tensor, the
+    plain ``rdb_reference`` on a CPU tensor. ``packed`` is
+    ``pack_rdb_weights``'s result (K1's layout). The kernel allocates
+    nothing: only the output is created here."""
+    if x.device.type == "cpu":
+        return rdb_reference(x, kernels, biases, scaling)
+    n, h, w, w_packed, b_packed = _kernel_args(x, kernels, biases, packed,
+                                               "rdb_banded", 1)
+    out = torch.empty_like(x)
+    _kernels.launch_rdb_banded_forward(x, out, w_packed, b_packed, n, h, w, scaling)
+    return out
+
+
+SWEEP_BAND = 8  # K5's band height (its tile side)
+SWEEP_SLOTS = 4  # band slots of each of K5's two rings
+
+
+def rrdb_sweep(
+    x: torch.Tensor,  # (N, H, W, 64) float32
+    kernels: Sequence[Sequence[torch.Tensor]],
+    biases: Sequence[Sequence[torch.Tensor]],
+    scaling: float,
+    packed: Tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """One whole RRDB: K5 (``csrc/rrdb_sweep.cu``) on a CUDA tensor, the
+    plain ``rrdb_reference`` on a CPU tensor. ``packed`` is
+    ``pack_rrdb_weights``'s result (K4's layout). Its only scratch is the two
+    band rings, (4, N, 8, W, 64) each: their size does not grow with H."""
+    if x.device.type == "cpu":
+        return rrdb_reference(x, kernels, biases, scaling)
+    n, h, w, w_packed, b_packed = _kernel_args(x, kernels, biases, packed,
+                                               "rrdb_sweep", 3)
+    ring1 = torch.empty((SWEEP_SLOTS, n, SWEEP_BAND, w, FEATURES), device=x.device)
+    ring2 = torch.empty_like(ring1)
+    out = torch.empty_like(x)
+    _kernels.launch_rrdb_sweep_forward(x, ring1, ring2, out, w_packed, b_packed, n,
+                                       h, w, scaling)
     return out

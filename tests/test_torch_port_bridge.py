@@ -107,10 +107,8 @@ def test_port_import_loads_no_jax():
     [
         dict(upsample_phase_conv=True),
         dict(tail_hcw=True),
-        dict(rrdb_sweep=True),
         dict(compute_dtype="bfloat16"),
         dict(fused_rdb="never"),
-        dict(rdb_resident="never"),
     ],
 )
 def test_unported_config_flags_raise(flags):
@@ -126,6 +124,9 @@ def test_unported_config_flags_raise(flags):
         dict(fused_conv="always"),
         dict(tail_fused=False),
         dict(rrdb_fused=True, fused_conv="always", tail_fused=False),
+        dict(rrdb_sweep=True),
+        dict(rdb_resident="never"),
+        dict(rdb_resident="never", rrdb_fused=True),
     ],
 )
 def test_ported_config_flags_build(flags):
@@ -136,6 +137,43 @@ def test_ported_config_flags_build(flags):
     got = Generator(GeneratorConfig(num_residual_blocks=1, **flags)).state_dict()
     assert list(got) == list(want)
     assert {k: v.shape for k, v in got.items()} == {k: v.shape for k, v in want.items()}
+
+
+@pytest.mark.parametrize(
+    "flags,calls",
+    [
+        ({}, {"rdb_fused": 6}),
+        (dict(rdb_resident="never"), {"rdb_banded": 6}),
+        # JAX's precedence: rrdb_fused acts only on a resident trunk
+        # (models/generator.py), so this is K6 per dense block, not K4
+        (dict(rdb_resident="never", rrdb_fused=True), {"rdb_banded": 6}),
+        (dict(rdb_resident="never", rrdb_sweep=True), {"rdb_banded": 6}),
+        (dict(rrdb_fused=True), {"rrdb_fused": 2}),
+        (dict(rrdb_sweep=True), {"rrdb_sweep": 2}),
+        # and the sweep wins over rrdb_fused (models/blocks.py)
+        (dict(rrdb_sweep=True, rrdb_fused=True), {"rrdb_sweep": 2}),
+    ],
+)
+def test_trunk_dispatch_follows_jax_precedence(monkeypatch, flags, calls):
+    # the trunk's kernel wrappers, counted as the CPU forward calls them
+    # (each still runs its plain version)
+    from deepbedmap_tpu_torch.models import blocks
+
+    seen = {}
+    for name in ("rdb_fused", "rdb_banded", "rrdb_fused", "rrdb_sweep"):
+        def spy(*args, _name=name, _fn=getattr(blocks, name)):
+            seen[_name] = seen.get(_name, 0) + 1
+            return _fn(*args)
+        monkeypatch.setattr(blocks, name, spy)
+    model = Generator(GeneratorConfig(num_residual_blocks=2, **flags))
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    lr = 6
+    xs = [torch.rand(1, lr, lr, 1), torch.rand(1, 10 * lr, 10 * lr, 1),
+          torch.rand(1, 2 * lr, 2 * lr, 2), torch.rand(1, lr, lr, 1)]
+    with torch.inference_mode():
+        out = model(*xs)
+    assert out.shape == (1, 4 * (lr - 2), 4 * (lr - 2), 1)
+    assert seen == calls
 
 
 def test_config_fields_match_jax():

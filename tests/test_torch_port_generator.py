@@ -1,5 +1,6 @@
-"""PyTorch port: the whole generator on the CPU (plain versions of K1-K3)
-with bridged weights against the JAX generator."""
+"""PyTorch port: the whole generator on the CPU (the plain versions of its
+kernels) with bridged weights against the JAX generator, in each ported
+configuration."""
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +29,14 @@ from deepbedmap_tpu_torch.models import Generator
         (dict(num_residual_blocks=2, rdb_resident="always", fused_rdb="always",
               rdb_mxu_bf16=False, rrdb_fused=True, fused_conv="always",
               tail_fused=False), 16),
+        # the non-resident trunk: JAX runs K6 (rdb_pallas) interpreted for
+        # each dense block; the port runs K6's plain version
+        (dict(num_residual_blocks=2, rdb_resident="never", fused_rdb="always",
+              rdb_mxu_bf16=False), 16),
+        # one single-sweep launch per RRDB: JAX runs K5
+        # (rrdb_sweep_pallas_flat) interpreted; the port K5's plain version
+        (dict(num_residual_blocks=2, rrdb_sweep=True, rdb_resident="always",
+              fused_rdb="always", rdb_mxu_bf16=False), 16),
         # the defaults: 12 RRDBs, the XLA trunk and tail on the CPU
         ({}, 11),
     ],
