@@ -10,7 +10,10 @@ Phases (any failure ends the run with a non-zero exit code):
 0. setup: print the card's name and power limit (nvidia-smi), turn TF32 off
    (the JAX reference computes in fp32);
 1. build the CUDA kernels from ``deepbedmap_tpu_torch/csrc`` with nvcc;
-2. K1 ``rdb_forward`` vs ``rdb_reference`` at (1,13,14,64) and (2,286,286,64);
+2. K1 ``rdb_forward`` vs ``rdb_reference`` at (1,13,14,64), (3,37,9,64) and
+   (2,286,286,64), and the precision check: K1 at (2,286,286,64) with scaling
+   1.0 against ``rdb_reference`` in float64 on the card, within 1e-5 of the
+   reference's range (a single TF32 pass misses it; see ``TOL_TF32X3``);
 3. K2 ``deform64_lrelu`` vs the plain masked-shift sampler + LeakyReLU at
    (1,20,130,64) and (2,1144,1144,64);
 4. K3 ``deform_zproj1`` vs its plain version at the same shapes;
@@ -20,8 +23,8 @@ Phases (any failure ends the run with a non-zero exit code):
    (2000^2 output, 1000-px tiles, 18-px halo, 288-px crops, 2 tiles per
    forward), with every kernel's launch count checked, the output held
    against the untiled ``predict_region``, and the warm per-tile time;
-7. K4 ``rrdb_forward`` vs ``rrdb_reference`` at (1,13,14,64) and
-   (2,286,286,64);
+7. K4 ``rrdb_forward`` vs ``rrdb_reference`` at (1,13,14,64), (3,37,9,64) and
+   (2,286,286,64), and phase 2's precision check for K4;
 8. K10 ``conv3x3_forward`` vs ``conv3x3_reference`` at a small odd shape and
    at the four shapes and epilogues of one main-path forward, with
    ``F.conv2d`` (cuDNN) timed beside it;
@@ -76,9 +79,21 @@ TOL_GENERATOR = 1e-4
 # tiled vs untiled region: the same, plus the generator's far field beyond
 # the 18-px halo, which the seeded weights (init scale 0.1) damp far below it
 TOL_SEAM = 1e-4
+# K1 and K4 run their convs on the tensor cores in 3xTF32, which is as accurate
+# as fp32 FMAs; one TF32 pass (10 mantissa bits) gives errors of ~1e-4 to 4e-4
+# of the output's range, at or above TOL_KERNEL, so TOL_KERNEL alone would not
+# catch a kernel that lost the lo terms. The precision check holds them, at
+# scaling 1.0 (0.1 would damp the conv's error tenfold under the residual),
+# against the plain version in float64: 3xTF32's error is a few 1e-7 of the
+# range, fp32 round-off of 1728-term sums, well below 1e-5, and a single pass's
+# is tens of times above it (tests/test_torch_port_rdb_tc.py shows both with
+# the numpy emulation of the kernel)
+TOL_TF32X3 = 1e-5
 
 DEVICE = "cuda"
 SMALL_RDB, MAIN_RDB = (1, 13, 14, 64), (2, 286, 286, 64)
+# H and W not multiples of K1's and K4's 16 x 16 tile, W narrower than it
+RAGGED_RDB = (3, 37, 9, 64)
 SWEEP_RDB = (2, 22, 14, 64)  # three bands of K5's 8 rows, the last one short
 SMALL_TAIL, MAIN_TAIL = (1, 20, 130, 64), (2, 1144, 1144, 64)
 SMALL_CONV = (1, 13, 21, 128, True, False)  # (N, H, W, C_in, leaky, residual)
@@ -93,11 +108,11 @@ MAIN_CONVS = [(2, 286, 286, 128, True, False), (2, 286, 286, 64, False, True),
 GEN_LR = 64  # phase 5 crop: latent 62, output 248^2
 TILE_OUT, HALO_LR, TILES_PER_DISPATCH = 1000, 18, 2  # phase 6, 288-px crops
 
-# the H100 SXM's published peaks (at its 700 W limit): fp32 outside the tensor
-# cores and HBM bandwidth. A kernel's bound is the larger of its operations
-# over the first and its bytes (inputs read once, outputs written once) over
-# the second.
+# the H100 SXM's published peaks (NVIDIA's data sheet, dense rates, at its
+# 700 W limit): fp32 outside the tensor cores, TF32 on the tensor cores, HBM
+# bandwidth. See bound().
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_TC = 495e12
 PEAK_HBM_BYTES = 3.35e12
 
 # the four ported generator configurations and the kernels one forward of
@@ -166,11 +181,32 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float) -> dict:
-    t_ops = 1e3 * flops / PEAK_FP32_FLOPS
+def bound(mm_flops: float, nbytes: float, fp32_flops: float = 0.0) -> dict:
+    """The least time the card could take: the larger of the operations time
+    and the bytes time (inputs read once, outputs written once, at the HBM
+    rate). Operations come in two kinds. ``mm_flops`` are matrix products:
+    the 3x3 convs' and the deformable convs' channel contractions (K1, K4,
+    K5, K6, K10, the 64 -> 64 sums of K2, K7 and K9, and K8's and K9's tap
+    projections); they run at fp32 accuracy fastest on the tensor cores as
+    3xTF32, three TF32 passes (3 / 495 < 1 / 67 TFLOP/s on the fp32 units).
+    ``fp32_flops`` are the rest, the bilinear sampling of K2, K3, K7, K8 and
+    K9 (8 per sample), which only the fp32 units do. The route of the winning
+    term is named in ``bound_route``; ``bound_fp32_ms`` is the bound with
+    every operation on the fp32 units, the earlier definition, for the log
+    lines only."""
+    t_mm = 1e3 * 3 * mm_flops / PEAK_TF32_TC  # 3xTF32: three TF32 products
+    t_ops = t_mm + 1e3 * fp32_flops / PEAK_FP32_FLOPS
     t_bytes = 1e3 * nbytes / PEAK_HBM_BYTES
+    if t_bytes > t_ops:
+        route = "HBM bytes"
+    elif mm_flops and fp32_flops:
+        route = "3xTF32 tensor cores + fp32 sampling"
+    else:
+        route = "3xTF32 tensor cores" if mm_flops else "fp32 units"
     return {"bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_route": route,
+            "bound_fp32_ms": max(1e3 * (mm_flops + fp32_flops) / PEAK_FP32_FLOPS, t_bytes)}
 
 
 def _numel(*tensors) -> int:
@@ -195,6 +231,22 @@ def _offsets(shape, gen):
     return off.to(DEVICE)
 
 
+def _double(ts):
+    return [_double(t) for t in ts] if isinstance(ts, (list, tuple)) else ts.double()
+
+
+def check_precision(label: str, fn, reference, x, kernels, biases, packed) -> float:
+    """Phases 2 and 7: the kernel at scaling 1.0 against its plain version
+    run in float64 on the card, within ``TOL_TF32X3`` of the range."""
+    import torch
+
+    got = fn(x, kernels, biases, 1.0, packed)
+    want = reference(x.double(), _double(kernels), _double(biases), 1.0)
+    torch.cuda.synchronize()
+    return compare(f"{label} {tuple(x.shape)}, scaling 1.0, vs float64 (precision check)",
+                   got, want, TOL_TF32X3)
+
+
 def check_rdb(shape, gen, timed: bool, kernel: str = "rdb_fused") -> dict:
     """K1 (``rdb_fused``) or K6 (``rdb_banded``): one dense block."""
     import torch
@@ -215,6 +267,9 @@ def check_rdb(shape, gen, timed: bool, kernel: str = "rdb_fused") -> dict:
     want = rdb_reference(x, kernels, biases, 0.1)
     torch.cuda.synchronize()
     res = {"max_abs_err": compare(f"{label} {shape}", got, want, TOL_KERNEL)}
+    del want
+    if timed and kernel == "rdb_fused":
+        check_precision(label, fn, rdb_reference, x, kernels, biases, packed)
     if timed:
         res["ms"] = time_ms(lambda: fn(x, kernels, biases, 0.1, packed), 10)
         res["plain_ms"] = time_ms(lambda: rdb_reference(x, kernels, biases, 0.1), 10)
@@ -256,8 +311,9 @@ def _deform64_bound(x, off, packed, bias) -> dict:
     """64 -> 64 deformable conv: the 576 -> 64 contraction and 9 x 64 bilinear
     samples per pixel; x and the offsets read, the output written."""
     pix = x.numel() // 64
-    return bound(pix * (2 * 576 * 64 + 9 * 64 * 8),
-                 4 * (2 * x.numel() + off.numel() + _numel(packed, bias)))
+    return bound(pix * 2 * 576 * 64,
+                 4 * (2 * x.numel() + off.numel() + _numel(packed, bias)),
+                 fp32_flops=pix * 9 * 64 * 8)
 
 
 def check_zproj1(shape, gen, timed: bool) -> dict:
@@ -277,7 +333,8 @@ def check_zproj1(shape, gen, timed: bool) -> dict:
     if timed:
         res["ms"] = time_ms(lambda: deform_zproj1(z, off, b2, 2), 20)
         res["plain_ms"] = time_ms(lambda: sample_tap_fields(z[..., None], off, b2, 1, 2), 3)
-        res.update(bound(n * h * w * 9 * 8, 4 * (z.numel() + off.numel() + n * h * w + 1)),
+        res.update(bound(0, 4 * (z.numel() + off.numel() + n * h * w + 1),
+                         fp32_flops=n * h * w * 9 * 8),
                    library_ms=None)
     return res
 
@@ -303,6 +360,9 @@ def check_rrdb(shape, gen, timed: bool, kernel: str = "rrdb_fused") -> dict:
     want = rrdb_reference(x, kernels, biases, 0.1)
     torch.cuda.synchronize()
     res = {"max_abs_err": compare(f"{label} {shape}", got, want, TOL_KERNEL)}
+    del want
+    if timed and kernel == "rrdb_fused":
+        check_precision(label, fn, rrdb_reference, x, kernels, biases, packed)
     if timed:
         res["ms"] = time_ms(lambda: fn(x, kernels, biases, 0.1, packed), 10)
         res["plain_ms"] = time_ms(lambda: rrdb_reference(x, kernels, biases, 0.1), 10)
@@ -351,9 +411,10 @@ def check_conv3x3(shapes, gen, timed: bool) -> dict:
         return _check_conv(shapes, gen, False)
     parts = [_check_conv(s, gen, True) for s in shapes]
     for s, p in zip(shapes, parts):
+        b = bound(p["flops"], p["bytes"])
         log(f"  K10 at {s}: kernel {p['ms']:.3f} ms, plain {p['plain_ms']:.3f} ms, "
-            f"F.conv2d {p['library_ms']:.3f} ms, bound "
-            f"{bound(p['flops'], p['bytes'])['bound_ms']:.3f} ms")
+            f"F.conv2d {p['library_ms']:.3f} ms, bound {b['bound_ms']:.3f} ms (fp32 "
+            f"{b['bound_fp32_ms']:.3f} ms)")
     res = {"max_abs_err": max(p["max_abs_err"] for p in parts)}
     for key in ("ms", "plain_ms", "library_ms"):
         res[key] = sum(p[key] for p in parts)
@@ -407,8 +468,9 @@ def check_deform_conv_zproj1(shape, gen, timed: bool) -> dict:
         # the whole layer: the 64 -> 9 projection and 9 bilinear samples per
         # pixel; x and the offsets read, the one-channel output written
         pix = n * h * w
-        res.update(bound(pix * (2 * 64 * 9 + 9 * 8),
-                         4 * (x.numel() + off.numel() + pix + _numel(wt, b))),
+        res.update(bound(pix * 2 * 64 * 9,
+                         4 * (x.numel() + off.numel() + pix + _numel(wt, b)),
+                         fp32_flops=pix * 9 * 8),
                    library_ms=None)
     return res
 
@@ -442,7 +504,8 @@ def _check_zform(shape, case, timed: bool) -> dict:
         # contraction and 9 x C_out bilinear samples per pixel; x and the
         # offsets read, the output written
         pix = n * h * w
-        res["flops"] = pix * (2 * 9 * cin * cout + 9 * cout * 8)
+        res["flops"] = pix * 2 * 9 * cin * cout
+        res["fp32_flops"] = pix * 9 * cout * 8
         res["bytes"] = 4 * (x.numel() + off.numel() + pix * cout + _numel(wt, b))
     return res
 
@@ -470,14 +533,15 @@ def check_zform(shapes, gen, timed: bool) -> dict:
                               for k in launches})
     parts = [_check_zform(s, c, True) for s, c in zip(shapes, cases)]
     for s, p in zip(shapes, parts):
-        b = bound(p["flops"], p["bytes"])
+        b = bound(p["flops"], p["bytes"], p["fp32_flops"])
         log(f"  K9 at {s}: kernel {p['ms']:.3f} ms, plain {p['plain_ms']:.3f} ms, "
-            f"bound {b['bound_ms']:.3f} ms ({b['bound_by']})")
+            f"bound {b['bound_ms']:.3f} ms ({b['bound_route']}; fp32 "
+            f"{b['bound_fp32_ms']:.3f} ms)")
     res = {"max_abs_err": max(p["max_abs_err"] for p in parts),
            "launches": launches["deform_zform"], "library_ms": None}
     for key in ("ms", "plain_ms"):
         res[key] = sum(p[key] for p in parts)
-    res.update(bound(sum(p["flops"] for p in parts), sum(p["bytes"] for p in parts)))
+    res.update(bound(*(sum(p[k] for p in parts) for k in ("flops", "bytes", "fp32_flops"))))
     return res
 
 
@@ -645,8 +709,8 @@ def main_path(card_name: str, config: str, params=None, want=None):
 # launches); K9's launches come from its own path in phase 15
 KERNELS = [
     ("rdb_forward", "deepbedmap_tpu_torch/csrc/rdb.cu",
-     "deepbedmap_tpu/ops/pallas_rdb.py:635", check_rdb, [SMALL_RDB], MAIN_RDB, 2,
-     "default"),
+     "deepbedmap_tpu/ops/pallas_rdb.py:635", check_rdb, [SMALL_RDB, RAGGED_RDB],
+     MAIN_RDB, 2, "default"),
     ("deform64_lrelu", "deepbedmap_tpu_torch/csrc/deform_tail.cu",
      "deepbedmap_tpu/ops/pallas_tail.py:196", check_deform64, [SMALL_TAIL], MAIN_TAIL, 3,
      "default"),
@@ -654,8 +718,8 @@ KERNELS = [
      "deepbedmap_tpu/ops/pallas_tail.py:275", check_zproj1, [SMALL_TAIL], MAIN_TAIL, 4,
      "default"),
     ("rrdb_forward", "deepbedmap_tpu_torch/csrc/rdb.cu",
-     "deepbedmap_tpu/ops/pallas_rdb.py:908", check_rrdb, [SMALL_RDB], MAIN_RDB, 7,
-     "kernel"),
+     "deepbedmap_tpu/ops/pallas_rdb.py:908", check_rrdb, [SMALL_RDB, RAGGED_RDB],
+     MAIN_RDB, 7, "kernel"),
     ("conv3x3_forward", "deepbedmap_tpu_torch/csrc/conv3x3.cu",
      "deepbedmap_tpu/ops/pallas_conv.py:166", check_conv3x3, [SMALL_CONV], MAIN_CONVS, 8,
      "kernel"),
@@ -690,7 +754,8 @@ def check_kernel(name, check, smalls, main_shape, phase: int, card_name: str) ->
     lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.3f} ms"
     log(f"  {name} at the main-path shape: kernel {r['ms']:.3f} ms, plain "
         f"{r['plain_ms']:.3f} ms{lib}, bound {r['bound_ms']:.3f} ms "
-        f"({r['bound_by']})  [{card_name}]")
+        f"({r['bound_route']}; fp32 bound {r['bound_fp32_ms']:.3f} ms) = "
+        f"{100 * r['bound_ms'] / r['ms']:.0f}% of the bound  [{card_name}]")
     return r
 
 
@@ -758,6 +823,7 @@ def main() -> int:
     rows = []
     for name, src, rep, *_, path in KERNELS:
         r = dict(results[name])
+        del r["bound_fp32_ms"]  # computed, not measured: the log lines carry it
         launches = r.pop("launches") if path is None else path_launches[path][name]
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                      "launches": launches, **r})

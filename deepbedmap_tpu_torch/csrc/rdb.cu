@@ -11,30 +11,33 @@
 // (_rrdb_flat_kernel): three chained dense blocks and the scaled outer skip,
 // out = x + s * rdb3(rdb2(rdb1(x))), in one host call.
 //
-// What bounds them on an H100: arithmetic. One block at the main-path shape
-// (2 x 286 x 286 x 64) is 78 GFLOP against ~0.1 GB of input and output, far
-// above the fp32 ridge point; the fp32 FMA rate of the SMs is the limit (no
-// tensor cores in this first version). A whole RRDB is three times that.
+// What bounds them on an H100: tensor-core operations. One block at the
+// main-path shape (2 x 286 x 286 x 64) is 78 GFLOP against ~0.1 GB of input
+// and output, far above the ridge point. Each conv stage runs on the tensor
+// cores in 3xTF32 (conv3x3_tc.cuh), which is as accurate as fp32 FMAs: three
+// TF32 passes of 78 GFLOP at 495 TFLOP/s bound one block at 0.475 ms. A whole
+// RRDB is three times that.
 //
 // Design: the TPU kernels keep every intermediate of a row band in VMEM.
 // Here they live in a dense NHWC workspace (N, H, W, 192) in device memory:
 // the block input sits in channels 0-63 and stage j writes its 32 outputs into
 // channels 64 + 32 (j - 1), so stage j's input is simply the first
-// 64 + 32 (j - 1) channels. Each stage is one launch of the shared direct conv
-// (conv3x3.cuh). K1 copies x into its workspace first (6 launches per block).
-// K4 runs its 15 stages on two workspaces in ping-pong: stage 5 of blocks 1
-// and 2 writes a + s * conv5 straight into channels 0-63 of the other
-// workspace, which is the next block's input, so only block 1 needs the copy;
-// it cannot write in place, because neighbouring tiles of the same launch
-// still read channels 0-63. Stage 5 of block 3 folds the outer skip into its
-// epilogue, out = x + s * (t2 + s * (conv5 + b)), rounded in the order of the
-// plain composition. So one RRDB is 16 device launches (1 copy + 15 convs)
-// instead of 3 x 6 + 2. Intermediates in shared memory and wgmma are later
+// 64 + 32 (j - 1) channels. Each stage is one launch of the implicit-GEMM
+// conv (conv3x3_tc.cuh); one block covers the stage's whole C_out, so stage 5
+// reads its 192-channel input once. K1 copies x into its workspace first (6
+// launches per block). K4 runs its 15 stages on two workspaces in ping-pong:
+// stage 5 of blocks 1 and 2 writes a + s * conv5 straight into channels 0-63
+// of the other workspace, which is the next block's input, so only block 1
+// needs the copy; it cannot write in place, because neighbouring tiles of the
+// same launch still read channels 0-63. Stage 5 of block 3 folds the outer
+// skip into its epilogue, out = x + s * (t2 + s * (conv5 + b)), rounded in the
+// order of the plain composition. So one RRDB is 16 device launches (1 copy +
+// 15 convs) instead of 3 x 6 + 2. Intermediates in shared memory are later
 // work.
 
 #include <cuda_runtime.h>
 
-#include "conv3x3.cuh"
+#include "conv3x3_tc.cuh"
 
 namespace {
 
@@ -72,8 +75,8 @@ cudaError_t dense_stages(float* ws, const float*& w, const float*& bias, int N,
   for (int j = 0; j < 4; ++j) {
     const int cin = kFeat + kGrowth * j;
     const Epilogue ep{ws + cin, kWsC, nullptr, 0, nullptr, 0.f};
-    cudaError_t err = launch_conv3x3<kLrelu>(ws, kWsC, cin, w, bias, kGrowth, ep,
-                                             N, H, W, s);
+    cudaError_t err =
+        launch_conv3x3_tc<kGrowth, kLrelu>(ws, kWsC, cin, w, bias, ep, N, H, W, s);
     if (err != cudaSuccess) return err;
     w += (size_t)cin * 9 * kGrowth;
     bias += kGrowth;
@@ -97,8 +100,8 @@ extern "C" int rdb_forward(const float* x, float* ws, float* out,
   err = dense_stages(ws, w, b, N, H, W, s);
   if (err != cudaSuccess) return (int)err;
   const Epilogue ep{out, kFeat, x, kFeat, nullptr, scaling};
-  return (int)launch_conv3x3<kScaledSkip>(ws, kWsC, kWsC, w, b, kFeat, ep, N, H,
-                                          W, s);
+  return (int)launch_conv3x3_tc<kFeat, kScaledSkip>(ws, kWsC, kWsC, w, b, ep, N, H, W,
+                                                    s);
 }
 
 // x, out: (N, H, W, 64), out must not alias x; ws_a, ws_b: (N, H, W, 192)
@@ -121,14 +124,14 @@ extern "C" int rrdb_forward(const float* x, float* ws_a, float* ws_b, float* out
     if (p < 2) {
       // a_{p+1} = a_p + s * (conv5 + b5) -> channels 0-63 of the other workspace
       const Epilogue ep{nxt, kWsC, cur, kWsC, nullptr, scaling};
-      err = launch_conv3x3<kScaledSkip>(cur, kWsC, kWsC, w, b, kFeat, ep, N, H, W, s);
+      err = launch_conv3x3_tc<kFeat, kScaledSkip>(cur, kWsC, kWsC, w, b, ep, N, H, W, s);
       float* t = cur;
       cur = nxt;
       nxt = t;
     } else {
       // out = x + s * (a_2 + s * (conv5 + b5))
       const Epilogue ep{out, kFeat, cur, kWsC, x, scaling};
-      err = launch_conv3x3<kDoubleSkip>(cur, kWsC, kWsC, w, b, kFeat, ep, N, H, W, s);
+      err = launch_conv3x3_tc<kFeat, kDoubleSkip>(cur, kWsC, kWsC, w, b, ep, N, H, W, s);
     }
     if (err != cudaSuccess) return (int)err;
   }

@@ -8,8 +8,8 @@ version for a CPU tensor; it computes the same function as the JAX
 ``conv3x3_pallas``. There is no size rule and no fallback.
 
 Layout: NHWC activations, OIHW weights. ``pack_conv_weight`` is the packed
-layout of the port's one direct conv (``csrc/conv3x3.cuh``), which the dense
-blocks (``ops.rdb``) use too.
+layout of the direct conv (``csrc/conv3x3.cuh``), which the dense-block
+kernels (``ops.rdb``) read too.
 """
 
 from __future__ import annotations

@@ -5,7 +5,8 @@ Counterpart of ``deepbedmap_tpu/ops/pallas_rdb.py``. ``rdb_reference`` is the
 port of its ``rdb_reference`` (the plain composition of five 3x3 SAME convs).
 Two kernels compute it on the card: ``rdb_fused``, K1 (``csrc/rdb.cu``
 ``rdb_forward``, the resident trunk's block: five conv launches on a dense
-(N, H, W, 192) workspace in device memory), and ``rdb_banded``, K6
+(N, H, W, 192) workspace in device memory, each a 3xTF32 implicit GEMM on
+the tensor cores, ``csrc/conv3x3_tc.cuh``), and ``rdb_banded``, K6
 (``csrc/rdb_banded.cu``, the non-resident trunk's block: one launch, the
 intermediates of each 8 x 8 tile in shared memory). ``rrdb_reference`` is a
 whole residual-in-residual block (three dense blocks and the scaled outer

@@ -9,7 +9,14 @@ index arithmetic against the plain PyTorch versions.
 - ``emulate_k5``: ``csrc/rrdb_sweep.cu`` (the wavefront sweep with its two
   4-slot band rings, two bands of lag between dense blocks);
 - ``emulate_k9``: ``csrc/deform_zform.cu`` (per-tap projection of an 8 x 16
-  tile's window, then four-corner sampling).
+  tile's window, then four-corner sampling);
+- ``emulate_tc_stage``, ``emulate_k1_tc``, ``emulate_k4_tc``:
+  ``csrc/conv3x3_tc.cuh`` and the stage sequence of ``csrc/rdb.cu`` (the
+  3xTF32 implicit-GEMM conv: halo and weight staging with zero fill and the
+  workspace's channel pitch, the hi/lo splits into the kernel's shared-memory
+  layouts, the wgmma fragments read back from them, the partial sum per
+  kernel row). Products are exact and sums float64, so these show the
+  split's precision, not the tensor cores' own rounding.
 """
 
 import numpy as np
@@ -165,3 +172,168 @@ def emulate_k9(x, off, w_packed, bias, clamp, th=8, tw=16, reach=2):
                             + fy * (1 - fx) * z[zr + 1, zc] + fy * fx * z[zr + 1, zc + 1])
                 out[i, ys, xs] = acc + bias
     return out
+
+
+# --- csrc/conv3x3_tc.cuh ----------------------------------------------------
+
+TC_TILE_W, TC_TILE_ROWS, TC_CK = 16, 16, 8
+TC_HALO_W, TC_HALO_H = TC_TILE_W + 2, TC_TILE_ROWS + 2
+WS = F + 4 * G  # the dense workspace's channel pitch
+LRELU, SCALED_SKIP, DOUBLE_SKIP = range(3)
+
+
+def tf32_rna(a):
+    """``cvt.rna.tf32.f32``: float32 -> float32 with 10 mantissa bits, rounded
+    to nearest, ties away from zero (adding half an ulp to the magnitude bits
+    carries into the exponent where it must)."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def split_tf32(a):
+    """x = hi + lo, both TF32; the kernel's ``split_pair``."""
+    a = np.asarray(a, np.float32)
+    hi = tf32_rna(a)
+    return hi, tf32_rna(a - hi)
+
+
+def _split4(a, b):
+    """``split_pair``: {hi(a), hi(b), lo(a), lo(b)} along the last axis."""
+    (ha, la), (hb, lb) = split_tf32(a), split_tf32(b)
+    return np.stack([ha, hb, la, lb], -1)
+
+
+_G, _T = np.arange(32) >> 2, np.arange(32) & 3  # lane -> (group, thread in group)
+
+
+def emulate_tc_stage(ws_in, in_pitch, cin, w, bias, n, h, wd, cout, mode, out, out_pitch,
+                     res=None, res_pitch=0, skip=None, scaling=0.0, passes=3):
+    """One launch of ``conv3x3_tc_stage``: flat float32 arrays with the
+    kernel's pitches (``ws_in``: pixel p channel c at ``p * in_pitch + c``);
+    ``w``, ``bias``: the stage's packed weights [C_out/32][C_in][9][32] and
+    biases. Writes ``out`` in place. ``passes`` 3 is the kernel (lo.hi, hi.lo,
+    hi.hi); 1 keeps hi.hi only, a single TF32 pass."""
+    slice_ = TC_CK * 9 * 32
+    hpix = TC_HALO_W * TC_HALO_H
+    p = np.arange(hpix)
+    for img in range(n):
+        for y0 in range(0, h, TC_TILE_ROWS):
+            for x0 in range(0, wd, TC_TILE_W):
+                gy, gx = y0 + p // TC_HALO_W - 1, x0 + p % TC_HALO_W - 1
+                inside = (gy >= 0) & (gy < h) & (gx >= 0) & (gx < wd)
+                src = ((img * h + np.where(inside, gy, 0)) * wd + np.where(inside, gx, 0))
+                acc = np.zeros((TC_TILE_ROWS, 16, cout))
+                for c0 in range(0, cin, TC_CK):
+                    # cp.async: zero fill outside the image, the workspace's pitch
+                    cols = src[:, None] * in_pitch + c0 + np.arange(TC_CK)
+                    raw_halo = np.where(inside[:, None], ws_in[cols], 0).astype(np.float32)
+                    i = np.arange((cout // 32) * slice_ // 4)
+                    ct, r = i // (slice_ // 4), i % (slice_ // 4)
+                    raw_w = np.empty((cout // 32) * slice_, np.float32)
+                    for k in range(4):
+                        raw_w[ct * slice_ + 4 * r + k] = w[(ct * cin + c0) * 288 + 4 * r + k]
+                    # the splits, in the kernel's shared-memory layouts
+                    pairs = raw_halo.reshape(-1, 2)
+                    s_halo = _split4(pairs[:, 0], pairs[:, 1])  # [pixel * 4 + t][4]
+                    i = np.arange(9 * cout * 2)
+                    tap, co, kc = i // (2 * cout), (i >> 1) % cout, i & 1
+                    rw = (co >> 5) * slice_ + kc * 9 * 32 + tap * 32 + (co & 31)
+                    a4 = _split4(raw_w[rw], raw_w[rw + 2 * 288])
+                    b4 = _split4(raw_w[rw + 4 * 288], raw_w[rw + 6 * 288])
+                    s_w = np.empty(9 * 2 * cout * TC_CK, np.float32)
+                    d = tap * 2 * cout * TC_CK + (co >> 3) * 64 + kc * 32 + (co & 7) * 4
+                    for k, (src4, comp) in enumerate([(a4, 0), (a4, 1), (b4, 0), (b4, 1)]):
+                        s_w[d + k] = src4[:, comp]
+                        s_w[d + cout * TC_CK + k] = src4[:, 2 + comp]
+                    for ky in range(3):
+                        part = np.zeros_like(acc)
+                        for kx in range(3):
+                            # B per the descriptor: core matrices [n/8][k/4][n%8][k%4]
+                            blk = s_w[(3 * ky + kx) * 2 * cout * TC_CK:][:2 * cout * TC_CK]
+                            bh, bl = (blk[o:o + cout * TC_CK].reshape(cout // 8, 2, 8, 4)
+                                      .transpose(1, 3, 0, 2).reshape(8, cout)
+                                      for o in (0, cout * TC_CK))
+                            # A fragments: warp = tile row, lane (g, t); slot t is
+                            # channel 2t, slot t + 4 channel 2t + 1
+                            row = np.arange(TC_TILE_ROWS)[:, None]
+                            base = ((row + ky) * TC_HALO_W + _G + kx) * 4 + _T
+                            v0, v8 = s_halo[base], s_halo[base + 8 * 4]
+                            ah = np.empty((TC_TILE_ROWS, 16, 8))
+                            al = np.empty_like(ah)
+                            for a, (x, y) in ((ah, (0, 1)), (al, (2, 3))):
+                                a[:, _G, _T], a[:, _G + 8, _T] = v0[..., x], v8[..., x]
+                                a[:, _G, _T + 4] = v0[..., y]
+                                a[:, _G + 8, _T + 4] = v8[..., y]
+                            bh64, bl64 = bh.astype(np.float64), bl.astype(np.float64)
+                            part += ah @ bh64
+                            if passes == 3:
+                                part += al @ bh64 + ah @ bl64
+                        acc += part
+                # epilogue, in float32, in the plain composition's order
+                rows = y0 + np.arange(TC_TILE_ROWS)[:, None]
+                cols = x0 + np.arange(16)[None, :]
+                keep = (rows < h) & (cols < wd)
+                pix = ((img * h + rows) * wd + cols)[keep]
+                v = acc[keep].astype(np.float32) + bias[:cout].astype(np.float32)
+                ch = np.arange(cout)
+                if mode == LRELU:
+                    o = np.where(v >= 0, v, np.float32(0.2) * v)
+                else:
+                    rv = res[pix[:, None] * res_pitch + ch]
+                    o = rv + np.float32(scaling) * v
+                    if mode == DOUBLE_SKIP:
+                        o = skip[pix[:, None] * F + ch] + np.float32(scaling) * o
+                out[pix[:, None] * out_pitch + ch] = o
+
+
+def _dense_stages(ws, w, b, n, h, wd, passes):
+    """rdb.cu ``dense_stages``: stages 1-4 on the flat workspace; returns the
+    offsets of stage 5's weights and biases."""
+    off = 0
+    for j in range(4):
+        cin = F + G * j
+        view = ws[cin:]  # out = ws + cin, pitch 192
+        emulate_tc_stage(ws, WS, cin, w[off:], b[G * j:], n, h, wd, G, LRELU, view, WS,
+                         passes=passes)
+        off += cin * 9 * G
+    return off, 4 * G
+
+
+def emulate_k1_tc(x, w_packed, b_packed, scaling, passes=3):
+    """csrc/rdb.cu ``rdb_forward``: x into the workspace, four stages, stage 5
+    with out = x + s * (conv + b)."""
+    n, h, wd, _ = x.shape
+    x = np.ascontiguousarray(x, np.float32)
+    ws = np.zeros(n * h * wd * WS, np.float32)
+    ws.reshape(-1, WS)[:, :F] = x.reshape(-1, F)
+    w, b = np.asarray(w_packed, np.float32), np.asarray(b_packed, np.float32)
+    wo, bo = _dense_stages(ws, w, b, n, h, wd, passes)
+    out = np.empty(x.size, np.float32)
+    emulate_tc_stage(ws, WS, WS, w[wo:], b[bo:], n, h, wd, F, SCALED_SKIP, out, F,
+                     res=x.reshape(-1), res_pitch=F, scaling=scaling, passes=passes)
+    return out.reshape(x.shape)
+
+
+def emulate_k4_tc(x, w_packed, b_packed, scaling, passes=3):
+    """csrc/rdb.cu ``rrdb_forward``: two workspaces in ping-pong, stage 5 of
+    blocks 1 and 2 writing the next block's input into the other workspace,
+    the outer skip folded into block 3's last epilogue."""
+    n, h, wd, _ = x.shape
+    x = np.ascontiguousarray(x, np.float32)
+    cur, nxt = (np.zeros(n * h * wd * WS, np.float32) for _ in range(2))
+    cur.reshape(-1, WS)[:, :F] = x.reshape(-1, F)
+    block = sum(9 * (F + G * j) * (G if j < 4 else F) for j in range(5))
+    out = np.empty(x.size, np.float32)
+    for p in range(3):
+        w = np.asarray(w_packed[p * block:(p + 1) * block], np.float32)
+        b = np.asarray(b_packed[p * WS:(p + 1) * WS], np.float32)
+        wo, bo = _dense_stages(cur, w, b, n, h, wd, passes)
+        if p < 2:
+            emulate_tc_stage(cur, WS, WS, w[wo:], b[bo:], n, h, wd, F, SCALED_SKIP, nxt, WS,
+                             res=cur, res_pitch=WS, scaling=scaling, passes=passes)
+            cur, nxt = nxt, cur
+        else:
+            emulate_tc_stage(cur, WS, WS, w[wo:], b[bo:], n, h, wd, F, DOUBLE_SKIP, out, F,
+                             res=cur, res_pitch=WS, skip=x.reshape(-1), scaling=scaling,
+                             passes=passes)
+    return out.reshape(x.shape)
