@@ -15,7 +15,10 @@ Phases (any failure ends the run with a non-zero exit code):
    1.0 against ``rdb_reference`` in float64 on the card, within 1e-5 of the
    reference's range (a single TF32 pass misses it; see ``TOL_TF32X3``);
 3. K2 ``deform64_lrelu`` vs the plain masked-shift sampler + LeakyReLU at
-   (1,20,130,64) and (2,1144,1144,64);
+   (1,20,130,64), a ragged (2,37,45,64), (1,5,7,64) (smaller than a tile),
+   (1,20,130,64) at clamp 1 and (2,1144,1144,64), and the precision check:
+   K2 at (2,1144,1144,64) against the plain version in float64 on the card,
+   within 1e-5 of the range (``TOL_TF32X3``: K2 runs on the tensor cores);
 4. K3 ``deform_zproj1`` vs its plain version at the same shapes;
 5. the whole 12-RRDB generator at full width on a 64-px crop: the card
    (kernels) against the same port on the CPU (plain versions);
@@ -28,10 +31,10 @@ Phases (any failure ends the run with a non-zero exit code):
 8. K10 ``conv3x3_forward`` vs ``conv3x3_reference`` at a small odd shape and
    at the four shapes and epilogues of one main-path forward, with
    ``F.conv2d`` (cuDNN) timed beside it;
-9. K7 ``deform_conv`` vs the plain ``deform_conv_shifts`` at (1,20,130,64)
-   and (2,1144,1144,64);
+9. K7 ``deform_conv`` vs the plain ``deform_conv_shifts`` at phase 3's
+   shapes, and phase 3's precision check for K7;
 10. K8 ``deform_conv_zproj1`` (tap projection + K3's kernel) vs the plain
-    ``deform_conv_shifts_zproj`` at the same shapes;
+    ``deform_conv_shifts_zproj`` at phase 3's shapes;
 11. phase 5 for the opt-in kernel configuration ``GeneratorConfig(
     rrdb_fused=True, fused_conv="always", tail_fused=False)``;
 12. the second main path: phase 6 in that configuration, with phase 6's
@@ -79,15 +82,17 @@ TOL_GENERATOR = 1e-4
 # tiled vs untiled region: the same, plus the generator's far field beyond
 # the 18-px halo, which the seeded weights (init scale 0.1) damp far below it
 TOL_SEAM = 1e-4
-# K1 and K4 run their convs on the tensor cores in 3xTF32, which is as accurate
-# as fp32 FMAs; one TF32 pass (10 mantissa bits) gives errors of ~1e-4 to 4e-4
-# of the output's range, at or above TOL_KERNEL, so TOL_KERNEL alone would not
-# catch a kernel that lost the lo terms. The precision check holds them, at
-# scaling 1.0 (0.1 would damp the conv's error tenfold under the residual),
-# against the plain version in float64: 3xTF32's error is a few 1e-7 of the
+# K1, K4, K2 and K7 run their contractions on the tensor cores in 3xTF32,
+# which is as accurate as fp32 FMAs; one TF32 pass (10 mantissa bits) gives
+# errors of ~1e-4 to 4e-4 of the output's range, at or above TOL_KERNEL, so
+# TOL_KERNEL alone would not catch a kernel that lost the lo terms. The
+# precision check holds them (K1 and K4 at scaling 1.0: 0.1 would damp the
+# conv's error tenfold under the residual) against the plain version in
+# float64: 3xTF32's error is a few 1e-7 of the
 # range, fp32 round-off of 1728-term sums, well below 1e-5, and a single pass's
-# is tens of times above it (tests/test_torch_port_rdb_tc.py shows both with
-# the numpy emulation of the kernel)
+# is tens of times above it (tests/test_torch_port_rdb_tc.py and
+# tests/test_torch_port_tail_tc.py show both with the numpy emulations of the
+# kernels)
 TOL_TF32X3 = 1e-5
 
 DEVICE = "cuda"
@@ -95,7 +100,11 @@ SMALL_RDB, MAIN_RDB = (1, 13, 14, 64), (2, 286, 286, 64)
 # H and W not multiples of K1's and K4's 16 x 16 tile, W narrower than it
 RAGGED_RDB = (3, 37, 9, 64)
 SWEEP_RDB = (2, 22, 14, 64)  # three bands of K5's 8 rows, the last one short
-SMALL_TAIL, MAIN_TAIL = (1, 20, 130, 64), (2, 1144, 1144, 64)
+MAIN_TAIL = (2, 1144, 1144, 64)
+# the tail kernels' small cases, (N, H, W, C[, clamp]) with clamp 2 unless
+# given: one shape, a ragged one (H and W multiples of neither K2's 16 x 16
+# nor K3's 8 x 32 tile, batch > 1), one smaller than both tiles, and clamp 1
+SMALL_TAILS = [(1, 20, 130, 64), (2, 37, 45, 64), (1, 5, 7, 64), (1, 20, 130, 64, 1)]
 SMALL_CONV = (1, 13, 21, 128, True, False)  # (N, H, W, C_in, leaky, residual)
 # K9 (N, H, W, C_in, C_out): the JAX test's shape, a 64-channel one, and the
 # tail's two layers at the main-path shape
@@ -279,40 +288,66 @@ def check_rdb(shape, gen, timed: bool, kernel: str = "rdb_fused") -> dict:
     return res
 
 
+def _tail_case(shape):
+    """(N, H, W, C) and the clamp of a tail kernel's case."""
+    n, h, w, c, *rest = shape
+    return (n, h, w, c), (rest[0] if rest else 2)
+
+
+def check_deform_precision(label: str, got, x, off, wt, b, clamp, lrelu: bool) -> float:
+    """Phases 3 and 9: the tensor-core deformable conv against its plain
+    version run in float64 on the card, within ``TOL_TF32X3`` of the range."""
+    import torch
+
+    from deepbedmap_tpu_torch.ops.deform_conv import deform_conv_shifts
+
+    want = deform_conv_shifts(*_double((x, off, wt, b)), 1, clamp)
+    if lrelu:
+        want = torch.where(want >= 0, want, 0.2 * want)
+    torch.cuda.synchronize()
+    return compare(f"{label} {tuple(x.shape)} vs float64 (precision check)", got, want,
+                   TOL_TF32X3)
+
+
 def check_deform64(shape, gen, timed: bool) -> dict:
     import torch
 
-    from deepbedmap_tpu_torch.ops.deform_conv import deform_conv_shifts, pack_deform64_weight
+    from deepbedmap_tpu_torch.ops.deform_conv import (
+        deform_conv_shifts,
+        pack_deform64_weight_tc,
+    )
     from deepbedmap_tpu_torch.ops.tail import deform64_lrelu
 
-    n, h, w, c = shape
-    x = _randn(shape, gen)
+    (n, h, w, c), clamp = _tail_case(shape)
+    x = _randn((n, h, w, c), gen)
     off = _offsets((n, h, w, 18), gen)
     w1, b1 = _randn((c, c, 3, 3), gen, 0.05), _randn((c,), gen, 0.1)
-    packed = pack_deform64_weight(w1)
+    packed = pack_deform64_weight_tc(w1)
 
     def plain():
-        y = deform_conv_shifts(x, off, w1, b1, 1, 2)
+        y = deform_conv_shifts(x, off, w1, b1, 1, clamp)
         return torch.where(y >= 0, y, 0.2 * y)
 
-    got = deform64_lrelu(x, off, w1, b1, 2, packed)
+    got = deform64_lrelu(x, off, w1, b1, clamp, packed)
     want = plain()
     torch.cuda.synchronize()
     res = {"max_abs_err": compare(f"K2 deform64_lrelu {shape}", got, want, TOL_KERNEL)}
     del want
     if timed:
-        res["ms"] = time_ms(lambda: deform64_lrelu(x, off, w1, b1, 2, packed), 5)
+        check_deform_precision("K2 deform64_lrelu", got, x, off, w1, b1, clamp, True)
+        res["ms"] = time_ms(lambda: deform64_lrelu(x, off, w1, b1, clamp, packed), 5)
         res["plain_ms"] = time_ms(plain, 2)
-        res.update(_deform64_bound(x, off, packed, b1), library_ms=None)
+        res.update(_deform64_bound(x, off, w1, b1), library_ms=None)
     return res
 
 
-def _deform64_bound(x, off, packed, bias) -> dict:
+def _deform64_bound(x, off, weight, bias) -> dict:
     """64 -> 64 deformable conv: the 576 -> 64 contraction and 9 x 64 bilinear
-    samples per pixel; x and the offsets read, the output written."""
+    samples per pixel; x, the offsets and the weights read (once, unsplit),
+    the output written."""
     pix = x.numel() // 64
     return bound(pix * 2 * 576 * 64,
-                 4 * (2 * x.numel() + off.numel() + _numel(packed, bias)),
+                 4 * (2 * x.numel() + off.numel() + _numel(weight, bias)),
                  fp32_flops=pix * 9 * 64 * 8)
 
 
@@ -322,17 +357,19 @@ def check_zproj1(shape, gen, timed: bool) -> dict:
     from deepbedmap_tpu_torch.ops.deform_conv import sample_tap_fields
     from deepbedmap_tpu_torch.ops.tail import deform_zproj1
 
-    n, h, w, _ = shape
+    (n, h, w, _), clamp = _tail_case(shape)
     z = _randn((n, h, w, 9), gen)
     off = _offsets((n, h, w, 18), gen)
     b2 = _randn((1,), gen, 0.1)
-    got = deform_zproj1(z, off, b2, 2)
-    want = sample_tap_fields(z[..., None], off, b2, 1, 2)
+    got = deform_zproj1(z, off, b2, clamp)
+    want = sample_tap_fields(z[..., None], off, b2, 1, clamp)
     torch.cuda.synchronize()
-    res = {"max_abs_err": compare(f"K3 deform_zproj1 {(n, h, w, 9)}", got, want, TOL_KERNEL)}
+    res = {"max_abs_err": compare(f"K3 deform_zproj1 {(n, h, w, 9)}, clamp {clamp}", got,
+                                  want, TOL_KERNEL)}
     if timed:
-        res["ms"] = time_ms(lambda: deform_zproj1(z, off, b2, 2), 20)
-        res["plain_ms"] = time_ms(lambda: sample_tap_fields(z[..., None], off, b2, 1, 2), 3)
+        res["ms"] = time_ms(lambda: deform_zproj1(z, off, b2, clamp), 20)
+        res["plain_ms"] = time_ms(lambda: sample_tap_fields(z[..., None], off, b2, 1, clamp),
+                                  3)
         res.update(bound(0, 4 * (z.numel() + off.numel() + n * h * w + 1),
                          fp32_flops=n * h * w * 9 * 8),
                    library_ms=None)
@@ -428,23 +465,24 @@ def check_deform_conv(shape, gen, timed: bool) -> dict:
     from deepbedmap_tpu_torch.ops.deform_conv import (
         deform_conv2d,
         deform_conv_shifts,
-        pack_deform64_weight,
+        pack_deform64_weight_tc,
     )
 
-    n, h, w, c = shape
-    x = _randn(shape, gen)
+    (n, h, w, c), clamp = _tail_case(shape)
+    x = _randn((n, h, w, c), gen)
     off = _offsets((n, h, w, 18), gen)
     wt, b = _randn((c, c, 3, 3), gen, 0.05), _randn((c,), gen, 0.1)
-    packed = pack_deform64_weight(wt)
-    got = deform_conv2d(x, off, wt, b, 1, 2, packed)
-    want = deform_conv_shifts(x, off, wt, b, 1, 2)
+    packed = pack_deform64_weight_tc(wt)
+    got = deform_conv2d(x, off, wt, b, 1, clamp, packed)
+    want = deform_conv_shifts(x, off, wt, b, 1, clamp)
     torch.cuda.synchronize()
     res = {"max_abs_err": compare(f"K7 deform_conv {shape}", got, want, TOL_KERNEL)}
     del want
     if timed:
+        check_deform_precision("K7 deform_conv", got, x, off, wt, b, clamp, False)
         res["ms"] = time_ms(lambda: deform_conv2d(x, off, wt, b, 1, 2, packed), 5)
         res["plain_ms"] = time_ms(lambda: deform_conv_shifts(x, off, wt, b, 1, 2), 2)
-        res.update(_deform64_bound(x, off, packed, b), library_ms=None)
+        res.update(_deform64_bound(x, off, wt, b), library_ms=None)
     return res
 
 
@@ -453,12 +491,12 @@ def check_deform_conv_zproj1(shape, gen, timed: bool) -> dict:
 
     from deepbedmap_tpu_torch.ops.deform_conv import deform_conv2d, deform_conv_shifts_zproj
 
-    n, h, w, c = shape
-    x = _randn(shape, gen)
+    (n, h, w, c), clamp = _tail_case(shape)
+    x = _randn((n, h, w, c), gen)
     off = _offsets((n, h, w, 18), gen)
     wt, b = _randn((1, c, 3, 3), gen, 0.05), _randn((1,), gen, 0.1)
-    got = deform_conv2d(x, off, wt, b, 1, 2)
-    want = deform_conv_shifts_zproj(x, off, wt, b, 1, 2)
+    got = deform_conv2d(x, off, wt, b, 1, clamp)
+    want = deform_conv_shifts_zproj(x, off, wt, b, 1, clamp)
     torch.cuda.synchronize()
     res = {"max_abs_err": compare(f"K8 deform_conv_zproj1 {shape} -> 1", got, want,
                                   TOL_KERNEL)}
@@ -712,10 +750,10 @@ KERNELS = [
      "deepbedmap_tpu/ops/pallas_rdb.py:635", check_rdb, [SMALL_RDB, RAGGED_RDB],
      MAIN_RDB, 2, "default"),
     ("deform64_lrelu", "deepbedmap_tpu_torch/csrc/deform_tail.cu",
-     "deepbedmap_tpu/ops/pallas_tail.py:196", check_deform64, [SMALL_TAIL], MAIN_TAIL, 3,
+     "deepbedmap_tpu/ops/pallas_tail.py:196", check_deform64, SMALL_TAILS, MAIN_TAIL, 3,
      "default"),
     ("deform_zproj1", "deepbedmap_tpu_torch/csrc/deform_tail.cu",
-     "deepbedmap_tpu/ops/pallas_tail.py:275", check_zproj1, [SMALL_TAIL], MAIN_TAIL, 4,
+     "deepbedmap_tpu/ops/pallas_tail.py:275", check_zproj1, SMALL_TAILS, MAIN_TAIL, 4,
      "default"),
     ("rrdb_forward", "deepbedmap_tpu_torch/csrc/rdb.cu",
      "deepbedmap_tpu/ops/pallas_rdb.py:908", check_rrdb, [SMALL_RDB, RAGGED_RDB],
@@ -724,10 +762,10 @@ KERNELS = [
      "deepbedmap_tpu/ops/pallas_conv.py:166", check_conv3x3, [SMALL_CONV], MAIN_CONVS, 8,
      "kernel"),
     ("deform_conv", "deepbedmap_tpu_torch/csrc/deform_tail.cu",
-     "deepbedmap_tpu/ops/pallas_kernels.py:330", check_deform_conv, [SMALL_TAIL],
+     "deepbedmap_tpu/ops/pallas_kernels.py:330", check_deform_conv, SMALL_TAILS,
      MAIN_TAIL, 9, "kernel"),
     ("deform_conv_zproj1", "deepbedmap_tpu_torch/csrc/deform_tail.cu",
-     "deepbedmap_tpu/ops/pallas_kernels.py:882", check_deform_conv_zproj1, [SMALL_TAIL],
+     "deepbedmap_tpu/ops/pallas_kernels.py:882", check_deform_conv_zproj1, SMALL_TAILS,
      MAIN_TAIL, 10, "kernel"),
     ("rdb_banded_forward", "deepbedmap_tpu_torch/csrc/rdb_banded.cu",
      "deepbedmap_tpu/ops/pallas_rdb.py:391",

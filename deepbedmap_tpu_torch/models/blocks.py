@@ -27,7 +27,7 @@ from torch import nn
 
 from deepbedmap_tpu_torch.ops.conv import conv_nhwc, leaky_relu
 from deepbedmap_tpu_torch.ops.conv3x3 import conv3x3_fused, pack_conv_weight
-from deepbedmap_tpu_torch.ops.deform_conv import deform_conv2d, pack_deform64_weight
+from deepbedmap_tpu_torch.ops.deform_conv import deform_conv2d, pack_deform64_weight_tc
 from deepbedmap_tpu_torch.ops.rdb import (
     pack_rdb_weights,
     pack_rrdb_weights,
@@ -228,7 +228,7 @@ class DeformableConv(nn.Module):
         self.weight = nn.Parameter(torch.empty(features, in_channels, 3, 3))
         self.bias = nn.Parameter(torch.zeros(features))
         self.clamp = clamp
-        self._packed = _Cached(pack_deform64_weight)
+        self._packed = _Cached(pack_deform64_weight_tc)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         offsets = conv_nhwc(x, self.offset_conv.weight, self.offset_conv.bias)

@@ -15,10 +15,14 @@ row-major over the kernel grid. Zero padding outside the image. Weights are
 OIHW ``(C_out, C_in, kh, kw)``; activations NHWC.
 
 The CUDA kernels (``csrc/deform_tail.cu``) take the 64-channel deformable
-conv (K2 with its LeakyReLU, K7 without) and the nine-tap-field sampler (K3,
-and K8 behind a projection); ``deform64`` and ``deform_tap_fields`` here are
-their launchers for CUDA tensors, shared by ``deform_conv2d`` and the fused
-tail (``ops.tail``). ``deform_conv2d_zform`` is the port of the JAX
+conv (K2 with its LeakyReLU, K7 without; a 3xTF32 implicit GEMM on the tensor
+cores, its weights split by ``pack_deform64_weight_tc``) and the
+nine-tap-field sampler (K3, and K8 behind a projection); ``deform64`` and
+``deform_tap_fields`` here are their launchers for CUDA tensors, shared by
+``deform_conv2d`` and the fused tail (``ops.tail``). Both kernels stage a
+window sized for a clamp of at most ``WINDOW_MAX_CLAMP`` px, and their
+launchers refuse any other (``check_window_clamp``); the plain versions take
+any clamp. ``deform_conv2d_zform`` is the port of the JAX
 ``deform_conv2d_pallas_zform``: the same deformable conv with the tap
 projection inside the kernel (K9, ``csrc/deform_zform.cu``). No model path
 takes it, as in JAX; it is a public function of its own.
@@ -35,6 +39,7 @@ from deepbedmap_tpu_torch.ops import _kernels
 
 _TAPS = 9
 _C = 64
+WINDOW_MAX_CLAMP = 2  # the reach K2's, K3's and K9's shared-memory windows cover
 
 
 def _shift_weights(off_y: torch.Tensor, off_x: torch.Tensor, clamp: int):
@@ -62,19 +67,21 @@ def deform_conv_shifts(
     padding: int = 1,
     clamp: int = 2,
 ) -> torch.Tensor:
-    """Deformable conv: sample each tap by masked shifts, then contract it."""
+    """Deformable conv: sample each tap by masked shifts, then contract it.
+    Computes in float32, or in float64 for a float64 ``x``."""
     n, h, w, c_in = x.shape
     c_out, _, kh, kw = weight.shape
     k = kh * kw
+    dt = torch.float64 if x.dtype == torch.float64 else torch.float32
     big = padding + clamp + 1  # tap shift + max integer shift + corner
-    x_big = _pad_hw(x.float(), big)
-    rhs = weight.permute(2, 3, 1, 0).reshape(k, c_in, c_out)
-    acc = x.new_zeros((n * h * w, c_out), dtype=torch.float32)
+    x_big = _pad_hw(x.to(dt), big)
+    rhs = weight.to(dt).permute(2, 3, 1, 0).reshape(k, c_in, c_out)
+    acc = x.new_zeros((n * h * w, c_out), dtype=dt)
     shifts = range(-clamp, clamp + 2)
     for t in range(k):
         u, v = divmod(t, kw)
-        wy, wx = _shift_weights(offsets[..., t].float(), offsets[..., k + t].float(), clamp)
-        y_t = x.new_zeros((n, h, w, c_in), dtype=torch.float32)
+        wy, wx = _shift_weights(offsets[..., t].to(dt), offsets[..., k + t].to(dt), clamp)
+        y_t = x.new_zeros((n, h, w, c_in), dtype=dt)
         for sy in shifts:
             row0 = big + u - padding + sy
             for sx in shifts:
@@ -131,9 +138,48 @@ def deform_conv_shifts_zproj(
 
 def pack_deform64_weight(weight: torch.Tensor) -> torch.Tensor:
     """OIHW (C_out, C_in, 3, 3) -> (9 * C_in, C_out), row t * C_in + c_in (the
-    layout of the 64-channel deformable kernel, K2 and K7, and of K9)."""
+    layout K9 reads)."""
     c_out, c_in = weight.shape[:2]
     return weight.detach().permute(2, 3, 1, 0).reshape(_TAPS * c_in, c_out).contiguous()
+
+
+def tf32_split(a: torch.Tensor):
+    """(hi, lo) with a = hi + lo to 2^-22 of |a|, both TF32 (10 mantissa
+    bits): hi is ``cvt.rna.tf32.f32`` of a (round to nearest, ties away from
+    zero), lo the same of a - hi. float32 in, float32 out."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(a.float())
+    return hi, rna(a.float() - hi)
+
+
+def pack_deform64_weight_tc(weight: torch.Tensor) -> torch.Tensor:
+    """OIHW (64, 64, 3, 3) -> K2's and K7's B operand, flat (9 * 8192,):
+    per tap, hi then lo (``tf32_split``), each the 64 x 64 (channel, output)
+    matrix as eight k8 steps of wgmma's K-major core matrices,
+    [step][n / 8][k / 4][n % 8][k % 4]. Step s = 2 b + e reads window block b
+    (channels 16 b .. 16 b + 15); its slot k takes channel
+    16 b + 4 (k % 4) + 2 e + k // 4, the order in which a lane reads its A
+    values from the window (``csrc/deform_tail.cu``)."""
+    rhs = weight.detach().float().permute(2, 3, 1, 0).reshape(_TAPS, _C, _C)
+    s = torch.arange(8, device=rhs.device)[:, None]
+    k = torch.arange(8, device=rhs.device)[None, :]
+    channel = 16 * (s // 2) + 4 * (k % 4) + 2 * (s % 2) + k // 4  # (step, slot)
+    b = rhs[:, channel, :]  # (tap, step, slot, n)
+    b = b.reshape(_TAPS, 8, 2, 4, 8, 8).permute(0, 1, 4, 2, 5, 3)
+    return torch.stack(tf32_split(b), dim=1).reshape(-1).contiguous()
+
+
+def check_window_clamp(clamp) -> None:
+    """The CUDA kernels' windows reach ``WINDOW_MAX_CLAMP`` px of clamp:
+    anything but an integer in [0, WINDOW_MAX_CLAMP] raises ``ValueError``."""
+    if isinstance(clamp, bool) or int(clamp) != clamp \
+            or not 0 <= clamp <= WINDOW_MAX_CLAMP:
+        raise ValueError(
+            f"the deformable-conv kernels take an integer clamp in [0, "
+            f"{WINDOW_MAX_CLAMP}], got {clamp!r}")
 
 
 def deform64(
@@ -146,14 +192,15 @@ def deform64(
     w_packed: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """[lrelu](deform_conv(x) + bias) on the card: K2 with ``lrelu``, K7
-    without. ``w_packed`` is ``pack_deform64_weight(weight)``."""
+    without. ``w_packed`` is ``pack_deform64_weight_tc(weight)``."""
+    check_window_clamp(clamp)
     n, h, w, _ = x.shape
     _kernels.check_tensor(x, "x", (n, h, w, _C))
     _kernels.check_tensor(offsets, "offsets", (n, h, w, 2 * _TAPS))
     _kernels.check_image_shape(n, h, w, _C)
     if w_packed is None:
-        w_packed = pack_deform64_weight(weight)
-    _kernels.check_tensor(w_packed, "packed weight", (_TAPS * _C, _C))
+        w_packed = pack_deform64_weight_tc(weight)
+    _kernels.check_tensor(w_packed, "packed weight", (_TAPS * 2 * _C * _C,))
     _kernels.check_tensor(bias, "bias", (_C,))
     out = torch.empty_like(x)
     _kernels.launch_deform64(x, offsets, w_packed, bias, out, n, h, w, clamp, lrelu)
@@ -169,6 +216,7 @@ def deform_tap_fields(
 ) -> torch.Tensor:
     """``sample_tap_fields`` of one-channel fields on the card (K3's kernel),
     its launches counted under ``name`` (K3 or K8) -> (N, H, W, 1)."""
+    check_window_clamp(clamp)
     n, h, w, _ = z.shape
     _kernels.check_tensor(z, "z", (n, h, w, _TAPS))
     _kernels.check_tensor(offsets, "offsets", (n, h, w, 2 * _TAPS))
@@ -200,8 +248,10 @@ def deform_conv2d(
     kernel); on a CPU tensor the plain ``deform_conv_shifts`` /
     ``deform_conv_shifts_zproj``. Shapes the kernels do not take raise
     ``ValueError`` on either device: padding != 1, a kernel that is not 3x3,
-    C_in != 64, C_out not in {1, 64}. ``w_packed`` is
-    ``pack_deform64_weight(weight)`` for C_out = 64, cached by the caller."""
+    C_in != 64, C_out not in {1, 64}; on a CUDA tensor so does a clamp the
+    kernels' windows do not cover (``check_window_clamp``). ``w_packed`` is
+    ``pack_deform64_weight_tc(weight)`` for C_out = 64, cached by the
+    caller."""
     c_out, c_in, kh, kw = weight.shape
     if padding != 1 or (kh, kw) != (3, 3) or c_in != _C or x.shape[-1] != _C \
             or c_out not in (1, _C):
@@ -223,7 +273,6 @@ def deform_conv2d(
 
 ZFORM_C_OUTS = (1, 16, 64)  # output widths K9 is built for
 ZFORM_MAX_C_IN = 64
-ZFORM_MAX_CLAMP = 2  # K9's sample window reaches 2 px of clamp
 
 
 def deform_conv2d_zform(
@@ -244,13 +293,13 @@ def deform_conv2d_zform(
     n, h, w = x.shape[:3]
     if padding != 1 or (kh, kw) != (3, 3) or x.shape[-1] != c_in \
             or c_in % 4 or not 4 <= c_in <= ZFORM_MAX_C_IN or c_out not in ZFORM_C_OUTS \
-            or int(clamp) != clamp or not 0 <= clamp <= ZFORM_MAX_CLAMP \
+            or int(clamp) != clamp or not 0 <= clamp <= WINDOW_MAX_CLAMP \
             or tuple(offsets.shape) != (n, h, w, 2 * _TAPS) \
             or (bias is not None and tuple(bias.shape) != (c_out,)):
         raise ValueError(
             "deform_conv2d_zform takes padding 1, a 3x3 kernel, C_in a multiple "
             f"of 4 up to {ZFORM_MAX_C_IN}, C_out in {ZFORM_C_OUTS}, an integer clamp in "
-            f"[0, {ZFORM_MAX_CLAMP}] and (N, H, W, 18) offsets; got padding "
+            f"[0, {WINDOW_MAX_CLAMP}] and (N, H, W, 18) offsets; got padding "
             f"{padding}, weight {tuple(weight.shape)}, x {tuple(x.shape)}, offsets "
             f"{tuple(offsets.shape)}, clamp {clamp}"
         )

@@ -56,7 +56,7 @@ def deform64_lrelu(
 ) -> torch.Tensor:
     """lrelu(deform_conv(x, offsets, w1) + b1): K2 on a CUDA tensor, the plain
     masked-shift version on a CPU tensor. ``w_packed`` is
-    ``ops.deform_conv.pack_deform64_weight(w1)``, cached by the caller."""
+    ``ops.deform_conv.pack_deform64_weight_tc(w1)``, cached by the caller."""
     if x.device.type == "cpu":
         return leaky_relu(deform_conv_shifts(x, offsets, w1, b1, 1, clamp))
     if x.device.type != "cuda":

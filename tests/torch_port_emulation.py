@@ -16,7 +16,14 @@ index arithmetic against the plain PyTorch versions.
   workspace's channel pitch, the hi/lo splits into the kernel's shared-memory
   layouts, the wgmma fragments read back from them, the partial sum per
   kernel row). Products are exact and sums float64, so these show the
-  split's precision, not the tensor cores' own rounding.
+  split's precision, not the tensor cores' own rounding;
+- ``emulate_k2_tc``: K2 / K7 in ``csrc/deform_tail.cu`` (the 64 -> 64
+  deformable conv as a 3xTF32 implicit GEMM: the 16 x 16 tile's window with
+  zero fill in 16-channel blocks, each lane's blended corners split into
+  TF32 hi/lo, B read through ``pack_deform64_weight_tc``'s core-matrix
+  layout, a partial sum per wgmma group);
+- ``emulate_k3_window``: K3 in ``csrc/deform_tail.cu`` (the 8 x 32 tile's
+  z window with zero fill, four corners per tap read from it).
 """
 
 import numpy as np
@@ -337,3 +344,104 @@ def emulate_k4_tc(x, w_packed, b_packed, scaling, passes=3):
                              res=cur, res_pitch=WS, skip=x.reshape(-1), scaling=scaling,
                              passes=passes)
     return out.reshape(x.shape)
+
+
+# --- csrc/deform_tail.cu ----------------------------------------------------
+
+REACH = 2  # largest clamp the tail kernels' windows cover
+K2_TILE, K2_BLK, K2_GROUP_STEPS = 16, 16, 2
+K3_TH, K3_TW = 8, 32
+
+
+def _window(img, y0, x0, wh, ww):
+    """img's window of wh x ww pixels from (y0 - 3, x0 - 3), zero outside."""
+    h, w = img.shape[:2]
+    gy, iny = _inside(y0 - REACH - 1, wh, h)
+    gx, inx = _inside(x0 - REACH - 1, ww, w)
+    win = np.zeros((wh, ww) + img.shape[2:], img.dtype)
+    yy, xx = np.meshgrid(gy, gx, indexing="ij")
+    m = iny[:, None] & inx[None, :]
+    win[m] = img[yy[m], xx[m]]
+    return win
+
+
+def _tap_corners(o, t, clamp, ly, lx, win_w):
+    """Tap t's clamped corners of the pixels at tile positions (ly, lx):
+    the window index of the base corner and the four corner weights, in the
+    kernels' float32 arithmetic."""
+    dy = np.clip(o[..., t], -clamp, clamp).astype(np.float32)
+    dx = np.clip(o[..., 9 + t], -clamp, clamp).astype(np.float32)
+    iy, ix = np.floor(dy), np.floor(dx)
+    fy, fx = dy - iy, dx - ix
+    one = np.float32(1)
+    base = (ly + t // 3 + iy.astype(int) + REACH) * win_w + lx + t % 3 + ix.astype(int) + REACH
+    return base, ((one - fy) * (one - fx), (one - fy) * fx, fy * (one - fx), fy * fx)
+
+
+def emulate_k2_tc(x, off, w_tc, bias, clamp, lrelu, passes=3):
+    """K2 (``lrelu``) or K7: per 16 x 16 tile, the 23 x 23 window as
+    [16-channel block][pixel][16]; per tap, each pixel's four corners
+    blended in float32 and split into hi/lo; k8 step s = 2 b + e takes slot
+    k <- channel 16 b + 4 (k % 4) + 2 e + k // 4 of the samples and B from
+    ``w_tc`` (``pack_deform64_weight_tc``) read as the wgmma descriptor does;
+    each group of two steps (one window block) summed into a fresh partial
+    sum.
+    ``passes`` 1 keeps hi.hi only, a single TF32 pass."""
+    n, h, w, c = x.shape
+    win_w = K2_TILE + 2 * (REACH + 1) + 1
+    # [tap][hi|lo][step][n/8][k/4][n%8][k%4] -> [tap][hi|lo][step][k][n]
+    b = (np.asarray(w_tc, np.float32).reshape(9, 2, 8, 8, 2, 8, 4)
+         .transpose(0, 1, 2, 4, 6, 3, 5).reshape(9, 2, 8, 8, c).astype(np.float64))
+    k = np.arange(8)
+    out = np.zeros((n, h, w, c), np.float32)
+    ly, lx = np.meshgrid(np.arange(K2_TILE), np.arange(K2_TILE), indexing="ij")
+    for i in range(n):
+        for y0 in range(0, h, K2_TILE):
+            for x0 in range(0, w, K2_TILE):
+                win = _window(np.asarray(x[i], np.float32), y0, x0, win_w, win_w)
+                blocks = win.reshape(win_w * win_w, c // K2_BLK, K2_BLK).transpose(1, 0, 2)
+                # lanes past the image read the offsets of its last row / column
+                o = off[i, np.minimum(y0 + ly, h - 1), np.minimum(x0 + lx, w - 1)]
+                acc = np.zeros((K2_TILE, K2_TILE, c))
+                for t in range(9):
+                    base, cw = _tap_corners(o, t, clamp, ly, lx, win_w)
+                    samp = sum(wt[..., None, None] * blocks[:, base + d].transpose(1, 2, 0, 3)
+                               for wt, d in zip(cw, (0, 1, win_w, win_w + 1)))
+                    # samp: (16, 16, block, 16) float32 -> A of each k8 step
+                    for g0 in range(0, 8, K2_GROUP_STEPS):
+                        part = np.zeros_like(acc)
+                        for s in range(g0, g0 + K2_GROUP_STEPS):
+                            a = samp[:, :, s // 2, 4 * (k % 4) + 2 * (s % 2) + k // 4]
+                            ah, al = split_tf32(a)
+                            ah, al = ah.astype(np.float64), al.astype(np.float64)
+                            part += ah @ b[t, 0, s]
+                            if passes == 3:
+                                part += al @ b[t, 0, s] + ah @ b[t, 1, s]
+                        acc += part
+                (ys, ny), (xs, nx) = _tile_span(y0, h, K2_TILE), _tile_span(x0, w, K2_TILE)
+                v = acc[:ny, :nx].astype(np.float32) + np.asarray(bias, np.float32)
+                out[i, ys, xs] = np.where(v >= 0, v, np.float32(0.2) * v) if lrelu else v
+    return out
+
+
+def emulate_k3_window(z, off, bias, clamp):
+    """K3: per 8 x 32 tile, the 15 x 39 window of the nine tap fields; each
+    pixel's 36 corners read from it, summed over the taps, plus the bias."""
+    n, h, w, taps = z.shape
+    wh, ww = K3_TH + 2 * (REACH + 1) + 1, K3_TW + 2 * (REACH + 1) + 1
+    out = np.zeros((n, h, w, 1))
+    ly, lx = np.meshgrid(np.arange(K3_TH), np.arange(K3_TW), indexing="ij")
+    for i in range(n):
+        for y0 in range(0, h, K3_TH):
+            for x0 in range(0, w, K3_TW):
+                win = _window(np.asarray(z[i], np.float32), y0, x0, wh, ww).reshape(wh * ww, taps)
+                (ys, ny), (xs, nx) = _tile_span(y0, h, K3_TH), _tile_span(x0, w, K3_TW)
+                o = np.zeros((K3_TH, K3_TW, 2 * taps), np.float32)
+                o[:ny, :nx] = off[i, ys, xs]
+                acc = np.zeros((K3_TH, K3_TW))
+                for t in range(taps):
+                    base, cw = _tap_corners(o, t, clamp, ly, lx, ww)
+                    for wt, d in zip(cw, (0, 1, ww, ww + 1)):
+                        acc += wt * win[base + d, t].astype(np.float64)
+                out[i, ys, xs, 0] = (acc + bias[0])[:ny, :nx]
+    return out
