@@ -40,11 +40,13 @@ Phases (any failure ends the run with a non-zero exit code):
 12. the second main path: phase 6 in that configuration, with phase 6's
     weights: its launch counts, tiled vs untiled, and its output against
     phase 6's (the two configurations compute one function);
-13. K6 ``rdb_banded_forward`` vs ``rdb_reference`` at (1,13,14,64) and
-    (2,286,286,64);
+13. K6 ``rdb_banded_forward`` vs ``rdb_reference`` at (1,13,14,64),
+    (3,37,9,64) and (2,286,286,64) (none a multiple of its 8 x 16 tile), and
+    phase 2's precision check for K6;
 14. K5 ``rrdb_sweep_forward`` vs ``rrdb_reference`` at (1,13,14,64),
-    (2,22,14,64) and (2,286,286,64) (heights of 2, 3 and 36 bands, none a
-    multiple of the 8-row band);
+    (2,22,14,64), (3,37,9,64) and (2,286,286,64) (heights of 2, 3, 5 and 36
+    bands, none a multiple of the 8-row band; the 5-band case wraps the
+    4-slot rings), and phase 7's precision check for K5;
 15. K9 ``deform_zform`` vs ``deform_conv_shifts_zproj`` at (1,9,13,8->16)
     and (1,20,130,64->64); its own path, ``deform_conv2d_zform`` at the
     tail's two shapes (2,1144,1144,64)->64 and ->1, counted and then held
@@ -82,12 +84,12 @@ TOL_GENERATOR = 1e-4
 # tiled vs untiled region: the same, plus the generator's far field beyond
 # the 18-px halo, which the seeded weights (init scale 0.1) damp far below it
 TOL_SEAM = 1e-4
-# K1, K4, K2 and K7 run their contractions on the tensor cores in 3xTF32,
+# K1, K4, K5, K6, K2 and K7 run their contractions on the tensor cores in 3xTF32,
 # which is as accurate as fp32 FMAs; one TF32 pass (10 mantissa bits) gives
 # errors of ~1e-4 to 4e-4 of the output's range, at or above TOL_KERNEL, so
 # TOL_KERNEL alone would not catch a kernel that lost the lo terms. The
-# precision check holds them (K1 and K4 at scaling 1.0: 0.1 would damp the
-# conv's error tenfold under the residual) against the plain version in
+# precision check holds them (the dense blocks at scaling 1.0: 0.1 would damp
+# the conv's error tenfold under the residual) against the plain version in
 # float64: 3xTF32's error is a few 1e-7 of the
 # range, fp32 round-off of 1728-term sums, well below 1e-5, and a single pass's
 # is tens of times above it (tests/test_torch_port_rdb_tc.py and
@@ -97,7 +99,8 @@ TOL_TF32X3 = 1e-5
 
 DEVICE = "cuda"
 SMALL_RDB, MAIN_RDB = (1, 13, 14, 64), (2, 286, 286, 64)
-# H and W not multiples of K1's and K4's 16 x 16 tile, W narrower than it
+# H and W not multiples of K1's and K4's 16 x 16 tile nor of K5's and K6's
+# 8 x 16, W narrower than both; five of K5's bands, more than its rings' slots
 RAGGED_RDB = (3, 37, 9, 64)
 SWEEP_RDB = (2, 22, 14, 64)  # three bands of K5's 8 rows, the last one short
 MAIN_TAIL = (2, 1144, 1144, 64)
@@ -245,8 +248,8 @@ def _double(ts):
 
 
 def check_precision(label: str, fn, reference, x, kernels, biases, packed) -> float:
-    """Phases 2 and 7: the kernel at scaling 1.0 against its plain version
-    run in float64 on the card, within ``TOL_TF32X3`` of the range."""
+    """Phases 2, 7, 13 and 14: the kernel at scaling 1.0 against its plain
+    version run in float64 on the card, within ``TOL_TF32X3`` of the range."""
     import torch
 
     got = fn(x, kernels, biases, 1.0, packed)
@@ -261,29 +264,30 @@ def check_rdb(shape, gen, timed: bool, kernel: str = "rdb_fused") -> dict:
     import torch
 
     from deepbedmap_tpu_torch.ops import rdb
-    from deepbedmap_tpu_torch.ops.rdb import pack_rdb_weights, rdb_reference
+    from deepbedmap_tpu_torch.ops.rdb import rdb_reference
 
     fn = getattr(rdb, kernel)
-    label = {"rdb_fused": "K1 rdb_forward", "rdb_banded": "K6 rdb_banded_forward"}[kernel]
+    label, pack = {"rdb_fused": ("K1 rdb_forward", rdb.pack_rdb_weights),
+                   "rdb_banded": ("K6 rdb_banded_forward", rdb.pack_rdb_weights_tc)}[kernel]
 
     f, g = 64, 32
     cins, couts = [f + g * j for j in range(5)], [g, g, g, g, f]
     kernels = [_randn((co, ci, 3, 3), gen, 0.05) for ci, co in zip(cins, couts)]
     biases = [_randn((co,), gen, 0.1) for co in couts]
     x = _randn(shape, gen)
-    packed = pack_rdb_weights(kernels, biases)
+    packed = pack(kernels, biases)
     got = fn(x, kernels, biases, 0.1, packed)
     want = rdb_reference(x, kernels, biases, 0.1)
     torch.cuda.synchronize()
     res = {"max_abs_err": compare(f"{label} {shape}", got, want, TOL_KERNEL)}
     del want
-    if timed and kernel == "rdb_fused":
-        check_precision(label, fn, rdb_reference, x, kernels, biases, packed)
     if timed:
+        check_precision(label, fn, rdb_reference, x, kernels, biases, packed)
         res["ms"] = time_ms(lambda: fn(x, kernels, biases, 0.1, packed), 10)
         res["plain_ms"] = time_ms(lambda: rdb_reference(x, kernels, biases, 0.1), 10)
         pix = x.numel() // 64
-        res.update(bound(2 * pix * RDB_MACS, 4 * (2 * x.numel() + _numel(*packed))),
+        # the function's own inputs: x and the unsplit weights and biases
+        res.update(bound(2 * pix * RDB_MACS, 4 * (2 * x.numel() + _numel(*kernels, *biases))),
                    library_ms=None)
     return res
 
@@ -381,10 +385,11 @@ def check_rrdb(shape, gen, timed: bool, kernel: str = "rrdb_fused") -> dict:
     import torch
 
     from deepbedmap_tpu_torch.ops import rdb
-    from deepbedmap_tpu_torch.ops.rdb import pack_rrdb_weights, rrdb_reference
+    from deepbedmap_tpu_torch.ops.rdb import rrdb_reference
 
     fn = getattr(rdb, kernel)
-    label = {"rrdb_fused": "K4 rrdb_forward", "rrdb_sweep": "K5 rrdb_sweep_forward"}[kernel]
+    label, pack = {"rrdb_fused": ("K4 rrdb_forward", rdb.pack_rrdb_weights),
+                   "rrdb_sweep": ("K5 rrdb_sweep_forward", rdb.pack_rrdb_weights_tc)}[kernel]
 
     f, g = 64, 32
     cins, couts = [f + g * j for j in range(5)], [g, g, g, g, f]
@@ -392,19 +397,19 @@ def check_rrdb(shape, gen, timed: bool, kernel: str = "rrdb_fused") -> dict:
                for _ in range(3)]
     biases = [[_randn((co,), gen, 0.1) for co in couts] for _ in range(3)]
     x = _randn(shape, gen)
-    packed = pack_rrdb_weights(kernels, biases)
+    packed = pack(kernels, biases)
     got = fn(x, kernels, biases, 0.1, packed)
     want = rrdb_reference(x, kernels, biases, 0.1)
     torch.cuda.synchronize()
     res = {"max_abs_err": compare(f"{label} {shape}", got, want, TOL_KERNEL)}
     del want
-    if timed and kernel == "rrdb_fused":
-        check_precision(label, fn, rrdb_reference, x, kernels, biases, packed)
     if timed:
+        check_precision(label, fn, rrdb_reference, x, kernels, biases, packed)
         res["ms"] = time_ms(lambda: fn(x, kernels, biases, 0.1, packed), 10)
         res["plain_ms"] = time_ms(lambda: rrdb_reference(x, kernels, biases, 0.1), 10)
         pix = x.numel() // 64
-        res.update(bound(3 * 2 * pix * RDB_MACS, 4 * (2 * x.numel() + _numel(*packed))),
+        res.update(bound(3 * 2 * pix * RDB_MACS,
+                         4 * (2 * x.numel() + _numel(*sum(kernels + biases, [])))),
                    library_ms=None)
     return res
 
@@ -769,11 +774,11 @@ KERNELS = [
      MAIN_TAIL, 10, "kernel"),
     ("rdb_banded_forward", "deepbedmap_tpu_torch/csrc/rdb_banded.cu",
      "deepbedmap_tpu/ops/pallas_rdb.py:391",
-     functools.partial(check_rdb, kernel="rdb_banded"), [SMALL_RDB], MAIN_RDB, 13,
-     "banded"),
+     functools.partial(check_rdb, kernel="rdb_banded"), [SMALL_RDB, RAGGED_RDB], MAIN_RDB,
+     13, "banded"),
     ("rrdb_sweep_forward", "deepbedmap_tpu_torch/csrc/rrdb_sweep.cu",
      "deepbedmap_tpu/ops/pallas_rdb.py:1234",
-     functools.partial(check_rrdb, kernel="rrdb_sweep"), [SMALL_RDB, SWEEP_RDB],
+     functools.partial(check_rrdb, kernel="rrdb_sweep"), [SMALL_RDB, SWEEP_RDB, RAGGED_RDB],
      MAIN_RDB, 14, "sweep"),
     ("deform_zform", "deepbedmap_tpu_torch/csrc/deform_zform.cu",
      "deepbedmap_tpu/ops/pallas_kernels.py:1119", check_zform, SMALL_ZFORM, MAIN_ZFORM,

@@ -49,17 +49,20 @@ VARIANTS = {
 }
 
 
-def build(kernels, name: str, edits) -> object:
-    """The kernel library built from ``csrc`` with ``edits`` applied."""
+def build(kernels, name: str, edits, source: str = "deform_tail.cu",
+          marker: str = "deform64_tc_kernelILb1") -> object:
+    """The kernel library built from ``csrc`` with ``edits`` applied to
+    ``source``; prints ptxas's lines for the kernel whose name has
+    ``marker``."""
     src = Path(kernels._CSRC)
     base = ROOT / "build" / "variants" / name
     shutil.rmtree(base, ignore_errors=True)
     shutil.copytree(src, base / "csrc")
-    cu = base / "csrc" / "deform_tail.cu"
+    cu = base / "csrc" / source
     text = cu.read_text()
     for old, new in edits:
         if old not in text:
-            raise SystemExit(f"variant {name}: {old.strip()!r} not in deform_tail.cu")
+            raise SystemExit(f"variant {name}: {old.strip()!r} not in {source}")
         text = text.replace(old, new)
     cu.write_text(text)
     kernels._CSRC, kernels._lib = base / "csrc", None
@@ -67,8 +70,10 @@ def build(kernels, name: str, edits) -> object:
     lib = kernels.library()
     lines = kernels.build_log.splitlines()
     for i, line in enumerate(lines):
-        if "deform64_tc_kernelILb1" in line and "Function properties" in line:
+        if marker in line and "Function properties" in line:
             print(f"  {name}: ptxas {lines[i + 1].strip()}; {lines[i + 2].strip()}")
+        elif marker in line and "Potential Performance Loss" in line:
+            print(f"  {name}: ptxas {line.split(' in the function')[0].strip()}")
     kernels._CSRC = src
     return lib
 

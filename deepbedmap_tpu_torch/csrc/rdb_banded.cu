@@ -7,16 +7,17 @@
 // (GeneratorConfig(rdb_resident="never")): each row band, with a 5-row margin
 // gathered by XLA, is computed in VMEM and written once.
 //
-// What bounds it on an H100: arithmetic. The function's work at the main-path
-// shape (2 x 286 x 286 x 64) is K1's, 78 GFLOP against ~0.1 GB in and out,
-// 1.170 ms at the fp32 FMA peak (no tensor cores in this version). The
-// tile-local design below recomputes the halo, 1.77x those MACs.
+// What bounds it on an H100: tensor-core operations. The function's work at
+// the main-path shape (2 x 286 x 286 x 64) is K1's, 78 GFLOP against ~0.1 GB
+// in and out, 0.475 ms as 3xTF32 at the tensor cores' 495 TFLOP/s. The
+// tile-local design below recomputes the halo, 1.58x those MACs.
 //
-// Design: one launch, one thread block per 8 x 8 output tile, the whole block
-// in shared memory (rdb_tile.cuh): the input window with a 5-px halo and the
-// four 32-channel intermediates on shrinking windows, 172 KB, so one block
-// per SM. Unlike K1 there is no (N, H, W, 192) workspace in device memory:
-// HBM sees x once (plus the halo rows of neighbouring tiles, from L2) and the
+// Design: one launch, one thread block per 8 x 16 output tile, the whole block
+// on the tensor cores with its intermediates in shared memory (rdb_tile.cuh:
+// the four 32-channel intermediates on shrinking windows, the input window
+// staged one 8-channel chunk at a time, 209 KB, so one block per SM). Unlike
+// K1 there is no (N, H, W, 192) workspace in device memory: HBM sees x once
+// (plus the halo rows and columns of neighbouring tiles, from L2) and the
 // output once; the wrapper allocates only the output. This is the TPU
 // kernel's design carried over to shared memory; K1 is the other design
 // (workspace in device memory, five conv launches), kept for the resident
@@ -28,20 +29,23 @@
 
 namespace {
 
-struct ImageLoader {
+struct ImageSource {
   const float* x;  // this image, (H, W, 64)
   int W;
-  __device__ float4 operator()(int gy, int gx, int c4) const {
-    return __ldg(reinterpret_cast<const float4*>(x + ((size_t)gy * W + gx) * rdbtile::kFeat) + c4);
+  __device__ const float* pixel(int gy, int gx) const {
+    return x + ((size_t)gy * W + gx) * rdbtile::kFeat;
   }
 };
 
 struct SkipStore {  // out = x + s * v
-  float* out;  // this image, (H, W, 64)
+  const float* x;  // this image, (H, W, 64)
+  float* out;
   int W;
   float s;
-  __device__ void operator()(int gy, int gx, int co, float v, float x) const {
-    out[((size_t)gy * W + gx) * rdbtile::kFeat + co] = x + s * v;
+  __device__ void operator()(int gy, int gx, int co, float v0, float v1) const {
+    const size_t i = ((size_t)gy * W + gx) * rdbtile::kFeat + co;
+    const float2 a = __ldg(reinterpret_cast<const float2*>(x + i));
+    *reinterpret_cast<float2*>(out + i) = make_float2(a.x + s * v0, a.y + s * v1);
   }
 };
 
@@ -52,15 +56,15 @@ rdb_banded_kernel(const float* __restrict__ x, float* __restrict__ out,
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const size_t img = (size_t)blockIdx.z * H * W * rdbtile::kFeat;
-  rdbtile::dense_block_tile(smem, ImageLoader{x + img, W}, w, bias,
-                            blockIdx.y * rdbtile::kT, blockIdx.x * rdbtile::kT, H,
-                            W, SkipStore{out + img, W, scaling});
+  rdbtile::dense_block_tile(smem, ImageSource{x + img, W}, w, bias,
+                            blockIdx.y * rdbtile::kTH, blockIdx.x * rdbtile::kTW, H,
+                            W, SkipStore{x + img, out + img, W, scaling});
 }
 
 }  // namespace
 
 // x, out: (N, H, W, 64), out must not alias x; w_packed: the five stages'
-// [cout/32][cin][9][32] blocks back to back (ops/rdb.py:pack_rdb_weights);
+// split weights back to back (ops/rdb.py:pack_rdb_weights_tc);
 // bias: b1|b2|b3|b4|b5 (192 floats). Returns cudaGetLastError().
 extern "C" int rdb_banded_forward(const float* x, float* out, const float* w_packed,
                                   const float* bias, int N, int H, int W,
@@ -69,8 +73,8 @@ extern "C" int rdb_banded_forward(const float* x, float* out, const float* w_pac
       rdb_banded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)rdbtile::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + rdbtile::kT - 1) / rdbtile::kT, (H + rdbtile::kT - 1) / rdbtile::kT,
-                  N);
+  const dim3 grid((W + rdbtile::kTW - 1) / rdbtile::kTW,
+                  (H + rdbtile::kTH - 1) / rdbtile::kTH, N);
   rdb_banded_kernel<<<grid, rdbtile::kThreads, rdbtile::kSmemBytes,
                       static_cast<cudaStream_t>(stream)>>>(x, out, w_packed, bias, H,
                                                            W, scaling);

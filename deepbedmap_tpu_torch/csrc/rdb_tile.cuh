@@ -1,245 +1,334 @@
-// A tile-local residual dense block, fp32, NHWC: the shared body of K6
-// (rdb_banded.cu) and K5 (rrdb_sweep.cu).
+// A tile-local residual dense block, fp32, NHWC, on Hopper's tensor cores:
+// the shared body of K6 (rdb_banded.cu) and K5 (rrdb_sweep.cu).
 //
-// One thread block computes one 8 x 8 output tile of
+// One thread block computes one 8 x 16 output tile (8 rows, 16 columns) of
 //   out = x + s * conv5([x, a1, a2, a3, a4]),  a_j = lrelu(conv_j([x, ..]))
 // with every intermediate in shared memory, as the TPU kernels keep a row
 // band's intermediates in VMEM (deepbedmap_tpu/ops/pallas_rdb.py:
 // _band_compute, _MARGIN = 5). Five chained 3x3 convs consume one pixel of
-// margin each, so the block input is staged with a 5-px halo (18 x 18 x 64)
-// and stage j computes a (18 - 2j)^2 window: a1 16^2 x 32, a2 14^2 x 32,
-// a3 12^2 x 32, a4 10^2 x 32, conv5 8^2 x 64. That is 43,008 floats
-// (172 KB, plus 36 KB of weight buffers), so one block per SM, in dynamic
-// shared memory. No device-memory workspace is used: HBM sees the input
-// window once and the output once. The price is the halo recompute: 1.77x
-// the MACs of the tile's own output (3.01 M against 1.70 M multiplies per
-// input-channel tap, x 9 taps).
-//
-// What bounds it on an H100: arithmetic. A tile does 27.1 M multiply-adds
-// (its own 15.3 M and the halo's) against 83 KB of input window and 16 KB of
-// output, and its 958 KB of weights come from L2; the SMs' fp32 FMA rate is
-// the limit (no tensor cores in this first version).
+// margin each, so stage j computes the window of a_j that the later stages
+// read: (18 - 2j) x (26 - 2j) pixels, a1 16 x 24, a2 14 x 22, a3 12 x 20,
+// a4 10 x 18, conv5 the 8 x 16 tile. a1..a4 stay resident (139 KB); the
+// block input x (an 18 x 26 window) is not held whole but staged one 8-channel
+// chunk at a time when a stage reads it, from L2 or HBM. No device-memory
+// workspace is used. The price is the halo recompute: the padded stage
+// windows cost 1.58x the MACs of the tile's own output (48.4 M against
+// 30.7 M).
 //
 // SAME padding holds at every stage: a window position outside the image
 // holds zero in x and in every a_j (not a conv value computed from the padded
 // input), which is the TPU kernel's masking (pallas_rdb.py:243-244).
 //
-// Weights use the direct conv's packed layout (conv3x3.cuh, ops/rdb.py:
-// pack_rdb_weights): per stage [C_out/32][C_in][9][32], the five stages back
-// to back. They stream from L2 in chunks of 8 input channels (all taps, all
-// outputs of the stage), double-buffered with cp.async so the next chunk's
-// copy overlaps this chunk's FMAs.
+// What bounds it on an H100: tensor-core operations (the function's own work
+// in 3xTF32 is 0.475 ms for a dense block at the main-path shape). Each stage
+// is an implicit GEMM on wgmma.m64n32k8 (TF32, A from registers, B from
+// shared memory), made fp32-accurate by the 3xTF32 split of conv3x3_tc.cuh,
+// whose primitives it uses:
+// - M = the stage window's pixels, flattened and padded to 64-row blocks
+//   (384 / 320 / 256 / 192 / 128 rows); N = 32 outputs per item (stage 5's
+//   64 as two halves); K = 8-channel chunks x 9 taps. Work items (M block,
+//   N half) go round-robin to the four warpgroups (6 / 5 / 4 / 3 / 4 items).
+//   Rows past the window read its last pixel and are never stored.
+// - A: warp w of a warpgroup holds rows 16 w .. 16 w + 15 of its M block; a
+//   lane (g, t) reads channels 2t and 2t + 1 of its rows g and g + 8 (the
+//   permuted k order of conv3x3_tc.cuh: slot t <- channel 2t, slot t + 4 <-
+//   2t + 1) as one 8-byte load and splits them into TF32 hi/lo in registers.
+//   a1..a4 are stored [pixel][chunk ^ (pixel & 3)][8], so the four pixels of
+//   a half-warp's load fall in four different 8-bank groups; the staged x
+//   chunk is [pixel][8], already conflict-free.
+// - B: the stage's weights, split into hi/lo once per model by
+//   ops/rdb.py:pack_rdb_weights_tc in wgmma's K-major core-matrix layout and
+//   streamed per (chunk, kernel row), a unit: 3 taps x {hi, lo} x 8 x C_out
+//   floats (6 / 12 KB) into a 3-slot ring, two units ahead, with 16-byte
+//   cp.async.cg; one barrier per unit, 240 per tile.
+// - Per unit a warpgroup issues, for each of its items, the three taps'
+//   products, small ones first (lo.hi, hi.lo, hi.hi), into a fresh partial
+//   sum, waits, and adds it to the running sum in fp32: one chain per stage
+//   would drift past the float64 precision check (the tensor cores do not
+//   round their sums to nearest), chains of nine products do not. The four
+//   warpgroups overlap one another's loads and products.
+// - Every branch and loop around the wgmma instructions is uniform in the
+//   warp as the compiler sees it (the warpgroup index is broadcast with a
+//   shuffle, copies are predicated rather than branched): the same code
+//   with branches on the thread index runs slower (chip_tile_variants.py's
+//   "divergent" variant).
+// Shared memory: a1..a4 142,336 B, two x-chunk slots 29,952 B, the weight
+// ring 36,864 B: 209,152 B, one block (512 threads, <= 128 registers) per SM.
 //
-// Work mapping: stage j's outputs are split into units of kR rows x 1 column
-// x 8 channels, one unit per thread (at most 256 units a stage); each thread
-// keeps its kR x 8 accumulators in registers and reuses every input value it
-// loads across the three row taps, as conv3x3.cuh does.
+// Every read of the block input goes through L2 (cp.async.cg in the staging,
+// the loader's own choice in the epilogue), because K5's block inputs are ring
+// slots that other blocks rewrite between grid barriers.
 
 #pragma once
 
+#include <cstdint>
+
 #include <cuda_runtime.h>
+
+#include "conv3x3_tc.cuh"
 
 namespace rdbtile {
 
-constexpr int kFeat = 64;      // block input / output channels
-constexpr int kGrowth = 32;    // channels of a1..a4
-constexpr int kT = 8;          // output tile side (and K5's band height)
-constexpr int kMargin = 5;     // halo of the block input window
-constexpr int kThreads = 256;
-constexpr int kCK = 8;         // input channels per weight chunk
-constexpr int kChunks = (64 + 96 + 128 + 160 + 192) / kCK;  // 80 per block
-constexpr int kChunkFloats = kCK * 9 * 64;                    // largest chunk
-constexpr size_t kBlockWeights =
-    9 * (size_t)(64 * 32 + 96 * 32 + 128 * 32 + 160 * 32 + 192 * 64);
+constexpr int kFeat = 64;    // block input / output channels
+constexpr int kGrowth = 32;  // channels of a1..a4
+constexpr int kTH = 8;       // tile rows (and K5's band height)
+constexpr int kTW = 16;      // tile columns
+constexpr int kMargin = 5;   // halo of the block input window
+constexpr int kThreads = 512;
+constexpr int kCK = 8;       // input channels per chunk: one k8 step
 
-// window side of source k (0 = the block input x, 1..4 = a_k) and the side of
-// stage j's output (stage 5 -> the 8 x 8 tile)
-__host__ __device__ constexpr int side(int k) { return kT + 2 * (kMargin - k); }
-__host__ __device__ constexpr int channels(int k) { return k == 0 ? kFeat : kGrowth; }
-// channel planes are padded by one float against shared-memory bank conflicts
-__host__ __device__ constexpr int plane(int k) { return side(k) * side(k) + 1; }
-__host__ __device__ constexpr int src_offset(int k) {
-  int off = 0;
-  for (int m = 0; m < k; ++m) off += channels(m) * plane(m);
-  return off;
-}
-// Stage 2's last row group computes two rows past its window; its loads run
-// up to two rows into the next plane. The slack keeps them inside the buffer.
-constexpr int kSlack = 64;
-constexpr int kWbufOffset = src_offset(5) + kSlack;
-constexpr int kSmemFloats = kWbufOffset + 2 * kChunkFloats;
-constexpr size_t kSmemBytes = sizeof(float) * kSmemFloats;
-static_assert(kSmemBytes <= 232448, "tile does not fit in shared memory");
+// window of source k (0 = the block input x, 1..4 = a_k, 5 = the tile)
+__host__ __device__ constexpr int win_rows(int k) { return kTH + 2 * (kMargin - k); }
+__host__ __device__ constexpr int win_cols(int k) { return kTW + 2 * (kMargin - k); }
+__host__ __device__ constexpr int win_pix(int k) { return win_rows(k) * win_cols(k); }
 
 __host__ __device__ constexpr int stage_cin(int j) { return kFeat + kGrowth * (j - 1); }
 __host__ __device__ constexpr int stage_cout(int j) { return j < 5 ? kGrowth : kFeat; }
+// floats of one streamed weight unit: 3 taps x {hi, lo} x 8 x C_out
+__host__ __device__ constexpr int unit_floats(int j) { return 3 * 2 * kCK * stage_cout(j); }
+__host__ __device__ constexpr int stage_units(int j) { return 3 * stage_cin(j) / kCK; }
 __host__ __device__ constexpr size_t stage_woff(int j) {
   size_t off = 0;
-  for (int m = 1; m < j; ++m) off += 9 * (size_t)stage_cin(m) * stage_cout(m);
+  for (int m = 1; m < j; ++m) off += (size_t)stage_units(m) * unit_floats(m);
   return off;
 }
+constexpr int kUnits = stage_units(1) + stage_units(2) + stage_units(3) + stage_units(4) +
+                       stage_units(5);  // 240 per tile
+// floats of one dense block's packed weights (hi and lo): 2 x 9 x sum C_in C_out
+constexpr size_t kBlockWeights = stage_woff(6);
 
-__device__ __forceinline__ float lrelu(float v) { return v >= 0.f ? v : 0.2f * v; }
+// shared memory, in floats
+__host__ __device__ constexpr int act_offset(int k) {  // a_k, k = 1..4
+  int off = 0;
+  for (int m = 1; m < k; ++m) off += win_pix(m) * kGrowth;
+  return off;
+}
+constexpr int kXSlotFloats = win_pix(0) * kCK;
+constexpr int kXOffset = act_offset(5);
+constexpr int kSlotFloats = unit_floats(5);
+constexpr int kRingSlots = 3;
+constexpr int kRingOffset = kXOffset + 2 * kXSlotFloats;
+constexpr int kSmemFloats = kRingOffset + kRingSlots * kSlotFloats;
+constexpr size_t kSmemBytes = sizeof(float) * kSmemFloats;
+static_assert(kSmemBytes <= 232448, "tile does not fit in shared memory");
+static_assert(kXOffset % 4 == 0 && kRingOffset % 4 == 0, "16-byte alignment");
+static_assert(unit_floats(5) / 4 <= 2 * kThreads && 2 * win_pix(0) <= 2 * kThreads,
+              "a unit's copies take at most two rounds of the block");
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+// 16-byte cp.async.cg of src_bytes (16, or 0 to zero-fill) issued where
+// `pred` holds, as one predicated instruction rather than a branch, so that
+// every loop of the tile stays convergent (see above).
+__device__ __forceinline__ void cp_async16_pred(void* dst, const void* src, int src_bytes,
+                                                bool pred) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %3, 0;\n"
+      "@p cp.async.cg.shared.global [%0], [%1], 16, %2;\n}\n" ::"r"(s),
+      "l"(src), "r"(src_bytes), "r"((int)pred));
 }
 
-// Start the copy of the block's weight chunk q (0..79) into `dst`, laid out
-// [C_out/32][8 channels][9][32].
-__device__ __forceinline__ void load_chunk(float* dst, const float* w, int q) {
-  int j = 1, first = 0;
-  while (q >= first + stage_cin(j) / kCK) {
-    first += stage_cin(j) / kCK;
-    ++j;
-  }
-  const int cin = stage_cin(j);
-  const int per_ct = kCK * 9 * 32 / 4;  // float4s of one 32-channel slice
-  const float* src = w + stage_woff(j) + (size_t)(q - first) * kCK * 9 * 32;
-  for (int i = threadIdx.x; i < (stage_cout(j) / 32) * per_ct; i += kThreads) {
-    const int ct = i / per_ct, r = i % per_ct;
-    cp_async16(dst + ct * (kCK * 9 * 32) + 4 * r,
-               src + (size_t)ct * cin * 9 * 32 + 4 * r);
-  }
-}
+// One tile's pipeline: the weight ring and the x-chunk slots, fed two units
+// ahead. `src.pixel(gy, gx)` points at the 64 channels of the block input at
+// an in-image pixel.
+template <class Source>
+struct Pipe {
+  float* smem;
+  const Source& src;
+  const float* w;  // the block's pack_rdb_weights_tc weights
+  int ty0, tx0, H, W;
 
-// Stage the block input window, rows ty0-5 .. ty0+12, cols tx0-5 .. tx0+12,
-// channel-major, zero outside the image. `ld(gy, gx, c4)` returns channels
-// 4 c4 .. 4 c4 + 3 of pixel (gy, gx); it is called only for in-image pixels.
-template <class Loader>
-__device__ __forceinline__ void load_input(float* smem, const Loader& ld, int ty0,
-                                           int tx0, int H, int W) {
-  constexpr int S = side(0);
-  for (int i = threadIdx.x; i < S * S * (kFeat / 4); i += kThreads) {
-    const int p = i / (kFeat / 4), c4 = i % (kFeat / 4);
-    const int gy = ty0 - kMargin + p / S, gx = tx0 - kMargin + p % S;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-      v = ld(gy, gx, c4);
-    float* d = smem + 4 * c4 * plane(0) + p;
-    d[0] = v.x;
-    d[plane(0)] = v.y;
-    d[2 * plane(0)] = v.z;
-    d[3 * plane(0)] = v.w;
+  // Start the copies of unit u (0..239, in the order stage, chunk, kernel
+  // row) as one commit group, empty past the last unit: its weights into ring
+  // slot u % 3 and, for a stage's first unit of an x chunk c, that chunk's
+  // window into x slot c % 2, zero outside the image.
+  __device__ void issue(int u) const {
+    if (u < kUnits) {
+      int j = 1, first = 0;
+      while (u >= first + stage_units(j)) first += stage_units(j++);
+      const int c = (u - first) / 3, ky = (u - first) % 3;
+      const int n4 = unit_floats(j) / 4;
+      const float* ws = w + stage_woff(j) + (size_t)(u - first) * unit_floats(j);
+      float* dst = smem + kRingOffset + (u % kRingSlots) * kSlotFloats;
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {  // n4 <= 2 kThreads
+        const int i = threadIdx.x + k * kThreads;
+        cp_async16_pred(dst + 4 * i, ws + 4 * i, 16, i < n4);
+      }
+      if (ky == 0 && c < kFeat / kCK) {
+        float* xs = smem + kXOffset + (c & 1) * kXSlotFloats;
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {  // 2 x 468 items <= 2 kThreads
+          const int i = threadIdx.x + k * kThreads;
+          const int p = i >> 1, half = i & 1;
+          const int gy = ty0 - kMargin + p / win_cols(0), gx = tx0 - kMargin + p % win_cols(0);
+          const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+          const float* s = inside ? src.pixel(gy, gx) + kCK * c + 4 * half : w;
+          cp_async16_pred(xs + kCK * p + 4 * half, s, inside ? 16 : 0, i < 2 * win_pix(0));
+        }
+      }
+    }
+    cp_async_commit();
   }
-}
 
-// acc += the 8 input channels at `src` (row stride ss, channel stride ps)
-// times the staged chunk `wc` (this thread's 8 outputs), over the 3 x 3 taps.
-template <int kR>
-__device__ __forceinline__ void accumulate(float (&acc)[kR][8], const float* src,
-                                           int ss, int ps, const float* wc) {
-#pragma unroll 2
-  for (int c = 0; c < kCK; ++c) {
+  // Before unit u: its copies have landed and every warpgroup is done with
+  // unit u - 1, whose ring slot unit u + 2 then takes.
+  __device__ void advance(int u) const {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    // make the copied weights visible to wgmma's reads (the async proxy)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    issue(u + 2);
+  }
+};
+
+// Stage kJ (1..5) of the tile; its first unit is u0. Stages 1-4 write
+// lrelu(conv + b) into a_kJ, zero outside the image; stage 5 calls
+// epi(gy, gx, co, v0, v1) for each in-image output pixel and channel pair
+// co, co + 1, v = conv5 + b5.
+template <int kJ, class Source, class Epilogue>
+__device__ __forceinline__ void stage(const Pipe<Source>& pipe, const float* bias, int u0,
+                                      const Epilogue& epi) {
+  constexpr int kCols = win_cols(kJ), kPix = win_pix(kJ);
+  constexpr int kHalves = stage_cout(kJ) / 32;
+  constexpr int kWork = (kPix + 63) / 64 * kHalves;  // items: M block x N half
+  constexpr int kMine = (kWork + 3) / 4;            // at most, per warpgroup
+  constexpr int kCout = stage_cout(kJ);
+  float* smem = pipe.smem;
+  const int tid = threadIdx.x, lane = tid & 31;
+  // the warpgroup, broadcast so that the compiler sees it uniform in the warp
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0), row = (tid >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+
+  // the lane's two rows (g, g + 8 of its warp) in each of its items, as
+  // (window row, window column); rows past the window take its last pixel
+  int oy[kMine][2], ox[kMine][2];
 #pragma unroll
-    for (int kx = 0; kx < 3; ++kx) {
-      float col[kR + 2];
+  for (int m = 0; m < kMine; ++m)
 #pragma unroll
-      for (int r = 0; r < kR + 2; ++r) col[r] = src[c * ps + r * ss + kx];
+    for (int h = 0; h < 2; ++h) {
+      const int r = 64 * ((wg + 4 * m) / kHalves) + 16 * row + g + 8 * h;
+      const int p = r < kPix ? r : kPix - 1;
+      oy[m][h] = p / kCols;
+      ox[m][h] = p % kCols;
+    }
+  float acc[kMine][16], part[16];
 #pragma unroll
-      for (int ky = 0; ky < 3; ++ky) {
-        const float4* wp = reinterpret_cast<const float4*>(wc + (c * 9 + ky * 3 + kx) * 32);
-        const float4 wa = wp[0], wb = wp[1];
-        const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+  for (int m = 0; m < kMine; ++m)
 #pragma unroll
-        for (int r = 0; r < kR; ++r)
+    for (int i = 0; i < 16; ++i) acc[m][i] = 0.f;
+
+#pragma unroll 1
+  for (int c = 0; c < stage_cin(kJ) / kCK; ++c) {
+    // source k of chunk c: the staged x chunk, or chunk cl of a_k
+    const bool from_x = c < kFeat / kCK;
+    const int k = from_x ? 0 : 1 + (c - kFeat / kCK) / (kGrowth / kCK);
+    const int cl = from_x ? 0 : (c - kFeat / kCK) % (kGrowth / kCK);
+    const float* base = from_x ? smem + kXOffset + (c & 1) * kXSlotFloats
+                               : smem + act_offset(k);
+    const int pitch = from_x ? kCK : kGrowth, swz = from_x ? 0 : 3;
+    const int cols = win_cols(k), d = kJ - 1 - k;  // stage kJ sits d px inside source k
+#pragma unroll 1
+    for (int ky = 0; ky < 3; ++ky) {
+      const int u = u0 + 3 * c + ky;
+      pipe.advance(u);
+      const float* bslot = smem + kRingOffset + (u % kRingSlots) * kSlotFloats;
 #pragma unroll
-          for (int jj = 0; jj < 8; ++jj) acc[r][jj] += col[r + ky] * wv[jj];
+      for (int m = 0; m < kMine; ++m) {
+        const int item = wg + 4 * m;
+        if (item >= kWork) continue;  // uniform in the warpgroup
+        uint32_t ah[3][4], al[3][4];
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          float2 v[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int q = (oy[m][h] + ky + d) * cols + ox[m][h] + kx + d;
+            v[h] = *reinterpret_cast<const float2*>(base + q * pitch +
+                                                    ((cl ^ (q & swz)) << 3) + 2 * t);
+          }
+          const float4 p0 = split_pair(v[0].x, v[0].y), p8 = split_pair(v[1].x, v[1].y);
+          ah[kx][0] = __float_as_uint(p0.x);
+          ah[kx][1] = __float_as_uint(p8.x);
+          ah[kx][2] = __float_as_uint(p0.y);
+          ah[kx][3] = __float_as_uint(p8.y);
+          al[kx][0] = __float_as_uint(p0.z);
+          al[kx][1] = __float_as_uint(p8.z);
+          al[kx][2] = __float_as_uint(p0.w);
+          al[kx][3] = __float_as_uint(p8.w);
+        }
+        const float* bn = bslot + (item % kHalves) * 32 * kCK;
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          const float* bh = bn + kx * 2 * kCK * kCout;
+          wgmma_k8(part, al[kx], weight_desc(bh), kx > 0);               // lo . hi
+          wgmma_k8(part, ah[kx], weight_desc(bh + kCK * kCout), 1);      // hi . lo
+          wgmma_k8(part, ah[kx], weight_desc(bh), 1);                    // hi . hi
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        fence_operands(part);
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          fence_operands(ah[kx]);
+          fence_operands(al[kx]);
+        }
+#pragma unroll
+        for (int i = 0; i < 16; ++i) acc[m][i] += part[i];
+      }
+    }
+  }
+
+  // accumulator i: n8 tile jn = i / 4, row g (i % 4 < 2) or g + 8, channel
+  // 8 jn + 2t + i % 2 of the item's N half
+  const int oy0 = pipe.ty0 - (kMargin - kJ), ox0 = pipe.tx0 - (kMargin - kJ);
+#pragma unroll
+  for (int m = 0; m < kMine; ++m) {
+    const int item = wg + 4 * m;
+    if (item >= kWork) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 64 * (item / kHalves) + 16 * row + g + 8 * h;
+      if (r >= kPix) continue;
+      const int gy = oy0 + oy[m][h], gx = ox0 + ox[m][h];
+      const bool in = gy >= 0 && gy < pipe.H && gx >= 0 && gx < pipe.W;
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn) {
+        const int co = 32 * (item % kHalves) + 8 * jn + 2 * t;
+        const float2 b = *reinterpret_cast<const float2*>(bias + kGrowth * (kJ - 1) + co);
+        const float v0 = acc[m][4 * jn + 2 * h] + b.x, v1 = acc[m][4 * jn + 2 * h + 1] + b.y;
+        if constexpr (kJ < 5) {
+          float* dst = smem + act_offset(kJ) + r * kGrowth + ((jn ^ (r & 3)) << 3) + 2 * t;
+          *reinterpret_cast<float2*>(dst) =
+              in ? make_float2(lrelu(v0), lrelu(v1)) : make_float2(0.f, 0.f);
+        } else if (in) {
+          epi(gy, gx, co, v0, v1);
+        }
       }
     }
   }
 }
 
-// Stage kJ (1..5) of the tile whose output origin is (ty0, tx0); q counts the
-// block's weight chunks (chunk q is already in flight on entry). Stages 1-4
-// write lrelu(conv + b) into a_kJ, zero outside the image; stage 5 calls
-// epi(gy, gx, co, v, x) for each in-image output, v = conv5 + b5 and x the
-// block input at that pixel.
-template <int kJ, int kR, class Epilogue>
-__device__ __forceinline__ void stage(float* smem, const float* w, const float* bias,
-                                      int& q, int ty0, int tx0, int H, int W,
-                                      const Epilogue& epi) {
-  constexpr int S = side(kJ);
-  constexpr int CG = stage_cout(kJ) / 8;
-  constexpr int NRG = (S + kR - 1) / kR;
-  static_assert(S * CG * NRG <= kThreads, "more units than threads");
-  const int u = threadIdx.x;
-  const bool active = u < S * CG * NRG;
-  const int px = u % S, cg = (u / S) % CG, rg = u / (S * CG);
-  float acc[kR][8];
-#pragma unroll
-  for (int r = 0; r < kR; ++r)
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) acc[r][jj] = 0.f;
-
-  for (int ci0 = 0; ci0 < stage_cin(kJ); ci0 += kCK, ++q) {
-    float* wbuf = smem + kWbufOffset;
-    if (q + 1 < kChunks) load_chunk(wbuf + ((q + 1) & 1) * kChunkFloats, w, q + 1);
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    if (active) {
-      const int k = ci0 < kFeat ? 0 : 1 + (ci0 - kFeat) / kGrowth;
-      const int cl = ci0 < kFeat ? ci0 : (ci0 - kFeat) % kGrowth;
-      const int ss = side(k) , ps = plane(k);
-      const int d = kJ - 1 - k;  // stage kJ's window sits d px inside source k's
-      const float* src = smem + src_offset(k) + cl * ps + (rg * kR + d) * ss + px + d;
-      const float* wc = wbuf + (q & 1) * kChunkFloats + (cg >> 2) * (kCK * 9 * 32) +
-                        (cg & 3) * 8;
-      accumulate<kR>(acc, src, ss, ps, wc);
-    }
-    __syncthreads();
-  }
-  if (!active) return;
-
-  const int oy0 = ty0 - (kMargin - kJ), ox0 = tx0 - (kMargin - kJ);
-  const int gx = ox0 + px;
-  const float* b = bias + kGrowth * (kJ - 1) + cg * 8;
-#pragma unroll
-  for (int r = 0; r < kR; ++r) {
-    const int oy = rg * kR + r;
-    if (oy >= S) continue;
-    const int gy = oy0 + oy;
-    const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-    if constexpr (kJ < 5) {
-      float* dst = smem + src_offset(kJ) + (cg * 8) * plane(kJ) + oy * S + px;
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj)
-        dst[jj * plane(kJ)] = in ? lrelu(acc[r][jj] + b[jj]) : 0.f;
-    } else {
-      if (!in) continue;
-      const float* xs = smem + (cg * 8) * plane(0) + (oy + kMargin) * side(0) + px + kMargin;
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj)
-        epi(gy, gx, cg * 8 + jj, acc[r][jj] + b[jj], xs[jj * plane(0)]);
-    }
-  }
-}
-
-// The whole dense block on one 8 x 8 tile. `w` / `bias` are the block's
-// packed weights and its 192 biases. Ends with a barrier, so the caller may
-// start the next tile at once.
-template <class Loader, class Epilogue>
-__device__ __forceinline__ void dense_block_tile(float* smem, const Loader& ld,
+// The whole dense block on the 8 x 16 tile whose origin is (ty0, tx0). `w` /
+// `bias` are the block's pack_rdb_weights_tc weights and its 192 biases.
+// Ends with every copy drained and a barrier, so the caller may start the
+// next tile at once.
+template <class Source, class Epilogue>
+__device__ __forceinline__ void dense_block_tile(float* smem, const Source& src,
                                                  const float* w, const float* bias,
                                                  int ty0, int tx0, int H, int W,
                                                  const Epilogue& epi) {
-  int q = 0;
-  load_chunk(smem + kWbufOffset, w, 0);
-  cp_async_commit();
-  load_input(smem, ld, ty0, tx0, H, W);
-  stage<1, 4>(smem, w, bias, q, ty0, tx0, H, W, epi);
-  stage<2, 4>(smem, w, bias, q, ty0, tx0, H, W, epi);
-  stage<3, 3>(smem, w, bias, q, ty0, tx0, H, W, epi);
-  stage<4, 2>(smem, w, bias, q, ty0, tx0, H, W, epi);
-  stage<5, 2>(smem, w, bias, q, ty0, tx0, H, W, epi);
+  const Pipe<Source> pipe{smem, src, w, ty0, tx0, H, W};
+  pipe.issue(0);
+  pipe.issue(1);
+  constexpr int u2 = stage_units(1), u3 = u2 + stage_units(2), u4 = u3 + stage_units(3),
+                u5 = u4 + stage_units(4);
+  stage<1>(pipe, bias, 0, epi);
+  stage<2>(pipe, bias, u2, epi);
+  stage<3>(pipe, bias, u3, epi);
+  stage<4>(pipe, bias, u4, epi);
+  stage<5>(pipe, bias, u5, epi);
+  cp_async_wait_all();
   __syncthreads();
 }
 

@@ -8,15 +8,16 @@
 // outputs in 3-slot VMEM rings, so HBM sees x and the output and no
 // intermediate image.
 //
-// What bounds it on an H100: arithmetic. The function's work at the main-path
-// shape (2 x 286 x 286 x 64) is K4's, 235 GFLOP against ~0.1 GB in and out,
-// 3.510 ms at the fp32 FMA peak. Each dense block runs rdb_tile.cuh, whose
-// halo recompute costs 1.77x those MACs.
+// What bounds it on an H100: tensor-core operations. The function's work at
+// the main-path shape (2 x 286 x 286 x 64) is K4's, 235 GFLOP against ~0.1 GB
+// in and out, 1.425 ms as 3xTF32 at 495 TFLOP/s. Each dense block runs
+// rdb_tile.cuh on the tensor cores, whose halo recompute costs 1.58x those
+// MACs.
 //
 // Design: Hopper has no ordered sequential grid, so the sweep is one
 // cooperative launch (cudaLaunchCooperativeKernel, the grid sized to
-// co-residency: one 209 KB block per SM) whose blocks walk the 8 x 8 tiles of
-// one wavefront step and then meet at a grid-wide barrier
+// co-residency: one 209 KB block per SM) whose blocks walk the 8 x 16 tiles
+// of one wavefront step and then meet at a grid-wide barrier
 // (cooperative_groups grid.sync(), which with CUDA 12.8 needs no
 // -rdc=true and no device link). Step s computes RDB1 band s, RDB2 band
 // s - 2 and RDB3 band s - 4 (bands of 8 rows, the tile height). The lag is
@@ -51,37 +52,42 @@ struct Sweep {
 
   // pixel (gy, gx) of image n in ring r
   __device__ float* ring_px(int r, int n, int gy, int gx) const {
-    const int slot = (gy / rdbtile::kT) % kSlots;
+    const int slot = (gy / rdbtile::kTH) % kSlots;
     return ring[r] +
-           ((((size_t)slot * N + n) * rdbtile::kT + gy % rdbtile::kT) * W + gx) *
+           ((((size_t)slot * N + n) * rdbtile::kTH + gy % rdbtile::kTH) * W + gx) *
                rdbtile::kFeat;
+  }
+  __device__ size_t x_index(int n, int gy, int gx) const {
+    return (((size_t)n * H + gy) * W + gx) * rdbtile::kFeat;
   }
 };
 
-// Dense block p's input: x, t1 or t2. Ring slots are rewritten by other
-// blocks between grid barriers, so they are read through L2 only (__ldcg),
-// never from a possibly stale L1 line.
-struct SweepLoader {
+// Dense block p's input: x, t1 or t2. The tile body stages it with
+// cp.async.cg, which reads through L2 only: ring slots are rewritten by other
+// blocks between grid barriers, so no stale L1 line may serve them.
+struct SweepSource {
   Sweep sw;
   int p, n;
-  __device__ float4 operator()(int gy, int gx, int c4) const {
-    if (p == 0)
-      return reinterpret_cast<const float4*>(
-          sw.x + (((size_t)n * sw.H + gy) * sw.W + gx) * rdbtile::kFeat)[c4];
-    return __ldcg(reinterpret_cast<const float4*>(sw.ring_px(p - 1, n, gy, gx)) + c4);
+  __device__ const float* pixel(int gy, int gx) const {
+    return p == 0 ? sw.x + sw.x_index(n, gy, gx) : sw.ring_px(p - 1, n, gy, gx);
   }
 };
 
 struct SweepStore {  // t1, t2 = a + s * v; out = x + s * (t2 + s * v)
   Sweep sw;
   int p, n;
-  __device__ void operator()(int gy, int gx, int co, float v, float a) const {
-    const float t = a + sw.s * v;
+  __device__ void operator()(int gy, int gx, int co, float v0, float v1) const {
+    const size_t i = sw.x_index(n, gy, gx) + co;
+    const float2 a = p == 0 ? *reinterpret_cast<const float2*>(sw.x + i)
+                            : __ldcg(reinterpret_cast<const float2*>(
+                                  sw.ring_px(p - 1, n, gy, gx) + co));
+    const float2 t = make_float2(a.x + sw.s * v0, a.y + sw.s * v1);
     if (p < 2) {
-      sw.ring_px(p, n, gy, gx)[co] = t;
+      *reinterpret_cast<float2*>(sw.ring_px(p, n, gy, gx) + co) = t;
     } else {
-      const size_t i = (((size_t)n * sw.H + gy) * sw.W + gx) * rdbtile::kFeat + co;
-      sw.out[i] = sw.x[i] + sw.s * t;
+      const float2 xv = *reinterpret_cast<const float2*>(sw.x + i);
+      *reinterpret_cast<float2*>(sw.out + i) =
+          make_float2(xv.x + sw.s * t.x, xv.y + sw.s * t.y);
     }
   }
 };
@@ -91,8 +97,8 @@ rrdb_sweep_kernel(Sweep sw, const float* __restrict__ w, const float* __restrict
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   cg::grid_group grid = cg::this_grid();
-  const int tiles_x = (sw.W + rdbtile::kT - 1) / rdbtile::kT;
-  const int bands = (sw.H + rdbtile::kT - 1) / rdbtile::kT;
+  const int tiles_x = (sw.W + rdbtile::kTW - 1) / rdbtile::kTW;
+  const int bands = (sw.H + rdbtile::kTH - 1) / rdbtile::kTH;
   const int per_band = sw.N * tiles_x;
 
   for (int step = 0; step < bands + 2 * kLag; ++step) {
@@ -111,9 +117,9 @@ rrdb_sweep_kernel(Sweep sw, const float* __restrict__ w, const float* __restrict
       const int band = step - kLag * p;
       const int n = (t % per_band) / tiles_x, tx = t % tiles_x;
       rdbtile::dense_block_tile(
-          smem, SweepLoader{sw, p, n}, w + p * rdbtile::kBlockWeights,
-          bias + p * (rdbtile::kFeat + 4 * rdbtile::kGrowth), band * rdbtile::kT,
-          tx * rdbtile::kT, sw.H, sw.W, SweepStore{sw, p, n});
+          smem, SweepSource{sw, p, n}, w + p * rdbtile::kBlockWeights,
+          bias + p * (rdbtile::kFeat + 4 * rdbtile::kGrowth), band * rdbtile::kTH,
+          tx * rdbtile::kTW, sw.H, sw.W, SweepStore{sw, p, n});
     }
     grid.sync();
   }
@@ -122,10 +128,11 @@ rrdb_sweep_kernel(Sweep sw, const float* __restrict__ w, const float* __restrict
 }  // namespace
 
 // x, out: (N, H, W, 64), out must not alias x; ring1, ring2: (4, N, 8, W, 64)
-// scratch each; w_packed: the three blocks' rdb_forward weight packs back to
-// back; bias: the three blocks' 192 biases back to back. One cooperative
-// launch. Returns the launch's error (cudaErrorCooperativeLaunchTooLarge if
-// the card cannot hold one block per SM) or cudaGetLastError().
+// scratch each; w_packed: the three blocks' pack_rdb_weights_tc weights back
+// to back (ops/rdb.py:pack_rrdb_weights_tc); bias: the three blocks' 192
+// biases back to back. One cooperative launch. Returns the launch's error
+// (cudaErrorCooperativeLaunchTooLarge if the card cannot hold one block per
+// SM) or cudaGetLastError().
 extern "C" int rrdb_sweep_forward(const float* x, float* ring1, float* ring2,
                                   float* out, const float* w_packed,
                                   const float* bias, int N, int H, int W,

@@ -30,7 +30,9 @@ from deepbedmap_tpu_torch.ops.conv3x3 import conv3x3_fused, pack_conv_weight
 from deepbedmap_tpu_torch.ops.deform_conv import deform_conv2d, pack_deform64_weight_tc
 from deepbedmap_tpu_torch.ops.rdb import (
     pack_rdb_weights,
+    pack_rdb_weights_tc,
     pack_rrdb_weights,
+    pack_rrdb_weights_tc,
     rdb_banded,
     rdb_fused,
     rrdb_fused,
@@ -159,7 +161,8 @@ class ResidualDenseBlock(nn.Module):
             setattr(self, f"conv_layer{i}", Conv3x3(ci, co))
         self.residual_scaling = residual_scaling
         self.banded = banded
-        self._packed = _Cached(lambda *p: pack_rdb_weights(p[:5], p[5:]))
+        pack = pack_rdb_weights_tc if banded else pack_rdb_weights  # K6's or K1's
+        self._packed = _Cached(lambda *p: pack(p[:5], p[5:]))
 
     def convs(self) -> Tuple[Conv3x3, ...]:
         return tuple(getattr(self, f"conv_layer{i}") for i in range(1, 6))
@@ -191,7 +194,8 @@ class ResInResDenseBlock(nn.Module):
         self.residual_dense_block3 = ResidualDenseBlock(features, growth, residual_scaling, banded)
         self.residual_scaling = residual_scaling
         self.kernel = kernel
-        self._packed = _Cached(lambda *p: pack_rrdb_weights(
+        pack = pack_rrdb_weights_tc if kernel == "rrdb_sweep" else pack_rrdb_weights
+        self._packed = _Cached(lambda *p: pack(
             [p[i:i + 5] for i in (0, 10, 20)], [p[i + 5:i + 10] for i in (0, 10, 20)]
         ))
 

@@ -1,8 +1,11 @@
 """Deformable convolution v1: the masked-shift plain versions of K2, K3, K7
-and K8, and the layer-level ``deform_conv2d`` with the K7 / K8 wrappers.
+and K8, the exact gather sampler, and the layer-level ``deform_conv2d`` with
+JAX's ``method`` names and the K7 / K8 wrappers.
 
 Counterpart of ``deepbedmap_tpu/ops/deform_conv.py`` (``_deform_conv_shifts``,
-``_deform_conv_shifts_zproj``, ``deform_conv2d``). Offsets are clamped to
+``_deform_conv_shifts_zproj``, ``_deform_conv_gather``, ``deform_conv2d``).
+``deform_conv_gather`` samples without a clamp, a corner outside the padded
+input counting as zero. The masked-shift samplers clamp offsets to
 [-clamp, clamp] and the bilinear sample decomposes over the (2*clamp+2)^2
 integer shifts as sliced reads weighted by per-position masks:
 
@@ -136,6 +139,62 @@ def deform_conv_shifts_zproj(
     return sample_tap_fields(z, offsets, bias, padding, clamp, kw)
 
 
+def _bilinear_gather(
+    x_pad: torch.Tensor,  # (N, HP, WP, C) zero-padded input
+    rows: torch.Tensor,  # (N, H, W) fractional row coordinates into x_pad
+    cols: torch.Tensor,  # (N, H, W) fractional column coordinates into x_pad
+) -> torch.Tensor:
+    """x_pad sampled bilinearly at (rows, cols) -> (N, H, W, C). A corner
+    outside x_pad counts as zero: its validity is tested before its index is
+    clipped, so an off-grid tap contributes exactly nothing."""
+    n, hp, wp, c = x_pad.shape
+    r0, c0 = torch.floor(rows), torch.floor(cols)
+    fr, fc = rows - r0, cols - c0
+    r0, c0 = r0.long(), c0.long()
+    x_flat = x_pad.reshape(n, hp * wp, c)
+
+    def corner(ri, ci):
+        valid = (ri >= 0) & (ri < hp) & (ci >= 0) & (ci < wp)
+        flat = ri.clamp(0, hp - 1) * wp + ci.clamp(0, wp - 1)
+        idx = flat.reshape(n, -1, 1).expand(-1, -1, c)
+        return torch.gather(x_flat, 1, idx).reshape(ri.shape + (c,)) * valid[..., None]
+
+    return (corner(r0, c0) * ((1.0 - fr) * (1.0 - fc))[..., None]
+            + corner(r0, c0 + 1) * ((1.0 - fr) * fc)[..., None]
+            + corner(r0 + 1, c0) * (fr * (1.0 - fc))[..., None]
+            + corner(r0 + 1, c0 + 1) * (fr * fc)[..., None])
+
+
+def deform_conv_gather(
+    x: torch.Tensor,  # (N, H, W, C_in)
+    offsets: torch.Tensor,  # (N, H, W, 2K)
+    weight: torch.Tensor,  # (C_out, C_in, kh, kw)
+    bias: Optional[torch.Tensor],
+    padding: int = 1,
+) -> torch.Tensor:
+    """The exact deformable conv, offsets unclamped (Chainer's
+    ``deformable_convolution_2d_sampler`` semantics; JAX's
+    ``_deform_conv_gather``): each tap samples the zero-padded input at
+    p + (u, v) + offset, then one matmul contracts it. Computes in float32,
+    or in float64 for a float64 ``x``."""
+    n, h, w, c_in = x.shape
+    c_out, _, kh, kw = weight.shape
+    k = kh * kw
+    dt = torch.float64 if x.dtype == torch.float64 else torch.float32
+    x_pad = _pad_hw(x.to(dt), padding)
+    ii = torch.arange(h, dtype=dt, device=x.device)[None, :, None]
+    jj = torch.arange(w, dtype=dt, device=x.device)[None, None, :]
+    rhs = weight.to(dt).permute(2, 3, 1, 0).reshape(k, c_in, c_out)
+    acc = x.new_zeros((n * h * w, c_out), dtype=dt)
+    for t in range(k):
+        u, v = divmod(t, kw)
+        rows = ii + u + offsets[..., t].to(dt)
+        cols = jj + v + offsets[..., k + t].to(dt)
+        acc = acc + _bilinear_gather(x_pad, rows, cols).reshape(n * h * w, c_in) @ rhs[t]
+    out = acc.reshape(n, h, w, c_out)
+    return out if bias is None else out + bias
+
+
 def pack_deform64_weight(weight: torch.Tensor) -> torch.Tensor:
     """OIHW (C_out, C_in, 3, 3) -> (9 * C_in, C_out), row t * C_in + c_in (the
     layout K9 reads)."""
@@ -233,31 +292,61 @@ def tap_projection(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return (x @ weight[0].reshape(weight.shape[1], _TAPS)).contiguous()
 
 
+METHODS = ("auto", "pallas", "zproj", "shifts", "gather")  # JAX's names
+
+
 def deform_conv2d(
-    x: torch.Tensor,  # (N, H, W, 64)
-    offsets: torch.Tensor,  # (N, H, W, 18), [:9] dy, [9:] dx
-    weight: torch.Tensor,  # (C_out, 64, 3, 3) OIHW, C_out in {1, 64}
-    bias: torch.Tensor,  # (C_out,)
+    x: torch.Tensor,  # (N, H, W, C_in)
+    offsets: torch.Tensor,  # (N, H, W, 2K), [:K] dy, [K:] dx
+    weight: torch.Tensor,  # (C_out, C_in, kh, kw) OIHW
+    bias: Optional[torch.Tensor] = None,  # (C_out,) or None
     padding: int = 1,
     clamp: int = 2,
     w_packed: Optional[torch.Tensor] = None,
+    method: str = "auto",
 ) -> torch.Tensor:
-    """One deformable conv layer (the JAX ``deform_conv2d``'s Pallas path):
-    on a CUDA tensor K7 (``deform_conv``) for C_out = 64, and for C_out = 1
-    the tap projection (a matmul) followed by K8 (``deform_conv_zproj1``, K3's
-    kernel); on a CPU tensor the plain ``deform_conv_shifts`` /
-    ``deform_conv_shifts_zproj``. Shapes the kernels do not take raise
-    ``ValueError`` on either device: padding != 1, a kernel that is not 3x3,
-    C_in != 64, C_out not in {1, 64}; on a CUDA tensor so does a clamp the
-    kernels' windows do not cover (``check_window_clamp``). ``w_packed`` is
-    ``pack_deform64_weight_tc(weight)`` for C_out = 64, cached by the
-    caller."""
+    """One deformable conv layer, the JAX ``deform_conv2d`` with its
+    ``method`` names:
+
+    - ``'pallas'``: the kernels. On a CUDA tensor K7 (``deform_conv``) for
+      C_out = 64, and for C_out = 1 the tap projection (a matmul) followed by
+      K8 (``deform_conv_zproj1``, K3's kernel); on a CPU tensor their plain
+      versions ``deform_conv_shifts`` / ``deform_conv_shifts_zproj``. Shapes
+      the kernels do not take raise ``ValueError`` on either device: padding
+      != 1, a kernel that is not 3x3, C_in != 64, C_out not in {1, 64}; on a
+      CUDA tensor so does a clamp the kernels' windows do not cover
+      (``check_window_clamp``). ``w_packed`` is
+      ``pack_deform64_weight_tc(weight)`` for C_out = 64, cached by the
+      caller.
+    - ``'shifts'``, ``'zproj'``: the plain masked-shift samplers
+      ``deform_conv_shifts`` / ``deform_conv_shifts_zproj``, any shape.
+    - ``'gather'``: ``deform_conv_gather``, the exact sampler without a
+      clamp, any shape.
+    - ``'auto'``: ``'pallas'`` on a CUDA tensor; elsewhere JAX's rule off
+      the TPU, ``'zproj'`` for an image of at least 256^2 px whose layer
+      contracts channels (C_out * 4 <= C_in), else ``'shifts'``.
+
+    ``bias`` None adds nothing. Another method raises ``ValueError``."""
+    if method not in METHODS:
+        raise ValueError(f"unknown deform_conv2d method {method!r}")
     c_out, c_in, kh, kw = weight.shape
+    if method == "auto":
+        if x.device.type == "cuda":
+            method = "pallas"
+        else:
+            large = x.shape[1] * x.shape[2] >= 256 * 256
+            method = "zproj" if large and c_out * 4 <= c_in else "shifts"
+    if method == "shifts":
+        return deform_conv_shifts(x, offsets, weight, bias, padding, clamp)
+    if method == "zproj":
+        return deform_conv_shifts_zproj(x, offsets, weight, bias, padding, clamp)
+    if method == "gather":
+        return deform_conv_gather(x, offsets, weight, bias, padding)
     if padding != 1 or (kh, kw) != (3, 3) or c_in != _C or x.shape[-1] != _C \
             or c_out not in (1, _C):
         raise ValueError(
-            "deform_conv2d takes padding 1, a 3x3 kernel, 64 input channels and "
-            f"1 or 64 output channels; got padding {padding}, weight "
+            "deform_conv2d(method='pallas') takes padding 1, a 3x3 kernel, 64 input "
+            f"channels and 1 or 64 output channels; got padding {padding}, weight "
             f"{tuple(weight.shape)}, x {tuple(x.shape)}"
         )
     if x.device.type == "cpu":
@@ -265,6 +354,8 @@ def deform_conv2d(
         return plain(x, offsets, weight, bias, padding, clamp)
     if x.device.type != "cuda":
         raise ValueError(f"deform_conv2d: unsupported device {x.device}")
+    if bias is None:
+        bias = torch.zeros(c_out, device=x.device)
     if c_out == 1:
         z = tap_projection(x, weight)
         return deform_tap_fields(z, offsets, bias, clamp, "deform_conv_zproj1")

@@ -8,19 +8,23 @@ Two kernels compute it on the card: ``rdb_fused``, K1 (``csrc/rdb.cu``
 (N, H, W, 192) workspace in device memory, each a 3xTF32 implicit GEMM on
 the tensor cores, ``csrc/conv3x3_tc.cuh``), and ``rdb_banded``, K6
 (``csrc/rdb_banded.cu``, the non-resident trunk's block: one launch, the
-intermediates of each 8 x 8 tile in shared memory). ``rrdb_reference`` is a
+intermediates of each 8 x 16 tile in shared memory). ``rrdb_reference`` is a
 whole residual-in-residual block (three dense blocks and the scaled outer
 skip), the function of the JAX ``rrdb_pallas_flat`` and
 ``rrdb_sweep_pallas_flat``; ``rrdb_fused`` runs it as K4 (``rrdb_forward``,
 two workspaces in ping-pong) and ``rrdb_sweep`` as K5
 (``csrc/rrdb_sweep.cu``, one cooperative launch sweeping row bands, the
-block outputs in band rings). Each wrapper takes its kernel for a CUDA tensor
+block outputs in band rings). K5 and K6 share ``csrc/rdb_tile.cuh``, one
+8 x 16 tile of a dense block on the tensor cores (3xTF32 ``wgmma``) with its
+intermediates in shared memory. Each wrapper takes its kernel for a CUDA tensor
 and the plain version for a CPU tensor. There is no size rule and no
 fallback: any N, H, W >= 1 go through the kernels on the card.
 
 Layout: NHWC at every function; the JAX kernels' flat row-band layout is not
-carried over. Conv weights are OIHW, as everywhere in the port;
-``pack_rdb_weights`` repacks them once for the kernels.
+carried over. Conv weights are OIHW, as everywhere in the port; each kernel's
+packer repacks them once per model: ``pack_rdb_weights`` /
+``pack_rrdb_weights`` for K1 / K4, ``pack_rdb_weights_tc`` /
+``pack_rrdb_weights_tc`` (split into TF32 hi/lo) for K6 / K5.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch.nn.functional as F
 from deepbedmap_tpu_torch.ops import _kernels
 from deepbedmap_tpu_torch.ops.conv import leaky_relu
 from deepbedmap_tpu_torch.ops.conv3x3 import pack_conv_weight
+from deepbedmap_tpu_torch.ops.deform_conv import tf32_split
 
 FEATURES = 64
 GROWTH = 32
@@ -69,20 +74,61 @@ def pack_rdb_weights(
     return w, b
 
 
+_SLOT_CHANNELS = torch.tensor([2 * (k % 4) + k // 4 for k in range(8)])
+
+
+def _pack_stage_tc(kernel: torch.Tensor) -> torch.Tensor:
+    """One stage's OIHW (C_out, C_in, 3, 3) kernel as ``csrc/rdb_tile.cuh``
+    streams it: per 8-channel chunk c, kernel row ky and column kx, hi then lo
+    (``tf32_split``), each the (8, C_out) B operand of one wgmma k8 step in
+    its K-major core-matrix layout [n / 8][k / 4][n % 8][k % 4]. Slot k takes
+    channel 8 c + 2 (k % 4) + k // 4, the order in which a lane reads its A
+    values (conv3x3_tc.cuh's)."""
+    c_out, c_in = kernel.shape[:2]
+    w = kernel.detach().float().permute(1, 2, 3, 0)  # (C_in, ky, kx, C_out)
+    w = w.reshape(c_in // 8, 8, 3, 3, c_out)[:, _SLOT_CHANNELS.to(w.device)]
+    w = w.reshape(c_in // 8, 2, 4, 3, 3, c_out // 8, 8).permute(0, 3, 4, 5, 1, 6, 2)
+    return torch.stack(tf32_split(w), dim=3).reshape(-1)
+
+
+def pack_rdb_weights_tc(
+    kernels: Sequence[torch.Tensor], biases: Sequence[torch.Tensor]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6's layout: the five stages' ``_pack_stage_tc`` back to back (twice
+    ``pack_rdb_weights``' floats: hi and lo), and the five biases
+    concatenated."""
+    w = torch.cat([_pack_stage_tc(k) for k in kernels]).contiguous()
+    b = torch.cat([b_.detach() for b_ in biases]).contiguous()
+    return w, b
+
+
+def pack_rrdb_weights_tc(
+    kernels: Sequence[Sequence[torch.Tensor]], biases: Sequence[Sequence[torch.Tensor]]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5's layout: the three blocks' ``pack_rdb_weights_tc`` back to back."""
+    packs = [pack_rdb_weights_tc(ks, bs) for ks, bs in zip(kernels, biases)]
+    return (torch.cat([w for w, _ in packs]).contiguous(),
+            torch.cat([b for _, b in packs]).contiguous())
+
+
 def _kernel_args(x: torch.Tensor, kernels, biases, packed, name: str,
-                 blocks: int) -> tuple:
+                 blocks: int, split: bool) -> tuple:
     """What every dense-block kernel takes, checked: (N, H, W) and the packed
-    weights of ``blocks`` dense blocks (1, or 3 for a whole RRDB), from
-    ``packed`` when the caller cached them."""
+    weights of ``blocks`` dense blocks (1, or 3 for a whole RRDB), split into
+    TF32 hi/lo for the tile-local kernels (``split``), from ``packed`` when
+    the caller cached them."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     n, h, w, _ = x.shape
     _kernels.check_tensor(x, "x", (n, h, w, FEATURES))
     _kernels.check_image_shape(n, h, w, WORKSPACE)
     if packed is None:
-        packed = (pack_rdb_weights if blocks == 1 else pack_rrdb_weights)(kernels, biases)
+        packer = {(1, False): pack_rdb_weights, (3, False): pack_rrdb_weights,
+                  (1, True): pack_rdb_weights_tc, (3, True): pack_rrdb_weights_tc}
+        packed = packer[blocks, split](kernels, biases)
     w_packed, b_packed = packed
-    _kernels.check_tensor(w_packed, "packed weights", (blocks * _BLOCK_WEIGHTS,))
+    floats = blocks * _BLOCK_WEIGHTS * (2 if split else 1)
+    _kernels.check_tensor(w_packed, "packed weights", (floats,))
     _kernels.check_tensor(b_packed, "packed biases", (blocks * WORKSPACE,))
     return n, h, w, w_packed, b_packed
 
@@ -100,7 +146,7 @@ def rdb_fused(
     if x.device.type == "cpu":
         return rdb_reference(x, kernels, biases, scaling)
     n, h, w, w_packed, b_packed = _kernel_args(x, kernels, biases, packed,
-                                               "rdb_fused", 1)
+                                               "rdb_fused", 1, False)
     ws = torch.empty((n, h, w, WORKSPACE), device=x.device)
     out = torch.empty_like(x)
     _kernels.launch_rdb_forward(x, ws, out, w_packed, b_packed, n, h, w, scaling)
@@ -144,7 +190,7 @@ def rrdb_fused(
     if x.device.type == "cpu":
         return rrdb_reference(x, kernels, biases, scaling)
     n, h, w, w_packed, b_packed = _kernel_args(x, kernels, biases, packed,
-                                               "rrdb_fused", 3)
+                                               "rrdb_fused", 3, False)
     ws_a = torch.empty((n, h, w, WORKSPACE), device=x.device)
     ws_b = torch.empty_like(ws_a)
     out = torch.empty_like(x)
@@ -162,18 +208,18 @@ def rdb_banded(
 ) -> torch.Tensor:
     """One dense block: K6 (``csrc/rdb_banded.cu``) on a CUDA tensor, the
     plain ``rdb_reference`` on a CPU tensor. ``packed`` is
-    ``pack_rdb_weights``'s result (K1's layout). The kernel allocates
-    nothing: only the output is created here."""
+    ``pack_rdb_weights_tc``'s result, cached by the caller. The kernel
+    allocates nothing: only the output is created here."""
     if x.device.type == "cpu":
         return rdb_reference(x, kernels, biases, scaling)
     n, h, w, w_packed, b_packed = _kernel_args(x, kernels, biases, packed,
-                                               "rdb_banded", 1)
+                                               "rdb_banded", 1, True)
     out = torch.empty_like(x)
     _kernels.launch_rdb_banded_forward(x, out, w_packed, b_packed, n, h, w, scaling)
     return out
 
 
-SWEEP_BAND = 8  # K5's band height (its tile side)
+SWEEP_BAND = 8  # K5's band height (its tile's rows)
 SWEEP_SLOTS = 4  # band slots of each of K5's two rings
 
 
@@ -186,12 +232,13 @@ def rrdb_sweep(
 ) -> torch.Tensor:
     """One whole RRDB: K5 (``csrc/rrdb_sweep.cu``) on a CUDA tensor, the
     plain ``rrdb_reference`` on a CPU tensor. ``packed`` is
-    ``pack_rrdb_weights``'s result (K4's layout). Its only scratch is the two
-    band rings, (4, N, 8, W, 64) each: their size does not grow with H."""
+    ``pack_rrdb_weights_tc``'s result, cached by the caller. Its only scratch
+    is the two band rings, (4, N, 8, W, 64) each: their size does not grow
+    with H."""
     if x.device.type == "cpu":
         return rrdb_reference(x, kernels, biases, scaling)
     n, h, w, w_packed, b_packed = _kernel_args(x, kernels, biases, packed,
-                                               "rrdb_sweep", 3)
+                                               "rrdb_sweep", 3, True)
     ring1 = torch.empty((SWEEP_SLOTS, n, SWEEP_BAND, w, FEATURES), device=x.device)
     ring2 = torch.empty_like(ring1)
     out = torch.empty_like(x)

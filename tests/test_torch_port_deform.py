@@ -102,7 +102,101 @@ def test_k7_corner_algorithm_matches_plain_version():
     ],
 )
 def test_deform_conv2d_refuses_shapes_the_kernels_do_not_take(x_shape, w_shape, padding):
+    # method 'pallas' names the kernels, which take only these shapes, on
+    # either device; the plain methods take them (below)
     k = w_shape[2] * w_shape[3]
     with pytest.raises(ValueError):
         deform_conv2d(torch.zeros(x_shape), torch.zeros(x_shape[:3] + (2 * k,)),
-                      torch.zeros(w_shape), torch.zeros(w_shape[0]), padding)
+                      torch.zeros(w_shape), torch.zeros(w_shape[0]), padding,
+                      method="pallas")
+
+
+def _any_case(seed, shape, c_out, spread):
+    """(x, offsets, HWIO weight, bias) of any C_in -> C_out; offsets of std
+    ``spread`` px."""
+    rs = np.random.RandomState(seed)
+    x = rs.randn(*shape).astype(np.float32)
+    off = (rs.randn(*shape[:3], 18) * spread).astype(np.float32)
+    w = (rs.randn(3, 3, shape[-1], c_out) * 0.05).astype(np.float32)
+    b = (rs.randn(c_out) * 0.1).astype(np.float32)
+    return x, off, w, b
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("method", ["shifts", "zproj", "gather"])
+@pytest.mark.parametrize("shape,c_out", [((1, 9, 11, C), C), ((1, 9, 13, 8), 16)])
+def test_deform_conv2d_methods_match_jax(shape, c_out, method, with_bias):
+    # each plain method against the JAX method of the same name, on a shape
+    # the kernels take and on one they do not; fp32 on both sides, the same
+    # sampling in another summation order -> 1e-5. 'gather' gets offsets of
+    # std 3 px, many beyond +/-2 and some past the padded image, which only
+    # the unclamped sampler reaches
+    spread = 3.0 if method == "gather" else 1.5
+    x, off, w, b = _any_case(41, shape, c_out, spread)
+    if method == "gather":
+        assert np.abs(off).max() > 6.0
+    jb = jnp.asarray(b) if with_bias else None
+    want = np.asarray(jax_deform_conv2d(jnp.asarray(x), jnp.asarray(off), jnp.asarray(w),
+                                        jb, 1, method=method, clamp=2))
+    got = deform_conv2d(torch.from_numpy(x), torch.from_numpy(off),
+                        torch.from_numpy(w.transpose(3, 2, 0, 1).copy()),
+                        torch.from_numpy(b) if with_bias else None, 1, 2,
+                        method=method).numpy()
+    assert got.shape == shape[:3] + (c_out,)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_gather_is_the_unclamped_sampler():
+    # with every offset inside +/-2 the exact sampler and the clamped one
+    # agree; with offsets of 3.5 they do not, and 'gather' still matches JAX
+    x, off, w, b = _any_case(43, (1, 10, 12, 8), 8, 0.6)
+    off = np.clip(off, -1.9, 1.9)
+    args = [torch.from_numpy(x), torch.from_numpy(off),
+            torch.from_numpy(w.transpose(3, 2, 0, 1).copy()), torch.from_numpy(b), 1, 2]
+    np.testing.assert_allclose(deform_conv2d(*args, method="gather").numpy(),
+                               deform_conv2d(*args, method="shifts").numpy(),
+                               rtol=1e-5, atol=1e-5)
+    args[1] = torch.full_like(args[1], 3.5)
+    assert not torch.allclose(deform_conv2d(*args, method="gather"),
+                              deform_conv2d(*args, method="shifts"), atol=1e-3)
+
+
+@pytest.mark.parametrize(
+    "hw,c_in,c_out,chosen",
+    [
+        ((256, 256), 8, 2, "zproj"),  # 256^2 px, contracting: zproj
+        ((255, 256), 8, 2, "shifts"),  # one row short of 256^2: shifts
+        ((256, 256), 8, 4, "shifts"),  # large, not contracting (4 * 4 > 8)
+        ((16, 16), 64, 1, "shifts"),  # contracting but small
+    ],
+)
+def test_auto_follows_jax_rule_on_the_cpu(monkeypatch, hw, c_in, c_out, chosen):
+    # JAX's 'auto' off the TPU (deepbedmap_tpu/ops/deform_conv.py:341-350);
+    # the plain functions are replaced by markers, so no conv runs
+    from deepbedmap_tpu_torch.ops import deform_conv as dc
+
+    monkeypatch.setattr(dc, "deform_conv_shifts", lambda *a: "shifts")
+    monkeypatch.setattr(dc, "deform_conv_shifts_zproj", lambda *a: "zproj")
+    x = torch.zeros((1,) + hw + (c_in,))
+    got = dc.deform_conv2d(x, torch.zeros((1,) + hw + (18,)),
+                           torch.zeros(c_out, c_in, 3, 3), None)
+    assert got == chosen
+
+
+def test_auto_on_the_cpu_matches_jax_auto():
+    # the same choice end to end: a contracting layer on 256^2 px, 'zproj' in
+    # both, against JAX's own 'auto'
+    x, off, w, b = _any_case(47, (1, 256, 256, 4), 1, 1.5)
+    want = np.asarray(jax_deform_conv2d(jnp.asarray(x), jnp.asarray(off), jnp.asarray(w),
+                                        jnp.asarray(b), 1))
+    got = deform_conv2d(torch.from_numpy(x), torch.from_numpy(off),
+                        torch.from_numpy(w.transpose(3, 2, 0, 1).copy()),
+                        torch.from_numpy(b)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_deform_conv2d_refuses_unknown_methods():
+    x = torch.zeros((1, 6, 6, C))
+    with pytest.raises(ValueError, match="method"):
+        deform_conv2d(x, torch.zeros((1, 6, 6, 18)), torch.zeros(C, C, 3, 3), None,
+                      method="bilinear")

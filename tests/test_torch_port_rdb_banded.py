@@ -4,9 +4,10 @@ plain version and wrapper) against the JAX package's Pallas kernel
 ``rdb_resident="never"``.
 
 The CUDA kernel only runs on the card (``chip_smoke.py``); here a numpy
-emulation of its tile algorithm (``tests/torch_port_emulation.py``: 8 x 8
+emulation of its tile algorithm (``tests/torch_port_emulation.py``: 8 x 16
 tiles, a 5-px input halo, the intermediates on shrinking windows and zero
-outside the image) is held against the plain version too."""
+outside the image, each stage a 3xTF32 product on the tensor cores) is held
+against the plain version too."""
 
 import numpy as np
 import pytest
@@ -15,7 +16,7 @@ import torch
 import jax.numpy as jnp
 
 from deepbedmap_tpu.ops.pallas_rdb import rdb_pallas
-from deepbedmap_tpu_torch.ops.rdb import pack_rdb_weights, rdb_banded, rdb_reference
+from deepbedmap_tpu_torch.ops.rdb import pack_rdb_weights_tc, rdb_banded, rdb_reference
 from tests.torch_port_emulation import emulate_k6
 
 F, G = 64, 32
@@ -69,7 +70,7 @@ def test_k6_tile_algorithm_matches_plain_version(shape):
     rs = np.random.RandomState(11)
     kernels, biases = _params(seed=11)
     tk, tb = _to_port(kernels, biases)
-    w_packed, b_packed = pack_rdb_weights(tk, tb)
+    w_packed, b_packed = pack_rdb_weights_tc(tk, tb)
     x = rs.randn(*shape).astype(np.float32)
     emulated = emulate_k6(x, w_packed.numpy(), b_packed.numpy(), 0.2)
     plain = rdb_reference(torch.from_numpy(x), tk, tb, 0.2).numpy()

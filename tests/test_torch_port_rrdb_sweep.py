@@ -19,7 +19,7 @@ from deepbedmap_tpu.ops.pallas_rdb import (
     rrdb_sweep_pallas_flat,
     unflatten_rdb,
 )
-from deepbedmap_tpu_torch.ops.rdb import pack_rrdb_weights, rrdb_reference, rrdb_sweep
+from deepbedmap_tpu_torch.ops.rdb import pack_rrdb_weights_tc, rrdb_reference, rrdb_sweep
 from tests.torch_port_emulation import emulate_k5
 
 F, G = 64, 32
@@ -73,7 +73,7 @@ def test_k5_sweep_schedule_matches_plain_version(shape):
     rs = np.random.RandomState(31)
     kernels, biases = _params(seed=60)
     tk, tb = _to_port(kernels, biases)
-    w_packed, b_packed = pack_rrdb_weights(tk, tb)
+    w_packed, b_packed = pack_rrdb_weights_tc(tk, tb)
     x = rs.randn(*shape).astype(np.float32)
     emulated = emulate_k5(x, w_packed.numpy(), b_packed.numpy(), 0.2)
     plain = rrdb_reference(torch.from_numpy(x), tk, tb, 0.2).numpy()

@@ -3,8 +3,12 @@ kernels, for the CPU tests: the kernels themselves only run on the card
 (``chip_smoke.py``), so the tests hold these step-for-step copies of their
 index arithmetic against the plain PyTorch versions.
 
-- ``dense_block_tile``: ``csrc/rdb_tile.cuh`` (one 8 x 8 tile of a dense
-  block, intermediates on shrinking windows, zero outside the image);
+- ``dense_block_tile_tc``: ``csrc/rdb_tile.cuh`` (one 8 x 16 tile of a
+  dense block on the tensor cores: x staged chunk by chunk with zero outside
+  the image, a1..a4 on shrinking windows in swizzled storage, zero outside
+  the image, M padded to 64-row blocks, A gathered in the permuted k order
+  and split into TF32 hi/lo, B read through ``pack_rdb_weights_tc``'s
+  core-matrix layout, a partial sum per chunk and kernel row);
 - ``emulate_k6``: ``csrc/rdb_banded.cu`` (one tile per block);
 - ``emulate_k5``: ``csrc/rrdb_sweep.cu`` (the wavefront sweep with its two
   4-slot band rings, two bands of lag between dense blocks);
@@ -29,21 +33,38 @@ index arithmetic against the plain PyTorch versions.
 import numpy as np
 
 F, G = 64, 32
-T, MARGIN = 8, 5  # tile side (K5's band) and input halo
+TH, TW, MARGIN = 8, 16, 5  # K5/K6 tile rows (K5's band) and columns, input halo
 SLOTS, LAG = 4, 2
+CK = 8  # channels per chunk: one k8 step
+SLOT_CHANNELS = np.array([2 * (k % 4) + k // 4 for k in range(8)])  # k slot -> channel
 
 
-def _stage_weights(w_packed, b_packed):
-    """The five stages' [ci][tap][co] matrices and biases from the packed
-    [C_out/32][C_in][9][32] layout."""
-    out, off, boff = [], 0, 0
-    for j in range(5):
-        cin, cout = F + G * j, G if j < 4 else F
-        wp = w_packed[off : off + cin * 9 * cout].reshape(cout // 32, cin, 9, 32)
-        out.append((wp.transpose(1, 2, 0, 3).reshape(cin, 9, cout),
-                    b_packed[boff : boff + cout]))
-        off += cin * 9 * cout
-        boff += cout
+def _stage_cin(j):
+    return F + G * (j - 1)
+
+
+def _stage_cout(j):
+    return G if j < 5 else F
+
+
+def _win(k):
+    """Rows and columns of source k's window (0 = x, 1..4 = a_k, 5 = tile)."""
+    return TH + 2 * (MARGIN - k), TW + 2 * (MARGIN - k)
+
+
+def _stage_b_tc(w_packed):
+    """The five stages' B operands from ``pack_rdb_weights_tc``'s layout, as
+    the wgmma descriptors read them: [chunk][ky][kx][hi|lo] (8 slots, C_out)
+    float64 matrices, slot k of chunk c being channel 8 c + SLOT_CHANNELS[k]."""
+    out, off = [], 0
+    for j in range(1, 6):
+        cin, cout = _stage_cin(j), _stage_cout(j)
+        size = 2 * 9 * cin * cout
+        core = np.asarray(w_packed[off:off + size], np.float32).reshape(
+            cin // CK, 3, 3, 2, cout // 8, 2, 8, 4)  # [n/8][k/4][n%8][k%4]
+        out.append(core.transpose(0, 1, 2, 3, 5, 7, 4, 6)
+                   .reshape(cin // CK, 3, 3, 2, CK, cout).astype(np.float64))
+        off += size
     return out
 
 
@@ -52,69 +73,117 @@ def _inside(lo, n, limit):
     return idx, (idx >= 0) & (idx < limit)
 
 
-def dense_block_tile(load, stages, ty0, tx0, h, w):
-    """One tile: ``load(gy, gx)`` gives the block input at in-image pixels
-    (index arrays). Returns (conv5 + b5, the input at the tile) as (8, 8, 64)
-    arrays over the whole tile, in-image or not."""
-    side = T + 2 * MARGIN
-    gy, iny = _inside(ty0 - MARGIN, side, h)
-    gx, inx = _inside(tx0 - MARGIN, side, w)
-    win = np.zeros((side, side, F))
+def _swizzled(q, chunk):
+    """Float offset of chunk ``chunk`` of a1..a4's pixel q: [pixel][chunk ^
+    (pixel & 3)][8] at a 32-float pixel pitch."""
+    return q * G + ((chunk ^ (q & 3)) << 3)
+
+
+def dense_block_tile_tc(load, b_tc, biases, ty0, tx0, h, w, passes=3):
+    """One 8 x 16 tile of ``csrc/rdb_tile.cuh``: ``load(gy, gx)`` gives the
+    block input at in-image pixels (index arrays). x is staged chunk by chunk
+    as the kernel's [pixel][8] slot with zero outside the image; a1..a4 live in
+    flat swizzled storage, written and read with the kernel's offsets. Per
+    stage: M = the window's pixels padded to 64-row blocks (rows past the
+    window read its last pixel), A gathered per tap in the permuted k order
+    and split into TF32 hi/lo, B from ``_stage_b_tc``, a partial sum per
+    (chunk, kernel row) added to the running sum; products exact, sums
+    float64. ``passes`` 1 keeps hi.hi only. Returns (conv5 + b5 in float32,
+    in-image mask) over the whole tile."""
+    xr, xc = _win(0)
+    gy, iny = _inside(ty0 - MARGIN, xr, h)
+    gx, inx = _inside(tx0 - MARGIN, xc, w)
+    x_win = np.zeros((xr, xc, F), np.float32)
     yy, xx = np.meshgrid(gy, gx, indexing="ij")
     m = iny[:, None] & inx[None, :]
-    win[m] = load(yy[m], xx[m])
-    srcs = [win]
+    x_win[m] = load(yy[m], xx[m])
+    x_win = x_win.reshape(-1, F)
+    acts = {}  # k -> flat swizzled a_k
+    b_off = 0
     for j in range(1, 6):
-        s = side - 2 * j  # this stage's output side
-        wmat, b = stages[j - 1]
-        # every source cropped to this stage's input window (side s + 2)
-        inp = np.concatenate(
-            [src[j - 1 - k : j - 1 - k + s + 2, j - 1 - k : j - 1 - k + s + 2]
-             for k, src in enumerate(srcs)], axis=-1)
-        acc = sum(inp[ky : ky + s, kx : kx + s] @ wmat[:, 3 * ky + kx]
-                  for ky in range(3) for kx in range(3)) + b
+        rows, cols = _win(j)
+        npix = rows * cols
+        r = np.arange(-(-npix // 64) * 64)
+        p = np.minimum(r, npix - 1)
+        oy, ox = p // cols, p % cols
+        cout = _stage_cout(j)
+        acc = np.zeros((len(r), cout))
+        for c in range(_stage_cin(j) // CK):
+            if c < F // CK:  # the staged x chunk, [pixel][8], no swizzle
+                k, store = 0, x_win[:, CK * c:CK * (c + 1)].reshape(-1)
+                offset = lambda q: q * CK  # noqa: E731
+            else:
+                k = 1 + (c - F // CK) // (G // CK)
+                cl = (c - F // CK) % (G // CK)
+                store = acts[k]
+                offset = lambda q, cl=cl: _swizzled(q, cl)  # noqa: E731
+            kcols, d = _win(k)[1], j - 1 - k
+            for ky in range(3):
+                part = np.zeros_like(acc)
+                for kx in range(3):
+                    q = (oy + ky + d) * kcols + ox + kx + d
+                    a = store[offset(q)[:, None] + SLOT_CHANNELS[None, :]]
+                    ah, al = (v.astype(np.float64) for v in split_tf32(a))
+                    bh, bl = b_tc[j - 1][c, ky, kx]
+                    part += ah @ bh
+                    if passes == 3:
+                        part += al @ bh + ah @ bl
+                acc += part
+        # epilogue, in float32
+        v = acc[:npix].astype(np.float32) + np.asarray(biases[b_off:b_off + cout], np.float32)
+        b_off += cout
+        ogy = ty0 - (MARGIN - j) + oy[:npix]
+        ogx = tx0 - (MARGIN - j) + ox[:npix]
+        inside = (ogy >= 0) & (ogy < h) & (ogx >= 0) & (ogx < w)
         if j == 5:
-            return acc, win[MARGIN : MARGIN + T, MARGIN : MARGIN + T]
-        _, oy = _inside(ty0 - (MARGIN - j), s, h)
-        _, ox = _inside(tx0 - (MARGIN - j), s, w)
-        a = np.where(acc >= 0, acc, 0.2 * acc)
-        srcs.append(np.where((oy[:, None] & ox[None, :])[..., None], a, 0.0))
+            return v.reshape(TH, TW, F), inside.reshape(TH, TW)
+        flat = np.full(npix * G, np.nan, np.float32)
+        val = np.where(inside[:, None], np.where(v >= 0, v, np.float32(0.2) * v), 0)
+        for chunk in range(G // CK):
+            dst = _swizzled(np.arange(npix), chunk)[:, None] + np.arange(CK)[None, :]
+            flat[dst] = val[:, CK * chunk:CK * (chunk + 1)]
+        assert not np.isnan(flat).any(), "a_j storage not fully written"
+        acts[j] = flat
     raise AssertionError("unreachable")
 
 
-def _tile_span(t0, limit, size=T):
+def _tile_span(t0, limit, size):
     return slice(t0, min(t0 + size, limit)), min(t0 + size, limit) - t0
 
 
-def emulate_k6(x, w_packed, b_packed, scaling):
-    """csrc/rdb_banded.cu: every 8 x 8 tile from its own input window."""
+def emulate_k6(x, w_packed, b_packed, scaling, passes=3):
+    """csrc/rdb_banded.cu: every 8 x 16 tile from its own input window, out =
+    x + s * v in float32."""
     n, h, w, _ = x.shape
-    stages = _stage_weights(w_packed, b_packed)
-    out = np.full(x.shape, np.nan)
+    x = np.asarray(x, np.float32)
+    b_tc = _stage_b_tc(w_packed)
+    out = np.full(x.shape, np.nan, np.float32)
     for i in range(n):
-        for ty0 in range(0, h, T):
-            for tx0 in range(0, w, T):
-                v, xc = dense_block_tile(lambda gy, gx: x[i, gy, gx], stages, ty0, tx0,
-                                         h, w)
-                (ys, ny), (xs, nx) = _tile_span(ty0, h), _tile_span(tx0, w)
-                out[i, ys, xs] = (xc + scaling * v)[:ny, :nx]
+        for ty0 in range(0, h, TH):
+            for tx0 in range(0, w, TW):
+                v, _ = dense_block_tile_tc(lambda gy, gx: x[i, gy, gx], b_tc, b_packed,
+                                           ty0, tx0, h, w, passes)
+                (ys, ny), (xs, nx) = _tile_span(ty0, h, TH), _tile_span(tx0, w, TW)
+                out[i, ys, xs] = x[i, ys, xs] + np.float32(scaling) * v[:ny, :nx]
     return out
 
 
 def emulate_k5(x, w_packed, b_packed, scaling):
     """csrc/rrdb_sweep.cu: step s runs RDB1 band s, RDB2 band s-2 and RDB3
-    band s-4, every tile of a step reading the state before the step; the
-    block outputs live in 4-slot rings that start as NaN, so a read of a slot
-    that holds no band yet poisons the result. Asserts that no step writes a
-    ring slot it also reads."""
+    band s-4 (bands of the tile's 8 rows, 8 x 16 tiles), every tile of a step
+    reading the state before the step; the block outputs live in 4-slot rings
+    that start as NaN, so a read of a slot that holds no band yet poisons the
+    result. Asserts that no step writes a ring slot it also reads."""
     n, h, w, _ = x.shape
-    bands = -(-h // T)
-    block = sum(9 * (F + G * j) * (G if j < 4 else F) for j in range(5))
-    stages = [_stage_weights(w_packed[p * block : (p + 1) * block],
-                             b_packed[p * (F + 4 * G) : (p + 1) * (F + 4 * G)])
-              for p in range(3)]
-    rings = [np.full((SLOTS, n, T, w, F), np.nan) for _ in range(2)]
-    out = np.full(x.shape, np.nan)
+    x = np.asarray(x, np.float32)
+    bands = -(-h // TH)
+    block = 2 * sum(9 * _stage_cin(j) * _stage_cout(j) for j in range(1, 6))
+    nb = F + 4 * G
+    params = [(_stage_b_tc(w_packed[p * block:(p + 1) * block]),
+               b_packed[p * nb:(p + 1) * nb]) for p in range(3)]
+    rings = [np.full((SLOTS, n, TH, w, F), np.nan, np.float32) for _ in range(2)]
+    out = np.full(x.shape, np.nan, np.float32)
+    s = np.float32(scaling)
     for step in range(bands + 2 * LAG):
         before = [r.copy() for r in rings]
         reads, writes = set(), set()
@@ -126,18 +195,20 @@ def emulate_k5(x, w_packed, b_packed, scaling):
                 def load(gy, gx, p=p, i=i):
                     if p == 0:
                         return x[i, gy, gx]
-                    reads.update((p - 1, int(sl)) for sl in np.unique(gy // T % SLOTS))
-                    return before[p - 1][gy // T % SLOTS, i, gy % T, gx]
+                    reads.update((p - 1, int(sl)) for sl in np.unique(gy // TH % SLOTS))
+                    return before[p - 1][gy // TH % SLOTS, i, gy % TH, gx]
 
-                for tx0 in range(0, w, T):
-                    v, a = dense_block_tile(load, stages[p], band * T, tx0, h, w)
-                    (ys, ny), (xs, nx) = _tile_span(band * T, h), _tile_span(tx0, w)
-                    t = (a + scaling * v)[:ny, :nx]
+                for tx0 in range(0, w, TW):
+                    v, _ = dense_block_tile_tc(load, *params[p], band * TH, tx0, h, w)
+                    (ys, ny), (xs, nx) = _tile_span(band * TH, h, TH), _tile_span(tx0, w, TW)
+                    a = (x[i, ys, xs] if p == 0
+                         else before[p - 1][band % SLOTS, i, :ny, xs])
+                    t = a + s * v[:ny, :nx]
                     if p < 2:
                         writes.add((p, band % SLOTS))
                         rings[p][band % SLOTS, i, :ny, xs] = t
                     else:
-                        out[i, ys, xs] = x[i, ys, xs] + scaling * t
+                        out[i, ys, xs] = x[i, ys, xs] + s * t
         assert not reads & writes, f"step {step} reads and writes ring slots {reads & writes}"
     return out
 
