@@ -28,9 +28,11 @@ Phases (any failure ends the run with a non-zero exit code):
    against the untiled ``predict_region``, and the warm per-tile time;
 7. K4 ``rrdb_forward`` vs ``rrdb_reference`` at (1,13,14,64), (3,37,9,64) and
    (2,286,286,64), and phase 2's precision check for K4;
-8. K10 ``conv3x3_forward`` vs ``conv3x3_reference`` at a small odd shape and
-   at the four shapes and epilogues of one main-path forward, with
-   ``F.conv2d`` (cuDNN) timed beside it;
+8. K10 ``conv3x3_forward`` vs ``conv3x3_reference`` at two small odd shapes
+   and at the four shapes and epilogues of one main-path forward, with
+   ``F.conv2d`` (cuDNN) timed beside it, and at each of them the precision
+   check against ``conv3x3_reference`` in float64 (both C_in, with and
+   without the residual; K10 runs on the tensor cores);
 9. K7 ``deform_conv`` vs the plain ``deform_conv_shifts`` at phase 3's
    shapes, and phase 3's precision check for K7;
 10. K8 ``deform_conv_zproj1`` (tap projection + K3's kernel) vs the plain
@@ -50,7 +52,9 @@ Phases (any failure ends the run with a non-zero exit code):
 15. K9 ``deform_zform`` vs ``deform_conv_shifts_zproj`` at (1,9,13,8->16)
     and (1,20,130,64->64); its own path, ``deform_conv2d_zform`` at the
     tail's two shapes (2,1144,1144,64)->64 and ->1, counted and then held
-    against the plain version;
+    against the plain version; at every shape with 64 or 16 outputs the
+    precision check against the deformable conv in float64 (K9 projects on
+    the tensor cores);
 16. phase 5 for ``GeneratorConfig(rdb_resident="never")`` (K6 per dense
     block) and ``GeneratorConfig(rrdb_sweep=True)`` (K5 per RRDB);
 17. and 18. phase 12 in those two configurations, with phase 6's weights.
@@ -84,7 +88,8 @@ TOL_GENERATOR = 1e-4
 # tiled vs untiled region: the same, plus the generator's far field beyond
 # the 18-px halo, which the seeded weights (init scale 0.1) damp far below it
 TOL_SEAM = 1e-4
-# K1, K4, K5, K6, K2 and K7 run their contractions on the tensor cores in 3xTF32,
+# K1, K4, K5, K6, K2, K7, K10 and K9 (64 and 16 outputs) run their
+# contractions on the tensor cores in 3xTF32,
 # which is as accurate as fp32 FMAs; one TF32 pass (10 mantissa bits) gives
 # errors of ~1e-4 to 4e-4 of the output's range, at or above TOL_KERNEL, so
 # TOL_KERNEL alone would not catch a kernel that lost the lo terms. The
@@ -108,7 +113,9 @@ MAIN_TAIL = (2, 1144, 1144, 64)
 # given: one shape, a ragged one (H and W multiples of neither K2's 16 x 16
 # nor K3's 8 x 32 tile, batch > 1), one smaller than both tiles, and clamp 1
 SMALL_TAILS = [(1, 20, 130, 64), (2, 37, 45, 64), (1, 5, 7, 64), (1, 20, 130, 64, 1)]
-SMALL_CONV = (1, 13, 21, 128, True, False)  # (N, H, W, C_in, leaky, residual)
+# K10's small cases (N, H, W, C_in, leaky, residual): both C_in, with and
+# without the residual across them and the main calls
+SMALL_CONVS = [(1, 13, 21, 128, True, False), (1, 13, 21, 128, False, True)]
 # K9 (N, H, W, C_in, C_out): the JAX test's shape, a 64-channel one, and the
 # tail's two layers at the main-path shape
 SMALL_ZFORM = [(1, 9, 13, 8, 16), (1, 20, 130, 64, 64)]
@@ -221,6 +228,18 @@ def bound(mm_flops: float, nbytes: float, fp32_flops: float = 0.0) -> dict:
             "bound_fp32_ms": max(1e3 * (mm_flops + fp32_flops) / PEAK_FP32_FLOPS, t_bytes)}
 
 
+def summed_bound(bounds) -> dict:
+    """The bound of an entry that sums several calls (K10's four, K9's two):
+    the sum of each call's own bound. ``bound()`` of the summed work would
+    take the larger of the summed operations and the summed bytes, which
+    under-counts calls bound by different terms. ``bound_by`` is the term
+    of the call with the largest bound; ``bound_route`` names each call's."""
+    top = max(bounds, key=lambda b: b["bound_ms"])
+    return {"bound_ms": sum(b["bound_ms"] for b in bounds), "bound_by": top["bound_by"],
+            "bound_route": " / ".join(dict.fromkeys(b["bound_route"] for b in bounds)),
+            "bound_fp32_ms": sum(b["bound_fp32_ms"] for b in bounds)}
+
+
 def _numel(*tensors) -> int:
     return sum(t.numel() for t in tensors)
 
@@ -299,7 +318,7 @@ def _tail_case(shape):
 
 
 def check_deform_precision(label: str, got, x, off, wt, b, clamp, lrelu: bool) -> float:
-    """Phases 3 and 9: the tensor-core deformable conv against its plain
+    """Phases 3, 9 and 15: the tensor-core deformable conv against its plain
     version run in float64 on the card, within ``TOL_TF32X3`` of the range."""
     import torch
 
@@ -432,9 +451,13 @@ def _check_conv(shape, gen, timed: bool) -> dict:
     got = conv3x3_fused(x, wt, b, leaky, r, packed)
     want = conv3x3_reference(x, wt, b, leaky, r)
     torch.cuda.synchronize()
-    res = {"max_abs_err": compare(
-        f"K10 conv3x3_forward {(n, h, w, cin)} -> 64, leaky {leaky}, residual {residual}",
-        got, want, TOL_KERNEL)}
+    label = f"K10 conv3x3_forward {(n, h, w, cin)} -> 64, leaky {leaky}, residual {residual}"
+    res = {"max_abs_err": compare(label, got, want, TOL_KERNEL)}
+    del want
+    want = conv3x3_reference(*_double((x, wt, b)), leaky, None if r is None else r.double())
+    torch.cuda.synchronize()
+    compare(f"{label} vs float64 (precision check)", got, want, TOL_TF32X3)
+    del want
     if timed:
         x_nchw = x.permute(0, 3, 1, 2)  # channels_last, as the port keeps it
         res["ms"] = time_ms(lambda: conv3x3_fused(x, wt, b, leaky, r, packed), 10)
@@ -448,19 +471,20 @@ def _check_conv(shape, gen, timed: bool) -> dict:
 
 def check_conv3x3(shapes, gen, timed: bool) -> dict:
     """K10 at each shape; timed, the entry is one main-path forward's four
-    calls: their summed times and bound, and the largest error."""
+    calls: their summed times and bounds, and the largest error."""
     if not timed:
         return _check_conv(shapes, gen, False)
     parts = [_check_conv(s, gen, True) for s in shapes]
-    for s, p in zip(shapes, parts):
-        b = bound(p["flops"], p["bytes"])
+    bounds = [bound(p["flops"], p["bytes"]) for p in parts]
+    for s, p, b in zip(shapes, parts, bounds):
         log(f"  K10 at {s}: kernel {p['ms']:.3f} ms, plain {p['plain_ms']:.3f} ms, "
-            f"F.conv2d {p['library_ms']:.3f} ms, bound {b['bound_ms']:.3f} ms (fp32 "
+            f"F.conv2d {p['library_ms']:.3f} ms, bound {b['bound_ms']:.3f} ms = "
+            f"{100 * b['bound_ms'] / p['ms']:.0f}% of the bound (fp32 "
             f"{b['bound_fp32_ms']:.3f} ms)")
     res = {"max_abs_err": max(p["max_abs_err"] for p in parts)}
     for key in ("ms", "plain_ms", "library_ms"):
         res[key] = sum(p[key] for p in parts)
-    res.update(bound(sum(p["flops"] for p in parts), sum(p["bytes"] for p in parts)))
+    res.update(summed_bound(bounds))
     return res
 
 
@@ -540,6 +564,8 @@ def _check_zform(shape, case, timed: bool) -> dict:
     res = {"max_abs_err": compare(f"K9 deform_zform {(n, h, w, cin)} -> {cout}", got,
                                   want, TOL_KERNEL)}
     del want
+    if cout > 1:
+        check_deform_precision(f"K9 deform_zform -> {cout}", got, x, off, wt, b, 2, False)
     if timed:
         res["ms"] = time_ms(lambda: deform_conv2d_zform(x, off, wt, b, 1, 2), 5)
         res["plain_ms"] = time_ms(lambda: deform_conv_shifts_zproj(x, off, wt, b, 1, 2), 2)
@@ -556,8 +582,9 @@ def _check_zform(shape, case, timed: bool) -> dict:
 def check_zform(shapes, gen, timed: bool) -> dict:
     """K9 at one shape; timed, its own path first: ``deform_conv2d_zform``
     once at each main shape (the tail's two layers), its launches counted,
-    then each shape against the plain version. The entry sums the two calls'
-    times and bounds, as K10's sums one forward's four."""
+    then each shape against the plain version (and, with 64 outputs, the
+    precision check). The entry sums the two calls' times and bounds, as
+    K10's sums one forward's four."""
     import torch
 
     from deepbedmap_tpu_torch.ops import _kernels
@@ -575,16 +602,16 @@ def check_zform(shapes, gen, timed: bool) -> dict:
     check_launches(launches, {k: len(shapes) if k == "deform_zform" else 0
                               for k in launches})
     parts = [_check_zform(s, c, True) for s, c in zip(shapes, cases)]
-    for s, p in zip(shapes, parts):
-        b = bound(p["flops"], p["bytes"], p["fp32_flops"])
+    bounds = [bound(p["flops"], p["bytes"], p["fp32_flops"]) for p in parts]
+    for s, p, b in zip(shapes, parts, bounds):
         log(f"  K9 at {s}: kernel {p['ms']:.3f} ms, plain {p['plain_ms']:.3f} ms, "
-            f"bound {b['bound_ms']:.3f} ms ({b['bound_route']}; fp32 "
-            f"{b['bound_fp32_ms']:.3f} ms)")
+            f"bound {b['bound_ms']:.3f} ms = {100 * b['bound_ms'] / p['ms']:.0f}% of the "
+            f"bound ({b['bound_route']}; fp32 {b['bound_fp32_ms']:.3f} ms)")
     res = {"max_abs_err": max(p["max_abs_err"] for p in parts),
            "launches": launches["deform_zform"], "library_ms": None}
     for key in ("ms", "plain_ms"):
         res[key] = sum(p[key] for p in parts)
-    res.update(bound(*(sum(p[k] for p in parts) for k in ("flops", "bytes", "fp32_flops"))))
+    res.update(summed_bound(bounds))
     return res
 
 
@@ -764,7 +791,7 @@ KERNELS = [
      "deepbedmap_tpu/ops/pallas_rdb.py:908", check_rrdb, [SMALL_RDB, RAGGED_RDB],
      MAIN_RDB, 7, "kernel"),
     ("conv3x3_forward", "deepbedmap_tpu_torch/csrc/conv3x3.cu",
-     "deepbedmap_tpu/ops/pallas_conv.py:166", check_conv3x3, [SMALL_CONV], MAIN_CONVS, 8,
+     "deepbedmap_tpu/ops/pallas_conv.py:166", check_conv3x3, SMALL_CONVS, MAIN_CONVS, 8,
      "kernel"),
     ("deform_conv", "deepbedmap_tpu_torch/csrc/deform_tail.cu",
      "deepbedmap_tpu/ops/pallas_kernels.py:330", check_deform_conv, SMALL_TAILS,

@@ -2,24 +2,31 @@
 // out = [lrelu]((conv(x) + b) [+ res]), C_in in {64, 128}, C_out = 64.
 //
 // Replaces the TPU kernel deepbedmap_tpu/ops/pallas_conv.py:conv3x3_pallas
-// (body _conv3x3_kernel): the generator's pre-residual (128 -> 64, LeakyReLU),
-// post-residual (64 -> 64, + the long skip) and two post-upsample (64 -> 64,
-// LeakyReLU) convs.
+// (:102, call :166, body _conv3x3_kernel :62): the generator's pre-residual
+// (128 -> 64, LeakyReLU), post-residual (64 -> 64, + the long skip) and two
+// post-upsample (64 -> 64, LeakyReLU) convs.
 //
-// What bounds it on an H100: arithmetic, 2 x 9 x C_in flops per output value
-// (24 to 193 GFLOP per call at the main-path shapes) against one read of x
-// [and res] and one write of out.
+// What bounds it on an H100: tensor-core operations. A call does
+// 2 x 9 x C_in x 64 flops per pixel against one read of x [and res] and one
+// write of out; fp32 accuracy on the tensor cores takes three TF32 passes
+// (3xTF32), so the bound is 3 x flops at 495 TFLOP/s: 0.146, 0.073, 0.292
+// and 1.170 ms for the four calls of one forward at the main-path shapes
+// (286^2 x 128, 286^2 x 64 with the residual, 572^2 and 1144^2 x 64).
 //
-// Design: it is one launch of the port's shared direct conv (conv3x3.cuh),
-// the same code K1 and K4 run, with the bias, the residual add and the
-// LeakyReLU in the epilogue before the only store. The TPU kernel's padded
-// row pitch and lane-rolled [x[m-1] | x[m] | x[m+1]] operand exist to feed
-// its 128-wide matrix unit one dot per row band; here the staged halo tile
-// already gives each thread its nine taps, so neither is carried over.
+// Design: one launch of the dense-block stages' tensor-core conv
+// (conv3x3_tc.cuh: a 16 x 16 pixel tile per block, N = all 64 outputs,
+// K = 8-channel chunks x 9 taps on wgmma.m64n64k8, lo.hi + hi.lo + hi.hi
+// into a partial sum per kernel row), reading x with its own channel pitch
+// and weights in pack_conv_weight's layout, which is the stages' layout. The
+// bias, the residual add and the LeakyReLU are epilogue modes applied before
+// the only store, in the plain version's rounding order. The TPU kernel's
+// padded row pitch and lane-rolled [x[m-1] | x[m] | x[m+1]] operand exist to
+// feed its 128-wide matrix unit one dot per row band; here each tap is a
+// shifted view of the staged halo, so neither is carried over.
 
 #include <cuda_runtime.h>
 
-#include "conv3x3.cuh"
+#include "conv3x3_tc.cuh"
 
 // x: (N, H, W, cin); w_packed: [64/32][cin][9][32]; bias: (64,);
 // res: (N, H, W, 64) or null; out: (N, H, W, 64). Returns cudaGetLastError().
@@ -31,13 +38,13 @@ extern "C" int conv3x3_forward(const float* x, const float* w_packed,
   constexpr int kCout = 64;
   const Epilogue ep{out, kCout, res, kCout, nullptr, 0.f};
   if (res == nullptr) {
-    return leaky ? (int)launch_conv3x3<kLrelu>(x, cin, cin, w_packed, bias, kCout, ep,
-                                               N, H, W, s)
-                 : (int)launch_conv3x3<kLinear>(x, cin, cin, w_packed, bias, kCout,
-                                                ep, N, H, W, s);
+    return leaky ? (int)launch_conv3x3_tc<kCout, kLrelu>(x, cin, cin, w_packed, bias, ep,
+                                                         N, H, W, s)
+                 : (int)launch_conv3x3_tc<kCout, kLinear>(x, cin, cin, w_packed, bias, ep,
+                                                          N, H, W, s);
   }
-  return leaky ? (int)launch_conv3x3<kAddLrelu>(x, cin, cin, w_packed, bias, kCout, ep,
-                                                N, H, W, s)
-               : (int)launch_conv3x3<kAdd>(x, cin, cin, w_packed, bias, kCout, ep, N,
-                                           H, W, s);
+  return leaky ? (int)launch_conv3x3_tc<kCout, kAddLrelu>(x, cin, cin, w_packed, bias, ep,
+                                                          N, H, W, s)
+               : (int)launch_conv3x3_tc<kCout, kAdd>(x, cin, cin, w_packed, bias, ep, N,
+                                                     H, W, s);
 }

@@ -1,12 +1,15 @@
-// The conv stages of the dense-block kernels K1 and K4 (rdb.cu): a 3x3 SAME
-// convolution, NHWC, as an implicit GEMM on Hopper's tensor cores (wgmma),
-// fp32 accurate by the 3xTF32 split.
+// The port's 3x3 SAME convolution, NHWC, as an implicit GEMM on Hopper's
+// tensor cores (wgmma), fp32 accurate by the 3xTF32 split: the conv stages of
+// the dense-block kernels K1 and K4 (rdb.cu) and the standalone conv K10
+// (conv3x3.cu). Each includer gets its own instantiations (anonymous
+// namespace); the epilogue is a compile-time mode.
 //
 // It serves the TPU kernels deepbedmap_tpu/ops/pallas_rdb.py:rdb_pallas_flat
 // (:587, call :635) and rrdb_pallas_flat (:854, call :908), whose
 // _band_compute runs each stage as three MXU dots, one per kernel row, with
-// the three column taps packed into the contraction. Here the tensor cores
-// are the MXU's counterpart.
+// the three column taps packed into the contraction, and
+// deepbedmap_tpu/ops/pallas_conv.py:conv3x3_pallas (:102, call :166). Here
+// the tensor cores are the MXU's counterpart.
 //
 // What bounds it on an H100: tensor-core operations. A stage with C_in inputs
 // and C_out outputs does 2 x 9 x C_in x C_out flops per pixel against a few
@@ -57,10 +60,12 @@
 // The input is read with a channel pitch (a stage reads the first C_in
 // channels of the (N, H, W, 192) workspace) and the output is written with
 // its own pitch. Weights are the packed layout of ops/rdb.py:
-// pack_rdb_weights, per stage [C_out/32][C_in][9][32]. Epilogues, applied to
+// pack_rdb_weights, per stage [C_out/32][C_in][9][32] (K10's
+// ops/conv3x3.py:pack_conv_weight is the same layout). Epilogues, applied to
 // v = acc + bias[co] before the only store, in the rounding order of the
-// plain composition: lrelu(v) (stages 1-4), res + s v (stage 5), and
-// skip + s (res + s v) (K4's last stage 5, the outer skip folded in).
+// plain composition: lrelu(v) (stages 1-4, K10), res + s v (stage 5),
+// skip + s (res + s v) (K4's last stage 5, the outer skip folded in), and
+// K10's v, v + res and lrelu(v + res).
 
 #pragma once
 
@@ -80,9 +85,12 @@ constexpr int kHaloFloats = kHaloPix * kCK;
 constexpr int kThreads = 128 * kGroups;
 
 enum EpilogueMode : int {
-  kLrelu,       // out = lrelu(v)                  stages 1-4
+  kLrelu,       // out = lrelu(v)                  stages 1-4, K10
   kScaledSkip,  // out = res + s * v               stage 5
   kDoubleSkip,  // out = skip + s * (res + s * v)  K4, last stage 5
+  kLinear,      // out = v                         K10
+  kAdd,         // out = v + res                   K10
+  kAddLrelu,    // out = lrelu(v + res)            K10
 };
 
 // Where the epilogue writes and what it adds. Element (pixel p, channel co) is
@@ -312,6 +320,12 @@ conv3x3_tc_stage(const float* __restrict__ in, int in_pitch, int cin,
       float2 o;
       if constexpr (kMode == kLrelu) {
         o = make_float2(lrelu(v0), lrelu(v1));
+      } else if constexpr (kMode == kLinear) {
+        o = make_float2(v0, v1);
+      } else if constexpr (kMode == kAdd || kMode == kAddLrelu) {
+        const float2 r = *reinterpret_cast<const float2*>(res + pix * res_pitch + co);
+        o = make_float2(v0 + r.x, v1 + r.y);
+        if constexpr (kMode == kAddLrelu) o = make_float2(lrelu(o.x), lrelu(o.y));
       } else if constexpr (kMode == kScaledSkip) {
         const float2 r = *reinterpret_cast<const float2*>(res + pix * res_pitch + co);
         o = make_float2(r.x + scaling * v0, r.y + scaling * v1);

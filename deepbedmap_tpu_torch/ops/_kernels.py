@@ -29,7 +29,7 @@ import torch
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCES = ("rdb.cu", "conv3x3.cu", "deform_tail.cu", "rdb_banded.cu",
             "rrdb_sweep.cu", "deform_zform.cu")
-_HEADERS = ("conv3x3.cuh", "conv3x3_tc.cuh", "rdb_tile.cuh")
+_HEADERS = ("conv3x3_tc.cuh", "rdb_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",

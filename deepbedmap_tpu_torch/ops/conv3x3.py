@@ -8,8 +8,8 @@ version for a CPU tensor; it computes the same function as the JAX
 ``conv3x3_pallas``. There is no size rule and no fallback.
 
 Layout: NHWC activations, OIHW weights. ``pack_conv_weight`` is the packed
-layout of the direct conv (``csrc/conv3x3.cuh``), which the dense-block
-kernels (``ops.rdb``) read too.
+layout of the tensor-core conv (``csrc/conv3x3_tc.cuh``) that K10 and the
+dense-block kernels K1 and K4 (``ops.rdb``) share.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ def conv3x3_reference(
 
 def pack_conv_weight(weight: torch.Tensor) -> torch.Tensor:
     """OIHW (C_out, C_in, 3, 3) -> flat [C_out/32][C_in][9][32], the layout
-    the direct conv stages one 32-channel output tile from."""
+    the tensor-core conv stages each 8-channel chunk's weights from."""
     co, ci = weight.shape[:2]
     return (
         weight.detach().reshape(co // 32, 32, ci, 9).permute(0, 2, 3, 1).reshape(-1)

@@ -27,8 +27,10 @@ window sized for a clamp of at most ``WINDOW_MAX_CLAMP`` px, and their
 launchers refuse any other (``check_window_clamp``); the plain versions take
 any clamp. ``deform_conv2d_zform`` is the port of the JAX
 ``deform_conv2d_pallas_zform``: the same deformable conv with the tap
-projection inside the kernel (K9, ``csrc/deform_zform.cu``). No model path
-takes it, as in JAX; it is a public function of its own.
+projection inside the kernel (K9, ``csrc/deform_zform.cu``: for C_out 64
+and 16 the projection on the tensor cores with K2's split weights, for
+C_out 1 on the fp32 units). No model path takes it, as in JAX; it is a
+public function of its own.
 """
 
 from __future__ import annotations
@@ -195,13 +197,6 @@ def deform_conv_gather(
     return out if bias is None else out + bias
 
 
-def pack_deform64_weight(weight: torch.Tensor) -> torch.Tensor:
-    """OIHW (C_out, C_in, 3, 3) -> (9 * C_in, C_out), row t * C_in + c_in (the
-    layout K9 reads)."""
-    c_out, c_in = weight.shape[:2]
-    return weight.detach().permute(2, 3, 1, 0).reshape(_TAPS * c_in, c_out).contiguous()
-
-
 def tf32_split(a: torch.Tensor):
     """(hi, lo) with a = hi + lo to 2^-22 of |a|, both TF32 (10 mantissa
     bits): hi is ``cvt.rna.tf32.f32`` of a (round to nearest, ties away from
@@ -215,19 +210,26 @@ def tf32_split(a: torch.Tensor):
 
 
 def pack_deform64_weight_tc(weight: torch.Tensor) -> torch.Tensor:
-    """OIHW (64, 64, 3, 3) -> K2's and K7's B operand, flat (9 * 8192,):
-    per tap, hi then lo (``tf32_split``), each the 64 x 64 (channel, output)
-    matrix as eight k8 steps of wgmma's K-major core matrices,
+    """OIHW (C_out, C_in, 3, 3), C_out a multiple of 8 -> the B operand of
+    the tensor-core deformable convs, flat (9 * 2 * C16 * C_out,) with C16 =
+    C_in rounded up to 16 (zero weights past C_in): per tap, hi then lo
+    (``tf32_split``), each the C16 x C_out (channel, output) matrix as
+    C16 / 8 k8 steps of wgmma's K-major core matrices,
     [step][n / 8][k / 4][n % 8][k % 4]. Step s = 2 b + e reads window block b
     (channels 16 b .. 16 b + 15); its slot k takes channel
     16 b + 4 (k % 4) + 2 e + k // 4, the order in which a lane reads its A
-    values from the window (``csrc/deform_tail.cu``)."""
-    rhs = weight.detach().float().permute(2, 3, 1, 0).reshape(_TAPS, _C, _C)
-    s = torch.arange(8, device=rhs.device)[:, None]
+    values from the window. K2 and K7 (``csrc/deform_tail.cu``) read it at
+    64 -> 64, K9 (``csrc/deform_zform.cu``) at C_out 64 and 16."""
+    c_out, c_in = weight.shape[:2]
+    c16 = -(-c_in // 16) * 16
+    steps = c16 // 8
+    rhs = weight.detach().float().permute(2, 3, 1, 0).reshape(_TAPS, c_in, c_out)
+    rhs = F.pad(rhs, (0, 0, 0, c16 - c_in))
+    s = torch.arange(steps, device=rhs.device)[:, None]
     k = torch.arange(8, device=rhs.device)[None, :]
     channel = 16 * (s // 2) + 4 * (k % 4) + 2 * (s % 2) + k // 4  # (step, slot)
     b = rhs[:, channel, :]  # (tap, step, slot, n)
-    b = b.reshape(_TAPS, 8, 2, 4, 8, 8).permute(0, 1, 4, 2, 5, 3)
+    b = b.reshape(_TAPS, steps, 2, 4, c_out // 8, 8).permute(0, 1, 4, 2, 5, 3)
     return torch.stack(tf32_split(b), dim=1).reshape(-1).contiguous()
 
 
@@ -376,7 +378,9 @@ def deform_conv2d_zform(
 ) -> torch.Tensor:
     """The deformable conv computed projection first inside one kernel (the
     JAX ``deform_conv2d_pallas_zform``): on a CUDA tensor K9
-    (``csrc/deform_zform.cu``), on a CPU tensor its plain version
+    (``csrc/deform_zform.cu``, its weights packed per call by
+    ``pack_deform64_weight_tc`` for C_out 64 and 16, as the (C_in, 9) tap
+    matrix for C_out 1), on a CPU tensor its plain version
     ``deform_conv_shifts_zproj``. Takes a 3x3 kernel, padding 1, C_in a
     multiple of 4 up to 64, C_out in {1, 16, 64} and an integer clamp in
     [0, 2]; anything else raises ``ValueError`` on either device."""
@@ -401,8 +405,13 @@ def deform_conv2d_zform(
     _kernels.check_tensor(x, "x", (n, h, w, c_in))
     _kernels.check_tensor(offsets, "offsets", (n, h, w, 2 * _TAPS))
     _kernels.check_image_shape(n, h, w, max(c_in, 2 * _TAPS, c_out))
-    w_packed = pack_deform64_weight(weight)
-    _kernels.check_tensor(w_packed, "packed weight", (_TAPS * c_in, c_out))
+    if c_out == 1:
+        w_packed = weight.detach()[0].reshape(c_in, _TAPS).contiguous()
+        packed_shape = (c_in, _TAPS)
+    else:
+        w_packed = pack_deform64_weight_tc(weight)
+        packed_shape = (_TAPS * 2 * (-(-c_in // 16) * 16) * c_out,)
+    _kernels.check_tensor(w_packed, "packed weight", packed_shape)
     if bias is None:
         bias = torch.zeros(c_out, device=x.device)
     _kernels.check_tensor(bias, "bias", (c_out,))

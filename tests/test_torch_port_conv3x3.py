@@ -2,9 +2,12 @@
 the JAX package's Pallas kernel ``conv3x3_pallas`` (interpret mode) and its
 oracle.
 
-The CUDA kernel only runs on the card (``chip_smoke.py``); here a numpy
-emulation of the shared direct conv — the packed weight layout it stages and
-its epilogue order — is held against the plain version too."""
+The CUDA kernel only runs on the card (``chip_smoke.py``); here the numpy
+emulation of the tensor-core conv it launches (``csrc/conv3x3_tc.cuh``,
+``tests/torch_port_emulation.py:emulate_tc_stage``: 3xTF32 with the hi/lo
+split, ``pack_conv_weight``'s layout, K10's epilogue modes in the plain
+version's order) is held against the plain version and the JAX kernel too,
+and one TF32 pass is shown to fail the card's precision check."""
 
 import numpy as np
 import pytest
@@ -18,6 +21,14 @@ from deepbedmap_tpu_torch.ops.conv3x3 import (
     conv3x3_reference,
     pack_conv_weight,
 )
+from tests.torch_port_emulation import ADD, ADD_LRELU, LINEAR, LRELU, emulate_tc_stage
+
+# chip_smoke.py's precision check (TOL_TF32X3): 1e-5 of the float64
+# reference's largest magnitude
+TOL_TF32X3 = 1e-5
+# conv3x3_forward's epilogue mode for (leaky, residual)
+MODES = {(True, False): LRELU, (False, False): LINEAR, (False, True): ADD,
+         (True, True): ADD_LRELU}
 
 
 def _params(c_in, seed, scale=0.05):
@@ -59,36 +70,69 @@ def test_conv3x3_matches_jax_pallas(c_in, residual, leaky):
         np.testing.assert_allclose(ours, jax_plain, rtol=1e-5, atol=1e-5)
 
 
-def _emulate_k10(x, w_packed, bias, leaky, res):
-    """csrc/conv3x3.cuh in float64: the 32-channel output tiles read through
-    the packed [C_out/32][C_in][9][32] weights over the zero-padded input,
-    then (acc + b) [+ res] [lrelu]."""
+def _emulate_k10(x, wt, bias, leaky, res, passes=3):
+    """conv3x3_forward: one launch of the tensor-core conv at 64 outputs, x
+    read at its own channel pitch, the mode of (leaky, residual)."""
     n, h, w, c_in = x.shape
-    wmat = w_packed.reshape(2, c_in, 9, 32).transpose(1, 2, 0, 3).reshape(c_in, 9, 64)
-    src = np.pad(x.astype(np.float64), ((0, 0), (1, 1), (1, 1), (0, 0)))
-    acc = np.zeros((n, h, w, 64))
-    for t in range(9):
-        ky, kx = divmod(t, 3)
-        acc += src[:, ky : ky + h, kx : kx + w] @ wmat[:, t]
-    v = acc + bias
-    if res is not None:
-        v = v + res
-    return np.where(v >= 0, v, 0.2 * v) if leaky else v
+    out = np.full(n * h * w * 64, np.nan, np.float32)
+    emulate_tc_stage(x.reshape(-1), c_in, c_in, pack_conv_weight(wt).numpy(), bias, n, h, w,
+                     64, MODES[(leaky, res is not None)], out, 64,
+                     res=None if res is None else res.reshape(-1), res_pitch=64,
+                     passes=passes)
+    return out.reshape(n, h, w, 64)
 
 
-def test_k10_packed_layout_and_epilogue():
-    # float64 emulation vs the fp32 plain version: fp32 round-off only
-    rs = np.random.RandomState(9)
-    kernel, bias = _params(128, seed=9)
-    wt = _oihw(kernel)
-    w_packed = pack_conv_weight(wt)
-    assert w_packed.shape == (64 * 128 * 9,)
-    x = rs.randn(1, 5, 9, 128).astype(np.float32)
-    res = rs.randn(1, 5, 9, 64).astype(np.float32)
-    emulated = _emulate_k10(x, w_packed.numpy(), bias, True, res)
-    plain = conv3x3_reference(torch.from_numpy(x), wt, torch.from_numpy(bias), True,
-                              torch.from_numpy(res)).numpy()
-    np.testing.assert_allclose(emulated, plain, rtol=1e-5, atol=1e-5)
+def _k10_case(c_in, residual, seed):
+    rs = np.random.RandomState(seed)
+    kernel, bias = _params(c_in, seed=seed)
+    x = rs.randn(2, 9, 19, c_in).astype(np.float32)
+    res = rs.randn(2, 9, 19, 64).astype(np.float32) if residual else None
+    return x, kernel, bias, res
+
+
+def _plain64(x, kernel, bias, leaky, res):
+    return conv3x3_reference(torch.from_numpy(x).double(), _oihw(kernel).double(),
+                             torch.from_numpy(bias).double(), leaky,
+                             None if res is None else torch.from_numpy(res).double()).numpy()
+
+
+def _rel_err(got, want) -> float:
+    return float(np.abs(got.astype(np.float64) - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("c_in", [64, 128])
+@pytest.mark.parametrize("leaky,residual", [(True, False), (False, False), (False, True),
+                                            (True, True)])
+def test_k10_tc_emulation_matches_plain_and_jax(c_in, leaky, residual):
+    # K10's four epilogue modes on the emulated 3xTF32 conv (batch 2, H and W
+    # not multiples of the 16 x 16 tile, W over one tile): against the plain
+    # version in float64, 1e-6 of the range covers the split's residue and
+    # the float32 output, while a wrong tap, layout or epilogue order is of
+    # the order of the output; against the JAX kernel (interpret mode) and
+    # its oracle in fp32, 1e-5 as test_conv3x3_matches_jax_pallas
+    x, kernel, bias, res = _k10_case(c_in, residual, seed=c_in + 2 * residual + leaky)
+    got = _emulate_k10(x, _oihw(kernel), bias, leaky, res)
+    assert not np.isnan(got).any()
+    assert _rel_err(got, _plain64(x, kernel, bias, leaky, res)) <= 1e-6
+    jres = None if res is None else jnp.asarray(res)
+    args = (jnp.asarray(x), jnp.asarray(kernel), jnp.asarray(bias))
+    jax_kernel = np.asarray(conv3x3_pallas(*args, leaky=leaky, residual=jres, band=4,
+                                           interpret=True))
+    np.testing.assert_allclose(got, jax_kernel, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, np.asarray(jax_ref(*args, leaky=leaky, residual=jres)),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("c_in,residual", [(64, True), (128, False)])
+def test_k10_precision_check_separates_one_pass_from_three(c_in, residual):
+    # chip_smoke.py's precision check for K10: three passes stay within
+    # TOL_TF32X3 by ten times or more, a single TF32 pass (hi.hi only) misses it
+    x, kernel, bias, res = _k10_case(c_in, residual, seed=70 + c_in)
+    want = _plain64(x, kernel, bias, False, res)
+    three = _rel_err(_emulate_k10(x, _oihw(kernel), bias, False, res, passes=3), want)
+    one = _rel_err(_emulate_k10(x, _oihw(kernel), bias, False, res, passes=1), want)
+    assert three <= TOL_TF32X3 / 10
+    assert one > 3 * TOL_TF32X3
 
 
 def test_conv3x3_fused_refuses_other_shapes_and_devices():

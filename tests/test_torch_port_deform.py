@@ -19,7 +19,7 @@ from deepbedmap_tpu.ops.pallas_kernels import (
     deform_conv2d_pallas,
     deform_conv2d_pallas_zproj1,
 )
-from deepbedmap_tpu_torch.ops.deform_conv import deform_conv2d, pack_deform64_weight
+from deepbedmap_tpu_torch.ops.deform_conv import deform_conv2d
 
 C = 64
 
@@ -72,8 +72,7 @@ def test_k7_corner_algorithm_matches_plain_version():
     # LeakyReLU (K7) vs the fp32 plain version
     x, off, w, b = _case(3, (2, 6, 13, C), C)
     n, h, wd, _ = x.shape
-    w_oihw = torch.from_numpy(w.transpose(3, 2, 0, 1).copy())
-    w_packed = pack_deform64_weight(w_oihw).numpy().astype(np.float64)
+    w_packed = w.reshape(9 * C, C).astype(np.float64)  # HWIO: row t * C + c_in
     acc = np.zeros((n, h, wd, C))
     yy, xx = np.meshgrid(np.arange(h), np.arange(wd), indexing="ij")
     nn_ = np.broadcast_to(np.arange(n)[:, None, None], (n, h, wd))

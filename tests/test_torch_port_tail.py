@@ -20,7 +20,6 @@ from deepbedmap_tpu.ops.pallas_tail import _tail_reference, fused_deform_tail as
 from deepbedmap_tpu_torch.ops.deform_conv import (
     deform_conv_shifts,
     deform_conv_shifts_zproj,
-    pack_deform64_weight,
     sample_tap_fields,
 )
 from deepbedmap_tpu_torch.ops.tail import (
@@ -150,7 +149,7 @@ def test_k2_k3_corner_algorithm_matches_plain_versions():
     off = _offsets(rs, (n, h, w, 18))
     w1 = (rs.randn(c, c, 3, 3) * 0.05).astype(np.float32)
     b1 = (rs.randn(c) * 0.1).astype(np.float32)
-    w_packed = pack_deform64_weight(torch.from_numpy(w1)).numpy()
+    w_packed = w1.transpose(2, 3, 1, 0).reshape(9 * c, c)  # row t * c + c_in
     assert w_packed.shape == (9 * c, c)
 
     acc = np.zeros((n, h, w, c))

@@ -12,8 +12,6 @@ index arithmetic against the plain PyTorch versions.
 - ``emulate_k6``: ``csrc/rdb_banded.cu`` (one tile per block);
 - ``emulate_k5``: ``csrc/rrdb_sweep.cu`` (the wavefront sweep with its two
   4-slot band rings, two bands of lag between dense blocks);
-- ``emulate_k9``: ``csrc/deform_zform.cu`` (per-tap projection of an 8 x 16
-  tile's window, then four-corner sampling);
 - ``emulate_tc_stage``, ``emulate_k1_tc``, ``emulate_k4_tc``:
   ``csrc/conv3x3_tc.cuh`` and the stage sequence of ``csrc/rdb.cu`` (the
   3xTF32 implicit-GEMM conv: halo and weight staging with zero fill and the
@@ -27,7 +25,14 @@ index arithmetic against the plain PyTorch versions.
   TF32 hi/lo, B read through ``pack_deform64_weight_tc``'s core-matrix
   layout, a partial sum per wgmma group);
 - ``emulate_k3_window``: K3 in ``csrc/deform_tail.cu`` (the 8 x 32 tile's
-  z window with zero fill, four corners per tap read from it).
+  z window with zero fill, four corners per tap read from it);
+- ``emulate_k9``: ``csrc/deform_zform.cu`` (C_out 64 and 16: a 7 x 16
+  tile's window in 16-channel blocks with C_in zero-padded, per tap the
+  3xTF32 projection of the 252 reachable positions padded to 256 M rows,
+  A split from the raw window, B read through ``pack_deform64_weight_tc``'s
+  layout, a partial sum per window block, z_t stored in float32, then four
+  corners per pixel; C_out 1: a 32 x 32 tile's window projected onto the
+  nine tap fields 8 channels at a time, then K3's sampling).
 """
 
 import numpy as np
@@ -213,51 +218,13 @@ def emulate_k5(x, w_packed, b_packed, scaling):
     return out
 
 
-def emulate_k9(x, off, w_packed, bias, clamp, th=8, tw=16, reach=2):
-    """csrc/deform_zform.cu: per output tile, the input window with 3 px of
-    reach (zero outside the image); per tap, its 13 x 21 projection window
-    z_t = x W_t, then the four clamped bilinear corners of each pixel's
-    sample read from it."""
-    n, h, w, cin = x.shape
-    taps, cout = w_packed.shape[0] // cin, w_packed.shape[1]
-    wt = w_packed.reshape(taps, cin, cout)
-    xh, xw = th + 2 * (reach + 1) + 1, tw + 2 * (reach + 1) + 1
-    zh, zw = th + 2 * reach + 1, tw + 2 * reach + 1
-    out = np.zeros((n, h, w, cout))
-    for i in range(n):
-        for y0 in range(0, h, th):
-            for x0 in range(0, w, tw):
-                gy, iny = _inside(y0 - reach - 1, xh, h)
-                gx, inx = _inside(x0 - reach - 1, xw, w)
-                xwin = np.zeros((xh, xw, cin))
-                yy, xx = np.meshgrid(gy, gx, indexing="ij")
-                m = iny[:, None] & inx[None, :]
-                xwin[m] = x[i, yy[m], xx[m]]
-                (ys, ny), (xs, nx) = _tile_span(y0, h, th), _tile_span(x0, w, tw)
-                ly, lx = np.meshgrid(np.arange(ny), np.arange(nx), indexing="ij")
-                o = off[i, ys, xs]
-                acc = np.zeros((ny, nx, cout))
-                for t in range(taps):
-                    u, v = divmod(t, 3)
-                    z = xwin[u : u + zh, v : v + zw] @ wt[t]
-                    dy = np.clip(o[..., t], -clamp, clamp)
-                    dx = np.clip(o[..., taps + t], -clamp, clamp)
-                    iy, ix = np.floor(dy), np.floor(dx)
-                    fy, fx = (dy - iy)[..., None], (dx - ix)[..., None]
-                    zr = ly + reach + iy.astype(int)
-                    zc = lx + reach + ix.astype(int)
-                    acc += ((1 - fy) * (1 - fx) * z[zr, zc] + (1 - fy) * fx * z[zr, zc + 1]
-                            + fy * (1 - fx) * z[zr + 1, zc] + fy * fx * z[zr + 1, zc + 1])
-                out[i, ys, xs] = acc + bias
-    return out
-
-
 # --- csrc/conv3x3_tc.cuh ----------------------------------------------------
 
 TC_TILE_W, TC_TILE_ROWS, TC_CK = 16, 16, 8
 TC_HALO_W, TC_HALO_H = TC_TILE_W + 2, TC_TILE_ROWS + 2
 WS = F + 4 * G  # the dense workspace's channel pitch
-LRELU, SCALED_SKIP, DOUBLE_SKIP = range(3)
+# conv3x3_tc.cuh's EpilogueMode, in its order
+LRELU, SCALED_SKIP, DOUBLE_SKIP, LINEAR, ADD, ADD_LRELU = range(6)
 
 
 def tf32_rna(a):
@@ -356,6 +323,12 @@ def emulate_tc_stage(ws_in, in_pitch, cin, w, bias, n, h, wd, cout, mode, out, o
                 ch = np.arange(cout)
                 if mode == LRELU:
                     o = np.where(v >= 0, v, np.float32(0.2) * v)
+                elif mode == LINEAR:
+                    o = v
+                elif mode in (ADD, ADD_LRELU):
+                    o = v + res[pix[:, None] * res_pitch + ch]
+                    if mode == ADD_LRELU:
+                        o = np.where(o >= 0, o, np.float32(0.2) * o)
                 else:
                     rv = res[pix[:, None] * res_pitch + ch]
                     o = rv + np.float32(scaling) * v
@@ -514,5 +487,121 @@ def emulate_k3_window(z, off, bias, clamp):
                     base, cw = _tap_corners(o, t, clamp, ly, lx, ww)
                     for wt, d in zip(cw, (0, 1, ww, ww + 1)):
                         acc += wt * win[base + d, t].astype(np.float64)
+                out[i, ys, xs, 0] = (acc + bias[0])[:ny, :nx]
+    return out
+
+
+# --- csrc/deform_zform.cu ---------------------------------------------------
+
+K9_TH, K9_TW = 7, 16  # C_out 64 and 16
+K9_XH, K9_XW = K9_TH + 2 * (REACH + 1) + 1, K9_TW + 2 * (REACH + 1) + 1  # 14 x 23
+K9_ZH, K9_ZW = K9_TH + 2 * REACH + 1, K9_TW + 2 * REACH + 1  # 12 x 21
+K9_M = 256  # four warpgroups' 64-row blocks
+K9_1TH, K9_1TW = 32, 32  # C_out 1
+K9_1XH, K9_1XW = K9_1TH + 2 * (REACH + 1) + 1, K9_1TW + 2 * (REACH + 1) + 1  # 39 x 39
+
+
+def emulate_k9(x, off, w_packed, bias, clamp, passes=3):
+    """K9 with C_out = len(bias). For C_out 64 and 16, ``w_packed`` is
+    ``pack_deform64_weight_tc``'s flat B: per 7 x 16 tile the 14 x 23 window
+    as [16-channel block][pixel][16], zero outside the image and past C_in;
+    per tap the 12 x 21 positions its corners can reach as M rows 0..251 of
+    256 (rows past 251 read position 251 and are dropped), k8 step
+    s = 2 b + e taking slot k <- channel 16 b + 4 (k % 4) + 2 e + k // 4 of
+    the raw window split into TF32 hi/lo, a partial sum per window block,
+    z_t rounded to float32 as the kernel stores it; then each pixel's four
+    corners of z_t. ``passes`` 1 keeps hi.hi only, a single TF32 pass. For
+    C_out 1, ``w_packed`` is the (C_in, 9) tap matrix and the fp32
+    projection is emulated in float64 (``_emulate_k9_fields``)."""
+    n, h, w, cin = x.shape
+    cout = len(bias)
+    if cout == 1:
+        return _emulate_k9_fields(x, off, w_packed, bias, clamp)
+    blocks = -(-cin // 16)
+    steps = 2 * blocks
+    # [tap][hi|lo][step][n/8][k/4][n%8][k%4] -> [tap][hi|lo][step][k][n]
+    b = (np.asarray(w_packed, np.float32).reshape(9, 2, steps, cout // 8, 2, 8, 4)
+         .transpose(0, 1, 2, 4, 6, 3, 5).reshape(9, 2, steps, 8, cout).astype(np.float64))
+    p = np.minimum(np.arange(K9_M), K9_ZH * K9_ZW - 1)
+    xpos = (p // K9_ZW) * K9_XW + p % K9_ZW  # window pixel of M row r at tap 0
+    k = np.arange(8)
+    xpad = np.zeros((n, h, w, 16 * blocks), np.float32)
+    xpad[..., :cin] = x
+    out = np.zeros((n, h, w, cout), np.float32)
+    ly, lx = np.meshgrid(np.arange(K9_TH), np.arange(K9_TW), indexing="ij")
+    for i in range(n):
+        for y0 in range(0, h, K9_TH):
+            for x0 in range(0, w, K9_TW):
+                win = _window(xpad[i], y0, x0, K9_XH, K9_XW)
+                wblk = win.reshape(K9_XH * K9_XW, blocks, 16).transpose(1, 0, 2)
+                # lanes past the image read the offsets of its last row / column
+                o = off[i, np.minimum(y0 + ly, h - 1), np.minimum(x0 + lx, w - 1)]
+                acc = np.zeros((K9_TH, K9_TW, cout))
+                for t in range(9):
+                    rows = xpos + (t // 3) * K9_XW + t % 3
+                    z = np.zeros((K9_M, cout))
+                    for blk in range(blocks):
+                        part = np.zeros_like(z)
+                        for e in range(2):
+                            s = 2 * blk + e
+                            a = wblk[blk][rows][:, 4 * (k % 4) + 2 * e + k // 4]
+                            ah, al = (v.astype(np.float64) for v in split_tf32(a))
+                            part += ah @ b[t, 0, s]
+                            if passes == 3:
+                                part += al @ b[t, 0, s] + ah @ b[t, 1, s]
+                        z += part
+                    zt = z[:K9_ZH * K9_ZW].astype(np.float32).astype(np.float64)
+                    # z_t's window is the x window shifted by the tap
+                    base, cw = _tap_corners(o, t, clamp, ly, lx, K9_ZW)
+                    base = base - (t // 3) * K9_ZW - t % 3
+                    for wt, d in zip(cw, (0, 1, K9_ZW, K9_ZW + 1)):
+                        acc += wt[..., None] * zt[base + d]
+                (ys, ny), (xs, nx) = _tile_span(y0, h, K9_TH), _tile_span(x0, w, K9_TW)
+                out[i, ys, xs] = acc[:ny, :nx].astype(np.float32) + np.asarray(bias, np.float32)
+    return out
+
+
+def _emulate_k9_fields(x, off, w_tap, bias, clamp):
+    """K9 at C_out 1: per 32 x 32 tile, the 39 x 39 window staged one
+    8-channel chunk at a time as [4-channel group][pixel][4] (zero outside
+    the image and past C_in) and projected onto the nine tap fields with the
+    weights as [channel][12] (zero past C_in and past tap 8), the fields
+    stored [pixel][9]; then K3's sampling of them with the tile's offsets
+    (zero past the image)."""
+    n, h, w, cin = x.shape
+    chunks = -(-cin // 8)
+    npix = K9_1XH * K9_1XW
+    s_w = np.zeros((8 * chunks, 12))
+    s_w[:cin, :9] = np.asarray(w_tap, np.float32).reshape(cin, 9)
+    out = np.zeros((n, h, w, 1))
+    ly, lx = np.meshgrid(np.arange(K9_1TH), np.arange(K9_1TW), indexing="ij")
+    p = np.arange(npix)
+    for i in range(n):
+        for y0 in range(0, h, K9_1TH):
+            for x0 in range(0, w, K9_1TW):
+                gy, gx = y0 - REACH - 1 + p // K9_1XW, x0 - REACH - 1 + p % K9_1XW
+                inside = (gy >= 0) & (gy < h) & (gx >= 0) & (gx < w)
+                z = np.zeros((npix, 9))
+                for chunk in range(chunks):
+                    flat = np.zeros(2 * npix * 4, np.float32)  # [c4][pixel][4]
+                    for c4l in range(2):
+                        c4 = 2 * chunk + c4l
+                        if 4 * c4 >= cin:
+                            continue
+                        vals = np.zeros((npix, 4), np.float32)
+                        vals[inside] = x[i, gy[inside], gx[inside], 4 * c4:4 * c4 + 4]
+                        flat[(c4l * npix + p[:, None]) * 4 + np.arange(4)] = vals
+                    for c4l in range(2):
+                        xv = flat[(c4l * npix + p[:, None]) * 4 + np.arange(4)]
+                        z += xv.astype(np.float64) @ s_w[8 * chunk + 4 * c4l:][:4, :9]
+                fields = z.astype(np.float32).reshape(-1)  # [pixel][9]
+                (ys, ny), (xs, nx) = _tile_span(y0, h, K9_1TH), _tile_span(x0, w, K9_1TW)
+                o = np.zeros((K9_1TH, K9_1TW, 18), np.float32)
+                o[:ny, :nx] = off[i, ys, xs]
+                acc = np.zeros((K9_1TH, K9_1TW))
+                for t in range(9):
+                    base, cw = _tap_corners(o, t, clamp, ly, lx, K9_1XW)
+                    for wt, d in zip(cw, (0, 1, K9_1XW, K9_1XW + 1)):
+                        acc += wt * fields[(base + d) * 9 + t].astype(np.float64)
                 out[i, ys, xs, 0] = (acc + bias[0])[:ny, :nx]
     return out
