@@ -57,7 +57,22 @@ Phases (any failure ends the run with a non-zero exit code):
     the tensor cores);
 16. phase 5 for ``GeneratorConfig(rdb_resident="never")`` (K6 per dense
     block) and ``GeneratorConfig(rrdb_sweep=True)`` (K5 per RRDB);
-17. and 18. phase 12 in those two configurations, with phase 6's weights.
+17. and 18. phase 12 in those two configurations, with phase 6's weights;
+19. the single-region path on synthetic rasters near Pine Island Glacier
+    (EPSG:3031; bed 1000 m and velocity 450 m with voids, surface 100 m,
+    accumulation 1000 m): phase 6's weights through an npz written by
+    ``export_generator_npz`` into ``DeepBedMap.from_chainer_npz`` and through
+    a local tracker into ``DeepBedMap.from_experiment`` (bit for bit, the
+    config rebuilt from the logged parameters); ``DeepBedMap.predict`` on a
+    286 km window (X 288^2, output 1144^2) with its launch counts, bounds and
+    output against ``forward_fn`` on ``get_model_inputs``' tensors; K1, K2
+    and K3 on the inputs that prediction gives them, (1,286,286,64),
+    (1,1144,1144,64) and (1,1144,1144,9), against their plain versions on the
+    card, K1 and K2 also in float64 (precision check); those inputs on the
+    card against the CPU; ``predict`` on the card against the
+    CPU on a 48 km window; ``track_rmse`` on 10^5 points on the card against
+    the CPU and against the DEM's own bicubic samples; and the times of each
+    step.
 
 Each main path checks its own configuration's launch counts (``PER_FORWARD``).
 It prints one JSON line with each kernel's launches (from the main path that
@@ -126,6 +141,26 @@ MAIN_CONVS = [(2, 286, 286, 128, True, False), (2, 286, 286, 64, False, True),
               (2, 572, 572, 64, True, False), (2, 1144, 1144, 64, True, False)]
 GEN_LR = 64  # phase 5 crop: latent 62, output 248^2
 TILE_OUT, HALO_LR, TILES_PER_DISPATCH = 1000, 18, 2  # phase 6, 288-px crops
+
+# phase 19: a window near Pine Island Glacier in EPSG:3031 metres, (xmin,
+# ymin); 286 km gives X 288^2 with the 1 km padding and a 1144^2 output, so
+# K1 runs at (1,286,286,64) and K2/K3 at (1,1144,1144); the card-vs-CPU
+# predict runs on 48 km (X 50^2, output 192^2), since the CPU's plain
+# deformable tail at 1144^2 would take minutes
+REGION_ORIGIN = (-1_600_000.0, -250_000.0)
+REGION_KM, REGION_CPU_KM = 286, 48
+REGION_CPU_AT = (100_000.0, 120_000.0)  # the 48 km window's offset in the 286 km one
+REGION_MARGIN = 10_000.0  # the source rasters reach this far beyond the padding
+# each source: resolution, its grid's offset from the window's, voids or not
+REGION_SOURCES = {
+    "bed_lowres": (1000.0, 0.0, True),
+    "surface": (100.0, 0.0, False),
+    "velocity_x": (450.0, 137.0, True),  # not aligned to the 500 m it becomes
+    "velocity_y": (450.0, 137.0, True),
+    "accumulation": (1000.0, 250.0, False),
+}
+TRACK_POINTS, TRACK_NOISE_M = 100_000, 10.0
+TOL_INPUTS = 1e-6  # get_model_inputs card vs CPU: the same float32 operations
 
 # the H100 SXM's published peaks (NVIDIA's data sheet, dense rates, at its
 # 700 W limit): fp32 outside the tensor cores, TF32 on the tensor cores, HBM
@@ -774,6 +809,258 @@ def main_path(card_name: str, config: str, params=None, want=None):
     return launches, dbm.model, got
 
 
+def _smooth_field(rs, xc, yc, base: float, amp: float, terms: int = 6) -> np.ndarray:
+    """A seeded sum of separable sines with 20-150 km wavelengths on the cell
+    centers ``xc`` x ``yc``: smooth, so a bicubic track RMSE means something."""
+    out = np.full((len(yc), len(xc)), base)
+    for _ in range(terms):
+        lx, ly = rs.uniform(20e3, 150e3, 2)
+        px, py = rs.uniform(0, 2 * np.pi, 2)
+        out += (amp / terms) * np.outer(np.cos(2 * np.pi * yc / ly + py),
+                                        np.sin(2 * np.pi * xc / lx + px))
+    return out.astype(np.float32)
+
+
+def region_rasters(window, cpu_window, seed: int) -> dict:
+    """Phase 19's five source rasters, covering the 1 km-padded ``window``
+    with ``REGION_MARGIN`` to spare. The bed and the velocity get NaN voids
+    (discs 3-12 km across) inside the padded window, one of each inside
+    ``cpu_window``; the surface none."""
+    from deepbedmap_tpu_torch.data.raster import Raster
+
+    rs = np.random.RandomState(seed)
+    xmin, ymin, xmax, ymax = window
+    reach = 1000.0 + REGION_MARGIN
+    fields = {"bed_lowres": (-500.0, 800.0), "surface": (1200.0, 600.0),
+              "velocity_x": (0.0, 300.0), "velocity_y": (0.0, 300.0),
+              "accumulation": (0.3, 0.2)}
+    cx = (cpu_window[0] + cpu_window[2]) / 2
+    cy = (cpu_window[1] + cpu_window[3]) / 2
+    out = {}
+    for name, (res, offset, voids) in REGION_SOURCES.items():
+        left, top = xmin - reach - offset, ymax + reach + offset
+        n = int(np.ceil((xmax - xmin + 2 * (reach + offset)) / res))
+        xc = left + res * (np.arange(n) + 0.5)
+        yc = top - res * (np.arange(n) + 0.5)
+        data = _smooth_field(rs, xc, yc, *fields[name])
+        if voids:
+            centers = [(cx, cy)] + [(rs.uniform(xmin, xmax), rs.uniform(ymin, ymax))
+                                    for _ in range(4)]
+            for vx, vy in centers:
+                r = rs.uniform(1500.0, 6000.0)
+                data[np.add.outer((yc - vy) ** 2, (xc - vx) ** 2) < r * r] = np.nan
+        out[name] = Raster(data, left=left, top=top, res=res)
+    return out
+
+
+def _host_ms(fn, reps: int) -> float:
+    """Mean host-clock time of ``fn()`` over ``reps`` warm calls, each ended
+    by a synchronise (these calls copy from and to the host)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def region_kernels(model, nhwc, dem: np.ndarray) -> None:
+    """Phase 19: K1, K2 and K3 on the inputs ``predict`` gives them (K1 the
+    first dense block's), each held against its plain version on the card
+    within ``TOL_KERNEL``, K1 and K2 also in float64 within ``TOL_TF32X3``.
+    The forward is replayed stage by stage; its output equals ``dem``, the
+    prediction, bit for bit, so these are the prediction's own inputs."""
+    import torch
+
+    from deepbedmap_tpu_torch.ops.conv import conv_nhwc
+    from deepbedmap_tpu_torch.ops.deform_conv import (
+        deform_conv_shifts,
+        sample_tap_fields,
+        tap_projection,
+    )
+    from deepbedmap_tpu_torch.ops.rdb import rdb_fused, rdb_reference
+    from deepbedmap_tpu_torch.ops.resize import nearest_upsample
+    from deepbedmap_tpu_torch.ops.tail import deform64_lrelu, deform_zproj1
+
+    clamp = model.cfg.deform_clamp
+    with torch.inference_mode():
+        a1 = model.pre_residual_conv_layer(model.input_block(*nhwc))
+        t = rdb_in = a1.contiguous()
+        for block in model.residual_network:
+            t = block(t)
+        a4 = model.post_upsample_conv_layer_1(
+            nearest_upsample(model.post_residual_conv_layer(t, residual=a1), 2))
+        a4 = model.post_upsample_conv_layer_2(nearest_upsample(a4, 2))
+        l1, l2 = model.final_conv_layer1, model.final_conv_layer2
+        o1k, o1b, w1, b1 = l1.tensors()
+        o2k, o2b, w2, b2 = l2.tensors()
+        # ops.tail.fused_deform_tail's steps, in its order and layouts
+        off1 = conv_nhwc(a4, o1k, o1b).contiguous()
+        x = a4.contiguous()
+        a5 = deform64_lrelu(x, off1, w1, b1, clamp, l1.packed_weight())
+        off2 = conv_nhwc(a5, o2k, o2b).contiguous()
+        z = tap_projection(a5, w2)
+        out = deform_zproj1(z, off2, b2, clamp)
+        if not np.array_equal(out[0, :, :, 0].cpu().numpy(), dem):
+            raise AssertionError("the replayed forward differs from predict's output")
+        log(f"  replayed forward equal to predict's output; K1 input {tuple(rdb_in.shape)}, "
+            f"K2 {tuple(x.shape)}, K3 {tuple(z.shape)}")
+
+        rdb = model.residual_network[0].residual_dense_block1
+        kernels = [c.weight for c in rdb.convs()]
+        biases = [c.bias for c in rdb.convs()]
+        packed = rdb._packed.get(kernels + biases)
+        compare(f"K1 rdb_forward {tuple(rdb_in.shape)} (predict's input)",
+                rdb_fused(rdb_in, kernels, biases, rdb.residual_scaling, packed),
+                rdb_reference(rdb_in, kernels, biases, rdb.residual_scaling), TOL_KERNEL)
+        check_precision("K1 rdb_forward (predict's input)", rdb_fused, rdb_reference, rdb_in,
+                        kernels, biases, packed)
+
+        plain = deform_conv_shifts(x, off1, w1, b1, 1, clamp)
+        compare(f"K2 deform64_lrelu {tuple(x.shape)} (predict's input)", a5,
+                torch.where(plain >= 0, plain, 0.2 * plain), TOL_KERNEL)
+        del plain
+        check_deform_precision("K2 deform64_lrelu (predict's input)", a5, x, off1, w1, b1,
+                               clamp, True)
+        compare(f"K3 deform_zproj1 {tuple(z.shape)} (predict's input)", out,
+                sample_tap_fields(z[..., None], off2, b2, 1, clamp), TOL_KERNEL)
+
+
+def single_region(card_name: str, params) -> None:
+    """Phase 19: the reference's single-region workflow with phase 6's
+    weights (``params``, a state_dict on the card)."""
+    import tempfile
+
+    import torch
+
+    from deepbedmap_tpu_torch import DeepBedMap
+    from deepbedmap_tpu_torch.bridge import state_dict_to_jax_params
+    from deepbedmap_tpu_torch.data.groundtruth import get_model_inputs
+    from deepbedmap_tpu_torch.evalx.track import grdtrack, track_rmse
+    from deepbedmap_tpu_torch.ops import _kernels
+    from deepbedmap_tpu_torch.ops.interp import as_f32
+    from deepbedmap_tpu_torch.train.checkpoint import export_generator_npz
+    from deepbedmap_tpu_torch.utils.tracking import LocalTracker
+
+    def same_weights(label, dbm):
+        sd = dbm.model.state_dict()
+        if sd.keys() != params.keys() or not all(torch.equal(sd[k], params[k])
+                                                 for k in params):
+            raise AssertionError(f"{label}: weights differ from phase 6's")
+        log(f"  {label}: {len(sd)} tensors equal to phase 6's bit for bit")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = f"{tmp}/srgan_generator_model_weights.npz"
+        export_generator_npz(state_dict_to_jax_params(params), npz)
+        t0 = time.perf_counter()
+        dbm = DeepBedMap.from_chainer_npz(npz, device=DEVICE)
+        torch.cuda.synchronize()
+        load_ms = 1e3 * (time.perf_counter() - t0)
+        same_weights("from_chainer_npz", dbm)
+        run = LocalTracker(f"{tmp}/experiments")
+        run.log_params({"num_residual_blocks": 12, "residual_scaling": 0.2,
+                        "generator_lr": 1.7e-4})
+        run.log_asset(npz)
+        tracked = DeepBedMap.from_experiment(f"{tmp}/experiments",
+                                             download_path=f"{tmp}/dl/w.npz", device=DEVICE)
+        got_cfg = (tracked.cfg.num_residual_blocks, tracked.cfg.residual_scaling)
+        if got_cfg != (12, 0.2):
+            raise AssertionError(f"from_experiment config {got_cfg}, logged (12, 0.2)")
+        log(f"  from_experiment: config rebuilt from the logged parameters {got_cfg}")
+        same_weights("from_experiment", tracked)
+        del tracked
+
+    x0, y0 = REGION_ORIGIN
+    side, cpu_side = 1e3 * REGION_KM, 1e3 * REGION_CPU_KM
+    window = (x0, y0, x0 + side, y0 + side)
+    cx, cy = x0 + REGION_CPU_AT[0], y0 + REGION_CPU_AT[1]
+    cpu_window = (cx, cy, cx + cpu_side, cy + cpu_side)
+    rasters = region_rasters(window, cpu_window, seed=19)
+    names = ("bed_lowres", "surface", "velocity_x", "velocity_y", "accumulation")
+    sources = [rasters[k] for k in names]
+    log(f"  {REGION_KM} km window {window}: sources "
+        + ", ".join(f"{k} {r.data.shape} @ {r.res:g} m" for k, r in rasters.items()))
+
+    _kernels.reset_launches()
+    dem = dbm.predict(window, rasters)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launches)
+    log(f"  launches in predict: {launches}")
+    check_launches(launches, {k: PER_FORWARD["default"].get(k, 0) for k in launches})
+    out = int(round(side / dbm.resolution))
+    if dem.data.shape != (out, out) or dem.bounds != window:
+        raise AssertionError(f"predict gave {dem.data.shape} over {dem.bounds}, want "
+                             f"({out}, {out}) over {window}")
+    if not np.isfinite(dem.data).all():
+        raise AssertionError("predict: non-finite values")
+
+    inputs = get_model_inputs(window, *sources, device=DEVICE)
+    log("  inputs: " + ", ".join(f"{k} {tuple(v.shape)}" for k, v in inputs.items()))
+    nhwc = [inputs[k].permute(0, 2, 3, 1).contiguous() for k in ("X", "W1", "W2", "W3")]
+    fwd = dbm.forward_fn()
+    direct = fwd(*nhwc)[0, :, :, 0].cpu().numpy()
+    if not np.array_equal(direct, dem.data):
+        raise AssertionError("predict differs from forward_fn on get_model_inputs' tensors")
+    log(f"  predict {dem.data.shape} over {dem.bounds}: finite, equal to forward_fn on "
+        "get_model_inputs' tensors bit for bit")
+    region_kernels(dbm.model, nhwc, dem.data)
+
+    cpu_inputs = get_model_inputs(window, *sources, device="cpu")
+    for k, want in cpu_inputs.items():
+        got = inputs[k].cpu()
+        if not torch.equal(torch.isnan(got), torch.isnan(want)):
+            raise AssertionError(f"get_model_inputs {k}: NaN masks differ card vs CPU")
+        compare(f"get_model_inputs {k} {tuple(want.shape)} card vs CPU",
+                torch.nan_to_num(got), torch.nan_to_num(want), TOL_INPUTS)
+    gapfilled = int((cpu_inputs["X"] == -5000.0).sum())
+    if not gapfilled:
+        raise AssertionError("no bed void reached X: the gapfill went unchecked")
+    log(f"  X holds {gapfilled} gapfilled (-5000) cells, W2 "
+        f"{int((cpu_inputs['W2'] == 0.0).sum())} (0)")
+
+    cpu_dbm = DeepBedMap({k: v.cpu() for k, v in params.items()}, device="cpu")
+    small_card = dbm.predict(cpu_window, rasters)
+    small_cpu = cpu_dbm.predict(cpu_window, rasters)
+    compare(f"predict {REGION_CPU_KM} km {small_card.data.shape} card vs CPU",
+            torch.from_numpy(small_card.data), torch.from_numpy(small_cpu.data),
+            TOL_GENERATOR)
+
+    rs = np.random.RandomState(20)
+    tx = rs.uniform(x0 + 1000.0, x0 + side - 1000.0, TRACK_POINTS)
+    ty = rs.uniform(y0 + 1000.0, y0 + side - 1000.0, TRACK_POINTS)
+    own = grdtrack(as_f32(dem.data, DEVICE), as_f32(tx, DEVICE), as_f32(ty, DEVICE),
+                   dem.left, dem.top, dem.res).cpu().numpy()
+    self_rmse = track_rmse(dem, tx, ty, own, device=DEVICE)
+    if not self_rmse < 1e-5:
+        raise AssertionError(f"track_rmse of the DEM vs its own samples {self_rmse:.3e}")
+    tz = own + rs.randn(TRACK_POINTS) * TRACK_NOISE_M
+    card_rmse = track_rmse(dem, tx, ty, tz, device=DEVICE)
+    cpu_rmse = track_rmse(dem, tx, ty, tz, device="cpu")
+    if not abs(card_rmse - cpu_rmse) <= 1e-6 * abs(cpu_rmse):
+        raise AssertionError(f"track_rmse card {card_rmse!r} vs CPU {cpu_rmse!r}")
+    if not abs(card_rmse - TRACK_NOISE_M) < 0.1:
+        raise AssertionError(f"track_rmse {card_rmse} against {TRACK_NOISE_M} m of noise")
+    log(f"  track_rmse on {TRACK_POINTS} points: vs own bicubic samples {self_rmse:.3e}; "
+        f"with {TRACK_NOISE_M:g} m noise card {card_rmse!r}, CPU {cpu_rmse!r}")
+
+    inputs_ms = _host_ms(lambda: get_model_inputs(window, *sources, device=DEVICE), 5)
+    forward_ms = time_ms(lambda: fwd(*nhwc), 5)
+    predict_ms = _host_ms(lambda: dbm.predict(window, rasters), 3)
+    rmse_ms = _host_ms(lambda: track_rmse(dem, tx, ty, tz, device=DEVICE), 5)
+    log(f"  npz load (from_chainer_npz, 12 RRDB): {load_ms:.1f} ms  [{card_name}]")
+    log(f"  get_model_inputs {REGION_KM} km on the card, warm: {inputs_ms:.2f} ms  "
+        f"[{card_name}]")
+    log(f"  forward at (1,{REGION_KM + 2},{REGION_KM + 2}) -> {out}^2: {forward_ms:.2f} ms "
+        f"(device time)  [{card_name}]")
+    log(f"  predict {REGION_KM} km, warm: {predict_ms:.2f} ms  [{card_name}]")
+    log(f"  track_rmse {TRACK_POINTS} points, warm: {rmse_ms:.2f} ms  [{card_name}]")
+    for name, ms in forward_breakdown(dbm.model, nhwc).items():
+        log(f"  forward at batch 1 x {REGION_KM + 2} px, {name}: {ms:.2f} ms  [{card_name}]")
+
+
 # (launch-counter name, source, TPU kernel it replaces, check, small shapes,
 # main-path shape, phase, the configuration whose main path gives its
 # launches); K9's launches come from its own path in phase 15
@@ -889,6 +1176,9 @@ def main() -> int:
     for phase, config in ((17, "banded"), (18, "sweep")):
         log(f"phase {phase}: main path in {CONFIGS[config]}")
         path_launches[config], _, _ = main_path(card_name, config, params, default_out)
+
+    log("phase 19: single region (from_chainer_npz, from_experiment, predict, track_rmse)")
+    single_region(card_name, params)
 
     rows = []
     for name, src, rep, *_, path in KERNELS:

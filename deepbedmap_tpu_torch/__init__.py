@@ -7,12 +7,17 @@ JAX package:
 - ``config``    : GeneratorConfig / InferenceConfig (copied field for field)
 - ``ops``       : resize, dense block (K1, K6) and whole RRDB (K4, K5), fused
                   3x3 conv (K10), deformable conv (K7, K8, K9) and fused tail
-                  (K2, K3), the CUDA build and binding (``ops._kernels``)
+                  (K2, K3), the CUDA build and binding (``ops._kernels``);
+                  grid sampling (``ops.interp``) and metrics (``ops.metrics``)
 - ``csrc``      : the hand-written CUDA C++ kernels (sm_90a)
 - ``models``    : generator building blocks and the generator
 - ``bridge``    : JAX flax params <-> the port's state_dict
+- ``train``     : Chainer-npz weight import and export (``train.checkpoint``)
+- ``utils``     : experiment trackers and the weight fetcher (``utils.tracking``)
 - ``inference`` : halo'd tile engine and band-streamed continent inference
-- ``data``      : Raster
+- ``data``      : Raster and NetCDF I/O, ``selective_tile``, the model's
+                  inputs for one region (``data.groundtruth``)
+- ``evalx``     : grdtrack-style track sampling and track RMSE
 - ``api``       : DeepBedMap
 - ``device``    : the entry points' device (the card by default)
 """

@@ -1,13 +1,18 @@
 """Top-level user API of the PyTorch port.
 
-Counterpart of ``deepbedmap_tpu/api.py:DeepBedMap`` (constructor,
-``forward_fn``, ``predict_continent`` on the single-device buffered path):
+Counterpart of ``deepbedmap_tpu/api.py:DeepBedMap`` (constructors from JAX
+params, a Chainer npz or a tracker, ``forward_fn``, single-region ``predict``
+and ``track_rmse``, ``predict_continent`` on the single-device buffered path):
 
     from deepbedmap_tpu_torch import DeepBedMap
 
     dbm = DeepBedMap()                                   # seeded random weights
     dbm = DeepBedMap.from_jax_params(tree)               # JAX-trained weights
-    dem = dbm.predict_continent(rasters, bounds)         # band-streamed -> Raster
+    dbm = DeepBedMap.from_chainer_npz(path)              # reference-format weights
+    dbm = DeepBedMap.from_experiment(root_or_url)        # a tracker's weights
+    dem = dbm.predict(window_bound, rasters)             # one region -> Raster
+    rmse = dbm.track_rmse(dem, x, y, z)
+    dem = dbm.predict_continent(inputs, bounds)          # band-streamed -> Raster
 
 The device defaults to ``"cuda"`` and a missing card raises; pass
 ``device="cpu"`` for the CPU. On a CUDA device the generator runs the
@@ -25,12 +30,16 @@ import torch
 
 from deepbedmap_tpu_torch.bridge import jax_params_to_state_dict
 from deepbedmap_tpu_torch.config import GeneratorConfig
+from deepbedmap_tpu_torch.data.groundtruth import get_model_inputs
 from deepbedmap_tpu_torch.data.raster import Raster
 from deepbedmap_tpu_torch.device import resolve_device
+from deepbedmap_tpu_torch.evalx.track import track_rmse
 from deepbedmap_tpu_torch.inference.continent import predict_continent
 from deepbedmap_tpu_torch.inference.engine import TilePlan
 from deepbedmap_tpu_torch.models.api import build_generator
 from deepbedmap_tpu_torch.models.generator import Generator
+from deepbedmap_tpu_torch.train.checkpoint import import_chainer_generator_npz
+from deepbedmap_tpu_torch.utils.tracking import download_model_weights
 
 Bounds = Tuple[float, float, float, float]  # (xmin, ymin, xmax, ymax)
 
@@ -70,6 +79,51 @@ class DeepBedMap:
         """From the JAX generator's flax params (nested dicts of numpy arrays)."""
         return cls(jax_params_to_state_dict(tree), cfg, resolution, device)
 
+    @classmethod
+    def from_chainer_npz(
+        cls,
+        path: str,
+        cfg: GeneratorConfig = GeneratorConfig(),
+        offset_order: str = "xy",
+        resolution: float = 250.0,
+        device="cuda",
+    ) -> "DeepBedMap":
+        """Load reference-format (Chainer save_npz) generator weights.
+        ``offset_order='xy'``: the npz holds the offset convs' x half first
+        (``train.checkpoint``)."""
+        params = import_chainer_generator_npz(path, cfg.num_residual_blocks, offset_order)
+        return cls.from_jax_params(params, cfg, resolution, device)
+
+    @classmethod
+    def from_experiment(
+        cls,
+        source,  # tracker root dir, http(s) base URL, or a Tracker instance
+        experiment_key: str = "latest",
+        download_path: str = "model/weights/srgan_generator_model_weights.npz",
+        api_key: Optional[str] = None,
+        asset_name: str = "srgan_generator_model_weights.npz",
+        device="cuda",
+    ) -> "DeepBedMap":
+        """Fetch trained weights by experiment key from a tracker: the
+        reference's Comet weight fetcher (features/environment.py:87-127, used
+        by deepbedmap.py:381-410). 'latest' resolves to the newest experiment,
+        the npz asset is downloaded to ``download_path``, and the run's logged
+        num_residual_blocks / residual_scaling rebuild the matching
+        generator. The device is checked before anything is fetched."""
+        resolve_device(device)
+        hp = download_model_weights(
+            source,
+            experiment_key=experiment_key,
+            asset_name=asset_name,
+            download_path=download_path,
+            api_key=api_key,
+        )
+        cfg = GeneratorConfig(
+            num_residual_blocks=int(hp.get("num_residual_blocks", 12)),
+            residual_scaling=float(hp.get("residual_scaling", 0.1)),
+        )
+        return cls.from_chainer_npz(download_path, cfg, device=device)
+
     def forward_fn(self):
         """(x, w1, w2, w3) NHWC tensors on ``self.device`` -> NHWC prediction."""
         model = self.model
@@ -79,6 +133,34 @@ class DeepBedMap:
                 return model(x, w1, w2, w3)
 
         return fwd
+
+    def predict(
+        self,
+        window_bound: Bounds,
+        rasters: Dict[str, Raster],
+        padding: float = 1000.0,
+    ) -> Raster:
+        """Predict one region. ``rasters`` keys: bed_lowres, surface,
+        velocity_x, velocity_y, accumulation (the reference's five inputs).
+        The inputs are cut on ``self.device`` (``data.groundtruth``) and go
+        through the generator unclipped, as in JAX (only
+        ``predict_continent`` clips the conditioning)."""
+        inputs = get_model_inputs(
+            window_bound,
+            rasters["bed_lowres"],
+            rasters["surface"],
+            rasters["velocity_x"],
+            rasters["velocity_y"],
+            rasters["accumulation"],
+            padding=padding,
+            device=self.device,
+        )
+        pred = self.forward_fn()(
+            *(inputs[k].permute(0, 2, 3, 1).contiguous() for k in ("X", "W1", "W2", "W3"))
+        )
+        xmin, ymin, xmax, ymax = window_bound
+        return Raster(pred[0, :, :, 0].cpu().numpy(), left=xmin, top=ymax,
+                      res=self.resolution)
 
     def predict_continent(
         self,
@@ -132,3 +214,10 @@ class DeepBedMap:
             device=self.device,
         )
         return Raster(canvas, left=xmin, top=ymax, res=self.resolution)
+
+    def track_rmse(
+        self, dem: Raster, x: np.ndarray, y: np.ndarray, z: np.ndarray
+    ) -> float:
+        """Bicubic track RMSE of ``dem`` against xyz points, on
+        ``self.device`` (``evalx.track_rmse``)."""
+        return track_rmse(dem, x, y, z, device=self.device)

@@ -1,8 +1,13 @@
-"""Raster abstraction: a plain (H, W) array + georeferencing.
+"""Raster abstraction: a plain (H, W) array + georeferencing, and NetCDF I/O.
 
-Counterpart of the ``Raster`` class of ``deepbedmap_tpu/data/raster.py``,
-copied because importing the JAX package loads JAX. Grid convention: cell
-centers at x0 + res*(j+0.5), y1 - res*(i+0.5); row 0 is the top row.
+Counterpart of ``deepbedmap_tpu/data/raster.py`` (``Raster``, ``read_netcdf``,
+``write_netcdf``), copied because importing the JAX package loads JAX. Grid
+convention: cell centers at x0 + res*(j+0.5), y1 - res*(i+0.5); row 0 is the
+top row.
+
+NetCDF-4 files (HDF5-based, what `gmt surface` and xarray write) are read and
+written through h5py, imported inside the two functions only: the card's
+machine has no h5py, and nothing else of the port needs it.
 """
 
 from __future__ import annotations
@@ -102,3 +107,83 @@ class Raster:
             res=res,
             **kw,
         )
+
+
+# --------------------------------------------------------------------------
+# NetCDF-4 (HDF5) I/O via h5py: covers xarray/gmt-written .nc grids.
+# --------------------------------------------------------------------------
+
+def read_netcdf(
+    path: str,
+    var: Optional[str] = None,
+    bounds: Optional[Tuple[float, float, float, float]] = None,
+) -> Raster:
+    """Read a 2-D grid from a NetCDF-4 file (z/x/y layout like the
+    reference's highres/*.nc gmt-surface outputs).
+
+    ``bounds``: (xmin, ymin, xmax, ymax) window; only the intersecting
+    hyperslab is read from disk (h5py reads just those chunks), so a crop of
+    a multi-GB grid costs IO proportional to the window. Snap semantics match
+    ``Raster.crop`` / `gmt grdcut` (outward to pixel edges, clipped to the
+    grid)."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        if var is None:
+            candidates = [
+                k
+                for k, v in f.items()
+                if isinstance(v, h5py.Dataset) and v.ndim == 2
+            ]
+            assert candidates, f"no 2-D variable in {path}: {list(f)}"
+            var = candidates[0]
+        dset = f[var]
+        # coordinate variables per CF: 1-D datasets named like the dims
+        dims = [
+            (d.label or name)
+            for d, name in zip(dset.dims, ("y", "x"))
+        ] if dset.dims else ["y", "x"]
+        yname = dims[0] or "y"
+        xname = dims[1] or "x"
+        y = f[yname][...] if yname in f else np.arange(dset.shape[0]) + 0.5
+        x = f[xname][...] if xname in f else np.arange(dset.shape[1]) + 0.5
+        if bounds is None:
+            data = dset[...]
+        else:
+            xmin, ymin, xmax, ymax = bounds
+            res = (
+                float(abs(x[1] - x[0])) if len(x) > 1
+                else float(abs(y[1] - y[0]))
+            )
+            jsel = (x + res / 2 > xmin) & (x - res / 2 < xmax)
+            isel = (y + res / 2 > ymin) & (y - res / 2 < ymax)
+            if not (jsel.any() and isel.any()):
+                raise ValueError(f"window {bounds} does not intersect {path}")
+            j0, j1 = int(np.argmax(jsel)), len(x) - int(np.argmax(jsel[::-1]))
+            i0, i1 = int(np.argmax(isel)), len(y) - int(np.argmax(isel[::-1]))
+            data = dset[i0:i1, j0:j1]  # lazy hyperslab read
+            x, y = x[j0:j1], y[i0:i1]
+        nodata = None
+        if "_FillValue" in dset.attrs:
+            nodata = float(np.ravel(dset.attrs["_FillValue"])[0])
+    return Raster.from_centers(data, x, y, nodata=nodata)
+
+
+def write_netcdf(raster: Raster, path: str, var: str = "z") -> None:
+    """Write a NetCDF-4 grid readable by xarray/GMT (z with y/x coords,
+    CF-ish attributes, y descending top-down like the reference outputs)."""
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        y = f.create_dataset("y", data=raster.y_centers.astype(np.float64))
+        x = f.create_dataset("x", data=raster.x_centers.astype(np.float64))
+        z = f.create_dataset(var, data=raster.data.astype(np.float32))
+        y.make_scale("y")
+        x.make_scale("x")
+        z.dims[0].attach_scale(y)
+        z.dims[1].attach_scale(x)
+        z.attrs["crs"] = raster.crs
+        if raster.nodata is not None:
+            z.attrs["_FillValue"] = np.float32(raster.nodata)
+        y.attrs["units"] = "m"
+        x.attrs["units"] = "m"

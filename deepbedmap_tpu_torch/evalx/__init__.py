@@ -1,0 +1,12 @@
+"""Evaluation: point-track sampling and error metrics (reference L6).
+
+The reference samples predicted grids at survey xyz points with GMT's
+``grdtrack`` and reports RMSE (deepbedmap.py:530-573, srgan_train.py:1422-1466).
+Here ``grdtrack`` samples a Raster's grid on a device.
+"""
+
+from deepbedmap_tpu_torch.evalx.track import (  # noqa: F401
+    elevation_residuals,
+    grdtrack,
+    track_rmse,
+)

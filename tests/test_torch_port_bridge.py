@@ -88,8 +88,13 @@ def test_port_import_loads_no_jax():
         "import deepbedmap_tpu_torch.ops.tail, deepbedmap_tpu_torch.ops._kernels\n"
         "import deepbedmap_tpu_torch.ops.conv3x3, deepbedmap_tpu_torch.ops.deform_conv\n"
         "import deepbedmap_tpu_torch.models, deepbedmap_tpu_torch.device\n"
+        "import deepbedmap_tpu_torch.train.checkpoint, deepbedmap_tpu_torch.utils.tracking\n"
+        "import deepbedmap_tpu_torch.ops.interp, deepbedmap_tpu_torch.ops.metrics\n"
+        "import deepbedmap_tpu_torch.data.tiler, deepbedmap_tpu_torch.data.raster\n"
+        "import deepbedmap_tpu_torch.data.groundtruth, deepbedmap_tpu_torch.evalx.track\n"
+        "import deepbedmap_tpu_torch.utils, deepbedmap_tpu_torch.evalx\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'deepbedmap_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'deepbedmap_tpu', 'h5py')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

@@ -121,21 +121,49 @@ def test_band_predictor_rejects_bad_arguments(port):
 
 
 @pytest.mark.parametrize("entry", ["DeepBedMap", "from_jax_params", "build_generator",
-                                   "predict_continent"])
-def test_entry_points_default_to_the_card(entry, jax_params):
+                                   "predict_continent", "from_chainer_npz",
+                                   "from_experiment", "selective_tile", "get_model_inputs",
+                                   "gapfill_from_coarse", "track_rmse",
+                                   "elevation_residuals", "window_coords"])
+def test_entry_points_default_to_the_card(entry, jax_params, tmp_path):
     # every entry point defaults to device "cuda"; without a card it raises
     # rather than carrying on on the CPU
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default does not raise")
+    from deepbedmap_tpu_torch.data import Raster
+    from deepbedmap_tpu_torch.data.groundtruth import gapfill_from_coarse, get_model_inputs
+    from deepbedmap_tpu_torch.data.tiler import selective_tile
+    from deepbedmap_tpu_torch.evalx import elevation_residuals, track_rmse
+    from deepbedmap_tpu_torch.ops.interp import window_coords
+    from deepbedmap_tpu_torch.train.checkpoint import export_generator_npz
+    from deepbedmap_tpu_torch.utils.tracking import LocalTracker
+
     cfg = GeneratorConfig(num_residual_blocks=1)
     plan = TilePlan(out_h=32, out_w=32, tile_out=32, halo_lr=3)
     host = {k: v.transpose(0, 2, 3, 1) for k, v in _inputs_nchw(8, 8, 0).items()}
+    tree = jax.tree_util.tree_map(np.asarray, jax_params)
+    npz = str(tmp_path / "srgan_generator_model_weights.npz")
+    export_generator_npz(tree, npz)
+    run = LocalTracker(str(tmp_path / "runs"))
+    run.log_params({"num_residual_blocks": 2})
+    run.log_asset(npz)
+    r = Raster(np.ones((40, 40), np.float32), left=0.0, top=40_000.0, res=1000.0)
+    window = (1000.0, 1000.0, 10_000.0, 10_000.0)
+    pts = np.full(3, 5000.0)
     calls = {
         "DeepBedMap": lambda: DeepBedMap(cfg=cfg),
-        "from_jax_params": lambda: DeepBedMap.from_jax_params(
-            jax.tree_util.tree_map(np.asarray, jax_params), GeneratorConfig(**CFG)),
+        "from_jax_params": lambda: DeepBedMap.from_jax_params(tree, GeneratorConfig(**CFG)),
         "build_generator": lambda: build_generator(cfg),
         "predict_continent": lambda: predict_continent(lambda *a: None, host, plan),
+        "from_chainer_npz": lambda: DeepBedMap.from_chainer_npz(npz, GeneratorConfig(**CFG)),
+        "from_experiment": lambda: DeepBedMap.from_experiment(
+            str(tmp_path / "runs"), download_path=str(tmp_path / "dl.npz")),
+        "selective_tile": lambda: selective_tile(r, [window]),
+        "get_model_inputs": lambda: get_model_inputs(window, r, r, r, r, r),
+        "gapfill_from_coarse": lambda: gapfill_from_coarse(r, r),
+        "track_rmse": lambda: track_rmse(r, pts, pts, pts),
+        "elevation_residuals": lambda: elevation_residuals(r, pts, pts, pts),
+        "window_coords": lambda: window_coords(window, 250.0),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
