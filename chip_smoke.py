@@ -72,7 +72,34 @@ Phases (any failure ends the run with a non-zero exit code):
     card against the CPU; ``predict`` on the card against the
     CPU on a 48 km window; ``track_rmse`` on 10^5 points on the card against
     the CPU and against the DEM's own bicubic samples; and the times of each
-    step.
+    step;
+20. the continent product on a 3 x 3-tile region (3000^2 output, 750^2
+    low-res; phase 19's kind of smooth seeded fields at bed, surface,
+    velocity and accumulation scale, W1 partly below zero; three bands so
+    one is interior) with the seeded 12-RRDB generator at init scale 1.0
+    (phase 6's weights give an all-zero int16 product; these give a bed's
+    magnitudes): ``predict_continent(outfilepath=...)`` (buffered,
+    ``save_continent_dem``) must decode to the int16 of its canvas bit for
+    bit, tiled, nodata -2000, EPSG:3031; ``stream_product=True`` with two
+    overview pages and PREDICTOR=2 must equal byte for byte a
+    ``GeoTiffStripWriter`` fed the canvas on the host in the band loop's
+    strips, with page 0 equal to the buffered product and pages 1 and 2 the
+    block means; the native LZW against the pure-Python codec on rows of the
+    interior band; the codec loaded from the build directory; launch counts
+    of both calls; warm s/tile of both paths and of the streamed path
+    without overviews and predictor (interleaved), each split at the band
+    loop's last band, the host writer's time alone, the time of
+    ``save_continent_dem``, the products' sizes and the native encode rate;
+21. the HTTP server (``serve.make_server`` on 127.0.0.1 in a thread, phase
+    19's rasters preloaded): /healthz; /predict on phase 19's window as
+    GeoTIFF equal to ``dbm.predict`` bit for bit, alone and as four
+    concurrent requests, with launch counts; ``python -m deepbedmap_tpu_torch
+    predict`` in a new process on GeoTIFF copies of the rasters equal to
+    ``dbm.predict`` bit for bit (so the CLI runs in fp32, TF32 off); /predict with ``bucket_px``
+    equal to ``dbm.predict`` on the bucketed window sliced back; /dem on
+    phase 20's streamed product, pages 0 and 1, equal to its crops;
+    /evaluate on 10^4 track points equal to ``dbm.track_rmse``; and median
+    warm latencies of /predict (beside ``dbm.predict``), /dem and /evaluate.
 
 Each main path checks its own configuration's launch counts (``PER_FORWARD``).
 It prints one JSON line with each kernel's launches (from the main path that
@@ -86,8 +113,10 @@ from __future__ import annotations
 import copy
 import functools
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -161,6 +190,32 @@ REGION_SOURCES = {
 }
 TRACK_POINTS, TRACK_NOISE_M = 100_000, 10.0
 TOL_INPUTS = 1e-6  # get_model_inputs card vs CPU: the same float32 operations
+
+# phase 20: the continent product on a 3 x 3-tile region (3000^2 output, 750^2
+# low-res), phase 6's tiles; three bands, so the middle one is interior
+PRODUCT_TILES, PRODUCT_OVERVIEWS, PRODUCT_REPS = 3, 2, 3
+# phase 6's weights (init scale 0.1) give outputs under 0.01 m in magnitude,
+# whose int16 product is all zeros: a writer that wrote zeros would pass.
+# Phase 20 draws the same seeded generator at init scale 1.0 (phase 5's second
+# check); on phase 19's kind of smooth fields at bed, surface, velocity and
+# accumulation scale its outputs span hundreds to thousands of metres, a
+# bed's magnitudes, so the encode rates and sizes are a DEM's, not noise's
+PRODUCT_INIT_SCALE = 1.0
+# (base, amplitude) of each input's smooth field: X the bed at 1000 m, W1 the
+# surface at 100 m (low enough that part of it is below zero, so the clip
+# runs), W2 the two velocity components at 500 m, W3 the accumulation
+PRODUCT_FIELDS = {"X": (1, (-500.0, 800.0)), "W1": (10, (300.0, 800.0)),
+                  "W2": (2, (0.0, 300.0), (0.0, 300.0)), "W3": (1, (0.3, 0.2))}
+# rows of the interior band's first TIFF strip on which the native LZW is
+# held against the pure-Python codec (that one runs at tens of KB/s)
+CODEC_ROWS = 16
+# phase 21: the server, on phase 19's window and rasters
+SERVE_CONCURRENT, SERVE_REPS = 4, 10
+SERVE_BUCKET_PX, SERVE_BUCKET_KM = 1024, 200  # a 200 km window buckets to 256 km
+SERVE_CROP_AT, SERVE_CROP_PX = (300, 700), 1000  # /dem's crop of the 3000^2 product
+SERVE_TRACK_POINTS = 10_000
+CLI_FLAGS = {"bed_lowres": "--bed", "surface": "--surface", "velocity_x": "--velocity-x",
+             "velocity_y": "--velocity-y", "accumulation": "--accumulation"}
 
 # the H100 SXM's published peaks (NVIDIA's data sheet, dense rates, at its
 # 700 W limit): fp32 outside the tensor cores, TF32 on the tensor cores, HBM
@@ -929,9 +984,10 @@ def region_kernels(model, nhwc, dem: np.ndarray) -> None:
                 sample_tap_fields(z[..., None], off2, b2, 1, clamp), TOL_KERNEL)
 
 
-def single_region(card_name: str, params) -> None:
+def single_region(card_name: str, params):
     """Phase 19: the reference's single-region workflow with phase 6's
-    weights (``params``, a state_dict on the card)."""
+    weights (``params``, a state_dict on the card). Returns the five source
+    rasters and the 286 km window, which phase 21 serves."""
     import tempfile
 
     import torch
@@ -1059,6 +1115,459 @@ def single_region(card_name: str, params) -> None:
     log(f"  track_rmse {TRACK_POINTS} points, warm: {rmse_ms:.2f} ms  [{card_name}]")
     for name, ms in forward_breakdown(dbm.model, nhwc).items():
         log(f"  forward at batch 1 x {REGION_KM + 2} px, {name}: {ms:.2f} ms  [{card_name}]")
+    return rasters, window
+
+
+def _expected_launches(forwards: int) -> dict:
+    from deepbedmap_tpu_torch.ops import _kernels
+
+    return {k: forwards * PER_FORWARD["default"].get(k, 0) for k in _kernels.launches}
+
+
+def _mb(path: str) -> float:
+    return os.path.getsize(path) / 1e6
+
+
+def product_inputs(bounds, lh: int, seed: int) -> dict:
+    """Phase 20's NCHW inputs over ``bounds`` (``lh`` low-res px a side):
+    phase 19's smooth seeded fields at each input's resolution and scale
+    (``PRODUCT_FIELDS``)."""
+    rs = np.random.RandomState(seed)
+    xmin, _, xmax, ymax = bounds
+    out = {}
+    for key, (ratio, *channels) in PRODUCT_FIELDS.items():
+        n = ratio * lh
+        res = (xmax - xmin) / n
+        xc = xmin + res * (np.arange(n) + 0.5)
+        yc = ymax - res * (np.arange(n) + 0.5)
+        out[key] = np.stack([_smooth_field(rs, xc, yc, *c) for c in channels])[None]
+    return out
+
+
+def continent_product(card_name: str, tmp: str) -> str:
+    """Phase 20: ``DeepBedMap.predict_continent`` writing the int16 LZW
+    GeoTIFF, buffered (``save_continent_dem``) and streamed (writer thread,
+    overviews, PREDICTOR=2), on a 3 x 3-tile region, with the seeded
+    generator at ``PRODUCT_INIT_SCALE``. Returns the streamed product's path."""
+    import torch
+
+    from deepbedmap_tpu_torch import DeepBedMap
+    from deepbedmap_tpu_torch.config import GeneratorConfig
+    from deepbedmap_tpu_torch.data import _tiffnative, geotiff
+    from deepbedmap_tpu_torch.inference import (TilePlan, predict_continent,
+                                                predict_continent_to_geotiff,
+                                                save_continent_dem)
+    from deepbedmap_tpu_torch.ops import _kernels
+
+    res_m, tpd = 250.0, TILES_PER_DISPATCH
+    out = PRODUCT_TILES * TILE_OUT
+    lh = out // 4
+    x0, y0 = REGION_ORIGIN
+    bounds = (x0, y0, x0 + out * res_m, y0 + out * res_m)
+    inputs = product_inputs(bounds, lh, seed=20)
+    plan = TilePlan(out_h=out, out_w=out, tile_out=TILE_OUT, halo_lr=HALO_LR)
+    forwards = plan.grid[0] * -(-plan.grid[1] // tpd)
+    log(f"  region {out}^2 output ({plan.grid[0]} x {plan.grid[1]} tiles, {forwards} "
+        "forwards), inputs " + ", ".join(
+            f"{k} {v.shape} {float(v.min()):.1f}..{float(v.max()):.1f}"
+            for k, v in inputs.items())
+        + f", W1 below zero {float((inputs['W1'] < 0).mean()):.3f}")
+    dbm = DeepBedMap(cfg=GeneratorConfig(init_scale=PRODUCT_INIT_SCALE), device=DEVICE)
+    kw = dict(tile_out=TILE_OUT, halo_lr=HALO_LR, tiles_per_dispatch=tpd)
+    buffered, streamed = f"{tmp}/buffered", f"{tmp}/streamed"
+    stream_kw = dict(stream_product=True, overviews=PRODUCT_OVERVIEWS, predictor=True)
+
+    _kernels.reset_launches()
+    raster = dbm.predict_continent(inputs, bounds, outfilepath=buffered, **kw)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launches)
+    log(f"  launches in the buffered product ({forwards} forwards): {launches}")
+    check_launches(launches, _expected_launches(forwards))
+    canvas = raster.data
+    if canvas.shape != (out, out) or not np.isfinite(canvas).all():
+        raise AssertionError(f"bad continent canvas {canvas.shape}")
+    if not np.abs(canvas).max() < 32000:
+        raise AssertionError(f"canvas {canvas.min()}..{canvas.max()} m: beyond int16")
+    want = np.where(np.isfinite(canvas), canvas, -2000.0).astype(np.int16)
+    a, meta = geotiff.read_geotiff(buffered + ".tif")
+    if not np.array_equal(a, want):
+        raise AssertionError("the buffered product differs from the int16 canvas")
+    with open(buffered + ".tif", "rb") as f:
+        _, tags = geotiff._read_ifd_tags(f, 0)
+    if (geotiff._T_TILE_OFFSETS not in tags or meta["nodata"] != -2000.0
+            or meta["crs_epsg"] != 3031 or meta["res"] != res_m
+            or (meta["left"], meta["top"]) != (bounds[0], bounds[3])):
+        raise AssertionError(f"buffered product: tiled {geotiff._T_TILE_OFFSETS in tags}, "
+                             f"meta {meta}")
+    distinct = len(np.unique(a))
+    if distinct < 10:
+        raise AssertionError(f"the int16 product holds {distinct} values: the check is void")
+    log(f"  buffered product {a.shape} int16: equal to the canvas bit for bit, tiled, "
+        f"{meta}; values {int(a.min())}..{int(a.max())} m ({distinct} distinct), mean "
+        f"|step| between neighbours {float(np.abs(np.diff(a.astype(np.float32))).mean()):.1f} m")
+
+    _kernels.reset_launches()
+    if dbm.predict_continent(inputs, bounds, outfilepath=streamed, **stream_kw, **kw) \
+            is not None:
+        raise AssertionError("the streamed product returned a canvas")
+    launches = dict(_kernels.launches)
+    log(f"  launches in the streamed product ({forwards} forwards): {launches}")
+    check_launches(launches, _expected_launches(forwards))
+    b, _ = geotiff.read_geotiff(streamed + ".tif")
+    if not np.array_equal(b, a):
+        raise AssertionError("the streamed product's page 0 differs from the buffered one")
+    rps = TILE_OUT // 8  # predict_continent_to_geotiff's default strip height
+
+    def host_writer(path, **opts):
+        """The product's writer fed the canvas in the band loop's strips on
+        this thread; returns the wall time in s of each band's
+        ``write_strip`` and of ``close``."""
+        marks = [time.perf_counter()]
+        w = geotiff.GeoTiffStripWriter(
+            path, out, out, left=bounds[0], top=bounds[3], res=res_m, dtype=np.int16,
+            nodata=-2000.0, compress=True, rows_per_strip=rps, **opts)
+        for r0 in range(0, out, TILE_OUT):
+            w.write_strip(canvas[r0 : r0 + TILE_OUT])
+            marks.append(time.perf_counter())
+        w.close()
+        marks.append(time.perf_counter())
+        return np.diff(marks)
+
+    writer_s = {"overviews 2, predictor": host_writer(
+        f"{tmp}/host.tif", overviews=PRODUCT_OVERVIEWS, predictor=True)}
+    with open(streamed + ".tif", "rb") as f, open(f"{tmp}/host.tif", "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError("the streamed product differs from the host writer's bytes")
+    # page L is the mean of 2^L x 2^L blocks of the float strips the writer
+    # was fed, summed in the writer's order (2 x 2 sums of 2 x 2 sums)
+    s = canvas.astype(np.float64)
+    for level in range(1, PRODUCT_OVERVIEWS + 1):
+        s = s[0::2] + s[1::2]
+        s = s[:, 0::2] + s[:, 1::2]
+        page, meta_l = geotiff.read_geotiff(streamed + ".tif", page=level)
+        if not np.array_equal(page, np.rint(s / 4 ** level).astype(np.int16)):
+            raise AssertionError(f"overview page {level} is not the block mean")
+        if meta_l["res"] != res_m * 2 ** level:
+            raise AssertionError(f"overview page {level}: res {meta_l['res']}")
+    log(f"  streamed product: page 0 equal to the buffered product, the file equal byte "
+        f"for byte to GeoTiffStripWriter fed the canvas in {TILE_OUT}-row strips "
+        f"(rows_per_strip {rps}, overviews {PRODUCT_OVERVIEWS}, predictor), pages "
+        f"1..{PRODUCT_OVERVIEWS} the {2}^L block means")
+
+    strip = geotiff._hdiff(want[TILE_OUT : TILE_OUT + CODEC_ROWS]).tobytes()
+    native, plain = _tiffnative.lzw_encode(strip), geotiff._lzw_encode_py(strip)
+    if native != plain or _tiffnative.lzw_decode(plain) != strip \
+            or geotiff._lzw_decode_py(native) != strip:
+        raise AssertionError("the native LZW differs from the pure-Python codec")
+    so_dir = str(_tiffnative._build_dir().resolve())
+    if not (_tiffnative.path and _tiffnative.path.startswith(so_dir)
+            and os.path.exists(_tiffnative.path)):
+        raise AssertionError(f"native codec {_tiffnative.path} not from {so_dir}")
+    log(f"  native LZW on {CODEC_ROWS} rows of the interior band ({len(strip)} B -> "
+        f"{len(native)} B) equal to the pure-Python codec, both round trips exact; "
+        f"loaded {_tiffnative.path}")
+
+    # the warm products by the functions DeepBedMap.predict_continent calls
+    # (it adds a transposed view of the inputs and the plan), with a progress
+    # mark when the band loop hands on its last band: the split says whether
+    # the streamed path's time goes to the loop (the writer thread slowing
+    # the launches) or to what is left after it (the last band's encode,
+    # the overview pages, the buffered path's save_continent_dem)
+    fwd = dbm.forward_fn()
+    host = {k: v.transpose(0, 2, 3, 1) for k, v in inputs.items()}
+    variants = {"buffered": None, "streamed, no overviews or predictor": {},
+                "streamed": {"overviews": PRODUCT_OVERVIEWS, "predictor": True}}
+
+    def product(opts):
+        marks = []
+        path = f"{tmp}/timed"
+        t0 = time.perf_counter()
+        if opts is None:
+            c = predict_continent(fwd, host, plan, progress=lambda *_: marks.append(
+                time.perf_counter()), tiles_per_dispatch=tpd, device=DEVICE)
+            save_continent_dem(c, bounds, path)
+        else:
+            predict_continent_to_geotiff(fwd, host, plan, bounds, path, progress=lambda *_:
+                                         marks.append(time.perf_counter()),
+                                         tiles_per_dispatch=tpd, device=DEVICE, **opts)
+        t1 = time.perf_counter()
+        return t1 - t0, marks[-1] - t0, t1 - marks[-1]
+
+    times = {name: [] for name in variants}
+    for _ in range(PRODUCT_REPS):  # interleaved
+        for name, opts in variants.items():
+            times[name].append(product(opts))
+    for name, ts in times.items():
+        log(f"  warm {name} product: " + ", ".join(f"{t[0] / plan.num_tiles:.4f}" for t in ts)
+            + f" s/tile ({plan.num_tiles} tiles); band loop " + ", ".join(
+                f"{t[1]:.3f}" for t in ts) + " s, after it " + ", ".join(
+                f"{t[2]:.3f}" for t in ts) + f" s  [{card_name}]")
+    writer_s["no overviews or predictor"] = host_writer(f"{tmp}/host_plain.tif")
+    for opts, t in writer_s.items():
+        log(f"  GeoTiffStripWriter alone on this thread, {opts}: {t.sum():.3f} s = "
+            + " + ".join(f"{v:.3f}" for v in t[:-1]) + f" (each band's write_strip) + "
+            f"{t[-1]:.3f} (close)  [{card_name}]")
+    t0 = time.perf_counter()
+    save_continent_dem(canvas, bounds, f"{tmp}/saved")
+    save_s = time.perf_counter() - t0
+    log(f"  save_continent_dem {out}^2: {save_s:.3f} s  [{card_name}]")
+    log(f"  sizes: buffered {_mb(buffered + '.tif'):.2f} MB, streamed "
+        f"{_mb(streamed + '.tif'):.2f} MB (with {PRODUCT_OVERVIEWS} overviews, "
+        f"predictor), streamed without them {_mb(f'{tmp}/host_plain.tif'):.2f} MB, raw "
+        f"int16 {want.nbytes / 1e6:.2f} MB")
+    band = geotiff._hdiff(want[TILE_OUT : 2 * TILE_OUT]).tobytes()
+    t0 = time.perf_counter()
+    _tiffnative.lzw_encode(band)
+    one_s = time.perf_counter() - t0
+    blocks = [geotiff._hdiff(want[r : r + rps]).tobytes() for r in range(0, out, rps)]
+    t0 = time.perf_counter()
+    _tiffnative.lzw_encode_blocks(blocks)
+    all_s = time.perf_counter() - t0
+    log(f"  native LZW encode on this host ({os.cpu_count()} cores), predictor "
+        f"applied: one thread {len(band) / 1e6 / one_s:.1f} MB/s (one band), all "
+        f"threads {want.nbytes / 1e6 / all_s:.1f} MB/s ({len(blocks)} strips)  "
+        f"[{card_name}]")
+    return streamed + ".tif"
+
+
+def _post(base: str, path: str, payload: dict):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"},
+                                 method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _post_ok(base: str, path: str, payload: dict) -> dict:
+    status, body = _post(base, path, payload)
+    if status != 200:
+        raise AssertionError(f"{path} answered {status}: {body}")
+    return body
+
+
+def _median_ms(fn, reps: int) -> float:
+    import torch
+
+    fn()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(ts))
+
+
+def cli_predict(card_name: str, params, rasters: dict, window, want: np.ndarray,
+                tmp: str) -> None:
+    """Phase 21: ``python -m deepbedmap_tpu_torch predict`` in a process of
+    its own, on phase 6's weights (an npz) and phase 19's rasters (GeoTIFF
+    files), must give ``want`` (``dbm.predict`` in this process, TF32 off)
+    bit for bit. The new process starts with PyTorch's defaults, cuDNN's
+    convs in TF32, so this holds only if the CLI turns TF32 off; the same
+    predict with TF32 on shows how far apart the two would be."""
+    import torch
+
+    from deepbedmap_tpu_torch import DeepBedMap
+    from deepbedmap_tpu_torch.bridge import state_dict_to_jax_params
+    from deepbedmap_tpu_torch.data import geotiff
+    from deepbedmap_tpu_torch.train.checkpoint import export_generator_npz
+
+    dbm = DeepBedMap(params, device=DEVICE)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = dbm.predict(tuple(window), rasters).data
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    npz = f"{tmp}/cli_weights.npz"
+    export_generator_npz(state_dict_to_jax_params(params), npz)
+    argv = [sys.executable, "-m", "deepbedmap_tpu_torch", "predict", "--npz", npz,
+            "--device", DEVICE,
+            "--bounds=" + ",".join(repr(float(v)) for v in window), "-o", f"{tmp}/cli.tif"]
+    for name, r in rasters.items():
+        path = f"{tmp}/{name}.tif"
+        geotiff.write_geotiff(path, r.data, r.left, r.top, r.res, compress=True)
+        argv += [CLI_FLAGS[name], path]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI's predict failed ({proc.returncode}):\n"
+                             + proc.stdout[-4000:] + proc.stderr[-4000:])
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    got = geotiff.read_geotiff(f"{tmp}/cli.tif")[0]
+    if res["shape"] != list(want.shape) or not np.array_equal(got, want):
+        raise AssertionError(f"the CLI's predict {res} differs from dbm.predict")
+    log(f"  CLI predict in a new process (GeoTIFF rasters and out): equal to "
+        f"dbm.predict bit for bit; with TF32 on, dbm.predict would differ by up to "
+        f"{float(np.abs(tf32 - want).max()):.3e} m (range {float(np.ptp(want)):.3e}); "
+        f"{wall:.1f} s wall, process start and library loads included  [{card_name}]")
+
+
+def serving(card_name: str, params, rasters: dict, window, product: str, tmp: str) -> None:
+    """Phase 21: ``serve.make_server`` on 127.0.0.1 with phase 19's rasters
+    preloaded (the card's machine has no h5py), answering /healthz,
+    /predict (alone, four at once, bucketed), /dem on phase 20's product and
+    /evaluate, each held against the library call it wraps."""
+    import threading
+    import urllib.request
+
+    import torch
+
+    from deepbedmap_tpu_torch import DeepBedMap
+    from deepbedmap_tpu_torch.data import geotiff
+    from deepbedmap_tpu_torch.data.raster import Raster
+    from deepbedmap_tpu_torch.evalx.track import grdtrack
+    from deepbedmap_tpu_torch.ops import _kernels
+    from deepbedmap_tpu_torch.ops.interp import as_f32
+    from deepbedmap_tpu_torch.serve import make_server
+
+    dbm = DeepBedMap(params, device=DEVICE)
+    names = {k: k for k in rasters}
+    servers = []
+
+    def start(**kw):
+        srv = make_server(dbm, raster_cache=rasters, data_root=tmp, **kw)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        servers.append((srv, thread))
+        return f"http://127.0.0.1:{srv.server_port}"
+
+    def decode(name):
+        return geotiff.read_geotiff(f"{tmp}/{name}")[0]
+
+    try:
+        base = start()
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+        if health.get("status") != "ok" or health["model"]["num_residual_blocks"] != 12:
+            raise AssertionError(f"/healthz: {health}")
+        log(f"  /healthz: {health}")
+
+        predict = {"bounds": list(window), "rasters": names, "format": "geotiff"}
+        _kernels.reset_launches()
+        body = _post_ok(base, "/predict", {**predict, "out": "p.tif"})
+        torch.cuda.synchronize()
+        launches = dict(_kernels.launches)
+        log(f"  launches in one /predict: {launches}")
+        check_launches(launches, _expected_launches(1))
+        one = decode("p.tif")
+        direct = dbm.predict(tuple(window), rasters)
+        if not np.array_equal(one, direct.data):
+            raise AssertionError("/predict differs from dbm.predict")
+        log(f"  /predict {body['shape']}: equal to dbm.predict bit for bit")
+        cli_predict(card_name, params, rasters, window, direct.data, tmp)
+
+        results = [None] * SERVE_CONCURRENT
+
+        def request(i):
+            results[i] = _post(base, "/predict", {**predict, "out": f"p{i}.tif"})
+
+        _kernels.reset_launches()
+        threads = [threading.Thread(target=request, args=(i,))
+                   for i in range(SERVE_CONCURRENT)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        torch.cuda.synchronize()
+        launches = dict(_kernels.launches)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a concurrent /predict did not finish")
+        check_launches(launches, _expected_launches(SERVE_CONCURRENT))
+        for i, (status, body) in enumerate(results):
+            if status != 200 or not np.array_equal(decode(f"p{i}.tif"), one):
+                raise AssertionError(f"concurrent /predict {i}: {status} {body}")
+        log(f"  {SERVE_CONCURRENT} concurrent /predict: each equal to the single one bit "
+            f"for bit; launches {launches}")
+
+        bucketed_base = start(bucket_px=SERVE_BUCKET_PX)
+        xmin, ymax = window[0], window[3]
+        side = 1e3 * SERVE_BUCKET_KM
+        small = (xmin, ymax - side, xmin + side, ymax)
+        body = _post_ok(bucketed_base, "/predict",
+                        {**predict, "bounds": list(small), "out": "b.tif"})
+        px = int(round(side / dbm.resolution))
+        big_px = SERVE_BUCKET_PX
+        while big_px < px:
+            big_px *= 2
+        big = dbm.predict((xmin, ymax - big_px * dbm.resolution,
+                           xmin + big_px * dbm.resolution, ymax), rasters)
+        if body["shape"] != [px, px] or not np.array_equal(decode("b.tif"),
+                                                           big.data[:px, :px]):
+            raise AssertionError(f"bucketed /predict {body}: differs from dbm.predict "
+                                 f"on the {big_px}-px window, sliced back")
+        log(f"  /predict with bucket_px {SERVE_BUCKET_PX}, {px} px: equal to dbm.predict "
+            f"on the {big_px}-px window sliced back, bit for bit")
+
+        info = geotiff.read_geotiff_meta(product)
+        name = os.path.relpath(product, tmp)
+        for page in (0, 1):
+            full = geotiff.read_geotiff(product, page=page)[0]
+            res = info["res"] * 2 ** page
+            r0, c0 = (v // 2 ** page for v in SERVE_CROP_AT)
+            n = SERVE_CROP_PX // 2 ** page
+            crop = [info["left"] + c0 * res, info["top"] - (r0 + n) * res,
+                    info["left"] + (c0 + n) * res, info["top"] - r0 * res]
+            body = _post_ok(base, "/dem", {"product": name, "bounds": crop, "page": page,
+                                           "out": f"crop{page}.tif", "format": "geotiff"})
+            if not np.array_equal(decode(f"crop{page}.tif"), full[r0 : r0 + n, c0 : c0 + n]):
+                raise AssertionError(f"/dem page {page} differs from the product's crop")
+            log(f"  /dem page {page} {body['shape']} at {res:g} m: equal to the product's "
+                f"crop; stats {body['stats']}")
+
+        dem = Raster(one, left=window[0], top=window[3], res=dbm.resolution)
+        rs = np.random.RandomState(21)
+        tx = rs.uniform(window[0] + 1000.0, window[2] - 1000.0, SERVE_TRACK_POINTS)
+        ty = rs.uniform(window[1] + 1000.0, window[3] - 1000.0, SERVE_TRACK_POINTS)
+        tz = grdtrack(as_f32(one, DEVICE), as_f32(tx, DEVICE), as_f32(ty, DEVICE),
+                      dem.left, dem.top, dem.res).cpu().numpy()
+        tz = tz + rs.randn(SERVE_TRACK_POINTS) * TRACK_NOISE_M
+        np.savetxt(f"{tmp}/track.csv", np.column_stack([tx, ty, tz]), delimiter=",",
+                   header="x,y,z", comments="", fmt="%.17g")
+        evaluate = {"dem": "p.tif", "track": "track.csv"}
+        body = _post_ok(base, "/evaluate", evaluate)
+        want = dbm.track_rmse(dem, tx, ty, tz)
+        if body["rmse_m"] != want or body["points"] != SERVE_TRACK_POINTS:
+            raise AssertionError(f"/evaluate {body} vs dbm.track_rmse {want!r}")
+        log(f"  /evaluate on {SERVE_TRACK_POINTS} points: rmse {body['rmse_m']!r} m, equal "
+            "to dbm.track_rmse")
+
+        r0, c0 = SERVE_CROP_AT
+        crop0 = {"product": name, "rows": [r0, r0 + SERVE_CROP_PX],
+                 "cols": [c0, c0 + SERVE_CROP_PX]}
+        def predict_in_a_new_thread():
+            # what the server adds to dbm.predict besides HTTP and JSON: each
+            # request runs on a thread of its own
+            t = threading.Thread(target=dbm.predict, args=(tuple(window), rasters))
+            t.start()
+            t.join()
+
+        lat = {
+            "dbm.predict (direct)": lambda: dbm.predict(tuple(window), rasters),
+            "dbm.predict on a new thread per call": predict_in_a_new_thread,
+            "/predict (no output file)": lambda: _post_ok(base, "/predict", predict),
+            "/predict (GeoTIFF out)": lambda: _post_ok(base, "/predict",
+                                                       {**predict, "out": "p.tif"}),
+            f"/dem {SERVE_CROP_PX}^2 crop": lambda: _post_ok(base, "/dem", crop0),
+            f"/evaluate {SERVE_TRACK_POINTS} points": lambda: _post_ok(base, "/evaluate",
+                                                                       evaluate),
+        }
+        for label, fn in lat.items():
+            log(f"  {label}: median {_median_ms(fn, SERVE_REPS):.2f} ms of {SERVE_REPS} "
+                f"warm  [{card_name}]")
+    finally:
+        for srv, thread in servers:
+            srv.shutdown()
+            srv.server_close()
+            thread.join(timeout=60)
 
 
 # (launch-counter name, source, TPU kernel it replaces, check, small shapes,
@@ -1178,7 +1687,13 @@ def main() -> int:
         path_launches[config], _, _ = main_path(card_name, config, params, default_out)
 
     log("phase 19: single region (from_chainer_npz, from_experiment, predict, track_rmse)")
-    single_region(card_name, params)
+    rasters, window = single_region(card_name, params)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log("phase 20: the continent product (buffered and streamed int16 LZW GeoTIFF)")
+        product = continent_product(card_name, tmp)
+        log("phase 21: the HTTP server (/healthz, /predict, /dem, /evaluate)")
+        serving(card_name, params, rasters, window, product, tmp)
 
     rows = []
     for name, src, rep, *_, path in KERNELS:

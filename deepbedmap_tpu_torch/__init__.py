@@ -14,11 +14,16 @@ JAX package:
 - ``bridge``    : JAX flax params <-> the port's state_dict
 - ``train``     : Chainer-npz weight import and export (``train.checkpoint``)
 - ``utils``     : experiment trackers and the weight fetcher (``utils.tracking``)
-- ``inference`` : halo'd tile engine and band-streamed continent inference
-- ``data``      : Raster and NetCDF I/O, ``selective_tile``, the model's
-                  inputs for one region (``data.groundtruth``)
-- ``evalx``     : grdtrack-style track sampling and track RMSE
+- ``inference`` : halo'd tile engine, band-streamed continent inference and
+                  the streamed int16 GeoTIFF product
+- ``data``      : Raster, NetCDF and GeoTIFF I/O (``data.geotiff``, its
+                  native LZW codec ``native/tiffcodec.cc``), ``selective_tile``,
+                  the model's inputs for one region (``data.groundtruth``)
+- ``evalx``     : grdtrack-style track sampling, track RMSE, track CSVs
 - ``api``       : DeepBedMap
+- ``serve``     : the HTTP inference service
+- ``cli``       : ``python -m deepbedmap_tpu_torch`` (predict, evaluate,
+                  continent, verify-weights, serve)
 - ``device``    : the entry points' device (the card by default)
 """
 

@@ -2,7 +2,8 @@
 
 Counterpart of ``deepbedmap_tpu/api.py:DeepBedMap`` (constructors from JAX
 params, a Chainer npz or a tracker, ``forward_fn``, single-region ``predict``
-and ``track_rmse``, ``predict_continent`` on the single-device buffered path):
+and ``track_rmse``, ``predict_continent`` on one device, buffered or streamed
+into the GeoTIFF product):
 
     from deepbedmap_tpu_torch import DeepBedMap
 
@@ -13,12 +14,14 @@ and ``track_rmse``, ``predict_continent`` on the single-device buffered path):
     dem = dbm.predict(window_bound, rasters)             # one region -> Raster
     rmse = dbm.track_rmse(dem, x, y, z)
     dem = dbm.predict_continent(inputs, bounds)          # band-streamed -> Raster
+    dbm.predict_continent(inputs, bounds, outfilepath="dem",
+                          stream_product=True)          # -> dem.tif, int16 LZW
 
 The device defaults to ``"cuda"`` and a missing card raises; pass
 ``device="cpu"`` for the CPU. On a CUDA device the generator runs the
 hand-written kernels. For results that match the fp32 JAX reference, turn
-TF32 off in the caller (``torch.backends.cudnn.allow_tf32 = False`` and
-``torch.backends.cuda.matmul.allow_tf32 = False``); cuDNN convs default to it.
+TF32 off in the caller (``device.disable_tf32()``; cuDNN convs default to
+TF32). The port's CLI and ``serve.serve_forever`` do so themselves.
 """
 
 from __future__ import annotations
@@ -34,7 +37,11 @@ from deepbedmap_tpu_torch.data.groundtruth import get_model_inputs
 from deepbedmap_tpu_torch.data.raster import Raster
 from deepbedmap_tpu_torch.device import resolve_device
 from deepbedmap_tpu_torch.evalx.track import track_rmse
-from deepbedmap_tpu_torch.inference.continent import predict_continent
+from deepbedmap_tpu_torch.inference.continent import (
+    predict_continent,
+    predict_continent_to_geotiff,
+    save_continent_dem,
+)
 from deepbedmap_tpu_torch.inference.engine import TilePlan
 from deepbedmap_tpu_torch.models.api import build_generator
 from deepbedmap_tpu_torch.models.generator import Generator
@@ -178,26 +185,44 @@ class DeepBedMap:
         predictor: bool = False,
         tiles_per_dispatch: int = 2,
         multihost: bool = False,
-    ) -> Raster:
-        """Band-streamed whole-region prediction on ``self.device``. Inputs
-        follow the reference NCHW contract, unpadded (covering exactly
-        ``bounds``). The GeoTIFF product (``outfilepath``, ``stream_product``,
-        ``rows_per_strip``, ``overviews``, ``predictor``) and the multi-device
-        paths (``mesh``, ``multihost``) are not ported and raise."""
-        unported = {
-            "outfilepath": outfilepath is not None,
-            "mesh": mesh is not None,
-            "stream_product": stream_product,
-            "rows_per_strip": rows_per_strip is not None,
-            "overviews": bool(overviews),
-            "predictor": predictor,
-            "multihost": multihost,
-        }
-        bad = [k for k, on in unported.items() if on]
-        if bad:
+    ) -> Optional[Raster]:
+        """Band-streamed whole-region prediction on ``self.device``;
+        optionally writes the int16 LZW GeoTIFF product
+        ``{outfilepath}.tif``. Inputs follow the reference NCHW contract,
+        unpadded (covering exactly ``bounds``).
+
+        ``stream_product``: pipe strips straight into the GeoTIFF through a
+        writer thread (requires ``outfilepath``; returns None, the canvas is
+        never materialised, so host memory holds two strips, not the
+        region). Without it the canvas is returned and, with
+        ``outfilepath``, written afterwards by
+        ``save_continent_dem`` (tiled, single page).
+        ``tile_loop``: 'scan' or 'host', the same loop here (JAX's signature).
+        ``prefetch``: bands dispatched ahead of the blocking fetch (0 = serial).
+        ``rows_per_strip``: TIFF strip height for ``stream_product`` (None
+        = ~8 uniform sub-strips per band, parallel native LZW encode).
+        ``overviews``: with ``stream_product``, append this many 2x pyramid
+        levels as chained TIFF pages (nodata-aware average, built
+        incrementally; read back via ``read_geotiff(path, page=L)``).
+        ``predictor``: with ``stream_product``, TIFF horizontal differencing
+        before the LZW (data-dependent; see ``GeoTiffStripWriter``).
+        ``tiles_per_dispatch``: tiles batched per forward.
+        ``mesh`` and ``multihost`` (the multi-device paths) are not ported
+        and raise ``NotImplementedError``."""
+        unported = [k for k, on in (("mesh", mesh is not None),
+                                    ("multihost", multihost)) if on]
+        if unported:
             raise NotImplementedError(
-                "not ported to the PyTorch package yet: " + ", ".join(bad)
+                "not ported to the PyTorch package yet: " + ", ".join(unported)
             )
+        if (overviews or predictor) and not stream_product:
+            raise ValueError(
+                "overviews/predictor are features of the streamed writer: "
+                "pass stream_product=True (the buffered save_continent_dem "
+                "path writes a plain single-page tiled GeoTIFF)"
+            )
+        if stream_product and outfilepath is None:
+            raise ValueError("stream_product needs outfilepath")
         xmin, ymin, xmax, ymax = bounds
         plan = TilePlan(
             out_h=int(round((ymax - ymin) / self.resolution)),
@@ -208,11 +233,22 @@ class DeepBedMap:
         host_inputs = {
             k: np.asarray(v).transpose(0, 2, 3, 1) for k, v in inputs_nchw.items()
         }
+        if stream_product:
+            predict_continent_to_geotiff(
+                self.forward_fn(), host_inputs, plan, bounds, outfilepath,
+                tile_loop=tile_loop, prefetch=prefetch,
+                rows_per_strip=rows_per_strip, overviews=overviews,
+                predictor=predictor, tiles_per_dispatch=tiles_per_dispatch,
+                device=self.device,
+            )
+            return None
         canvas = predict_continent(
             self.forward_fn(), host_inputs, plan, tile_loop=tile_loop,
             prefetch=prefetch, tiles_per_dispatch=tiles_per_dispatch,
             device=self.device,
         )
+        if outfilepath is not None:
+            save_continent_dem(canvas, bounds, outfilepath)
         return Raster(canvas, left=xmin, top=ymax, res=self.resolution)
 
     def track_rmse(

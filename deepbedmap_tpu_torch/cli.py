@@ -1,0 +1,372 @@
+"""Command-line interface of the port: inference and serving on the card.
+
+Counterpart of the inference half of ``deepbedmap_tpu/cli.py``:
+
+    python -m deepbedmap_tpu_torch predict --npz W.npz --bounds xmin,ymin,xmax,ymax ...
+    python -m deepbedmap_tpu_torch evaluate --dem FILE --track FILE.csv
+    python -m deepbedmap_tpu_torch continent --inputs DIR --bounds ... -o OUT [--stream]
+    python -m deepbedmap_tpu_torch verify-weights --npz W.npz --inputs DIR --expected GRID
+    python -m deepbedmap_tpu_torch serve --npz W.npz [--port 8500]
+
+Every command takes ``--device`` (default ``cuda``: without a card it
+raises; ``--device cpu`` runs the plain versions on the CPU), runs in fp32
+(TF32 off, see ``device.disable_tf32``) and prints a one-line JSON result to
+stdout; human logs go to stderr. ``--checkpoint``
+(Orbax checkpoints, which the port reads once training is ported),
+``--mesh-devices`` and ``--multihost`` raise ``NotImplementedError``. The
+JAX CLI's other subcommands (data preparation, training, search, figures)
+are not registered here yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+
+
+def _log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+def _emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def _model(args):
+    """The DeepBedMap that ``--npz`` (or seeded random weights) gives on
+    ``--device``; ``--checkpoint`` is not ported yet."""
+    from deepbedmap_tpu_torch.api import DeepBedMap
+    from deepbedmap_tpu_torch.config import GeneratorConfig
+
+    if args.checkpoint:
+        raise NotImplementedError(
+            "--checkpoint (Orbax) is not ported to the PyTorch package yet; "
+            "pass --npz (Chainer-format weights)"
+        )
+    cfg = GeneratorConfig(num_residual_blocks=args.blocks)
+    if args.npz:
+        return DeepBedMap.from_chainer_npz(args.npz, cfg, device=args.device)
+    _log("untrained generator (no --npz)")
+    return DeepBedMap(cfg=cfg, device=args.device)
+
+
+def _load_inputs(path: str) -> dict:
+    return {k: np.load(f"{path}/{k}.npy") for k in ("X", "W1", "W2", "W3")}
+
+
+def cmd_predict(args) -> int:
+    from deepbedmap_tpu_torch.data.raster import read_raster, write_netcdf
+
+    dbm = _model(args)
+    rasters = {
+        "bed_lowres": read_raster(args.bed),
+        "surface": read_raster(args.surface),
+        "velocity_x": read_raster(args.velocity_x),
+        "velocity_y": read_raster(args.velocity_y),
+        "accumulation": read_raster(args.accumulation),
+    }
+    bounds = tuple(float(v) for v in args.bounds.split(","))
+    dem = dbm.predict(bounds, rasters)
+    if args.out.endswith((".tif", ".tiff")):
+        from deepbedmap_tpu_torch.data import geotiff
+
+        geotiff.write_geotiff(args.out, dem.data, dem.left, dem.top, dem.res,
+                              nodata=-2000.0, compress=True)
+    else:
+        write_netcdf(dem, args.out)
+    _emit(
+        {
+            "command": "predict",
+            "bounds": list(bounds),
+            "shape": list(dem.data.shape),
+            "out": args.out,
+        }
+    )
+    return 0
+
+
+def cmd_evaluate(args) -> int:
+    from deepbedmap_tpu_torch.data.raster import read_raster
+    from deepbedmap_tpu_torch.evalx.track import read_track_csv, track_rmse
+
+    x, y, z = read_track_csv(args.track)
+    # windowed read: only the track's bounding box (plus a bicubic-stencil
+    # margin) is decoded from the DEM product
+    dem = read_raster(
+        args.dem,
+        bounds=(
+            float(x.min()) - 2000.0, float(y.min()) - 2000.0,
+            float(x.max()) + 2000.0, float(y.max()) + 2000.0,
+        ),
+    )
+    rmse = track_rmse(dem, x, y, z, method=args.method, device=args.device)
+    _emit(
+        {
+            "command": "evaluate",
+            "points": int(len(x)),
+            "rmse_m": round(float(rmse), 4),
+            "method": args.method,
+        }
+    )
+    return 0
+
+
+def cmd_continent(args) -> int:
+    if args.mesh_devices or args.multihost:
+        raise NotImplementedError(
+            "--mesh-devices and --multihost are not ported to the PyTorch "
+            "package yet: the port predicts on one device"
+        )
+    dbm = _model(args)
+    bounds = tuple(float(v) for v in args.bounds.split(","))
+    dbm.predict_continent(
+        _load_inputs(args.inputs),
+        bounds,
+        outfilepath=args.out,
+        tile_out=args.tile_out,
+        halo_lr=args.halo_lr,
+        stream_product=args.stream,
+        prefetch=args.prefetch,
+        tiles_per_dispatch=args.tiles_per_dispatch,
+        overviews=args.overviews,
+        predictor=args.predictor,
+    )
+    _emit(
+        {
+            "command": "continent",
+            "bounds": list(bounds),
+            "out": args.out + ".tif",
+            "sharded": False,
+            "streamed": bool(args.stream),
+            "processes": 1,
+        }
+    )
+    return 0
+
+
+def cmd_verify_weights(args) -> int:
+    """Real-weight numerical parity harness: given a reference-released
+    Chainer npz (srgan_train.py:506-523) and a reference-produced output
+    grid, run from_chainer_npz -> forward -> compare in ONE command. Inputs
+    are the X/W1/W2/W3 .npy stacks (NCHW, the deepbedmap.py:381-447
+    test-region crops):
+
+        python -m deepbedmap_tpu_torch verify-weights --npz weights.npz \\
+            --inputs arrays/ --expected reference_grid.nc --atol 0.5
+    """
+    import torch
+
+    from deepbedmap_tpu_torch.api import DeepBedMap
+    from deepbedmap_tpu_torch.config import GeneratorConfig
+
+    cfg = GeneratorConfig(
+        num_residual_blocks=args.blocks, residual_scaling=args.scaling
+    )
+    dbm = DeepBedMap.from_chainer_npz(
+        args.npz, cfg, offset_order=args.offset_order, device=args.device
+    )
+    inputs = _load_inputs(args.inputs)
+    pred = dbm.forward_fn()(
+        *(torch.from_numpy(np.ascontiguousarray(inputs[k].transpose(0, 2, 3, 1)))
+          .to(dbm.device) for k in ("X", "W1", "W2", "W3"))
+    )[0, :, :, 0].cpu().numpy()
+
+    if args.expected.endswith(".nc"):
+        from deepbedmap_tpu_torch.data.raster import read_netcdf
+
+        expected = read_netcdf(args.expected).data
+    elif args.expected.endswith((".tif", ".tiff")):
+        from deepbedmap_tpu_torch.data.geotiff import read_geotiff
+
+        expected, _ = read_geotiff(args.expected)
+    else:
+        expected = np.load(args.expected)
+    expected = np.asarray(expected, np.float32)
+    if expected.shape != pred.shape:
+        _emit(
+            {
+                "command": "verify-weights",
+                "pass": False,
+                "error": f"shape mismatch: predicted {list(pred.shape)} vs "
+                f"expected {list(expected.shape)}",
+            }
+        )
+        return 1
+
+    finite = np.isfinite(expected)
+    if not finite.any():
+        # an all-nodata/NaN expected grid compares nothing — that is a
+        # failed verification, not a vacuous pass
+        _emit(
+            {
+                "command": "verify-weights",
+                "pass": False,
+                "error": "expected grid has zero finite pixels over the "
+                "predicted region (wrong crop or nodata handling?)",
+                "pixels_compared": 0,
+            }
+        )
+        return 1
+    diff = np.abs(pred[finite] - expected[finite])
+    max_abs = float(diff.max())
+    rmse = float(np.sqrt(np.mean(diff**2)))
+    ok = max_abs <= args.atol
+    _emit(
+        {
+            "command": "verify-weights",
+            "pass": bool(ok),
+            "max_abs_err": max_abs,
+            "rmse": rmse,
+            "atol": args.atol,
+            "pixels_compared": int(finite.sum()),
+        }
+    )
+    return 0 if ok else 1
+
+
+def cmd_serve(args) -> int:
+    from deepbedmap_tpu_torch.serve import serve_forever
+
+    serve_forever(
+        _model(args),
+        host=args.host,
+        port=args.port,
+        data_root=args.data_root,
+        token=args.token,
+        bucket_px=args.bucket_px,
+    )
+    return 0
+
+
+def _weights(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--checkpoint", default=None,
+                   help="Orbax checkpoint (not ported yet: raises)")
+    p.add_argument("--npz", default=None, help="reference-format (Chainer) weights")
+    p.add_argument("--blocks", type=int, default=12)
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; 'cpu' runs the plain versions)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="deepbedmap_tpu_torch", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+    )
+    sub = p.add_subparsers(dest="command", required=True)
+
+    pr = sub.add_parser("predict", help="super-resolve one region")
+    _weights(pr)
+    pr.add_argument("--bounds", required=True, help="xmin,ymin,xmax,ymax (EPSG:3031 m)")
+    pr.add_argument("--bed", required=True, help="lowres bed (NetCDF or GeoTIFF)")
+    pr.add_argument("--surface", required=True)
+    pr.add_argument("--velocity-x", required=True)
+    pr.add_argument("--velocity-y", required=True)
+    pr.add_argument("--accumulation", required=True)
+    pr.add_argument("-o", "--out", required=True,
+                    help="output grid: .tif/.tiff for GeoTIFF, else NetCDF")
+    pr.set_defaults(fn=cmd_predict)
+
+    e = sub.add_parser("evaluate", help="track RMSE of a DEM vs survey xyz csv")
+    e.add_argument("--dem", required=True)
+    e.add_argument("--track", required=True, help="csv with x,y,z columns")
+    e.add_argument("--method", default="bicubic", choices=("bicubic", "bilinear", "nearest"))
+    e.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    e.set_defaults(fn=cmd_evaluate)
+
+    c = sub.add_parser(
+        "continent", help="whole-region band-streamed DEM -> GeoTIFF product"
+    )
+    c.add_argument("--inputs", required=True, help="dir with X/W1/W2/W3.npy (NCHW)")
+    c.add_argument("--bounds", required=True, help="xmin,ymin,xmax,ymax (EPSG:3031 m)")
+    c.add_argument("-o", "--out", required=True, help="output path (without .tif)")
+    _weights(c)
+    c.add_argument("--tile-out", type=int, default=1000)
+    c.add_argument("--halo-lr", type=int, default=18)
+    c.add_argument("--mesh-devices", type=int, default=0,
+                   help="shard tiles over N devices (not ported yet: raises)")
+    c.add_argument("--multihost", action="store_true",
+                   help="distribute bands over processes (not ported yet: raises)")
+    c.add_argument("--stream", action="store_true",
+                   help="pipe strips into the GeoTIFF through a writer thread "
+                   "(no full canvas in host memory)")
+    c.add_argument(
+        "--prefetch", type=int, default=1,
+        help="bands dispatched ahead of the blocking fetch (0 = serial)",
+    )
+    c.add_argument("--tiles-per-dispatch", type=int, default=2,
+                   help="tiles batched per forward")
+    c.add_argument(
+        "--predictor", action="store_true",
+        help="with --stream: TIFF horizontal differencing before the LZW "
+        "(data-dependent: smaller on smooth beds, larger near white-noise "
+        "roughness)",
+    )
+    c.add_argument(
+        "--overviews", type=int, default=0,
+        help="with --stream: append N 2x overview pyramid levels as chained "
+        "TIFF pages (nodata-aware average, built incrementally)",
+    )
+    c.set_defaults(fn=cmd_continent)
+
+    vw = sub.add_parser(
+        "verify-weights",
+        help="prove numerical parity of a reference Chainer npz artifact "
+        "against a reference-produced output grid (one command)",
+    )
+    vw.add_argument("--npz", required=True, help="Chainer-format generator npz")
+    vw.add_argument(
+        "--inputs", required=True,
+        help="dir with X/W1/W2/W3.npy (NCHW) covering the expected grid",
+    )
+    vw.add_argument(
+        "--expected", required=True,
+        help="reference-produced grid (.nc, .tif, or .npy)",
+    )
+    vw.add_argument("--blocks", type=int, default=12)
+    vw.add_argument("--scaling", type=float, default=0.1)
+    vw.add_argument("--offset-order", default="xy", choices=("xy", "yx"))
+    vw.add_argument(
+        "--atol", type=float, default=0.5,
+        help="max abs error tolerated (0.5 m covers int16 product rounding)",
+    )
+    vw.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    vw.set_defaults(fn=cmd_verify_weights)
+
+    s = sub.add_parser("serve", help="HTTP inference service (see serve.py)")
+    _weights(s)
+    s.add_argument(
+        "--host", default="127.0.0.1",
+        help="bind address (non-loopback should also set --token)",
+    )
+    s.add_argument("--port", type=int, default=8500)
+    s.add_argument(
+        "--data-root", default=None,
+        help="directory request paths are confined to (default: cwd)",
+    )
+    s.add_argument(
+        "--token", default=None,
+        help="require 'Authorization: Bearer TOKEN' on predict/evaluate/dem",
+    )
+    s.add_argument(
+        "--bucket-px", type=int, default=0,
+        help="round predict windows up to power-of-two buckets of this many "
+        "output px (multiple of 4)",
+    )
+    s.set_defaults(fn=cmd_serve)
+
+    return p
+
+
+def main(argv=None) -> int:
+    from deepbedmap_tpu_torch.device import disable_tf32
+
+    args = build_parser().parse_args(argv)
+    disable_tf32()
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,4 +1,9 @@
-"""Data layer of the port: rasters and NetCDF I/O, windowed tiles, and the
-model's conditioning inputs."""
+"""Data layer of the port: rasters, NetCDF and GeoTIFF I/O, windowed tiles,
+and the model's conditioning inputs."""
 
-from deepbedmap_tpu_torch.data.raster import Raster, read_netcdf, write_netcdf  # noqa: F401
+from deepbedmap_tpu_torch.data.raster import (  # noqa: F401
+    Raster,
+    read_netcdf,
+    read_raster,
+    write_netcdf,
+)

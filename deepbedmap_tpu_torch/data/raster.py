@@ -7,7 +7,8 @@ top row.
 
 NetCDF-4 files (HDF5-based, what `gmt surface` and xarray write) are read and
 written through h5py, imported inside the two functions only: the card's
-machine has no h5py, and nothing else of the port needs it.
+machine has no h5py, and nothing else of the port needs it. ``read_raster``
+reads either format by extension (GeoTIFF through ``data.geotiff``).
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
+
+from deepbedmap_tpu_torch.data import geotiff
 
 EPSG_3031 = (
     "+proj=stere +lat_0=-90 +lat_ts=-71 +lon_0=0 +k=1 +x_0=0 +y_0=0 "
@@ -187,3 +190,31 @@ def write_netcdf(raster: Raster, path: str, var: str = "z") -> None:
             z.attrs["_FillValue"] = np.float32(raster.nodata)
         y.attrs["units"] = "m"
         x.attrs["units"] = "m"
+
+
+def read_raster(path: str, bounds: Optional[Tuple[float, float, float, float]] = None
+                ) -> Raster:
+    """Read a grid as a Raster from GeoTIFF (``.tif``/``.tiff``; nodata becomes
+    NaN, the continent product is an int16 GeoTIFF, deepbedmap.py:749-756) or
+    else NetCDF: the JAX CLI's ``_read_raster_any``.
+
+    ``bounds``: optional (xmin, ymin, xmax, ymax) window; only the
+    intersecting blocks (or hyperslab) are read, clipped outward to pixel
+    edges."""
+    if not path.endswith((".tif", ".tiff")):
+        return read_netcdf(path, bounds=bounds)
+    if bounds is None:
+        data, meta = geotiff.read_geotiff(path)
+    else:
+        info = geotiff.read_geotiff_meta(path)
+        res, left, top = info["res"], info["left"], info["top"]
+        xmin, ymin, xmax, ymax = bounds
+        data, meta = geotiff.read_geotiff_window(
+            path,
+            (int(np.floor((top - ymax) / res)), int(np.ceil((top - ymin) / res))),
+            (int(np.floor((xmin - left) / res)), int(np.ceil((xmax - left) / res))),
+        )
+    data = data.astype(np.float32)
+    if meta.get("nodata") is not None:
+        data = np.where(data == meta["nodata"], np.nan, data)
+    return Raster(data, left=meta["left"], top=meta["top"], res=meta["res"])

@@ -11,7 +11,8 @@ It keeps the reference's coordinate conventions:
 - masked values propagate as NaN, then ``gapfiller`` replaces them, or a
   warning names the tiles with missing data (data_prep.py:719-738).
 
-``save_array_to_grid`` needs the GeoTIFF writer and comes with it.
+``save_array_to_grid`` writes a (1, H, W) array as a GeoTIFF (and, on
+request, NetCDF, whose writer imports ``h5py`` inside).
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from deepbedmap_tpu_torch.data.raster import Raster
+from deepbedmap_tpu_torch.data import geotiff
+from deepbedmap_tpu_torch.data.raster import EPSG_3031, Raster, write_netcdf
 from deepbedmap_tpu_torch.device import resolve_device
 from deepbedmap_tpu_torch.ops.interp import (
     as_f32,
@@ -108,3 +110,42 @@ def selective_tile(
             stacklevel=2,
         )
     return tiles
+
+
+def save_array_to_grid(
+    array: np.ndarray,  # (1, H, W) CHW, like the reference contract
+    window_bound: Tuple[float, float, float, float],
+    outfilepath: str,
+    nodataval: float = -2000.0,
+    dtype=None,
+    save_netcdf: bool = False,
+    crs: Optional[str] = None,
+    compress: bool = True,
+) -> None:
+    """Save a (1, H, W) array as GeoTIFF (+ optional NetCDF) — the reference's
+    save_array_to_grid (data_prep.py:779-834), GDAL replaced by the native
+    codec in ``data.geotiff``."""
+    if array.ndim != 3 or array.shape[0] != 1:
+        raise ValueError(f"expected a (1, H, W) array, got {array.shape}")
+    xmin, ymin, xmax, ymax = window_bound
+    h, w = array.shape[1:]
+    raster = Raster(
+        data=np.asarray(array[0], np.float32),
+        left=float(xmin),
+        top=float(ymax),
+        res=(xmax - xmin) / w,
+        crs=crs or EPSG_3031,
+        nodata=nodataval,
+    )
+    out = array[0] if dtype is None else np.asarray(array[0], dtype)
+    geotiff.write_geotiff(
+        f"{outfilepath}.tif",
+        out,
+        left=raster.left,
+        top=raster.top,
+        res=raster.res,
+        nodata=nodataval,
+        compress=compress,
+    )
+    if save_netcdf:
+        write_netcdf(raster, f"{outfilepath}.nc")

@@ -22,3 +22,15 @@ def resolve_device(device) -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def disable_tf32() -> None:
+    """Turn TF32 off for cuDNN convs and cuBLAS matmuls, which PyTorch runs in
+    TF32 by default. The hand-written kernels compute in 3xTF32 to match the
+    fp32 reference; the library convs around them (input block, pre/post-
+    residual and upsample convs, the tail's offset convs) must run in fp32 as
+    well, or the DEMs differ from the reference's. The library leaves this
+    process-wide setting to its caller; the port's programs (the CLI,
+    ``serve.serve_forever``) call this first."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False

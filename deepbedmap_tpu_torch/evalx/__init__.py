@@ -8,5 +8,6 @@ Here ``grdtrack`` samples a Raster's grid on a device.
 from deepbedmap_tpu_torch.evalx.track import (  # noqa: F401
     elevation_residuals,
     grdtrack,
+    read_track_csv,
     track_rmse,
 )

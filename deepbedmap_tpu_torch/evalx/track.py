@@ -79,3 +79,19 @@ def track_rmse(
     reference's headline quality metric, srgan_train.py:1422-1466)."""
     dev = resolve_device(device)
     return float(rmse(_sample(raster, x, y, method, dev), as_f32(z, dev)))
+
+
+def read_track_csv(path: str, columns=("x", "y", "z")):
+    """The ``columns`` of a comma-separated track file with a header row, found
+    by name, as float64 numpy arrays: what the JAX package reads with
+    ``pandas.read_csv`` (``serve.py:_evaluate``, ``cli.py:cmd_evaluate``),
+    without pandas, which the card's machine does not have. Header names may
+    be quoted; other columns are ignored."""
+    with open(path, newline="") as f:
+        header = [h.strip().strip('"').strip() for h in f.readline().split(",")]
+    missing = [c for c in columns if c not in header]
+    if missing:
+        raise ValueError(f"{path}: no column {missing} in header {header}")
+    data = np.loadtxt(path, delimiter=",", skiprows=1, ndmin=2,
+                      usecols=[header.index(c) for c in columns], dtype=np.float64)
+    return tuple(data[:, i] for i in range(len(columns)))

@@ -1,6 +1,10 @@
 """Tiled inference engine and band-streamed continent inference."""
 
-from deepbedmap_tpu_torch.inference.continent import predict_continent  # noqa: F401
+from deepbedmap_tpu_torch.inference.continent import (  # noqa: F401
+    predict_continent,
+    predict_continent_to_geotiff,
+    save_continent_dem,
+)
 from deepbedmap_tpu_torch.inference.engine import (  # noqa: F401
     TilePlan,
     make_tile_forward,

@@ -1,22 +1,28 @@
 """Whole-continent inference: row-band streaming around the tiled engine.
 
-Counterpart of ``deepbedmap_tpu/inference/continent.py`` (``predict_continent``
-and its helpers; the GeoTIFF writer and the mesh paths are not ported yet).
-The full-resolution conditioning rasters stay on the host as numpy arrays;
-one row band of tiles at a time moves to the device with its vertical halo
-taken from the neighbouring bands' real rows, so band-streamed output equals
-the whole-region engine. Edge bands use the engine's edge padding, and the
+Counterpart of ``deepbedmap_tpu/inference/continent.py`` on one device
+(``predict_continent``, the streamed GeoTIFF product
+``predict_continent_to_geotiff`` and the buffered ``save_continent_dem``; the
+mesh and multi-host paths are not ported yet). The full-resolution
+conditioning rasters stay on the host as numpy arrays; one row band of tiles
+at a time moves to the device with its vertical halo taken from the
+neighbouring bands' real rows, so band-streamed output equals the
+whole-region engine. Edge bands use the engine's edge padding, and the
 conditioning rasters are clipped to >= 0 on the device (deepbedmap.py:663-665).
+The int16 LZW GeoTIFF goes through ``data.geotiff`` and its native codec.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from collections import deque
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from deepbedmap_tpu_torch.data import geotiff
 from deepbedmap_tpu_torch.device import resolve_device
 from deepbedmap_tpu_torch.inference.engine import INPUT_RATIOS, TilePlan, pad_edge
 
@@ -89,9 +95,12 @@ def _run_band_pipeline(
     prefetch: int,
 ) -> None:
     """Band loop that dispatches ``prefetch`` bands ahead of the blocking
-    fetch: CUDA launches are asynchronous, so the next band's host slicing
-    and transfer overlap the current band's device work. ``prefetch=0`` is
-    the strict serial loop."""
+    fetch. CUDA launches are asynchronous, so the next band's host slicing
+    and edge padding run while the device works on the current band. Its
+    host-to-device copy does not: ``_band_inputs`` copies from pageable
+    memory without ``non_blocking``, and that copy waits until the stream
+    has finished the current band's forward. ``prefetch=0`` is the strict
+    serial loop."""
     pending: deque = deque()
 
     def drain_one():
@@ -164,3 +173,171 @@ def predict_continent(
         inputs_host, gy, consume, progress, prefetch,
     )
     return canvas
+
+
+def predict_continent_to_geotiff(
+    forward_fn: Callable[..., torch.Tensor],
+    inputs_host: Dict[str, np.ndarray],
+    plan: TilePlan,
+    bounds: Tuple[float, float, float, float],  # (xmin, ymin, xmax, ymax)
+    outfilepath: str,
+    clip_conditioning: bool = True,
+    nodataval: float = -2000.0,
+    compress: bool = True,
+    progress: Optional[Callable[[int, int], None]] = None,
+    tile_loop: str = "scan",
+    rows_per_strip: Optional[int] = None,
+    prefetch: int = 1,
+    overviews: int = 0,
+    predictor: bool = False,
+    tiles_per_dispatch: int = 2,
+    device="cuda",
+) -> str:
+    """Band-streamed inference on ``device`` piped straight into the int16
+    LZW GeoTIFF ``{outfilepath}.tif``; returns its path. A writer thread
+    LZW-encodes and writes band strip i while the device computes band i+1
+    (the native LZW call and the main thread's ``strip.cpu()`` release the
+    GIL); what the writer has left when the band loop ends, at least the
+    last band and with ``overviews`` the pyramid's pages, is paid after it.
+    On an H100 host (8 cores, 3 x 3 tiles of 1000^2) the streamed product
+    took 4-10% less time per tile than the buffered one with the same
+    single-page output, and ~10% more with 2 overview pages and
+    PREDICTOR=2, which cost ~0.2 s of host writing. Peak host memory is two
+    strips instead of the full canvas. The reference computes everything,
+    then pays the full write afterwards (deepbedmap.py:744-756).
+
+    ``rows_per_strip``: TIFF strip height. Default (None) picks ~8 uniform
+    sub-strips per band so each band LZW-encodes on ~8 native threads;
+    0 = one strip per band.
+
+    ``prefetch``: bands dispatched ahead of the blocking fetch (see
+    ``_run_band_pipeline``). 0 = serial.
+
+    ``overviews``: 2x pyramid levels appended as chained TIFF pages, built
+    incrementally from the strips (nodata-aware block means; the
+    gdaladdo -r average convention) — see ``GeoTiffStripWriter``.
+
+    ``predictor``: TIFF PREDICTOR=2 horizontal differencing before the LZW.
+    Data-dependent: smaller on smooth fields, slightly larger when the bed
+    roughness approaches white noise at the 250 m posting.
+
+    A failure in the forward or in the writer thread removes the partial
+    file and re-raises in the caller.
+    """
+    gy, _ = plan.grid
+    if rows_per_strip is None:
+        for d in (8, 10, 5, 4, 2):
+            if plan.tile_out % d == 0:
+                rows_per_strip = plan.tile_out // d
+                break
+        else:
+            rows_per_strip = 0  # no uniform divisor: one strip per band
+    band_predict = _make_band_predictor(
+        forward_fn, plan, clip_conditioning, tile_loop=tile_loop,
+        tiles_per_dispatch=tiles_per_dispatch,
+    )
+    device = resolve_device(device)
+    tw = _ThreadedStripWriter(
+        outfilepath, plan, bounds, nodataval, compress,
+        rows_per_strip or None, overviews, predictor,
+    )
+    try:
+        _run_band_pipeline(
+            lambda ih, band: band_predict(_band_inputs(ih, plan, band, device)),
+            lambda strip: strip.cpu().numpy(),
+            inputs_host, gy, lambda band, strip: tw.put(strip), progress, prefetch,
+        )
+        tw.close()
+    except BaseException:
+        tw.abort()
+        raise
+    return tw.path
+
+
+class _ThreadedStripWriter:
+    """``GeoTiffStripWriter`` fed from a drain thread, so that the LZW encode
+    overlaps the device's next band. ``put`` re-raises any pending
+    writer-thread error; ``abort`` leaves no open handle and no partial
+    product behind."""
+
+    def __init__(
+        self, outfilepath, plan, bounds, nodataval, compress,
+        rows_per_strip, overviews, predictor,
+    ):
+        xmin, ymin, xmax, ymax = bounds
+        self.path = f"{outfilepath}.tif"
+        self._writer = geotiff.GeoTiffStripWriter(
+            self.path,
+            height=plan.out_h,
+            width=plan.out_w,
+            left=xmin,
+            top=ymax,
+            res=(xmax - xmin) / plan.out_w,
+            dtype=np.int16,
+            nodata=nodataval,
+            compress=compress,
+            rows_per_strip=rows_per_strip,
+            overviews=overviews,
+            predictor=predictor,
+        )
+        self._strips: queue.Queue = queue.Queue(maxsize=2)
+        self._error: list = []
+        self._thread = threading.Thread(target=self._drain, daemon=True)
+        self._thread.start()
+
+    def _drain(self):
+        failed = False
+        while True:
+            strip = self._strips.get()
+            if strip is None:
+                return
+            if failed:
+                continue  # keep consuming so the producer's put() never blocks
+            try:
+                self._writer.write_strip(strip)
+            except Exception as e:  # surface in the producer thread
+                self._error.append(e)
+                failed = True
+
+    def put(self, strip: np.ndarray) -> None:
+        if self._error:
+            raise self._error[0]
+        self._strips.put(strip)
+
+    def _join(self):
+        self._strips.put(None)
+        self._thread.join()
+
+    def close(self) -> None:
+        self._join()
+        if self._error:
+            # the file is partial: the caller's except path calls abort()
+            raise self._error[0]
+        self._writer.close()
+
+    def abort(self) -> None:
+        self._join()
+        self._writer.abort()
+
+
+def save_continent_dem(
+    canvas: np.ndarray,
+    bounds: Tuple[float, float, float, float],  # (xmin, ymin, xmax, ymax)
+    outfilepath: str,
+    nodataval: float = -2000.0,
+) -> None:
+    """int16 + LZW + tiled GeoTIFF ``{outfilepath}.tif``, like the
+    reference's final product (deepbedmap.py:749-756)."""
+    xmin, ymin, xmax, ymax = bounds
+    h, w = canvas.shape
+    out = np.where(np.isfinite(canvas), canvas, nodataval).astype(np.int16)
+    geotiff.write_geotiff(
+        f"{outfilepath}.tif",
+        out,
+        left=xmin,
+        top=ymax,
+        res=(xmax - xmin) / w,
+        nodata=nodataval,
+        compress=True,
+        tiled=True,
+    )

@@ -20,6 +20,7 @@ Parameter names follow the JAX tree (``bridge.py`` maps one onto the other).
 from __future__ import annotations
 
 import math
+import threading
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -53,19 +54,31 @@ def he_normal_chainer_(
 
 class _Cached:
     """Weights repacked for a kernel, recomputed only when a source parameter
-    changes (a new ``load_state_dict``, a move to another device)."""
+    changes (a new ``load_state_dict``, a move to another device). A lock
+    makes threads that need the packing together (a server's first requests)
+    pack once and read a key and a value that belong together."""
 
     def __init__(self, pack):
         self._pack = pack
         self._key = None
         self._value = None
+        self._lock = threading.Lock()
+
+    def __getstate__(self):
+        # a copy of the module packs its own parameters again (a lock cannot
+        # be copied, and the key names the source's tensors)
+        return {"pack": self._pack}
+
+    def __setstate__(self, state):
+        self.__init__(state["pack"])
 
     def get(self, params: Sequence[torch.Tensor]):
         key = tuple((p.device, p.data_ptr(), p._version) for p in params)
-        if key != self._key:
-            self._value = self._pack(*params)
-            self._key = key
-        return self._value
+        with self._lock:
+            if key != self._key:
+                self._value = self._pack(*params)
+                self._key = key
+            return self._value
 
 
 class Conv3x3(nn.Module):

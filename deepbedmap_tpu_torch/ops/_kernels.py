@@ -4,8 +4,10 @@ The sources live in ``deepbedmap_tpu_torch/csrc``. On first use each ``.cu``
 file is compiled by its own ``nvcc`` process for ``sm_90a`` (all started
 together), and the objects are linked into one shared library with a plain C
 interface under ``build/kernels/`` (git-ignored; override with
-``DEEPBEDMAP_TORCH_BUILD_DIR``), loaded with ``ctypes``. Nothing here runs at
-import time, so the CPU-only test suite can import every module.
+``DEEPBEDMAP_TORCH_BUILD_DIR``), loaded with ``ctypes``. The build runs under
+a lock, so threads that make their first launch together (a server's first
+requests) build and load the library once. Nothing here runs at import time,
+so the CPU-only test suite can import every module.
 
 Each ``launch_*`` function is the one place its kernel is launched: it adds one
 to ``launches[name]`` and raises if the C entry point reports a CUDA error.
@@ -22,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -46,6 +49,8 @@ launches = {
 }
 
 _lib = None
+_lib_lock = threading.Lock()
+_count_lock = threading.Lock()  # launches[name] += 1 is not atomic across threads
 build_log = ""  # nvcc's output (with -Xptxas -v) of the build this process made
 
 _P = ctypes.c_void_p
@@ -145,32 +150,34 @@ def _build(srcs, out_dir: Path, so: Path) -> str:
 def library():
     """The loaded kernel library, built from ``csrc`` on first use."""
     global _lib, build_log
-    if _lib is not None:
-        return _lib
-    srcs = [_CSRC / s for s in _SOURCES]
-    digest = hashlib.sha256(
-        b"".join(p.read_bytes() for p in srcs + [_CSRC / h for h in _HEADERS])
-        + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    out_dir = _build_dir()
-    so = out_dir / f"libdbm_kernels_{digest}.so"
-    if not so.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        build_log = _build(srcs, out_dir, so)
-    lib = ctypes.CDLL(str(so))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        srcs = [_CSRC / s for s in _SOURCES]
+        digest = hashlib.sha256(
+            b"".join(p.read_bytes() for p in srcs + [_CSRC / h for h in _HEADERS])
+            + " ".join(NVCC_FLAGS).encode()
+        ).hexdigest()[:16]
+        out_dir = _build_dir()
+        so = out_dir / f"libdbm_kernels_{digest}.so"
+        if not so.exists():
+            out_dir.mkdir(parents=True, exist_ok=True)
+            build_log = _build(srcs, out_dir, so)
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+        return lib
 
 
 def _call(name: str, *args, entry: str | None = None) -> None:
     """Launch C entry ``entry`` (default ``name``), counted under ``name``."""
     fn = getattr(library(), entry or name)
     stream = torch.cuda.current_stream().cuda_stream
-    launches[name] += 1
+    with _count_lock:
+        launches[name] += 1
     err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed with cudaError {err}")

@@ -93,8 +93,10 @@ def test_port_import_loads_no_jax():
         "import deepbedmap_tpu_torch.data.tiler, deepbedmap_tpu_torch.data.raster\n"
         "import deepbedmap_tpu_torch.data.groundtruth, deepbedmap_tpu_torch.evalx.track\n"
         "import deepbedmap_tpu_torch.utils, deepbedmap_tpu_torch.evalx\n"
+        "import deepbedmap_tpu_torch.data.geotiff, deepbedmap_tpu_torch.data._tiffnative\n"
+        "import deepbedmap_tpu_torch.serve, deepbedmap_tpu_torch.cli\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'deepbedmap_tpu', 'h5py')]\n"
+        "('jax', 'jaxlib', 'flax', 'deepbedmap_tpu', 'h5py', 'pandas')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

@@ -98,11 +98,7 @@ def test_port_tiled_equals_untiled():
                                atol=1e-6 * scale)
 
 
-@pytest.mark.parametrize(
-    "option",
-    [dict(outfilepath="x"), dict(mesh=object()), dict(stream_product=True),
-     dict(overviews=1), dict(predictor=True), dict(multihost=True)],
-)
+@pytest.mark.parametrize("option", [dict(mesh=object()), dict(multihost=True)])
 def test_unported_continent_options_raise(port, option):
     with pytest.raises(NotImplementedError):
         port.predict_continent(_inputs_nchw(8, 8, 0), (0.0, 0.0, 8000.0, 8000.0),
@@ -124,7 +120,8 @@ def test_band_predictor_rejects_bad_arguments(port):
                                    "predict_continent", "from_chainer_npz",
                                    "from_experiment", "selective_tile", "get_model_inputs",
                                    "gapfill_from_coarse", "track_rmse",
-                                   "elevation_residuals", "window_coords"])
+                                   "elevation_residuals", "window_coords",
+                                   "predict_continent_to_geotiff", "cli"])
 def test_entry_points_default_to_the_card(entry, jax_params, tmp_path):
     # every entry point defaults to device "cuda"; without a card it raises
     # rather than carrying on on the CPU
@@ -136,6 +133,8 @@ def test_entry_points_default_to_the_card(entry, jax_params, tmp_path):
     from deepbedmap_tpu_torch.evalx import elevation_residuals, track_rmse
     from deepbedmap_tpu_torch.ops.interp import window_coords
     from deepbedmap_tpu_torch.train.checkpoint import export_generator_npz
+    from deepbedmap_tpu_torch.cli import main as cli_main
+    from deepbedmap_tpu_torch.inference import predict_continent_to_geotiff
     from deepbedmap_tpu_torch.utils.tracking import LocalTracker
 
     cfg = GeneratorConfig(num_residual_blocks=1)
@@ -164,6 +163,10 @@ def test_entry_points_default_to_the_card(entry, jax_params, tmp_path):
         "track_rmse": lambda: track_rmse(r, pts, pts, pts),
         "elevation_residuals": lambda: elevation_residuals(r, pts, pts, pts),
         "window_coords": lambda: window_coords(window, 250.0),
+        "predict_continent_to_geotiff": lambda: predict_continent_to_geotiff(
+            lambda *a: None, host, plan, (0.0, 0.0, 8000.0, 8000.0), str(tmp_path / "p")),
+        "cli": lambda: cli_main(["serve"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
+    assert not (tmp_path / "p.tif").exists()
