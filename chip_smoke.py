@@ -99,11 +99,33 @@ Phases (any failure ends the run with a non-zero exit code):
     equal to ``dbm.predict`` on the bucketed window sliced back; /dem on
     phase 20's streamed product, pages 0 and 1, equal to its crops;
     /evaluate on 10^4 track points equal to ``dbm.track_rmse``; and median
-    warm latencies of /predict (beside ``dbm.predict``), /dem and /evaluate.
+    warm latencies of /predict (beside ``dbm.predict``), /dem and /evaluate;
+22. training: each kernel wrapper of a generator path (K1, K4, K5, K6 at
+    (3,37,9,64); K7, K8, K10 at (2,37,45,64); K1, K2, K3 at a batch-128
+    training step's shapes (128,9,9,64), (128,36,36,64) and (128,36,36,9),
+    their forward and backward timed) against autograd of its plain version
+    on the card, output and every input's gradient; K9 refuses a gradient;
+    every generator parameter gets a nonzero gradient on the card; one
+    ``make_train_step`` step at 12 RRDBs and batch 16 of seeded reference
+    tiles (X 11^2, W1 110^2, W2 22^2, W3 11^2, Y 36^2), card vs CPU from the
+    same weights: the five metrics, every gradient, the BatchNorm statistics
+    and the updated parameters, with its launch counts (K1 72, K2 2, K3 2:
+    two generator forwards; the backward recomputes plain versions); the
+    same at 2 RRDBs and batch 8 in the kernel, banded and sweep
+    configurations; ``fit`` on 3826 synthetic tiles (3634 / 192 at 95/5, 28
+    batches of 128 and one dev batch) for 2 epochs at 12 RRDBs with its launch
+    counts, s/epoch, the median of 10 warm steps, tiles/s, peak memory and a
+    breakdown of one step by CUDA events; ``remat=True``'s launches (K1 108)
+    and step time; ``save_checkpoint`` then ``DeepBedMap.from_checkpoint``,
+    whose forward equals the EMA weights' bit for bit; and ``python -m
+    deepbedmap_tpu_torch train`` in a new process, then ``predict
+    --checkpoint`` on phase 19's rasters, equal to
+    ``DeepBedMap.from_checkpoint(...).predict`` bit for bit.
 
 Each main path checks its own configuration's launch counts (``PER_FORWARD``).
-It prints one JSON line with each kernel's launches (from the main path that
-runs it), error, times and bound, then the script's wall time, and ends with
+It prints the script's wall time, one JSON line of phase 22's training
+numbers, one JSON line with each kernel's launches (from the main path that
+runs it), error, times and bound, and ends with
 ``{"ok": true, "device": {...}}``. It refuses to run without a CUDA device and
 imports nothing of JAX.
 """
@@ -1570,6 +1592,560 @@ def serving(card_name: str, params, rasters: dict, window, product: str, tmp: st
             thread.join(timeout=60)
 
 
+# phase 22: training. The reference's tiles (X 11^2, W1 110^2, W2 22^2, W3
+# 11^2, Y 36^2) and batch; 3826 tiles give its 95/5 split of 3634 / 192,
+# 28 train batches of 128 and one dev batch
+TRAIN_TILES, TRAIN_BATCH, TRAIN_EPOCHS = 3826, 128, 2
+TRAIN_EMA = 0.999  # fit keeps EMA weights, so the checkpoint check reads them
+STEP_BATCH = 16  # the 12-RRDB step, card vs CPU
+CONFIG_STEP_BLOCKS, CONFIG_STEP_BATCH = 2, 8  # kernel / banded / sweep steps
+TIMED_STEPS = 10  # warm steps timed one by one after fit
+# card vs CPU steps (see step_card_vs_cpu): the CPU's own change under a
+# relative perturbation of the weights of PERTURB, NOISE_K times, bounds what
+# fp32 round-off can move an ill-conditioned gradient
+PERTURB, NOISE_K = 1e-5, 3
+# gradients of a whole step, card vs CPU: cuDNN's fp32 conv backward (TF32
+# off) is off the float64 gradient by up to 5e-4 of the range on the most
+# cancelling weight gradients (deep dense-block convs, |g| ~ 1e-11), where
+# the CPU's is off by 4e-7 and the card's with cuDNN disabled by 3.7e-7 (H100,
+# a 12-RRDB step at batch 16, PERF.md); a misrouted or missing gradient is
+# off by its whole range
+TOL_STEP_GRAD = 1e-3
+# the kernels at a batch-128 training step's shapes: K1 on the 9^2 latent,
+# K2 on the 36^2 output's 64 channels, K3 on its nine tap fields
+TRAIN_RDB, TRAIN_TAIL = (TRAIN_BATCH, 9, 9, 64), (TRAIN_BATCH, 36, 36, 64)
+GRAD_TAIL = (2, 37, 45, 64)  # K7, K8, K10's small ragged case
+
+
+def _kernel_launched(name: str, before: int) -> None:
+    from deepbedmap_tpu_torch.ops import _kernels
+
+    if _kernels.launches[name] <= before:
+        raise AssertionError(f"{name} was not launched by its gradient check")
+
+
+def check_grad(label: str, name: str, fn, plain, inputs, gen, timed: bool = False) -> dict:
+    """Phase 22: ``fn`` (a kernel wrapper, whose backward is autograd of its
+    plain twin recomputed) against ``plain`` on the card: output and the
+    gradient of every input, each within ``TOL_KERNEL`` of its range, with
+    one seeded upstream gradient. ``timed``: the kernel route's forward and
+    its backward (the plain recompute and its autograd), by CUDA events."""
+    import torch
+
+    from deepbedmap_tpu_torch.ops import _kernels
+
+    before = _kernels.launches[name]
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    _kernel_launched(name, before)
+    if out.grad_fn is None:
+        raise AssertionError(f"{label}: the kernel's output has no autograd history")
+    up = _randn(tuple(out.shape), gen)
+    got = torch.autograd.grad(out, leaves, up)
+    ref_leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    ref = plain(*ref_leaves)
+    want = torch.autograd.grad(ref, ref_leaves, up)
+    torch.cuda.synchronize()
+    shape = tuple(inputs[0].shape)
+    err = compare(f"{label} {shape} output", out.detach(), ref.detach(), TOL_KERNEL)
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = max(err, compare(f"{label} {shape} gradient of input {i}", g, w, TOL_KERNEL))
+    res = {"max_abs_err": err}
+    if timed:
+        res["fwd_ms"] = time_ms(lambda: fn(*leaves), 5)
+
+        def fwd_bwd():
+            torch.autograd.grad(fn(*leaves), leaves, up)
+        res["fwd_bwd_ms"] = time_ms(fwd_bwd, 5)
+        res["bwd_ms"] = res["fwd_bwd_ms"] - res["fwd_ms"]
+    return res
+
+
+def _rdb_params(gen, blocks: int):
+    f, g = 64, 32
+    cins, couts = [f + g * j for j in range(5)], [g, g, g, g, f]
+    ks, bs = [], []
+    for _ in range(blocks):
+        ks += [_randn((co, ci, 3, 3), gen, 0.05) for ci, co in zip(cins, couts)]
+        bs += [_randn((co,), gen, 0.1) for co in couts]
+    return ks, bs
+
+
+def grad_checks(card_name: str) -> dict:
+    """Phase 22, part 1: every kernel wrapper of a generator path against
+    autograd of its plain version on the card; K9 refuses a gradient."""
+    import torch
+
+    from deepbedmap_tpu_torch.ops import rdb
+    from deepbedmap_tpu_torch.ops import tail
+    from deepbedmap_tpu_torch.ops.conv3x3 import conv3x3_fused, conv3x3_reference
+    from deepbedmap_tpu_torch.ops.deform_conv import (
+        deform_conv2d,
+        deform_conv2d_zform,
+        deform_conv_shifts,
+        deform_conv_shifts_zproj,
+        sample_tap_fields,
+    )
+
+    gen = torch.Generator().manual_seed(22)
+    res = {}
+
+    def dense(kernel, blocks):
+        def call(fn):
+            def run(x, *p):
+                ks, bs = p[: 5 * blocks], p[5 * blocks:]
+                if blocks == 3:
+                    ks, bs = [ks[i:i + 5] for i in (0, 5, 10)], [bs[i:i + 5] for i in (0, 5, 10)]
+                return fn(x, ks, bs, 0.1)
+            return run
+        plain = rdb.rdb_reference if blocks == 1 else rdb.rrdb_reference
+        return call(getattr(rdb, kernel)), call(plain)
+
+    for label, name, kernel, blocks in (
+        ("K1 rdb_fused", "rdb_forward", "rdb_fused", 1),
+        ("K4 rrdb_fused", "rrdb_forward", "rrdb_fused", 3),
+        ("K5 rrdb_sweep", "rrdb_sweep_forward", "rrdb_sweep", 3),
+        ("K6 rdb_banded", "rdb_banded_forward", "rdb_banded", 1),
+    ):
+        fn, plain = dense(kernel, blocks)
+        ks, bs = _rdb_params(gen, blocks)
+        res[name] = check_grad(label, name, fn, plain, [_randn(RAGGED_RDB, gen), *ks, *bs],
+                               gen)
+    n, h, w, c = GRAD_TAIL
+    x, off = _randn(GRAD_TAIL, gen), _offsets((n, h, w, 18), gen)
+    w64, b64 = _randn((64, 64, 3, 3), gen, 0.05), _randn((64,), gen, 0.1)
+    w1, b1 = _randn((1, 64, 3, 3), gen, 0.05), _randn((1,), gen, 0.1)
+    res["deform_conv"] = check_grad(
+        "K7 deform_conv2d(method='pallas')", "deform_conv",
+        lambda *a: deform_conv2d(*a, method="pallas"),
+        lambda *a: deform_conv_shifts(*a, 1, 2), [x, off, w64, b64], gen)
+    res["deform_conv_zproj1"] = check_grad(
+        "K8 deform_conv2d(method='pallas'), one output", "deform_conv_zproj1",
+        lambda *a: deform_conv2d(*a, method="pallas"),
+        lambda *a: deform_conv_shifts_zproj(*a, 1, 2), [x, off, w1, b1], gen)
+    res["conv3x3_forward"] = check_grad(
+        "K10 conv3x3_fused (residual, LeakyReLU)", "conv3x3_forward",
+        lambda x, w_, b_, r: conv3x3_fused(x, w_, b_, True, r),
+        lambda x, w_, b_, r: conv3x3_reference(x, w_, b_, True, r),
+        [x, w64, b64, _randn(GRAD_TAIL, gen)], gen)
+
+    # at a batch-128 training step's shapes, timed
+    fn, plain = dense("rdb_fused", 1)
+    ks, bs = _rdb_params(gen, 1)
+    res["rdb_forward_train"] = check_grad("K1 rdb_fused", "rdb_forward", fn, plain,
+                                          [_randn(TRAIN_RDB, gen), *ks, *bs], gen, True)
+    n, h, w, c = TRAIN_TAIL
+    x, off = _randn(TRAIN_TAIL, gen), _offsets((n, h, w, 18), gen)
+    res["deform64_lrelu_train"] = check_grad(
+        "K2 deform64_lrelu", "deform64_lrelu",
+        lambda *a: tail.deform64_lrelu(*a, 2),
+        lambda *a: tail.leaky_relu(deform_conv_shifts(*a, 1, 2)), [x, off, w64, b64], gen,
+        True)
+    res["deform_zproj1_train"] = check_grad(
+        "K3 deform_zproj1", "deform_zproj1",
+        lambda z, o, b_: tail.deform_zproj1(z, o, b_, 2),
+        lambda z, o, b_: sample_tap_fields(z[..., None], o, b_, 1, 2),
+        [_randn((n, h, w, 9), gen), off, b1], gen, True)
+    for key in ("rdb_forward_train", "deform64_lrelu_train", "deform_zproj1_train"):
+        r = res[key]
+        log(f"  {key}: forward {r['fwd_ms']:.3f} ms, backward (plain recompute + "
+            f"autograd) {r['bwd_ms']:.3f} ms  [{card_name}]")
+
+    zx = _randn((1, 9, 13, 8), gen).requires_grad_()
+    try:
+        deform_conv2d_zform(zx, _offsets((1, 9, 13, 18), gen), _randn((16, 8, 3, 3), gen),
+                            None)
+    except ValueError as e:
+        log(f"  K9 deform_conv2d_zform refuses a gradient, as JAX's has no VJP: {e}")
+    else:
+        raise AssertionError("K9 deform_conv2d_zform gave a gradient path")
+    return res
+
+
+def train_batch(n: int, seed: int) -> dict:
+    """Seeded reference-shaped tiles, NHWC numpy (TileDataset.synthetic's)."""
+    from deepbedmap_tpu_torch.data.dataset import REFERENCE_SHAPES_NCHW
+
+    rs = np.random.RandomState(seed)
+    return {k: rs.rand(n, *s).astype(np.float32).transpose(0, 2, 3, 1).copy()
+            for k, s in REFERENCE_SHAPES_NCHW.items()}
+
+
+def per_step(config: str, blocks: int) -> dict:
+    """Kernel launches of one train step: two generator forwards (the D
+    update's, with no gradient, and the G update's); the backward
+    recomputes plain versions and launches none."""
+    scale = {"rdb_forward": blocks / 12, "rdb_banded_forward": blocks / 12,
+             "rrdb_forward": blocks / 12, "rrdb_sweep_forward": blocks / 12}
+    return {k: int(2 * v * scale.get(k, 1)) for k, v in PER_FORWARD[config].items()}
+
+
+def _step_tensors(state, b1: float) -> dict:
+    """Every parameter's gradient (Adam's first moment after one step is
+    (1 - b1) g), Adam's moments, the parameter, and D's BatchNorm statistics,
+    in float64 on the host, by ``G.`` / ``D.`` name."""
+    out = {}
+    for tag, model, opt in (("G.", state.g, state.g_opt), ("D.", state.d, state.d_opt)):
+        for name, p in model.named_parameters():
+            st = opt.state[p]
+            out[tag + name] = {"grad": st["exp_avg"].cpu().double() / (1 - b1),
+                               "m": st["exp_avg"].cpu().double(),
+                               "v": st["exp_avg_sq"].cpu().double(),
+                               "param": p.detach().cpu().double()}
+    for name, v in state.d.named_buffers():
+        out["D." + name] = {"stat": v.cpu().double()}
+    return out
+
+
+def step_card_vs_cpu(card_name: str, config: str, blocks: int, batch: int) -> dict:
+    """Phase 22, parts 2 and 3: one train step in ``config`` from the same
+    seeded weights and tiles on the card and on the CPU, with its launch
+    counts.
+
+    At the seeded init the GAN step is ill-conditioned in fp32: the fake is
+    ~1e-5 m and nearly constant, so D's train-mode BatchNorm over the fake
+    batch divides differences of round-off size by ~sqrt(eps), and the
+    offsets (~1e-5 px) straddle the sampler's floor at 0. A relative change
+    of 1e-6 in the weights moves some of D's gradients by 1% on the CPU
+    alone. So each gradient, metric and BatchNorm statistic is held to the
+    larger of ``TOL_KERNEL`` of its range and ``NOISE_K`` times the change
+    that a ``PERTURB`` relative perturbation of the weights makes on the CPU
+    (the card's forward differs from the CPU's by ~2e-6 of the range,
+    phase 5), per tensor; gradients to ``TOL_STEP_GRAD`` of their range in
+    place of ``TOL_KERNEL`` (cuDNN's conv backward). A wiring fault, a
+    missing or misrouted gradient, is off by its whole range. The update is checked on the card's own
+    gradients: every parameter equals the initial weight minus lr times
+    Adam's step from the card's moments, within 1e-3 * lr where |g| is
+    above 1e-3 of the tensor's largest. Returns the card's launch counts
+    and the worst ratios."""
+    import torch
+
+    from deepbedmap_tpu_torch.config import GeneratorConfig, TrainConfig
+    from deepbedmap_tpu_torch.ops import _kernels
+    from deepbedmap_tpu_torch.train.state import create_gan_state
+    from deepbedmap_tpu_torch.train.steps import make_train_step
+
+    g_cfg = GeneratorConfig(num_residual_blocks=blocks, **CONFIGS[config])
+    t_cfg = TrainConfig(batch_size=batch)
+    b1, b2, eps = t_cfg.adam_beta1, t_cfg.adam_beta2, t_cfg.adam_eps
+    arrays = train_batch(batch, seed=blocks)
+    step = make_train_step(t_cfg)
+    runs = {}
+    for key, dev in (("cpu", "cpu"), ("perturbed", "cpu"), ("card", DEVICE)):
+        state = create_gan_state(g_cfg, t_cfg=t_cfg, seed=0, device=dev)
+        if key == "perturbed":
+            gen = torch.Generator().manual_seed(5)
+            with torch.no_grad():
+                for p in list(state.g.parameters()) + list(state.d.parameters()):
+                    p.mul_(1 + PERTURB * torch.randn(p.shape, generator=gen))
+        if key == "card":
+            init = {f"{tag}{n}": p.detach().cpu().double()
+                    for tag, model in (("G.", state.g), ("D.", state.d))
+                    for n, p in model.named_parameters()}
+        b = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        runs[key] = (_step_tensors(state, b1), metrics, time.perf_counter() - t0)
+    launches = {k: v for k, v in _kernels.launches.items() if v}
+    (cpu, m_cpu, s_cpu), (pert, m_pert, _), (card, m_card, s_card) = (
+        runs["cpu"], runs["perturbed"], runs["card"])
+    tag = f"{config}, {blocks} RRDB, batch {batch}"
+    log(f"  train step {tag}: card {s_card:.2f} s (cold), CPU {s_cpu:.2f} s; card launches "
+        f"{launches}")
+    check_launches(launches, {k: v for k, v in per_step(config, blocks).items() if v})
+
+    def held(label, got, want, other, rel_tol=TOL_KERNEL) -> float:
+        """|got - want| against max(rel_tol * range, NOISE_K * |other - want|);
+        returns the error over the range."""
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        floor = float((other - want).abs().max())
+        tol = max(rel_tol * scale, NOISE_K * floor)
+        if not err <= tol:
+            raise AssertionError(f"{tag} {label}: card off the CPU by {err:.3e}, above "
+                                 f"{tol:.3e} (range {scale:.3e}, perturbation {floor:.3e})")
+        return err / scale if scale > 0 else 0.0
+
+    for name in ("discriminator_loss", "discriminator_accu", "generator_loss",
+                 "generator_psnr", "generator_ssim"):
+        held(name, getattr(m_card, name).cpu().double(), getattr(m_cpu, name).double(),
+             getattr(m_pert, name).double())
+    worst = {"grad": (0.0, ""), "stats": (0.0, ""), "update": 0.0}
+    floored = []
+    for name, want in cpu.items():
+        got, other = card[name], pert[name]
+        key = "stats" if "stat" in want else "grad"
+        field = "stat" if key == "stats" else "grad"
+        rel_tol = TOL_STEP_GRAD if key == "grad" else TOL_KERNEL
+        rel = held(f"{field} {name}", got[field], want[field], other[field], rel_tol)
+        if rel > rel_tol:
+            floored.append(name)
+        if rel > worst[key][0]:
+            worst[key] = (rel, name)
+        if key == "grad":
+            if name.startswith("G.") and not bool(got["grad"].abs().max() > 0):
+                raise AssertionError(f"generator parameter {name} got no gradient on the card")
+            lr = t_cfg.learning_rate * (t_cfg.d_lr_scale if name.startswith("D.") else 1.0)
+            update = got["m"] / (1 - b1) / ((got["v"] / (1 - b2)).sqrt() + eps)
+            big = got["grad"].abs() > 1e-3 * got["grad"].abs().max()
+            diff = (got["param"] - (init[name] - lr * update)).abs()
+            err = float(torch.where(big, diff, 0.0).max())
+            if not err <= 1e-3 * lr:
+                raise AssertionError(f"{tag}: {name} after the step is {err:.3e} off the "
+                                     f"Adam update of its own gradient (lr {lr:g})")
+            worst["update"] = max(worst["update"], err / lr)
+    log(f"  {tag}: worst gradient {worst['grad'][0]:.2e} of its range ({worst['grad'][1]}), "
+        f"worst BatchNorm statistic {worst['stats'][0]:.2e} ({worst['stats'][1]}); "
+        f"{len(floored)} of {len(cpu)} tensors beyond {TOL_STEP_GRAD:g} (gradients) or "
+        f"{TOL_KERNEL:g} (statistics) of their range, each within {NOISE_K} x the CPU's own "
+        f"change under a {PERTURB:g} perturbation of the weights: {floored}; every parameter within {worst['update']:.2e} x lr of Adam's "
+        f"update from the card's own moments")
+    return {"launches": launches, "worst_grad": worst["grad"][0],
+            "worst_stats": worst["stats"][0], "floored": floored}
+
+
+def no_missing_gradient(card_name: str) -> None:
+    """Phase 22: on the card, the generator loss's gradient reaches every
+    generator parameter, none None and none all zero: the guard against
+    kernel outputs without autograd history."""
+    import torch
+
+    from deepbedmap_tpu_torch.config import GeneratorConfig, TrainConfig
+    from deepbedmap_tpu_torch.train.state import create_gan_state
+    from deepbedmap_tpu_torch.train.steps import make_g_loss_fn
+
+    state = create_gan_state(GeneratorConfig(), t_cfg=TrainConfig(), seed=0, device=DEVICE)
+    b = {k: torch.from_numpy(v).to(DEVICE) for k, v in train_batch(4, 7).items()}
+    params = dict(state.g.named_parameters())
+    loss, _ = make_g_loss_fn(state.g, state.d)(b)
+    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    bad = [k for k, g in zip(params, grads) if g is None or not bool(g.abs().max() > 0)]
+    if bad:
+        raise AssertionError(f"generator parameters without a gradient on the card: {bad}")
+    log(f"  all {len(params)} generator parameters get a nonzero gradient on the card")
+
+
+def step_breakdown(state, batch, t_cfg, reps: int = 3) -> dict:
+    """Device time of each stage of one train step (``train.steps``'
+    sequence), by CUDA events; the steps are real (the state moves)."""
+    import torch
+
+    from deepbedmap_tpu_torch.config import LossConfig
+    from deepbedmap_tpu_torch.train.state import learning_rate
+    from deepbedmap_tpu_torch.train.steps import (
+        apply_gradients,
+        ema_update,
+        make_d_loss_fn,
+        make_g_loss_fn,
+    )
+
+    g, d = state.g, state.d
+    loss_cfg = LossConfig()
+
+    def stages():
+        with torch.no_grad():
+            fake = g(batch["X"], batch["W1"], batch["W2"], batch["W3"])
+        yield "D update: G forward, no gradient (kernels)"
+        d_params = list(d.parameters())
+        d_loss, _ = make_d_loss_fn(d)(fake, batch["Y"])
+        d_grads = torch.autograd.grad(d_loss, d_params)
+        yield "D update: D forward x 2 (train mode) + backward"
+        apply_gradients(state.d_opt, d_params, d_grads,
+                        learning_rate(t_cfg, state.step, t_cfg.d_lr_scale))
+        yield "Adam (D)"
+        g_params = list(g.parameters())
+        g_loss, _ = make_g_loss_fn(g, d, loss_cfg)(batch)
+        yield "G update: G forward (kernels) + D eval forward + losses"
+        g_grads = torch.autograd.grad(g_loss, g_params)
+        yield "G update: G backward (the kernels' plain recomputes + autograd)"
+        apply_gradients(state.g_opt, g_params, g_grads, learning_rate(t_cfg, state.step))
+        yield "Adam (G)"
+        ema_update(state.g_ema, g, t_cfg.ema_decay)
+        state.step += 1
+        yield "EMA"
+
+    totals: dict = {}
+    for _ in range(reps):
+        prev = torch.cuda.Event(enable_timing=True)
+        prev.record()
+        marks = []
+        for name in stages():
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+        torch.cuda.synchronize()
+        for name, ev in marks:
+            totals[name] = totals.get(name, 0.0) + prev.elapsed_time(ev) / reps
+            prev = ev
+    return totals
+
+
+def _timed_steps(step, state, dataset, rs, steps: int) -> list:
+    """Host time of each of ``steps`` train steps on shuffled batches, each
+    ended by a synchronize."""
+    import torch
+
+    times = []
+    for _ in range(steps):
+        idx = rs.choice(len(dataset), TRAIN_BATCH, replace=False)
+        batch = dataset.take(idx)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return times
+
+
+def training(card_name: str, rasters: dict, window, tmp: str) -> dict:
+    """Phase 22: training on the card (its parts are listed in the module
+    docstring). Returns the numbers of the training JSON line."""
+    import torch
+
+    from deepbedmap_tpu_torch import DeepBedMap
+    from deepbedmap_tpu_torch.config import GeneratorConfig, TrainConfig
+    from deepbedmap_tpu_torch.data import geotiff
+    from deepbedmap_tpu_torch.data.dataset import TileDataset
+    from deepbedmap_tpu_torch.ops import _kernels
+    from deepbedmap_tpu_torch.train.checkpoint import save_checkpoint
+    from deepbedmap_tpu_torch.train.loop import fit
+    from deepbedmap_tpu_torch.train.state import create_gan_state
+    from deepbedmap_tpu_torch.train.steps import make_train_step
+
+    out = {"card": card_name}
+    log("  gradient checks: each kernel wrapper against autograd of its plain version")
+    grads = grad_checks(card_name)
+    out["grad_max_abs_err"] = {k: v["max_abs_err"] for k, v in grads.items()}
+    out["train_shape_ms"] = {k: {m: grads[k][m] for m in ("fwd_ms", "bwd_ms")}
+                             for k in grads if k.endswith("_train")}
+
+    log(f"  one train step, 12 RRDBs, batch {STEP_BATCH}: card vs CPU")
+    no_missing_gradient(card_name)
+    steps = {"default": step_card_vs_cpu(card_name, "default", 12, STEP_BATCH)}
+    for config in ("kernel", "banded", "sweep"):
+        steps[config] = step_card_vs_cpu(card_name, config, CONFIG_STEP_BLOCKS,
+                                         CONFIG_STEP_BATCH)
+    out["launches_per_step"] = {k: v["launches"] for k, v in steps.items()}
+
+    log(f"  fit: {TRAIN_TILES} synthetic tiles, 12 RRDBs, batch {TRAIN_BATCH}, "
+        f"{TRAIN_EPOCHS} epochs, EMA {TRAIN_EMA}")
+    t0 = time.perf_counter()
+    dataset = TileDataset.synthetic(TRAIN_TILES, seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"  dataset of {TRAIN_TILES} tiles on the card in {time.perf_counter() - t0:.2f} s")
+    t_cfg = TrainConfig(batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS, ema_decay=TRAIN_EMA)
+    state = create_gan_state(GeneratorConfig(), t_cfg=t_cfg, seed=0, device=DEVICE)
+    stamps = []
+
+    def callback(epoch, record):
+        stamps.append(time.perf_counter())
+        return False
+
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    state, history = fit(state, dataset, t_cfg, callback=callback)
+    launches = {k: v for k, v in _kernels.launches.items() if v}
+    train_steps = TRAIN_EPOCHS * ((TRAIN_TILES * 95 // 100) // TRAIN_BATCH)
+    dev_batches = TRAIN_EPOCHS  # one dev batch, evaluated after each epoch
+    want = {"rdb_forward": 72 * train_steps + 36 * dev_batches,
+            "deform64_lrelu": 2 * train_steps + dev_batches,
+            "deform_zproj1": 2 * train_steps + dev_batches}
+    log(f"  fit launches ({train_steps} steps, {dev_batches} dev batches): {launches}")
+    check_launches(launches, want)
+    for rec in history:
+        if not all(np.isfinite(v) for v in rec.values()):
+            raise AssertionError(f"non-finite training metrics {rec}")
+        log(f"  epoch {rec['epoch']}: " + ", ".join(f"{k} {v:.5g}" for k, v in rec.items()
+                                                      if k != "epoch"))
+    out["s_per_epoch_cold"] = stamps[0] - t0
+    out["s_per_epoch_warm"] = stamps[1] - stamps[0]
+
+    step = make_train_step(t_cfg)
+    rs = np.random.RandomState(1)
+    torch.cuda.reset_peak_memory_stats()
+    times = _timed_steps(step, state, dataset, rs, TIMED_STEPS)
+    out["ms_per_step_median"] = float(np.median(times))
+    out["ms_per_step_all"] = times
+    out["tiles_per_s"] = 1e3 * TRAIN_BATCH / out["ms_per_step_median"]
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    batch = dataset.take(rs.choice(len(dataset), TRAIN_BATCH, replace=False))
+    out["breakdown_ms"] = step_breakdown(state, batch, t_cfg)
+    log(f"  warm epoch {out['s_per_epoch_warm']:.2f} s (cold {out['s_per_epoch_cold']:.2f} s), "
+        f"median step {out['ms_per_step_median']:.1f} ms of {TIMED_STEPS} "
+        f"({out['tiles_per_s']:.0f} tiles/s), peak memory {out['peak_mem_gib']:.2f} GiB  "
+        f"[{card_name}]")
+    for name, ms in out["breakdown_ms"].items():
+        log(f"  step at batch {TRAIN_BATCH}, {name}: {ms:.2f} ms  [{card_name}]")
+    log(f"  step total: {sum(out['breakdown_ms'].values()):.2f} ms  [{card_name}]")
+
+    log("  remat=True: the same steps with each RRDB recomputed in the backward")
+    r_state = create_gan_state(GeneratorConfig(remat=True), t_cfg=t_cfg, seed=0, device=DEVICE)
+    r_step = make_train_step(t_cfg)
+    _timed_steps(r_step, r_state, dataset, rs, 1)
+    _kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    r_times = _timed_steps(r_step, r_state, dataset, rs, 5)
+    r_launches = {k: v // 5 for k, v in _kernels.launches.items() if v}
+    check_launches(r_launches, {"rdb_forward": 108, "deform64_lrelu": 2, "deform_zproj1": 2})
+    out["remat"] = {"launches_per_step": r_launches,
+                    "ms_per_step_median": float(np.median(r_times)),
+                    "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"  remat: launches per step {r_launches}, median step "
+        f"{out['remat']['ms_per_step_median']:.1f} ms, peak memory "
+        f"{out['remat']['peak_mem_gib']:.2f} GiB  [{card_name}]")
+
+    log("  checkpoint: save_checkpoint, then DeepBedMap.from_checkpoint (EMA weights)")
+    ck = f"{tmp}/train.ckpt"
+    save_checkpoint(state, ck)
+    xs = [batch[k] for k in ("X", "W1", "W2", "W3")]
+    got = DeepBedMap.from_checkpoint(ck, state.g.cfg, device=DEVICE).forward_fn()(*xs)
+    want_out = DeepBedMap({k: v.cpu() for k, v in state.g_ema.items()}, state.g.cfg,
+                          device=DEVICE).forward_fn()(*xs)
+    if not torch.equal(got, want_out):
+        raise AssertionError("from_checkpoint's forward differs from the EMA weights'")
+    log(f"  from_checkpoint forward equals the state's EMA weights' bit for bit "
+        f"({os.path.getsize(ck) / 2**20:.1f} MB checkpoint)")
+
+    log("  CLI: train in a new process, then predict --checkpoint on phase 19's rasters")
+    cli_ck = f"{tmp}/cli_train.ckpt"
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "deepbedmap_tpu_torch", "train", "--synthetic-tiles", "64",
+         "--epochs", "1", "--batch-size", "32", "--out", cli_ck, "--device", DEVICE],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI's train failed ({proc.returncode}):\n"
+                             + proc.stdout[-4000:] + proc.stderr[-4000:])
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    if res["command"] != "train" or res["checkpoint"] != cli_ck or \
+            not np.isfinite(res["final_g_loss"]):
+        raise AssertionError(f"the CLI's train printed {res}")
+    train_wall = time.perf_counter() - t0
+    argv = [sys.executable, "-m", "deepbedmap_tpu_torch", "predict", "--checkpoint", cli_ck,
+            "--device", DEVICE, "--bounds=" + ",".join(repr(float(v)) for v in window),
+            "-o", f"{tmp}/cli_ck.tif"]
+    for name, r in rasters.items():
+        path = f"{tmp}/{name}.tif"
+        geotiff.write_geotiff(path, r.data, r.left, r.top, r.res, compress=True)
+        argv += [CLI_FLAGS[name], path]
+    proc = subprocess.run(argv, cwd=root, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI's predict --checkpoint failed ({proc.returncode}):\n"
+                             + proc.stdout[-4000:] + proc.stderr[-4000:])
+    got = geotiff.read_geotiff(f"{tmp}/cli_ck.tif")[0]
+    want_dem = DeepBedMap.from_checkpoint(cli_ck, device=DEVICE).predict(tuple(window),
+                                                                        rasters).data
+    if not np.array_equal(got, want_dem):
+        raise AssertionError("predict --checkpoint differs from from_checkpoint().predict")
+    log(f"  CLI train {res}, {train_wall:.1f} s wall; predict --checkpoint equal to "
+        f"DeepBedMap.from_checkpoint(...).predict bit for bit  [{card_name}]")
+    return out
+
+
 # (launch-counter name, source, TPU kernel it replaces, check, small shapes,
 # main-path shape, phase, the configuration whose main path gives its
 # launches); K9's launches come from its own path in phase 15
@@ -1694,6 +2270,9 @@ def main() -> int:
         product = continent_product(card_name, tmp)
         log("phase 21: the HTTP server (/healthz, /predict, /dem, /evaluate)")
         serving(card_name, params, rasters, window, product, tmp)
+        log("phase 22: training (gradients through the kernels, steps card vs CPU, fit, "
+            "checkpoints, the CLI's train)")
+        train = training(card_name, rasters, window, tmp)
 
     rows = []
     for name, src, rep, *_, path in KERNELS:
@@ -1705,6 +2284,7 @@ def main() -> int:
     if not all(row["launches"] > 0 for row in rows):
         raise AssertionError("a kernel was never launched on its path")
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"training": train}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,26 +4,32 @@ The JAX package stays the reference; this package runs the same models on an
 NVIDIA H100. It imports torch and numpy only, never JAX. Layout mirrors the
 JAX package:
 
-- ``config``    : GeneratorConfig / InferenceConfig (copied field for field)
+- ``config``    : Generator/Discriminator/Loss/Train/InferenceConfig (copied
+                  field for field)
 - ``ops``       : resize, dense block (K1, K6) and whole RRDB (K4, K5), fused
                   3x3 conv (K10), deformable conv (K7, K8, K9) and fused tail
                   (K2, K3), the CUDA build and binding (``ops._kernels``);
-                  grid sampling (``ops.interp``) and metrics (``ops.metrics``)
+                  grid sampling (``ops.interp``), metrics (``ops.metrics``),
+                  losses and SSIM (``ops.losses``, ``ops.ssim``), and the
+                  kernels' gradients (``ops._autograd``)
 - ``csrc``      : the hand-written CUDA C++ kernels (sm_90a)
-- ``models``    : generator building blocks and the generator
+- ``models``    : generator building blocks, the generator and the
+                  discriminator
 - ``bridge``    : JAX flax params <-> the port's state_dict
-- ``train``     : Chainer-npz weight import and export (``train.checkpoint``)
+- ``train``     : the GAN's train state, steps, epoch loop and ``fit``;
+                  train-state checkpoints and Chainer-npz weights
 - ``utils``     : experiment trackers and the weight fetcher (``utils.tracking``)
 - ``inference`` : halo'd tile engine, band-streamed continent inference and
                   the streamed int16 GeoTIFF product
-- ``data``      : Raster, NetCDF and GeoTIFF I/O (``data.geotiff``, its
+- ``data``      : the training tiles (``data.dataset``), Raster, NetCDF and
+                  GeoTIFF I/O (``data.geotiff``, its
                   native LZW codec ``native/tiffcodec.cc``), ``selective_tile``,
                   the model's inputs for one region (``data.groundtruth``)
 - ``evalx``     : grdtrack-style track sampling, track RMSE, track CSVs
 - ``api``       : DeepBedMap
 - ``serve``     : the HTTP inference service
-- ``cli``       : ``python -m deepbedmap_tpu_torch`` (predict, evaluate,
-                  continent, verify-weights, serve)
+- ``cli``       : ``python -m deepbedmap_tpu_torch`` (train, predict,
+                  evaluate, continent, verify-weights, serve)
 - ``device``    : the entry points' device (the card by default)
 """
 

@@ -8,6 +8,7 @@ into the GeoTIFF product):
     from deepbedmap_tpu_torch import DeepBedMap
 
     dbm = DeepBedMap()                                   # seeded random weights
+    dbm = DeepBedMap.from_checkpoint(path)               # the port's train state
     dbm = DeepBedMap.from_jax_params(tree)               # JAX-trained weights
     dbm = DeepBedMap.from_chainer_npz(path)              # reference-format weights
     dbm = DeepBedMap.from_experiment(root_or_url)        # a tracker's weights
@@ -45,7 +46,10 @@ from deepbedmap_tpu_torch.inference.continent import (
 from deepbedmap_tpu_torch.inference.engine import TilePlan
 from deepbedmap_tpu_torch.models.api import build_generator
 from deepbedmap_tpu_torch.models.generator import Generator
-from deepbedmap_tpu_torch.train.checkpoint import import_chainer_generator_npz
+from deepbedmap_tpu_torch.train.checkpoint import (
+    import_chainer_generator_npz,
+    load_generator_state_dict,
+)
 from deepbedmap_tpu_torch.utils.tracking import download_model_weights
 
 Bounds = Tuple[float, float, float, float]  # (xmin, ymin, xmax, ymax)
@@ -74,6 +78,25 @@ class DeepBedMap:
             self.model = Generator(cfg)
             self.model.load_state_dict(params)
         self.model.to(self.device).eval()
+
+    @classmethod
+    def from_checkpoint(
+        cls,
+        path: str,
+        cfg: GeneratorConfig = GeneratorConfig(),
+        use_ema: bool = True,
+        resolution: float = 250.0,
+        device="cuda",
+    ) -> "DeepBedMap":
+        """From a train-state checkpoint of the port
+        (``train.checkpoint.save_checkpoint``). ``use_ema``: prefer the EMA
+        weights when the run kept them (``TrainConfig.ema_decay > 0``), the
+        lower-variance choice for inference. ``cfg`` picks the forward's
+        kernel configuration; its depth must be the checkpoint's. A JAX Orbax
+        checkpoint raises ``ValueError`` (cross over through
+        ``from_chainer_npz``)."""
+        resolve_device(device)
+        return cls(load_generator_state_dict(path, use_ema), cfg, resolution, device)
 
     @classmethod
     def from_jax_params(

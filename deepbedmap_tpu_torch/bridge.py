@@ -1,4 +1,5 @@
-"""Weight bridge: JAX generator params <-> the port's ``state_dict``.
+"""Weight bridge: JAX generator params and discriminator variables <-> the
+port's ``state_dict``s.
 
 The JAX side is the flax param tree of ``deepbedmap_tpu.models.Generator``
 given as nested dicts of numpy arrays (``jax.tree_util.tree_map(np.asarray,
@@ -12,6 +13,13 @@ params)``), so this module needs no JAX. Every leaf maps:
   ([:9] = dy, [9:] = dx), which is also the port's.
 
 Do not go through the Chainer npz export: it swaps the offset halves.
+
+The discriminator's flax variables ``{"params": ..., "batch_stats": ...}``
+map onto ``models.discriminator.Discriminator``: conv kernels HWIO -> OIHW,
+Dense kernels (in, out) -> ``weight`` (out, in), BatchNorm ``scale`` /
+``bias`` and its ``batch_stats`` ``mean`` / ``var`` under their own names.
+The port flattens the last map in flax's (H, W, C) order, so ``linear_1``'s
+rows need no reordering.
 """
 
 from __future__ import annotations
@@ -91,3 +99,31 @@ def state_dict_to_jax_params(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         stacked = np.stack([per_block[b] for b in range(len(per_block))])
         put((_TRUNK, "block", rdb, conv, leaf), stacked)
     return tree
+
+
+def jax_d_vars_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax discriminator variables (params and batch_stats, nested dicts of
+    arrays) -> the port discriminator's ``state_dict``."""
+    sd = {}
+    for collection in ("params", "batch_stats"):
+        for (layer, leaf), a in _flatten(variables[collection]).items():
+            if leaf == "kernel":
+                a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+                leaf = "weight"
+            sd[f"{layer}.{leaf}"] = torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+    return sd
+
+
+def state_dict_to_jax_d_vars(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port discriminator's ``state_dict`` -> flax variables
+    ``{"params": ..., "batch_stats": ...}`` (nested dicts of numpy)."""
+    out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    for key, t in sd.items():
+        layer, leaf = key.split(".")
+        a = t.detach().cpu().numpy()
+        collection = "batch_stats" if leaf in ("mean", "var") else "params"
+        if leaf == "weight":
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+            leaf = "kernel"
+        out[collection].setdefault(layer, {})[leaf] = np.ascontiguousarray(a)
+    return out

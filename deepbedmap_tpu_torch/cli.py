@@ -1,7 +1,8 @@
-"""Command-line interface of the port: inference and serving on the card.
+"""Command-line interface of the port: training, inference and serving on the card.
 
-Counterpart of the inference half of ``deepbedmap_tpu/cli.py``:
+Counterpart of the training and inference parts of ``deepbedmap_tpu/cli.py``:
 
+    python -m deepbedmap_tpu_torch train [--tiles DIR | --synthetic-tiles N] --out CK
     python -m deepbedmap_tpu_torch predict --npz W.npz --bounds xmin,ymin,xmax,ymax ...
     python -m deepbedmap_tpu_torch evaluate --dem FILE --track FILE.csv
     python -m deepbedmap_tpu_torch continent --inputs DIR --bounds ... -o OUT [--stream]
@@ -11,11 +12,12 @@ Counterpart of the inference half of ``deepbedmap_tpu/cli.py``:
 Every command takes ``--device`` (default ``cuda``: without a card it
 raises; ``--device cpu`` runs the plain versions on the CPU), runs in fp32
 (TF32 off, see ``device.disable_tf32``) and prints a one-line JSON result to
-stdout; human logs go to stderr. ``--checkpoint``
-(Orbax checkpoints, which the port reads once training is ported),
-``--mesh-devices`` and ``--multihost`` raise ``NotImplementedError``. The
-JAX CLI's other subcommands (data preparation, training, search, figures)
-are not registered here yet.
+stdout; human logs go to stderr. ``--checkpoint`` reads the port's own
+train-state checkpoints (``train``'s ``--out``; a JAX Orbax directory raises
+``ValueError``). ``--mesh-devices``, ``--multihost`` and ``train``'s
+``--live-png`` / ``--live-term`` raise ``NotImplementedError``. The JAX
+CLI's other subcommands (data preparation, search, figures) are not
+registered here yet.
 """
 
 from __future__ import annotations
@@ -36,25 +38,63 @@ def _emit(obj) -> None:
 
 
 def _model(args):
-    """The DeepBedMap that ``--npz`` (or seeded random weights) gives on
-    ``--device``; ``--checkpoint`` is not ported yet."""
+    """The DeepBedMap that ``--checkpoint`` (the EMA weights when the run kept
+    them), ``--npz`` or seeded random weights give on ``--device``."""
     from deepbedmap_tpu_torch.api import DeepBedMap
     from deepbedmap_tpu_torch.config import GeneratorConfig
 
-    if args.checkpoint:
-        raise NotImplementedError(
-            "--checkpoint (Orbax) is not ported to the PyTorch package yet; "
-            "pass --npz (Chainer-format weights)"
-        )
     cfg = GeneratorConfig(num_residual_blocks=args.blocks)
+    if args.checkpoint:
+        return DeepBedMap.from_checkpoint(args.checkpoint, cfg, device=args.device)
     if args.npz:
         return DeepBedMap.from_chainer_npz(args.npz, cfg, device=args.device)
-    _log("untrained generator (no --npz)")
+    _log("untrained generator (no --checkpoint/--npz)")
     return DeepBedMap(cfg=cfg, device=args.device)
 
 
 def _load_inputs(path: str) -> dict:
     return {k: np.load(f"{path}/{k}.npy") for k in ("X", "W1", "W2", "W3")}
+
+
+def cmd_train(args) -> int:
+    """Train the GAN on tile arrays (the X/W1/W2/W3/Y_data.npy of ``build``)
+    or on synthetic tiles, and save the train state to ``--out``."""
+    from deepbedmap_tpu_torch.config import GeneratorConfig, TrainConfig
+    from deepbedmap_tpu_torch.data.dataset import ARRAY_KEYS, TileDataset
+    from deepbedmap_tpu_torch.train.checkpoint import save_checkpoint
+    from deepbedmap_tpu_torch.train.loop import fit
+    from deepbedmap_tpu_torch.train.state import create_gan_state
+
+    if args.live_png or args.live_term:
+        raise NotImplementedError(
+            "--live-png / --live-term need viz/live.py, which is not ported to "
+            "the PyTorch package yet"
+        )
+    if args.tiles:
+        arrays = {k: np.load(f"{args.tiles}/{k}_data.npy") for k in ARRAY_KEYS}
+        dataset = TileDataset.from_nchw(arrays, device=args.device)
+    else:
+        dataset = TileDataset.synthetic(args.synthetic_tiles, seed=0, device=args.device)
+    g_cfg = GeneratorConfig(num_residual_blocks=args.blocks)
+    t_cfg = TrainConfig(
+        batch_size=min(args.batch_size, max(1, int(len(dataset) * 0.9))),
+        learning_rate=args.learning_rate,
+    )
+    state = create_gan_state(g_cfg, t_cfg=t_cfg, device=args.device)
+    state, history = fit(state, dataset, t_cfg=t_cfg, epochs=args.epochs)
+    if args.out:
+        save_checkpoint(state, args.out)
+    _emit(
+        {
+            "command": "train",
+            "tiles": len(dataset),
+            "epochs": args.epochs,
+            "first_g_loss": round(history[0]["generator_loss"], 4),
+            "final_g_loss": round(history[-1]["generator_loss"], 4),
+            "checkpoint": args.out,
+        }
+    )
+    return 0
 
 
 def cmd_predict(args) -> int:
@@ -243,7 +283,7 @@ def cmd_serve(args) -> int:
 
 def _weights(p: argparse.ArgumentParser) -> None:
     p.add_argument("--checkpoint", default=None,
-                   help="Orbax checkpoint (not ported yet: raises)")
+                   help="train-state checkpoint of the port (train --out)")
     p.add_argument("--npz", default=None, help="reference-format (Chainer) weights")
     p.add_argument("--blocks", type=int, default=12)
     p.add_argument("--device", default="cuda",
@@ -256,6 +296,22 @@ def build_parser() -> argparse.ArgumentParser:
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
     sub = p.add_subparsers(dest="command", required=True)
+
+    t = sub.add_parser("train", help="train the GAN on tile arrays")
+    t.add_argument("--tiles", default=None, help="dir with X/W1/W2/W3/Y_data.npy")
+    t.add_argument("--synthetic-tiles", type=int, default=16)
+    t.add_argument("--epochs", type=int, default=2)
+    t.add_argument("--blocks", type=int, default=12)
+    t.add_argument("--batch-size", type=int, default=128)
+    t.add_argument("--learning-rate", type=float, default=1.6e-4)
+    t.add_argument("--out", default=None, help="checkpoint path")
+    t.add_argument("--live-png", default=None,
+                   help="redraw training curves to this PNG (not ported yet: raises)")
+    t.add_argument("--live-term", action="store_true",
+                   help="terminal sparklines per epoch (not ported yet: raises)")
+    t.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; 'cpu' runs the plain versions)")
+    t.set_defaults(fn=cmd_train)
 
     pr = sub.add_parser("predict", help="super-resolve one region")
     _weights(pr)

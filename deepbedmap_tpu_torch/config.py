@@ -1,10 +1,11 @@
 """Typed configuration for the PyTorch port.
 
-Counterpart of ``deepbedmap_tpu/config.py``: ``GeneratorConfig`` and
+Counterpart of ``deepbedmap_tpu/config.py``: ``GeneratorConfig``,
+``DiscriminatorConfig``, ``LossConfig``, ``TrainConfig`` and
 ``InferenceConfig`` are copied field for field with the same defaults, so a
-configuration written for the JAX package means the same model here. They are
-copied rather than imported because importing anything from ``deepbedmap_tpu``
-loads JAX, which the port never needs.
+configuration written for the JAX package means the same model and the same
+training run here. They are copied rather than imported because importing
+anything from ``deepbedmap_tpu`` loads JAX, which the port never needs.
 
 Several generator fields select JAX code paths that the port does not have yet
 (the plain XLA dense block ``fused_rdb='never'``, bf16 compute, the
@@ -32,6 +33,7 @@ precedence (``models/generator.py``, ``models/blocks.py``):
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +51,9 @@ class GeneratorConfig:
     init_scale: float = 0.1
     # only 'float32' is ported
     compute_dtype: str = "float32"
-    # training-only in the JAX package (rematerialisation); inert here
+    # rematerialise each RRDB in the backward pass (torch.utils.checkpoint,
+    # as JAX's nn.remat): training memory O(1) in depth, one more trunk
+    # forward per step
     remat: bool = False
     # dense-block dispatch: 'auto'/'always' take the hand-written kernel on
     # CUDA tensors and the plain version on CPU tensors; 'never' is not ported
@@ -89,6 +93,86 @@ class GeneratorConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DiscriminatorConfig:
+    """VGG-style discriminator (reference srgan_train.py:591-699).
+
+    conv0 keeps its bias; convs 1-9 are bias-free and are followed by
+    BatchNorm(eps=1e-5) + LeakyReLU(0.2). Head: flatten -> 100 -> 1, no
+    sigmoid. ``bn_momentum`` is flax's (and Chainer's decay): the running
+    statistics keep ``bn_momentum`` of their old value."""
+
+    channels: Tuple[int, ...] = (64, 64, 128, 128, 128, 256, 256, 512, 512, 512)
+    kernels: Tuple[int, ...] = (3, 4, 3, 4, 3, 4, 3, 4, 3, 4)
+    strides: Tuple[int, ...] = (1, 2, 1, 2, 1, 2, 1, 2, 1, 2)
+    fc_units: int = 100
+    bn_eps: float = 1e-5
+    bn_momentum: float = 0.9
+    init_scale: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Perceptual-loss weighting (reference srgan_train.py:849-852).
+
+    The defaults are the reference's, including its generator adversarial
+    term computed from detached discriminator logits (no gradient);
+    ``recommended()`` is the JAX package's live-adversarial recipe (weight
+    0.5, 100 m instance noise). Instance noise is drawn from a
+    ``torch.Generator`` seeded from (``instance_noise_seed``, step): the
+    same sigma and half-life decay as JAX, other random numbers."""
+
+    content_weight: float = 1e-2
+    adversarial_weight: float = 2e-2
+    topographic_weight: float = 2e-3
+    structural_weight: float = 5.25
+    ssim_window: int = 9
+    differentiable_adversarial: bool = False
+    d_instance_noise: float = 0.0
+    instance_noise_seed: int = 0
+    instance_noise_half_life_steps: float = 0.0
+
+    @classmethod
+    def recommended(cls, **overrides) -> "LossConfig":
+        """Live adversarial gradient, weight 0.5, 100 m instance noise."""
+        base = dict(
+            differentiable_adversarial=True,
+            adversarial_weight=0.5,
+            d_instance_noise=100.0,
+        )
+        base.update(overrides)
+        return cls(**base)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Adam and the run's schedule (reference srgan_train.py:1014-1055).
+    Only ``compute_dtype='float32'`` is ported (``check_train_supported``);
+    ``data_axis`` names a mesh axis in the JAX package and is unused here."""
+
+    learning_rate: float = 1.7e-4
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_eps: float = 1e-8
+    batch_size: int = 128
+    epochs: int = 140
+    train_fraction: float = 0.95
+    split_seed: int = 42
+    seed: int = 42
+    compute_dtype: str = "float32"
+    data_axis: str = "data"
+    # 'constant', or 'cosine': linear warmup then cosine decay to
+    # learning_rate * lr_final_scale over lr_total_steps
+    lr_schedule: str = "constant"
+    lr_total_steps: int = 0
+    lr_warmup_steps: int = 0
+    lr_final_scale: float = 0.0
+    # exponential moving average of the generator's weights (0 = off)
+    ema_decay: float = 0.0
+    # the discriminator's Adam runs at learning_rate * d_lr_scale
+    d_lr_scale: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
 class InferenceConfig:
     """Halo'd tile-predict-stitch (reference deepbedmap.py:689-736)."""
 
@@ -114,6 +198,16 @@ def check_supported(cfg: GeneratorConfig) -> None:
         )
     if cfg.out_channels != 1:
         raise NotImplementedError("the generator tail needs out_channels=1")
+
+
+def check_train_supported(cfg: TrainConfig) -> None:
+    """Raise ``NotImplementedError`` for a training setting that selects
+    unported code (bf16 compute)."""
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            "TrainConfig selects code the PyTorch port does not have: "
+            f"compute_dtype={cfg.compute_dtype!r} (only 'float32')"
+        )
 
 
 def trunk_kernel(cfg: GeneratorConfig) -> str:

@@ -1,9 +1,10 @@
 """Model construction.
 
 Counterpart of ``deepbedmap_tpu/models/api.py`` (``build_generator``,
-``count_params``). Weights come from a ``torch.Generator`` seeded with
-``seed``; they differ from the JAX package's for the same seed (use
-``bridge.jax_params_to_state_dict`` to run the JAX weights).
+``build_discriminator``, ``count_params``). Weights come from a
+``torch.Generator`` seeded with ``seed``; they differ from the JAX package's
+for the same seed (``bridge.jax_params_to_state_dict`` and
+``bridge.jax_d_vars_to_state_dict`` carry the JAX weights across).
 """
 
 from __future__ import annotations
@@ -13,12 +14,15 @@ from typing import Mapping, Union
 import torch
 from torch import nn
 
-from deepbedmap_tpu_torch.config import GeneratorConfig
+from deepbedmap_tpu_torch.config import DiscriminatorConfig, GeneratorConfig
 from deepbedmap_tpu_torch.device import resolve_device
+from deepbedmap_tpu_torch.models.discriminator import Discriminator
 from deepbedmap_tpu_torch.models.generator import Generator
 
 
 def count_params(model: Union[nn.Module, Mapping[str, torch.Tensor]]) -> int:
+    """Parameters of a module (its buffers, such as BatchNorm statistics, are
+    not parameters), or elements of a mapping of tensors."""
     tensors = model.parameters() if isinstance(model, nn.Module) else model.values()
     return sum(t.numel() for t in tensors)
 
@@ -31,5 +35,17 @@ def build_generator(
     weights are drawn on the CPU, so every device gets the same numbers."""
     dev = resolve_device(device)
     model = Generator(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return model.to(dev)
+
+
+def build_discriminator(
+    cfg: DiscriminatorConfig = DiscriminatorConfig(), seed: int = 42, hr: int = 36,
+    device="cuda",
+) -> Discriminator:
+    """The discriminator for ``hr`` x ``hr`` tiles with seeded initial
+    weights, on ``device`` (drawn on the CPU, as ``build_generator``'s)."""
+    dev = resolve_device(device)
+    model = Discriminator(cfg, in_px=hr)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.to(dev)

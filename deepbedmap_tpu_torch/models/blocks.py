@@ -73,8 +73,12 @@ class _Cached:
         self.__init__(state["pack"])
 
     def get(self, params: Sequence[torch.Tensor]):
+        """The packing of ``params``, made under ``torch.no_grad()``: packed
+        weights are never differentiated (the kernels' backward differentiates
+        the plain version in the source parameters); an optimizer's in-place
+        update bumps ``_version`` and so repacks."""
         key = tuple((p.device, p.data_ptr(), p._version) for p in params)
-        with self._lock:
+        with self._lock, torch.no_grad():
             if key != self._key:
                 self._value = self._pack(*params)
                 self._key = key

@@ -14,12 +14,21 @@ has it) and K8. ``rdb_resident='never'`` runs each dense block as K6 instead
 of K1, and ``rrdb_sweep=True`` each RRDB as K5 (``config.trunk_kernel`` has
 the precedence). The parameters are the same under every config. On CPU
 tensors the kernels' plain versions run instead.
+
+Gradients flow through every kernel: each wrapper's backward is autograd of
+its plain version (``ops._autograd``). With ``GeneratorConfig(remat=True)``
+each RRDB runs under ``torch.utils.checkpoint`` whenever gradients are on
+(JAX's ``nn.remat`` of the scanned block,
+``deepbedmap_tpu/models/generator.py:156``): its
+activations are recomputed in the backward pass, which launches the trunk's
+kernels once more.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from deepbedmap_tpu_torch.config import GeneratorConfig, check_supported, trunk_kernel
 from deepbedmap_tpu_torch.models.blocks import (
@@ -70,8 +79,9 @@ class Generator(nn.Module):
         # dense block and every RRDB skip keeps it, so the trunk leaves it
         # without a copy
         t = a1.contiguous()
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for block in self.residual_network:
-            t = block(t)
+            t = checkpoint(block, t, use_reentrant=False) if remat else block(t)
         a3 = self.post_residual_conv_layer(t, residual=a1)
         a4 = self.post_upsample_conv_layer_1(nearest_upsample(a3, 2))
         a4 = self.post_upsample_conv_layer_2(nearest_upsample(a4, 2))

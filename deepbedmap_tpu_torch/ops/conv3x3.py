@@ -7,6 +7,11 @@ hand-written CUDA kernel ``csrc/conv3x3.cu`` for a CUDA tensor and the plain
 version for a CPU tensor; it computes the same function as the JAX
 ``conv3x3_pallas``. There is no size rule and no fallback.
 
+Gradients: on a CUDA tensor ``conv3x3_fused`` goes through
+``_autograd.kernel_with_plain_grad``, its backward autograd of
+``conv3x3_reference`` (of x, the weight, the bias and the residual)
+recomputed on the saved inputs, as JAX's ``pallas_conv.py:214-261``.
+
 Layout: NHWC activations, OIHW weights. ``pack_conv_weight`` is the packed
 layout of the tensor-core conv (``csrc/conv3x3_tc.cuh``) that K10 and the
 dense-block kernels K1 and K4 (``ops.rdb``) share.
@@ -20,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from deepbedmap_tpu_torch.ops import _kernels
+from deepbedmap_tpu_torch.ops._autograd import kernel_with_plain_grad
 from deepbedmap_tpu_torch.ops.conv import leaky_relu
 
 C_OUT = 64
@@ -75,11 +81,20 @@ def conv3x3_fused(
     _kernels.check_tensor(x, "x", (n, h, w, c_in))
     _kernels.check_image_shape(n, h, w, max(c_in, C_OUT))
     if w_packed is None:
-        w_packed = pack_conv_weight(weight).contiguous()
+        with torch.no_grad():
+            w_packed = pack_conv_weight(weight).contiguous()
     _kernels.check_tensor(w_packed, "packed weight", (C_OUT * c_in * 9,))
     _kernels.check_tensor(bias, "bias", (C_OUT,))
     if residual is not None:
         _kernels.check_tensor(residual, "residual", (n, h, w, C_OUT))
-    out = torch.empty((n, h, w, C_OUT), device=x.device)
-    _kernels.launch_conv3x3_forward(x, w_packed, bias, residual, out, n, h, w, c_in, leaky)
-    return out
+
+    def launch(x, weight, bias, residual):
+        out = torch.empty((n, h, w, C_OUT), device=x.device)
+        _kernels.launch_conv3x3_forward(x, w_packed, bias, residual, out, n, h, w, c_in,
+                                        leaky)
+        return out
+
+    def plain(x, weight, bias, residual):
+        return conv3x3_reference(x, weight, bias, leaky, residual)
+
+    return kernel_with_plain_grad(launch, plain, x, weight, bias, residual)

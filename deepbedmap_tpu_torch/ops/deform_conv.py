@@ -31,6 +31,13 @@ projection inside the kernel (K9, ``csrc/deform_zform.cu``: for C_out 64
 and 16 the projection on the tensor cores with K2's split weights, for
 C_out 1 on the fp32 units). No model path takes it, as in JAX; it is a
 public function of its own.
+
+Gradients: ``deform64`` (K2, K7) and ``deform_tap_fields`` (K3, K8) go
+through ``_autograd.kernel_with_plain_grad``, their backward autograd of
+``deform_conv_shifts`` [+ LeakyReLU] / ``sample_tap_fields`` recomputed on
+the saved inputs, as JAX's ``deform_conv.py:_pallas_bwd`` and
+``pallas_tail.py:_fused_bwd`` are. ``deform_conv2d_zform`` (K9) has no VJP
+in JAX and raises ``ValueError`` here when a gradient is asked of it.
 """
 
 from __future__ import annotations
@@ -41,6 +48,8 @@ import torch
 import torch.nn.functional as F
 
 from deepbedmap_tpu_torch.ops import _kernels
+from deepbedmap_tpu_torch.ops._autograd import kernel_with_plain_grad, refuse_grad
+from deepbedmap_tpu_torch.ops.conv import leaky_relu
 
 _TAPS = 9
 _C = 64
@@ -260,12 +269,21 @@ def deform64(
     _kernels.check_tensor(offsets, "offsets", (n, h, w, 2 * _TAPS))
     _kernels.check_image_shape(n, h, w, _C)
     if w_packed is None:
-        w_packed = pack_deform64_weight_tc(weight)
+        with torch.no_grad():
+            w_packed = pack_deform64_weight_tc(weight)
     _kernels.check_tensor(w_packed, "packed weight", (_TAPS * 2 * _C * _C,))
     _kernels.check_tensor(bias, "bias", (_C,))
-    out = torch.empty_like(x)
-    _kernels.launch_deform64(x, offsets, w_packed, bias, out, n, h, w, clamp, lrelu)
-    return out
+
+    def launch(x, offsets, weight, bias):
+        out = torch.empty_like(x)
+        _kernels.launch_deform64(x, offsets, w_packed, bias, out, n, h, w, clamp, lrelu)
+        return out
+
+    def plain(x, offsets, weight, bias):
+        y = deform_conv_shifts(x, offsets, weight, bias, 1, clamp)
+        return leaky_relu(y) if lrelu else y
+
+    return kernel_with_plain_grad(launch, plain, x, offsets, weight, bias)
 
 
 def deform_tap_fields(
@@ -283,9 +301,16 @@ def deform_tap_fields(
     _kernels.check_tensor(offsets, "offsets", (n, h, w, 2 * _TAPS))
     _kernels.check_image_shape(n, h, w, 2 * _TAPS)
     _kernels.check_tensor(bias, "bias", (1,))
-    out = torch.empty((n, h, w, 1), device=z.device)
-    _kernels.launch_deform_zproj1(z, offsets, bias, out, n, h, w, clamp, name)
-    return out
+
+    def launch(z, offsets, bias):
+        out = torch.empty((n, h, w, 1), device=z.device)
+        _kernels.launch_deform_zproj1(z, offsets, bias, out, n, h, w, clamp, name)
+        return out
+
+    def plain(z, offsets, bias):
+        return sample_tap_fields(z[..., None], offsets, bias, 1, clamp)
+
+    return kernel_with_plain_grad(launch, plain, z, offsets, bias)
 
 
 def tap_projection(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -383,7 +408,9 @@ def deform_conv2d_zform(
     matrix for C_out 1), on a CPU tensor its plain version
     ``deform_conv_shifts_zproj``. Takes a 3x3 kernel, padding 1, C_in a
     multiple of 4 up to 64, C_out in {1, 16, 64} and an integer clamp in
-    [0, 2]; anything else raises ``ValueError`` on either device."""
+    [0, 2]; anything else raises ``ValueError`` on either device, and so
+    does a call that would need a gradient (JAX's kernel has no VJP)."""
+    refuse_grad("deform_conv2d_zform", x, offsets, weight, bias)
     c_out, c_in, kh, kw = weight.shape
     n, h, w = x.shape[:3]
     if padding != 1 or (kh, kw) != (3, 3) or x.shape[-1] != c_in \

@@ -20,6 +20,13 @@ intermediates in shared memory. Each wrapper takes its kernel for a CUDA tensor
 and the plain version for a CPU tensor. There is no size rule and no
 fallback: any N, H, W >= 1 go through the kernels on the card.
 
+Gradients: on a CUDA tensor each wrapper goes through
+``_autograd.kernel_with_plain_grad``: the forward is the kernel, the backward
+autograd of ``rdb_reference`` / ``rrdb_reference`` recomputed on the saved
+input and source weights, as the JAX custom VJPs do
+(``pallas_rdb.py:310-332``, ``:665-695``, ``:949-981``, ``:1275-1288``). The
+packed weights carry no gradient; it goes to the kernels and biases.
+
 Layout: NHWC at every function; the JAX kernels' flat row-band layout is not
 carried over. Conv weights are OIHW, as everywhere in the port; each kernel's
 packer repacks them once per model: ``pack_rdb_weights`` /
@@ -35,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from deepbedmap_tpu_torch.ops import _kernels
+from deepbedmap_tpu_torch.ops._autograd import kernel_with_plain_grad
 from deepbedmap_tpu_torch.ops.conv import leaky_relu
 from deepbedmap_tpu_torch.ops.conv3x3 import pack_conv_weight
 from deepbedmap_tpu_torch.ops.deform_conv import tf32_split
@@ -125,12 +133,32 @@ def _kernel_args(x: torch.Tensor, kernels, biases, packed, name: str,
     if packed is None:
         packer = {(1, False): pack_rdb_weights, (3, False): pack_rrdb_weights,
                   (1, True): pack_rdb_weights_tc, (3, True): pack_rrdb_weights_tc}
-        packed = packer[blocks, split](kernels, biases)
+        with torch.no_grad():
+            packed = packer[blocks, split](kernels, biases)
     w_packed, b_packed = packed
     floats = blocks * _BLOCK_WEIGHTS * (2 if split else 1)
     _kernels.check_tensor(w_packed, "packed weights", (floats,))
     _kernels.check_tensor(b_packed, "packed biases", (blocks * WORKSPACE,))
     return n, h, w, w_packed, b_packed
+
+
+def _differentiable(launch, x, kernels, biases, scaling: float,
+                    blocks: int) -> torch.Tensor:
+    """``launch(x)`` as the forward; as the backward, autograd (in x and the
+    source kernels and biases) of ``rdb_reference`` for a dense block
+    (``blocks`` 1, five kernels) or ``rrdb_reference`` for a whole RRDB
+    (``blocks`` 3, three blocks' five)."""
+    def plain(x, *params):
+        ks, bs = params[: len(params) // 2], params[len(params) // 2:]
+        if blocks == 1:
+            return rdb_reference(x, ks, bs, scaling)
+        ks = [ks[i:i + 5] for i in (0, 5, 10)]
+        bs = [bs[i:i + 5] for i in (0, 5, 10)]
+        return rrdb_reference(x, ks, bs, scaling)
+
+    flat = (lambda ts: [t for b in ts for t in b]) if blocks == 3 else list
+    return kernel_with_plain_grad(lambda x, *_: launch(x), plain, x,
+                                  *flat(kernels), *flat(biases))
 
 
 def rdb_fused(
@@ -147,10 +175,14 @@ def rdb_fused(
         return rdb_reference(x, kernels, biases, scaling)
     n, h, w, w_packed, b_packed = _kernel_args(x, kernels, biases, packed,
                                                "rdb_fused", 1, False)
-    ws = torch.empty((n, h, w, WORKSPACE), device=x.device)
-    out = torch.empty_like(x)
-    _kernels.launch_rdb_forward(x, ws, out, w_packed, b_packed, n, h, w, scaling)
-    return out
+
+    def launch(x):
+        ws = torch.empty((n, h, w, WORKSPACE), device=x.device)
+        out = torch.empty_like(x)
+        _kernels.launch_rdb_forward(x, ws, out, w_packed, b_packed, n, h, w, scaling)
+        return out
+
+    return _differentiable(launch, x, kernels, biases, scaling, 1)
 
 
 def rrdb_reference(
@@ -191,12 +223,16 @@ def rrdb_fused(
         return rrdb_reference(x, kernels, biases, scaling)
     n, h, w, w_packed, b_packed = _kernel_args(x, kernels, biases, packed,
                                                "rrdb_fused", 3, False)
-    ws_a = torch.empty((n, h, w, WORKSPACE), device=x.device)
-    ws_b = torch.empty_like(ws_a)
-    out = torch.empty_like(x)
-    _kernels.launch_rrdb_forward(x, ws_a, ws_b, out, w_packed, b_packed, n, h, w,
-                                 scaling)
-    return out
+
+    def launch(x):
+        ws_a = torch.empty((n, h, w, WORKSPACE), device=x.device)
+        ws_b = torch.empty_like(ws_a)
+        out = torch.empty_like(x)
+        _kernels.launch_rrdb_forward(x, ws_a, ws_b, out, w_packed, b_packed, n, h, w,
+                                     scaling)
+        return out
+
+    return _differentiable(launch, x, kernels, biases, scaling, 3)
 
 
 def rdb_banded(
@@ -214,9 +250,13 @@ def rdb_banded(
         return rdb_reference(x, kernels, biases, scaling)
     n, h, w, w_packed, b_packed = _kernel_args(x, kernels, biases, packed,
                                                "rdb_banded", 1, True)
-    out = torch.empty_like(x)
-    _kernels.launch_rdb_banded_forward(x, out, w_packed, b_packed, n, h, w, scaling)
-    return out
+
+    def launch(x):
+        out = torch.empty_like(x)
+        _kernels.launch_rdb_banded_forward(x, out, w_packed, b_packed, n, h, w, scaling)
+        return out
+
+    return _differentiable(launch, x, kernels, biases, scaling, 1)
 
 
 SWEEP_BAND = 8  # K5's band height (its tile's rows)
@@ -239,9 +279,13 @@ def rrdb_sweep(
         return rrdb_reference(x, kernels, biases, scaling)
     n, h, w, w_packed, b_packed = _kernel_args(x, kernels, biases, packed,
                                                "rrdb_sweep", 3, True)
-    ring1 = torch.empty((SWEEP_SLOTS, n, SWEEP_BAND, w, FEATURES), device=x.device)
-    ring2 = torch.empty_like(ring1)
-    out = torch.empty_like(x)
-    _kernels.launch_rrdb_sweep_forward(x, ring1, ring2, out, w_packed, b_packed, n,
-                                       h, w, scaling)
-    return out
+
+    def launch(x):
+        ring1 = torch.empty((SWEEP_SLOTS, n, SWEEP_BAND, w, FEATURES), device=x.device)
+        ring2 = torch.empty_like(ring1)
+        out = torch.empty_like(x)
+        _kernels.launch_rrdb_sweep_forward(x, ring1, ring2, out, w_packed, b_packed, n,
+                                           h, w, scaling)
+        return out
+
+    return _differentiable(launch, x, kernels, biases, scaling, 3)

@@ -18,7 +18,10 @@ it runs
 The TPU version tiles the image into halo'd lane frames and masks the emitted
 halo by hand; here each kernel reads the whole NHWC image, so zero padding
 outside the image needs no extra step. On a CPU tensor the K2/K3 wrappers use
-their plain versions, so the same sequence runs on both devices.
+their plain versions, so the same sequence runs on both devices. On a CUDA
+tensor K2's and K3's backward is autograd of those plain versions
+(``ops.deform_conv.deform64`` / ``deform_tap_fields``), as JAX's
+``pallas_tail.py:310-333`` differentiates ``_tail_reference``.
 """
 
 from __future__ import annotations

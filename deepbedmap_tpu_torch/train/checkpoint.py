@@ -1,8 +1,22 @@
-"""Chainer-npz weights: import into, and export from, the flax layout.
+"""Training checkpoints, and Chainer-npz weights into and out of the flax layout.
 
-Counterpart of the npz part of ``deepbedmap_tpu/train/checkpoint.py``, copied
-because importing the JAX package loads JAX (the Orbax train-state checkpoints
-come with the training port). The reference saves its generator with
+Counterpart of ``deepbedmap_tpu/train/checkpoint.py``, copied because
+importing the JAX package loads JAX.
+
+The port's own checkpoints replace JAX's Orbax ones: ``save_checkpoint``
+writes the whole ``GANState`` (step, both models' ``state_dict``s with the
+discriminator's BatchNorm statistics, both Adams, the EMA weights, and the
+two models' configurations) with ``torch.save`` to a temporary name in the
+target's directory and renames it into place, so a killed write leaves no
+half file. ``restore_checkpoint`` rebuilds the state on a device,
+``checkpoint_has_ema`` says whether a run kept EMA weights, and
+``load_generator_state_dict`` gives the weights ``DeepBedMap.from_checkpoint``
+runs. A JAX Orbax checkpoint (a directory) cannot be read here, since the
+card's machine has no Orbax, tensorstore or JAX: its path raises
+``ValueError`` naming the route that crosses over, ``export_generator_npz``
+in JAX and ``DeepBedMap.from_chainer_npz`` here.
+
+The reference saves its generator with
 ``chainer.serializers.save_npz``; the import builds the JAX generator's param
 tree (nested dicts of numpy arrays) from it, with the layout changes:
 
@@ -22,10 +36,97 @@ halves on import and again on export; ``'yx'`` keeps them.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Any, Dict, List
 
 import numpy as np
+import torch
+
+from deepbedmap_tpu_torch.config import DiscriminatorConfig, GeneratorConfig
+from deepbedmap_tpu_torch.device import resolve_device
+from deepbedmap_tpu_torch.models.discriminator import Discriminator
+from deepbedmap_tpu_torch.models.generator import Generator
+from deepbedmap_tpu_torch.train.state import GANState
+
+_FORMAT = "deepbedmap_tpu_torch.GANState/1"
+
+
+def save_checkpoint(state: GANState, path: str) -> None:
+    """The whole train state to the file ``path``, atomically (a temporary
+    name in the same directory, then ``os.replace``)."""
+    if os.path.isdir(path):
+        raise ValueError(f"{path} is a directory; a checkpoint of the port is one file")
+    payload = {
+        "format": _FORMAT,
+        "step": int(state.step),
+        "g_cfg": dataclasses.asdict(state.g.cfg),
+        "d_cfg": dataclasses.asdict(state.d.cfg),
+        "d_in_px": state.d.in_px,
+        "g": state.g.state_dict(),
+        "d": state.d.state_dict(),
+        "g_opt": state.g_opt.state_dict(),
+        "d_opt": state.d_opt.state_dict(),
+        "g_ema": state.g_ema,
+    }
+    directory = os.path.dirname(os.path.abspath(path))
+    os.makedirs(directory, exist_ok=True)
+    tmp = os.path.join(directory, f".{os.path.basename(path)}.tmp.{os.getpid()}")
+    try:
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def _load(path: str, device="cpu") -> Dict[str, Any]:
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory, which the port's checkpoints never are: an "
+            "Orbax checkpoint of the JAX package cannot be read by the PyTorch "
+            "port. Export its generator with deepbedmap_tpu.train.checkpoint."
+            "export_generator_npz and load that with DeepBedMap.from_chainer_npz"
+        )
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no checkpoint at {path}")
+    payload = torch.load(path, map_location=device, weights_only=True)
+    if not isinstance(payload, dict) or payload.get("format") != _FORMAT:
+        raise ValueError(f"{path} is not a checkpoint of deepbedmap_tpu_torch")
+    return payload
+
+
+def restore_checkpoint(path: str, device="cuda") -> GANState:
+    """The ``GANState`` saved at ``path``, on ``device`` (the card unless the
+    caller asks for the CPU)."""
+    dev = resolve_device(device)
+    payload = _load(path, dev)
+    g = Generator(GeneratorConfig(**payload["g_cfg"]))
+    g.load_state_dict(payload["g"])
+    g.to(dev)
+    d = Discriminator(DiscriminatorConfig(**payload["d_cfg"]), in_px=payload["d_in_px"])
+    d.load_state_dict(payload["d"])
+    d.to(dev)
+    g_opt = torch.optim.Adam(g.parameters())
+    g_opt.load_state_dict(payload["g_opt"])
+    d_opt = torch.optim.Adam(d.parameters())
+    d_opt.load_state_dict(payload["d_opt"])
+    return GANState(step=payload["step"], g=g, g_opt=g_opt, d=d, d_opt=d_opt,
+                    g_ema=payload["g_ema"])
+
+
+def checkpoint_has_ema(path: str) -> bool:
+    """Whether the run saved at ``path`` kept EMA weights."""
+    return _load(path)["g_ema"] is not None
+
+
+def load_generator_state_dict(path: str, use_ema: bool = True) -> Dict[str, torch.Tensor]:
+    """The generator's weights saved at ``path`` (on the CPU): the EMA
+    weights when ``use_ema`` and the run kept them, else the trained ones."""
+    payload = _load(path)
+    if use_ema and payload["g_ema"] is not None:
+        return payload["g_ema"]
+    return payload["g"]
 
 
 def _conv_w(w: np.ndarray) -> np.ndarray:

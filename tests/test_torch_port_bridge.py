@@ -95,8 +95,13 @@ def test_port_import_loads_no_jax():
         "import deepbedmap_tpu_torch.utils, deepbedmap_tpu_torch.evalx\n"
         "import deepbedmap_tpu_torch.data.geotiff, deepbedmap_tpu_torch.data._tiffnative\n"
         "import deepbedmap_tpu_torch.serve, deepbedmap_tpu_torch.cli\n"
+        "import deepbedmap_tpu_torch.ops.losses, deepbedmap_tpu_torch.ops.ssim\n"
+        "import deepbedmap_tpu_torch.ops.resize, deepbedmap_tpu_torch.ops._autograd\n"
+        "import deepbedmap_tpu_torch.models.discriminator, deepbedmap_tpu_torch.data.dataset\n"
+        "import deepbedmap_tpu_torch.train.state, deepbedmap_tpu_torch.train.steps\n"
+        "import deepbedmap_tpu_torch.train.loop, deepbedmap_tpu_torch.train\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'deepbedmap_tpu', 'h5py', 'pandas')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'deepbedmap_tpu', 'h5py', 'pandas')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -186,11 +191,16 @@ def test_trunk_dispatch_follows_jax_precedence(monkeypatch, flags, calls):
 def test_config_fields_match_jax():
     import dataclasses
 
-    from deepbedmap_tpu.config import InferenceConfig as JaxInferenceConfig
-    from deepbedmap_tpu_torch.config import InferenceConfig
+    from deepbedmap_tpu import config as jax_config
+    from deepbedmap_tpu_torch import config
 
     for ours, theirs in ((GeneratorConfig, JaxGeneratorConfig),
-                         (InferenceConfig, JaxInferenceConfig)):
+                         (config.InferenceConfig, jax_config.InferenceConfig),
+                         (config.DiscriminatorConfig, jax_config.DiscriminatorConfig),
+                         (config.LossConfig, jax_config.LossConfig),
+                         (config.TrainConfig, jax_config.TrainConfig)):
         assert [(f.name, f.default) for f in dataclasses.fields(ours)] == [
             (f.name, f.default) for f in dataclasses.fields(theirs)
         ]
+    assert dataclasses.asdict(config.LossConfig.recommended(ssim_window=5)) == \
+        dataclasses.asdict(jax_config.LossConfig.recommended(ssim_window=5))

@@ -1,6 +1,7 @@
-"""PyTorch port: the inference CLI (``python -m deepbedmap_tpu_torch``) driven
+"""PyTorch port: the CLI (``python -m deepbedmap_tpu_torch``) driven
 in-process through ``main(argv)`` with ``--device cpu`` on tiny synthetic
-data: ``predict`` (NetCDF, and GeoTIFF without h5py), ``evaluate``,
+data: ``train`` then ``predict --checkpoint`` on its checkpoint, ``predict``
+(NetCDF, and GeoTIFF without h5py), ``evaluate``,
 ``continent --stream --overviews 1``, the ``verify-weights`` rehearsal of
 ``tests/test_cli.py``, TF32 turned off by the programs, and the options that
 are not ported yet. ``pandas``
@@ -28,6 +29,17 @@ from tests.test_torch_parity import _t, torch_generator_forward
 
 RASTERS = ("bed_lowres", "surface", "velocity_x", "velocity_y", "accumulation")
 FLAGS = ("--bed", "--surface", "--velocity-x", "--velocity-y", "--accumulation")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs files in
+    parallel worker processes, and PyTorch's default of one thread per core
+    in each worker oversubscribes the cores many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)
@@ -234,13 +246,42 @@ def test_cli_verify_weights_rehearsal(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["continent", "--inputs", "x", "--bounds", "0,0,1,1", "-o", "y", "--checkpoint", "c"],
-    ["serve", "--checkpoint", "c"],
-    ["predict", "--checkpoint", "c", "--bounds", "0,0,1,1", "--bed", "b", "--surface", "s",
-     "--velocity-x", "u", "--velocity-y", "v", "--accumulation", "a", "-o", "o"],
+    # train's live curves need viz/live.py (not ported); --checkpoint reads
+    # the port's own checkpoints (test_cli_train_then_predict_from_checkpoint)
+    ["train", "--synthetic-tiles", "8", "--live-png", "curves.png"],
+    ["train", "--synthetic-tiles", "8", "--live-term"],
+    ["train", "--synthetic-tiles", "8", "--live-png", "curves.png", "--live-term"],
     ["continent", "--inputs", "x", "--bounds", "0,0,1,1", "-o", "y", "--mesh-devices", "2"],
     ["continent", "--inputs", "x", "--bounds", "0,0,1,1", "-o", "y", "--multihost"],
 ])
 def test_cli_unported_options_raise(argv):
     with pytest.raises(NotImplementedError):
         main(argv + ["--device", "cpu"])
+
+
+def test_cli_train_then_predict_from_checkpoint(capsys, tmp_path, monkeypatch):
+    ck = str(tmp_path / "run.ckpt")
+    rc, res = run_cli(capsys, ["train", "--synthetic-tiles", "10", "--epochs", "2",
+                               "--batch-size", "4", "--blocks", "1", "--out", ck,
+                               "--device", "cpu"])
+    # JAX's summary line (deepbedmap_tpu/cli.py:cmd_train)
+    assert rc == 0 and sorted(res) == sorted(
+        ["command", "tiles", "epochs", "first_g_loss", "final_g_loss", "checkpoint"])
+    assert res["command"] == "train" and res["tiles"] == 10 and res["epochs"] == 2
+    assert res["checkpoint"] == ck and np.isfinite([res["first_g_loss"], res["final_g_loss"]]).all()
+
+    rasters = _rasters()
+    argv = ["predict", "--checkpoint", ck, "--blocks", "1", "--device", "cpu",
+            "--bounds", "1000,1000,10000,10000", "-o", str(tmp_path / "dem.tif")]
+    for name, flag in zip(RASTERS, FLAGS):
+        path = str(tmp_path / name) + ".tif"
+        r = rasters[name]
+        geotiff.write_geotiff(path, r.data, r.left, r.top, r.res, compress=True)
+        argv += [flag, path]
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    rc, res = run_cli(capsys, argv)
+    assert rc == 0 and res["shape"] == [36, 36]
+    got, _ = geotiff.read_geotiff(str(tmp_path / "dem.tif"))
+    want = DeepBedMap.from_checkpoint(ck, GeneratorConfig(num_residual_blocks=1),
+                                      device="cpu").predict((1000.0, 1000.0, 1e4, 1e4), rasters)
+    np.testing.assert_array_equal(got, want.data)
