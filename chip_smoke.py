@@ -120,12 +120,36 @@ Phases (any failure ends the run with a non-zero exit code):
     whose forward equals the EMA weights' bit for bit; and ``python -m
     deepbedmap_tpu_torch train`` in a new process, then ``predict
     --checkpoint`` on phase 19's rasters, equal to
-    ``DeepBedMap.from_checkpoint(...).predict`` bit for bit.
+    ``DeepBedMap.from_checkpoint(...).predict`` bit for bit;
+23. the hyperparameter search: ``deform_conv2d(method='auto')`` on a layer
+    K7 / K8 do not take (32 -> 16 channels, 5x5, padding 2) launches no
+    kernel and equals the CPU; 640 seeded reference tiles pushed into a
+    package in a temporary registry and read back onto the card by
+    ``TileDataset.from_package``, exactly; study 1, two trials of the
+    reference space (batch 128, 12 RRDBs, 64 channels) with ``num_epochs``
+    cut to 3, the reference's Hyperband pruner, sqlite storage and a
+    ``LocalTracker`` each, scored every epoch by ``make_fixed_evaluator``
+    on phase 19's 286 km window and 10^5 track points: launch counts per
+    trial (K1/K2/K3 72/2/2 per step and 36/1/1 per evaluation), each
+    epoch's ``rmse_test`` against the evaluation recomputed, the tracker's
+    metrics, ``best_value`` the smallest completed value,
+    ``DeepBedMap.from_experiment`` on the best trial bit for bit against
+    the best epoch's weights and its checkpoint, the evaluator card vs CPU
+    with those weights on the 48 km window; study 2, one trial on the tiles
+    with a NaN in epoch 0's first tile, which ends PRUNED by the divergence
+    rule; ``python -m deepbedmap_tpu_torch hpo --tiny`` in a new process
+    on the first 160 tiles with ``--eval-inputs/--eval-track/--eval-bounds``
+    written from phase 19's inputs, against the same trial run in this
+    process (within 3x the trial's own change when run again or from
+    weights perturbed by 1e-5), and the same trial twice in each of two
+    more new processes (``library_trials``), logged beside it; s per trial
+    epoch, ms per evaluation (CUDA events) and the study's wall time without
+    the check's own recomputed evaluations.
 
 Each main path checks its own configuration's launch counts (``PER_FORWARD``).
 It prints the script's wall time, one JSON line of phase 22's training
-numbers, one JSON line with each kernel's launches (from the main path that
-runs it), error, times and bound, and ends with
+numbers, one of phase 23's search numbers, one JSON line with each kernel's
+launches (from the main path that runs it), error, times and bound, and ends with
 ``{"ok": true, "device": {...}}``. It refuses to run without a CUDA device and
 imports nothing of JAX.
 """
@@ -2146,6 +2170,441 @@ def training(card_name: str, rasters: dict, window, tmp: str) -> dict:
     return out
 
 
+# phase 23: the hyperparameter search. The reference's tiles, batch (2^7),
+# depth and width, cut in count and epochs: 640 tiles split 608 / 32 at 95/5,
+# 4 train batches of 128 and one dev batch of 32 per epoch; the reference
+# space with num_epochs cut to SEARCH_EPOCHS; scored on phase 19's 286 km
+# window with its 10^5 track points
+SEARCH_TILES, SEARCH_EPOCHS, SEARCH_TRIALS = 640, 3, 2
+SEARCH_PRUNER = dict(pruner="hyperband", min_resource=15, max_resource=150,
+                     reduction_factor=3)  # the reference's (srgan_train.py:1740-1744)
+# the evaluator card vs CPU (the CPU's plain deformable tail at 1144^2 would
+# take minutes, so on phase 19's 48 km window), and a per-epoch RMSE against
+# the same evaluation recomputed: the same float32 operations
+TOL_SEARCH_RMSE = 1e-5
+# the CLI's hpo against the same trial run in this process: --tiny at a seed
+# whose trial draws batch 8 and 1 epoch. Two trainings of it on the card do
+# not repeat bit for bit (which operation differs is not traced), and the
+# GAN's steps amplify round-off, as phase 22's step check finds; so the value
+# is held to the larger of TOL_CLI_HPO relative and NOISE_K times the larger
+# of two changes in this process: the same trial run again, and run from
+# initial weights perturbed by PERTURB. The same trial also runs
+# LIBRARY_RUNS times in each of LIBRARY_PROCESSES new processes
+# (``library_trials``), which the log sets beside the CLI's value: whether
+# the trial differs between processes more than within one
+CLI_HPO_SEED, CLI_HPO_TILES = 6, 160  # the first 160 tiles: 19 steps of 8
+LIBRARY_PROCESSES, LIBRARY_RUNS = 2, 2
+TOL_CLI_HPO = 1e-5
+# one layer K7 / K8 do not take, through deform_conv2d(method='auto'):
+# (N, H, W, C_in), C_out, kernel, padding
+ODD_DEFORM = ((1, 40, 50, 32), 16, 5, 2)
+
+
+class _CutEpochs:
+    """A trial whose ``num_epochs`` is drawn from [SEARCH_EPOCHS,
+    SEARCH_EPOCHS]; every other suggestion goes to the trial unchanged."""
+
+    def __init__(self, trial):
+        self._trial = trial
+
+    def suggest_int(self, name, low, high, step=1):
+        if name == "num_epochs":
+            low = high = SEARCH_EPOCHS
+        return self._trial.suggest_int(name, low, high, step)
+
+    def __getattr__(self, name):
+        return getattr(self._trial, name)
+
+
+def search_space(trial) -> dict:
+    """The reference's search space with num_epochs cut to SEARCH_EPOCHS."""
+    from deepbedmap_tpu_torch.train.objective import suggest_reference_space
+
+    return suggest_reference_space(_CutEpochs(trial))
+
+
+def _search_launches(blocks: int, steps: int, evaluations: int) -> dict:
+    """K1 / K2 / K3 launches of ``steps`` train steps (two generator
+    forwards each) and ``evaluations`` forwards at batch 1 or of a dev batch."""
+    from deepbedmap_tpu_torch.ops import _kernels
+
+    per = {"rdb_forward": 3 * blocks, "deform64_lrelu": 1, "deform_zproj1": 1}
+    return {k: (2 * steps + evaluations) * per.get(k, 0) for k in _kernels.launches}
+
+
+def _odd_deform(card_name: str) -> None:
+    """Fault 2's repair on the card: a layer the kernels do not take goes
+    through deform_conv2d(method='auto') to JAX's rule, not to K7 / K8."""
+    import torch
+
+    from deepbedmap_tpu_torch.ops import _kernels
+    from deepbedmap_tpu_torch.ops.deform_conv import choose_method, deform_conv2d
+
+    shape, c_out, k, pad = ODD_DEFORM
+    gen = torch.Generator().manual_seed(23)
+    x = _randn(shape, gen)
+    off = _randn(shape[:3] + (2 * k * k,), gen, 0.7)
+    w = _randn((c_out, shape[-1], k, k), gen, 0.05)
+    b = _randn((c_out,), gen)
+    method = choose_method("cuda", shape, tuple(w.shape), pad, 2)
+    _kernels.reset_launches()
+    got = deform_conv2d(x, off, w, b, pad, 2)
+    torch.cuda.synchronize()
+    if any(_kernels.launches.values()):
+        raise AssertionError(f"the odd layer launched kernels: {dict(_kernels.launches)}")
+    want = deform_conv2d(x.cpu(), off.cpu(), w.cpu(), b.cpu(), pad, 2)
+    compare(f"deform_conv2d(method='auto') {shape} -> {c_out}, {k}x{k}, padding {pad} "
+            f"({method!r}, no kernel launched) card vs CPU", got.cpu(), want, TOL_KERNEL)
+
+
+def _search_inputs(rasters: dict, window):
+    """Phase 19's window as the evaluator's inputs (NCHW numpy), its 48 km
+    card-vs-CPU window's, and 10^5 track points over the window: the
+    low-res bed sampled there (NaN in its voids) plus 10 m of noise."""
+    from deepbedmap_tpu_torch.data.groundtruth import get_model_inputs
+    from deepbedmap_tpu_torch.evalx.track import elevation_residuals
+
+    names = ("bed_lowres", "surface", "velocity_x", "velocity_y", "accumulation")
+    sources = [rasters[k] for k in names]
+    x0, y0 = window[:2]
+    cx, cy = x0 + REGION_CPU_AT[0], y0 + REGION_CPU_AT[1]
+    cpu_window = (cx, cy, cx + 1e3 * REGION_CPU_KM, cy + 1e3 * REGION_CPU_KM)
+    inputs = {k: v.cpu().numpy() for k, v in
+              get_model_inputs(window, *sources, device=DEVICE).items()}
+    cpu_inputs = {k: v.numpy() for k, v in
+                  get_model_inputs(cpu_window, *sources, device="cpu").items()}
+    rs = np.random.RandomState(23)
+    side = window[2] - x0
+    tx = rs.uniform(x0 + 1000.0, x0 + side - 1000.0, TRACK_POINTS)
+    ty = rs.uniform(y0 + 1000.0, y0 + side - 1000.0, TRACK_POINTS)
+    tz = elevation_residuals(rasters["bed_lowres"], tx, ty, np.zeros(TRACK_POINTS),
+                             method="bilinear", device=DEVICE)
+    tz = tz + rs.randn(TRACK_POINTS) * TRACK_NOISE_M
+    return inputs, cpu_inputs, cpu_window, (tx, ty, tz)
+
+
+def _library_trial(data, inputs: dict, track, bounds):
+    """The CLI's ``hpo --tiny --trials 1 --seed CLI_HPO_SEED`` trial through
+    the library calls: its finished trial."""
+    from deepbedmap_tpu_torch.cli import tiny_space
+    from deepbedmap_tpu_torch.evalx.fixed import make_fixed_evaluator
+    from deepbedmap_tpu_torch.hpo import create_study
+    from deepbedmap_tpu_torch.train import objective as obj
+
+    study = create_study(direction="minimize", sampler_seed=CLI_HPO_SEED, **SEARCH_PRUNER)
+    study.optimize(lambda t: obj.objective(
+        t, data, suggest=tiny_space, make_evaluator=lambda m: make_fixed_evaluator(
+            m, inputs, track, bounds, device=DEVICE)), n_trials=1)
+    return study.best_trial
+
+
+def library_trials(tiles: str, inputs_dir: str, track_csv: str, bounds: str) -> None:
+    """Phase 23's trace, run in a new process: ``_library_trial`` LIBRARY_RUNS
+    times on the files the CLI's hpo reads; prints their values and params
+    as one JSON line."""
+    from deepbedmap_tpu_torch.cli import _load_inputs
+    from deepbedmap_tpu_torch.data.dataset import TileDataset
+    from deepbedmap_tpu_torch.device import disable_tf32
+    from deepbedmap_tpu_torch.evalx.track import read_track_csv
+
+    disable_tf32()
+    data = TileDataset.load_npy_dir(tiles, device=DEVICE, suffix="_data")
+    inputs, track = _load_inputs(inputs_dir), read_track_csv(track_csv)
+    window = tuple(float(v) for v in bounds.split(","))
+    trials = [_library_trial(data, inputs, track, window) for _ in range(LIBRARY_RUNS)]
+    print(json.dumps({"values": [t.value for t in trials], "params": trials[0].params}))
+
+
+def search(card_name: str, rasters: dict, window, tmp: str) -> dict:
+    """Phase 23: the hyperparameter search on the card (its parts are listed
+    in the module docstring). Returns the numbers of the search JSON line."""
+    import torch
+
+    from deepbedmap_tpu_torch import DeepBedMap
+    from deepbedmap_tpu_torch.data import packaging
+    from deepbedmap_tpu_torch.data.dataset import (
+        REFERENCE_SHAPES_NCHW,
+        TileDataset,
+        epoch_batches,
+        train_dev_split,
+    )
+    from deepbedmap_tpu_torch.evalx.fixed import make_fixed_evaluator
+    from deepbedmap_tpu_torch.hpo import create_study
+    from deepbedmap_tpu_torch.hpo.engine import TrialState
+    from deepbedmap_tpu_torch.models.api import build_generator
+    from deepbedmap_tpu_torch.ops import _kernels
+    from deepbedmap_tpu_torch.train import objective as obj
+    from deepbedmap_tpu_torch.train.checkpoint import load_generator_state_dict
+    from deepbedmap_tpu_torch.utils.tracking import LocalTracker
+
+    out = {"card": card_name}
+    log("  deform_conv2d(method='auto') on a layer the kernels do not take")
+    _odd_deform(card_name)
+
+    log(f"  {SEARCH_TILES} seeded reference tiles through a package in a temporary registry")
+    rs = np.random.RandomState(23)
+    arrays = {k: rs.rand(SEARCH_TILES, *s).astype(np.float32)
+              for k, s in REFERENCE_SHAPES_NCHW.items()}
+    tiles = f"{tmp}/search_tiles"
+    os.makedirs(tiles)
+    for k, a in arrays.items():
+        np.save(f"{tiles}/{k}_data.npy", a)
+    registry = f"{tmp}/registry"
+    pkg = packaging.push_training_arrays(tiles, registry)
+    dataset = TileDataset.from_package(registry, pkg_hash=pkg, device=DEVICE)
+    for k, a in arrays.items():
+        if not np.array_equal(dataset.arrays[k].cpu().numpy(), a.transpose(0, 2, 3, 1)):
+            raise AssertionError(f"from_package: {k} differs from the pushed tiles")
+    log(f"  from_package {pkg[:12]}: {len(dataset)} tiles on the card, every array equal "
+        "to the pushed one")
+
+    inputs, cpu_inputs, cpu_window, track = _search_inputs(rasters, window)
+    n_train = int(SEARCH_TILES * 0.95)
+    log("  evaluator inputs: " + ", ".join(f"{k} {v.shape}" for k, v in inputs.items())
+        + f"; {TRACK_POINTS} track points, {int(np.isnan(track[2]).sum())} NaN (bed voids)")
+
+    # by (study tag, trial number): the evaluator and the generator it last
+    # scored, each epoch's record, the best epoch's weights, launches, times
+    evaluators, gens, records, best_sd, launches, epoch_s, eval_ms = ({} for _ in range(7))
+    current, resumed, checking_s = [None], [0.0], [0.0]
+    root = f"{tmp}/experiments"
+
+    def make_evaluator(g_model):
+        ev = make_fixed_evaluator(g_model, inputs, track, window, device=DEVICE)
+        evaluators[current[0]] = ev
+
+        def evaluate(g):  # no .predict: the image needs matplotlib
+            gens[current[0]] = g
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            value = ev(g)
+            end.record()
+            torch.cuda.synchronize()
+            eval_ms.setdefault(current[0], []).append(start.elapsed_time(end))
+            return value
+
+        return evaluate
+
+    def on_epoch(epoch, record):  # the check's own work, left out of the times
+        key = current[0]
+        checking = time.perf_counter()
+        epoch_s.setdefault(key, []).append(checking - resumed[0])
+        again = evaluators[key](gens[key])
+        if not abs(again - record["rmse_test"]) <= TOL_SEARCH_RMSE * abs(again):
+            raise AssertionError(f"{key} epoch {epoch}: rmse_test "
+                                 f"{record['rmse_test']!r}, recomputed {again!r}")
+        recs = records.setdefault(key, [])
+        recs.append(record)
+        if record["rmse_test"] <= min(r["rmse_test"] for r in recs):
+            best_sd[key] = {k: v.detach().clone() for k, v in gens[key].state_dict().items()}
+        resumed[0] = time.perf_counter()
+        checking_s[0] += resumed[0] - checking
+
+    def run(trial, data, tag):
+        current[0] = (tag, trial.number)
+        tracker = LocalTracker(root, experiment_key=f"{tag}_{trial.number}")
+        _kernels.reset_launches()
+        resumed[0] = time.perf_counter()
+        try:
+            return obj.objective(
+                trial, data, suggest=search_space, make_evaluator=make_evaluator,
+                checkpoint_dir=f"{tmp}/checkpoints_{tag}", tracker=tracker, log=on_epoch,
+                rmse_save_threshold=float("inf"), rmse_upload_threshold=float("inf"))
+        finally:
+            torch.cuda.synchronize()
+            launches[current[0]] = dict(_kernels.launches)
+            tracker.end()
+
+    log(f"  study 1: {SEARCH_TRIALS} trials of the reference space, {SEARCH_EPOCHS} "
+        f"epochs, {SEARCH_PRUNER}, sqlite storage, a LocalTracker per trial")
+    study = create_study(direction="minimize", storage=f"sqlite:///{tmp}/search.db",
+                         sampler_seed=0, study_name="DeepBedMap_tuning", **SEARCH_PRUNER)
+    t0 = time.perf_counter()
+    study.optimize(lambda t: run(t, dataset, "trial"), n_trials=SEARCH_TRIALS)
+    # without on_epoch's recomputed evaluation and weight copies
+    out["study_wall_s"] = time.perf_counter() - t0 - checking_s[0]
+    out["study_check_s"] = checking_s[0]
+
+    completed = [t for t in study.trials if t.state == TrialState.COMPLETE]
+    if len(completed) != SEARCH_TRIALS:
+        raise AssertionError(f"study 1: {[t.state for t in study.trials]}")
+    for t in completed:
+        key = ("trial", t.number)
+        recs = records[key]
+        hp = t.params
+        batch = min(2 ** hp["batch_size_exponent"], n_train)  # the objective's
+        steps = SEARCH_EPOCHS * (n_train // batch)
+        # per epoch: the dev batch, the objective's evaluation, the recomputed one
+        want = _search_launches(hp["num_residual_blocks"], steps, 3 * SEARCH_EPOCHS)
+        check_launches(launches[key], want)
+        if len(recs) != SEARCH_EPOCHS or t.value != min(r["rmse_test"] for r in recs):
+            raise AssertionError(f"trial {t.number}: value {t.value} vs records {recs}")
+        tracked = LocalTracker(root, f"trial_{t.number}", create=False)
+        if [m["metrics"]["rmse_test"] for m in tracked.metrics()] != \
+                [r["rmse_test"] for r in recs]:
+            raise AssertionError(f"trial {t.number}: the tracker's metrics differ")
+        if not all(np.isfinite(v) for r in recs for k, v in r.items()
+                   if not isinstance(v, bool)):
+            raise AssertionError(f"trial {t.number}: non-finite record {recs}")
+        log(f"  trial {t.number} {hp}: rmse_test per epoch "
+            + ", ".join(f"{r['rmse_test']:.4f}" for r in recs)
+            + f" m (each equal to its recomputation within {TOL_SEARCH_RMSE:g}); launches "
+            f"{launches[key]} = {steps} steps x (72, 2, 2) + "
+            f"{3 * SEARCH_EPOCHS} evaluations x (36, 1, 1)")
+    best = study.best_trial
+    if best.value != min(t.value for t in completed):
+        raise AssertionError(f"best_value {best.value} is not the smallest completed value")
+    out["best_value_m"] = best.value
+    out["s_per_trial_epoch"] = {str(n): epoch_s[("trial", n)] for n in range(SEARCH_TRIALS)}
+    out["ms_per_evaluation"] = [ms for n in range(SEARCH_TRIALS)
+                                for ms in eval_ms[("trial", n)]]
+
+    log(f"  from_experiment on the best trial ({best.number}, {best.value:.4f} m)")
+    dbm = DeepBedMap.from_experiment(root, f"trial_{best.number}",
+                                     download_path=f"{tmp}/fetched/w.npz", device=DEVICE)
+    sd, want_sd = dbm.model.state_dict(), best_sd[("trial", best.number)]
+    saved = load_generator_state_dict(f"{tmp}/checkpoints_trial/trial_{best.number}",
+                                      use_ema=False)
+    for label, ref in (("the best epoch's weights", want_sd), ("its checkpoint", saved)):
+        if sd.keys() != ref.keys() or not all(torch.equal(sd[k].cpu(), ref[k].cpu())
+                                              for k in ref):
+            raise AssertionError(f"from_experiment's generator differs from {label}")
+    if dbm.cfg.residual_scaling != best.params["residual_scaling"]:
+        raise AssertionError(f"from_experiment scaling {dbm.cfg.residual_scaling}")
+    log("  from_experiment rebuilds the best trial's generator bit for bit (against the "
+        "best epoch's weights and the trial's checkpoint)")
+
+    x0, y0, x1, y1 = cpu_window
+    inside = (track[0] > x0) & (track[0] < x1) & (track[1] > y0) & (track[1] < y1)
+    small = tuple(a[inside] for a in track)
+    rmse = {}
+    for dev in (DEVICE, "cpu"):
+        g = build_generator(dbm.cfg, device=dev)
+        g.load_state_dict(want_sd)
+        rmse[dev] = make_fixed_evaluator(g, cpu_inputs, small, cpu_window, device=dev)()
+    if not abs(rmse[DEVICE] - rmse["cpu"]) <= TOL_SEARCH_RMSE * abs(rmse["cpu"]):
+        raise AssertionError(f"evaluator card {rmse[DEVICE]!r} vs CPU {rmse['cpu']!r}")
+    log(f"  evaluator on {REGION_CPU_KM} km ({int(inside.sum())} points), best weights: "
+        f"card {rmse[DEVICE]!r}, CPU {rmse['cpu']!r} m (tolerance {TOL_SEARCH_RMSE:g} "
+        "relative)")
+
+    log("  study 2: one trial on the tiles with a NaN in one tile's Y")
+    nan_set = TileDataset({k: v.clone() for k, v in dataset.arrays.items()})
+    batch = min(2 ** best.params["batch_size_exponent"], n_train)
+    train_idx, _ = train_dev_split(SEARCH_TILES, 0.95, 42)
+    first = int(epoch_batches(train_idx, batch, np.random.RandomState(42))[0, 0])
+    nan_set.arrays["Y"][first, 17, 17, 0] = float("nan")
+    study2 = create_study(direction="minimize", sampler_seed=1, **SEARCH_PRUNER)
+    study2.optimize(lambda t: run(t, nan_set, "nan"), n_trials=1)
+    t2 = study2.trials[0]
+    recs = records[("nan", t2.number)]
+    if t2.state != TrialState.PRUNED or len(recs) != 1 or \
+            not np.isnan(recs[0]["generator_loss"]):
+        raise AssertionError(f"study 2's trial ended {t2.state} after {recs}")
+    check_launches(launches[("nan", t2.number)],
+                   _search_launches(t2.params["num_residual_blocks"], n_train // batch, 3))
+    log(f"  study 2: tile {first} (epoch 0's first) holds a NaN; the trial ended "
+        f"{t2.state} after epoch 0 by the divergence rule")
+
+    log(f"  CLI: hpo --tiny in a new process on {CLI_HPO_TILES} tiles, with the evaluator "
+        "from files")
+    cli_tiles = f"{tmp}/cli_tiles"
+    os.makedirs(cli_tiles)
+    for k, a in arrays.items():
+        np.save(f"{cli_tiles}/{k}_data.npy", a[:CLI_HPO_TILES])
+    ev_dir = f"{tmp}/eval_inputs"
+    os.makedirs(ev_dir)
+    for k, v in inputs.items():
+        np.save(f"{ev_dir}/{k}.npy", v)
+    with open(f"{tmp}/track.csv", "w") as f:
+        f.write("x,y,z\n" + "".join(f"{x!r},{y!r},{z!r}\n" for x, y, z in
+                                    zip(*(a.tolist() for a in track))))
+    bounds = ",".join(repr(float(v)) for v in window)
+    root_dir = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "deepbedmap_tpu_torch", "hpo", "--tiny", "--trials", "1",
+         "--seed", str(CLI_HPO_SEED), "--tiles", cli_tiles, "--eval-inputs", ev_dir,
+         "--eval-track", f"{tmp}/track.csv", f"--eval-bounds={bounds}",
+         "--storage", f"sqlite:///{tmp}/cli_hpo.db", "--device", DEVICE],
+        cwd=root_dir, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI's hpo failed ({proc.returncode}):\n"
+                             + proc.stdout[-4000:] + proc.stderr[-4000:])
+    cli = json.loads(proc.stdout.strip().splitlines()[-1])
+    cli_wall = time.perf_counter() - t0
+    lib_data = TileDataset.load_npy_dir(cli_tiles, device=DEVICE, suffix="_data")
+    create = obj.create_gan_state
+
+    def perturbed(*args, **kwargs):
+        state = create(*args, **kwargs)
+        gen = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            for model in (state.g, state.d):
+                for p in model.parameters():
+                    p.mul_(1 + PERTURB * torch.randn(p.shape, generator=gen).to(p.device))
+        return state
+
+    lib = []
+    for initial in (create, create, perturbed):
+        obj.create_gan_state = initial
+        try:
+            lib.append(_library_trial(lib_data, inputs, track, window))
+        finally:
+            obj.create_gan_state = create
+    want = lib[0]
+    if want.params["num_epochs"] != 1 or cli["best_params"] != want.params or \
+            cli["value_metric"] != "rmse_test_m" or cli["trials"] != 1:
+        raise AssertionError(f"the CLI's hpo printed {cli}; the library's trial {want}")
+    got = cli["top_trials"][0]["value"]
+    again, moved = abs(lib[1].value - want.value), abs(lib[2].value - want.value)
+    tol = max(TOL_CLI_HPO * abs(want.value), NOISE_K * max(again, moved))
+    if not abs(got - want.value) <= tol or cli["best_value"] != round(got, 4):
+        raise AssertionError(f"the CLI's hpo value {got!r}, the library's {want.value!r} "
+                             f"(tolerance {tol:.3e})")
+    log(f"  CLI hpo: {cli['best_params']}, {got!r} m; the same trial in this process "
+        f"{want.value!r} m, again {lib[1].value!r}, from weights perturbed by {PERTURB:g} "
+        f"{lib[2].value!r} (tolerance {tol:.3e} m); {cli_wall:.1f} s wall of the smoke "
+        f"preset, mostly start-up  [{card_name}]")
+
+    fresh = []
+    for _ in range(LIBRARY_PROCESSES):
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.library_trials("
+             "*sys.argv[1:])", cli_tiles, ev_dir, f"{tmp}/track.csv", bounds],
+            cwd=root_dir, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"library_trials failed ({proc.returncode}):\n"
+                                 + proc.stdout[-4000:] + proc.stderr[-4000:])
+        runs = json.loads(proc.stdout.strip().splitlines()[-1])
+        if runs["params"] != want.params or not all(np.isfinite(runs["values"])):
+            raise AssertionError(f"library_trials printed {runs}; in this process {want}")
+        fresh.append(runs["values"])
+    spread = lambda vals: max(vals) - min(vals)  # noqa: E731
+    log(f"  the same trial in {LIBRARY_PROCESSES} new processes, {LIBRARY_RUNS} runs each: "
+        + "; ".join(", ".join(repr(v) for v in vals) for vals in fresh)
+        + f" m. Spread within a process: here {again:.4g}, "
+        + ", ".join(f"{spread(v):.4g}" for v in fresh)
+        + f" m; between processes (the CLI's, this one's and the new ones' first runs): "
+        f"{spread([got, want.value] + [v[0] for v in fresh]):.4g} m  [{card_name}]")
+    out["cli_hpo"] = {"value_m": got, "library_values_m": [t.value for t in lib],
+                      "new_process_values_m": fresh, "smoke_wall_s": cli_wall}
+
+    for n in range(SEARCH_TRIALS):
+        log(f"  trial {n}: s per epoch (its train steps, dev batch and evaluation), "
+            "epoch by epoch: " + ", ".join(f"{v:.2f}" for v in epoch_s[("trial", n)])
+            + f"  [{card_name}]")
+    log(f"  evaluation at batch 1 ({inputs['X'].shape[-1]} px -> "
+        f"{4 * (inputs['X'].shape[-1] - 2)}^2, {TRACK_POINTS} points): median "
+        f"{np.median(out['ms_per_evaluation']):.2f} ms of {len(out['ms_per_evaluation'])} "
+        f"(CUDA events)  [{card_name}]")
+    log(f"  study 1 wall time: {out['study_wall_s']:.1f} s for {SEARCH_TRIALS} trials x "
+        f"{SEARCH_EPOCHS} epochs, without the check's {out['study_check_s']:.1f} s of "
+        f"recomputed evaluations and weight copies  [{card_name}]")
+    return out
+
+
 # (launch-counter name, source, TPU kernel it replaces, check, small shapes,
 # main-path shape, phase, the configuration whose main path gives its
 # launches); K9's launches come from its own path in phase 15
@@ -2273,6 +2732,12 @@ def main() -> int:
         log("phase 22: training (gradients through the kernels, steps card vs CPU, fit, "
             "checkpoints, the CLI's train)")
         train = training(card_name, rasters, window, tmp)
+        log("phase 23: the hyperparameter search (packaged tiles, studies on the card, "
+            "the fixed-area evaluator, from_experiment, the CLI's hpo)")
+        t0 = time.perf_counter()
+        searched = search(card_name, rasters, window, tmp)
+        searched["phase_wall_s"] = time.perf_counter() - t0
+        log(f"  phase 23 wall time {searched['phase_wall_s']:.1f} s  [{card_name}]")
 
     rows = []
     for name, src, rep, *_, path in KERNELS:
@@ -2285,6 +2750,7 @@ def main() -> int:
         raise AssertionError("a kernel was never launched on its path")
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"training": train}), flush=True)
+    print(json.dumps({"search": searched}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -44,7 +44,7 @@ from deepbedmap_tpu_torch.inference.continent import (
     save_continent_dem,
 )
 from deepbedmap_tpu_torch.inference.engine import TilePlan
-from deepbedmap_tpu_torch.models.api import build_generator
+from deepbedmap_tpu_torch.models.api import build_generator, check_generator_device
 from deepbedmap_tpu_torch.models.generator import Generator
 from deepbedmap_tpu_torch.train.checkpoint import (
     import_chainer_generator_npz,
@@ -68,15 +68,17 @@ class DeepBedMap:
         """``params``: a port ``state_dict``; None draws seeded random
         weights (``models.build_generator``'s default seed). ``device``
         defaults to the card and raises where there is none; pass
-        ``device="cpu"`` for the CPU."""
+        ``device="cpu"`` for the CPU. On a CUDA device, widths the kernels do
+        not take raise ``NotImplementedError`` (``check_generator_device``)."""
         self.cfg = cfg
         self.resolution = resolution
-        self.device = resolve_device(device)
         if params is None:
-            self.model = build_generator(cfg, device=self.device)
+            self.model = build_generator(cfg, device=device)
         else:
+            check_generator_device(cfg, device)
             self.model = Generator(cfg)
             self.model.load_state_dict(params)
+        self.device = resolve_device(device)
         self.model.to(self.device).eval()
 
     @classmethod

@@ -1,22 +1,28 @@
-"""Command-line interface of the port: training, inference and serving on the card.
+"""Command-line interface of the port: data packages, training, search,
+inference and serving on the card.
 
-Counterpart of the training and inference parts of ``deepbedmap_tpu/cli.py``:
+Counterpart of the data-package, training and inference parts of
+``deepbedmap_tpu/cli.py``:
 
+    python -m deepbedmap_tpu_torch verify-data [--datalist FILE]
+    python -m deepbedmap_tpu_torch package-data {push,install,list} --registry DIR
+    python -m deepbedmap_tpu_torch catalog [--root DIR]
     python -m deepbedmap_tpu_torch train [--tiles DIR | --synthetic-tiles N] --out CK
+    python -m deepbedmap_tpu_torch hpo --tiles DIR --trials N --storage sqlite:///db
     python -m deepbedmap_tpu_torch predict --npz W.npz --bounds xmin,ymin,xmax,ymax ...
     python -m deepbedmap_tpu_torch evaluate --dem FILE --track FILE.csv
     python -m deepbedmap_tpu_torch continent --inputs DIR --bounds ... -o OUT [--stream]
     python -m deepbedmap_tpu_torch verify-weights --npz W.npz --inputs DIR --expected GRID
     python -m deepbedmap_tpu_torch serve --npz W.npz [--port 8500]
 
-Every command takes ``--device`` (default ``cuda``: without a card it
-raises; ``--device cpu`` runs the plain versions on the CPU), runs in fp32
+Every command that computes takes ``--device`` (default ``cuda``: without a
+card it raises; ``--device cpu`` runs the plain versions on the CPU), runs in fp32
 (TF32 off, see ``device.disable_tf32``) and prints a one-line JSON result to
 stdout; human logs go to stderr. ``--checkpoint`` reads the port's own
 train-state checkpoints (``train``'s ``--out``; a JAX Orbax directory raises
 ``ValueError``). ``--mesh-devices``, ``--multihost`` and ``train``'s
 ``--live-png`` / ``--live-term`` raise ``NotImplementedError``. The JAX
-CLI's other subcommands (data preparation, search, figures) are not
+CLI's other subcommands (``grid``, ``build``, ``figures``) are not
 registered here yet.
 """
 
@@ -56,11 +62,110 @@ def _load_inputs(path: str) -> dict:
     return {k: np.load(f"{path}/{k}.npy") for k in ("X", "W1", "W2", "W3")}
 
 
+def cmd_verify_data(args) -> int:
+    import os
+
+    from deepbedmap_tpu_torch.data.manifest import (
+        DEFAULT_MANIFEST,
+        download_to_path,
+        parse_datalist,
+        verify_datalist,
+    )
+
+    datalist = args.datalist or DEFAULT_MANIFEST
+    records = parse_datalist(datalist)
+    _log(f"{len(records)} files in manifest")
+    if args.download:
+        for rec in records:
+            if "filename" not in rec or "url" not in rec:
+                continue
+            path = os.path.join(args.root, rec.get("folder", ""), rec["filename"])
+            download_to_path(path, rec["url"])
+    # strict=False: report mismatches instead of raising; absent files are
+    # simply not in the result (an offline machine verifies what it has)
+    results = verify_datalist(datalist, root=args.root, strict=False)
+    bad = sorted(k for k, ok in results.items() if not ok)
+    _emit(
+        {
+            "command": "verify-data",
+            "manifest_files": len(records),
+            "present": len(results),
+            "ok": sum(1 for ok in results.values() if ok),
+            "bad": bad,
+        }
+    )
+    return 1 if bad else 0
+
+
+def cmd_package_data(args) -> int:
+    """Content-addressed dataset packaging (reference quilt build/push/
+    install/load, data_prep.py:938-970, srgan_train.py:87-125)."""
+    import os
+
+    from deepbedmap_tpu_torch.data import packaging
+
+    if args.action == "push":
+        if args.files:
+            # arbitrary-member package (the reference also packaged its
+            # prediction rasters, data_prep.py:950-967)
+            files = {os.path.basename(f): f for f in args.files}
+            pkg_hash = packaging.push(args.name, files, args.registry)
+        else:
+            pkg_hash = packaging.push_training_arrays(
+                args.model_dir, args.registry, name=args.name
+            )
+        _emit({"command": "package-data", "action": "push", "hash": pkg_hash})
+    elif args.action == "install":
+        manifest = packaging.install(
+            args.registry, args.name, args.dest, pkg_hash=args.hash,
+            force=args.force,
+        )
+        _emit(
+            {
+                "command": "package-data",
+                "action": "install",
+                "hash": manifest["hash"],
+                "members": sorted(manifest["members"]),
+            }
+        )
+    elif args.action == "list":
+        vs = packaging.versions(args.registry, args.name)
+        _emit(
+            {
+                "command": "package-data",
+                "action": "list",
+                "versions": [
+                    {"hash": m["hash"], "created": m.get("created", "")}
+                    for m in vs
+                ],
+            }
+        )
+    return 0
+
+
+def cmd_catalog(args) -> int:
+    """Autogenerate per-folder README.md files from the dataset manifest
+    (reference data_prep.py:168-205)."""
+    from deepbedmap_tpu_torch.data.manifest import (
+        DEFAULT_MANIFEST,
+        write_catalog_markdown,
+        write_folder_readmes,
+    )
+
+    datalist = args.datalist or DEFAULT_MANIFEST
+    written = write_folder_readmes(args.root, yaml_file=datalist)
+    if args.catalog:
+        write_catalog_markdown(datalist, out_path=args.catalog)
+        written.append(args.catalog)
+    _emit({"command": "catalog", "written": written})
+    return 0
+
+
 def cmd_train(args) -> int:
     """Train the GAN on tile arrays (the X/W1/W2/W3/Y_data.npy of ``build``)
     or on synthetic tiles, and save the train state to ``--out``."""
     from deepbedmap_tpu_torch.config import GeneratorConfig, TrainConfig
-    from deepbedmap_tpu_torch.data.dataset import ARRAY_KEYS, TileDataset
+    from deepbedmap_tpu_torch.data.dataset import TileDataset
     from deepbedmap_tpu_torch.train.checkpoint import save_checkpoint
     from deepbedmap_tpu_torch.train.loop import fit
     from deepbedmap_tpu_torch.train.state import create_gan_state
@@ -71,8 +176,7 @@ def cmd_train(args) -> int:
             "the PyTorch package yet"
         )
     if args.tiles:
-        arrays = {k: np.load(f"{args.tiles}/{k}_data.npy") for k in ARRAY_KEYS}
-        dataset = TileDataset.from_nchw(arrays, device=args.device)
+        dataset = TileDataset.load_npy_dir(args.tiles, device=args.device, suffix="_data")
     else:
         dataset = TileDataset.synthetic(args.synthetic_tiles, seed=0, device=args.device)
     g_cfg = GeneratorConfig(num_residual_blocks=args.blocks)
@@ -92,6 +196,120 @@ def cmd_train(args) -> int:
             "first_g_loss": round(history[0]["generator_loss"], 4),
             "final_g_loss": round(history[-1]["generator_loss"], 4),
             "checkpoint": args.out,
+        }
+    )
+    return 0
+
+
+def top_trials(study, n: int) -> list:
+    """The ``n`` best completed trials as the JAX CLI reports them, without
+    pandas: the records of ``study.trials_dataframe()`` (``number``,
+    ``state``, ``value``, ``params_<name>``; a column missing from a trial is
+    NaN, and an integer column with a gap is read as float, as pandas types
+    it), completed trials only, by value."""
+    rows = [{"number": t.number, "state": t.state, "value": t.value,
+             **{f"params_{k}": v for k, v in t.params.items()}} for t in study.trials]
+    columns = list(dict.fromkeys(k for row in rows for k in row))
+    gaps = {c for c in columns if any(row.get(c) is None for row in rows)}
+    records = []
+    for row in rows:
+        if row["state"] != "COMPLETE":
+            continue
+        rec = {}
+        for c in columns:
+            v = row.get(c)
+            if v is None:
+                v = float("nan")
+            elif c in gaps and type(v) is int:
+                v = float(v)
+            rec[c] = v
+        records.append(rec)
+    return sorted(records, key=lambda r: r["value"])[:n]
+
+
+def tiny_space(trial) -> dict:
+    """``hpo --tiny``'s search space (a smoke run): batch 4 or 8, 1 RRDB,
+    1 or 2 epochs."""
+    return dict(
+        batch_size_exponent=trial.suggest_int("batch_size_exponent", 2, 3),
+        learning_rate=trial.suggest_float("learning_rate", 1e-4, 2e-4, step=0.1e-4),
+        num_residual_blocks=trial.suggest_int("num_residual_blocks", 1, 1),
+        residual_scaling=trial.suggest_float("residual_scaling", 0.1, 0.3, step=0.05),
+        num_epochs=trial.suggest_int("num_epochs", 1, 2),
+    )
+
+
+def cmd_hpo(args) -> int:
+    """HPO over real tile arrays with a real fixed-test-area RMSE objective —
+    the reference's actual workflow (srgan_train.py:1725-1757: a study over
+    the built dataset, per-epoch Pine-Island RMSE, top-10 report), on
+    ``--device``."""
+    from deepbedmap_tpu_torch.data.dataset import TileDataset
+    from deepbedmap_tpu_torch.hpo import create_study
+    from deepbedmap_tpu_torch.train.objective import objective
+
+    if args.tiles:
+        dataset = TileDataset.load_npy_dir(args.tiles, device=args.device, suffix="_data")
+    else:
+        dataset = TileDataset.synthetic(args.synthetic_tiles, seed=0, device=args.device)
+
+    # fixed-test-area evaluator (reference get_deepbedmap_test_result): the
+    # optimised value is then real metres, not the dev-loss proxy. Built per
+    # trial (residual_scaling changes the forward pass).
+    make_evaluator = None
+    if args.eval_inputs:
+        from deepbedmap_tpu_torch.evalx.fixed import make_fixed_evaluator
+        from deepbedmap_tpu_torch.evalx.track import read_track_csv
+
+        if not (args.eval_track and args.eval_bounds):
+            raise ValueError("--eval-inputs requires --eval-track and --eval-bounds")
+        eval_inputs = _load_inputs(args.eval_inputs)
+        track = read_track_csv(args.eval_track)
+        bounds = tuple(float(v) for v in args.eval_bounds.split(","))
+        make_evaluator = lambda g_model: make_fixed_evaluator(  # noqa: E731
+            g_model, eval_inputs, track, bounds, resolution=args.eval_resolution,
+            device=args.device,
+        )
+
+    study = create_study(
+        direction="minimize",
+        storage=args.storage,
+        sampler_seed=args.seed,
+        pruner="hyperband",
+        min_resource=15,
+        max_resource=150,
+        reduction_factor=3,
+    )
+    kwargs = {}
+    if args.tiny:
+        kwargs["suggest"] = tiny_space
+    if make_evaluator is not None:
+        kwargs["make_evaluator"] = make_evaluator
+    if args.checkpoint_dir:
+        kwargs["checkpoint_dir"] = args.checkpoint_dir
+    study.optimize(lambda t: objective(t, dataset, **kwargs), n_trials=args.trials)
+
+    # top-N trials report (reference: top-10 dataframe, srgan_train.py:1751-1757)
+    top_records = top_trials(study, args.top_n)
+    for rec in top_records:
+        _log("  ".join(f"{k}={v}" for k, v in rec.items()))
+    if args.report:
+        with open(args.report, "w") as f:
+            json.dump({"top_trials": top_records,
+                       "n_trials": len(study.trials)}, f, indent=2)
+    _emit(
+        {
+            "command": "hpo",
+            "trials": len(study.trials),
+            "best_value": round(study.best_value, 4),
+            # with a wired evaluator the value is metres; otherwise the
+            # dev-set generator loss stands in (train/objective.py)
+            "value_metric": (
+                "rmse_test_m" if make_evaluator is not None
+                else "val_generator_loss_proxy"
+            ),
+            "best_params": study.best_params,
+            "top_trials": top_records,
         }
     )
     return 0
@@ -134,12 +352,13 @@ def cmd_evaluate(args) -> int:
 
     x, y, z = read_track_csv(args.track)
     # windowed read: only the track's bounding box (plus a bicubic-stencil
-    # margin) is decoded from the DEM product
+    # margin) is decoded from the DEM product; NaN coordinates are skipped,
+    # as pandas' Series.min / max skip them in the JAX CLI
     dem = read_raster(
         args.dem,
         bounds=(
-            float(x.min()) - 2000.0, float(y.min()) - 2000.0,
-            float(x.max()) + 2000.0, float(y.max()) + 2000.0,
+            float(np.nanmin(x)) - 2000.0, float(np.nanmin(y)) - 2000.0,
+            float(np.nanmax(x)) + 2000.0, float(np.nanmax(y)) + 2000.0,
         ),
     )
     rmse = track_rmse(dem, x, y, z, method=args.method, device=args.device)
@@ -297,6 +516,37 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = p.add_subparsers(dest="command", required=True)
 
+    v = sub.add_parser("verify-data", help="check manifest files against sha256")
+    v.add_argument("--datalist", default=None, help="datasets.yml (default: bundled)")
+    v.add_argument("--root", default=".", help="directory holding the files")
+    v.add_argument("--download", action="store_true", help="fetch missing files first")
+    v.set_defaults(fn=cmd_verify_data)
+
+    pk = sub.add_parser(
+        "package-data",
+        help="content-addressed dataset packages (quilt build/push/install)",
+    )
+    pk.add_argument("action", choices=("push", "install", "list"))
+    pk.add_argument("--registry", required=True, help="registry directory")
+    pk.add_argument("--name", default="deepbedmap/model/train")
+    pk.add_argument("--model-dir", default="model", help="push: dir of *_data.npy")
+    pk.add_argument(
+        "--files", nargs="*", default=None,
+        help="push: explicit member files instead of the training-array dir",
+    )
+    pk.add_argument("--dest", default="model", help="install: output dir")
+    pk.add_argument("--hash", default=None, help="install: pin a version")
+    pk.add_argument("--force", action="store_true")
+    pk.set_defaults(fn=cmd_package_data)
+
+    cat = sub.add_parser(
+        "catalog", help="autogenerate per-folder data README.md files"
+    )
+    cat.add_argument("--root", default=".", help="data root (lowres/ highres/ ...)")
+    cat.add_argument("--datalist", default=None)
+    cat.add_argument("--catalog", default=None, help="also write a full catalog table")
+    cat.set_defaults(fn=cmd_catalog)
+
     t = sub.add_parser("train", help="train the GAN on tile arrays")
     t.add_argument("--tiles", default=None, help="dir with X/W1/W2/W3/Y_data.npy")
     t.add_argument("--synthetic-tiles", type=int, default=16)
@@ -312,6 +562,34 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain versions)")
     t.set_defaults(fn=cmd_train)
+
+    h = sub.add_parser("hpo", help="hyperparameter search (reference pruner config)")
+    h.add_argument("--trials", type=int, default=3)
+    h.add_argument("--storage", default=None, help="sqlite:///path.db")
+    h.add_argument("--seed", type=int, default=42)
+    h.add_argument(
+        "--tiles", default=None,
+        help="dir with X/W1/W2/W3/Y_data.npy (the `build` output); default "
+        "falls back to synthetic tiles",
+    )
+    h.add_argument("--synthetic-tiles", type=int, default=16)
+    h.add_argument("--tiny", action="store_true", help="tiny search space (smoke)")
+    h.add_argument(
+        "--eval-inputs", default=None,
+        help="dir with X/W1/W2/W3.npy (NCHW) covering the fixed test area — "
+        "wires the real RMSE objective (reference Pine Island evaluator)",
+    )
+    h.add_argument("--eval-track", default=None, help="csv with x,y,z columns")
+    h.add_argument("--eval-bounds", default=None, help="xmin,ymin,xmax,ymax")
+    h.add_argument("--eval-resolution", type=float, default=250.0)
+    h.add_argument("--checkpoint-dir", default=None,
+                   help="save per-trial best checkpoints here")
+    h.add_argument("--top-n", type=int, default=10,
+                   help="trials in the report (reference prints top 10)")
+    h.add_argument("--report", default=None, help="write the top-N report JSON here")
+    h.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; 'cpu' runs the plain versions)")
+    h.set_defaults(fn=cmd_hpo)
 
     pr = sub.add_parser("predict", help="super-resolve one region")
     _weights(pr)

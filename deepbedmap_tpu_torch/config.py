@@ -200,6 +200,48 @@ def check_supported(cfg: GeneratorConfig) -> None:
         raise NotImplementedError("the generator tail needs out_channels=1")
 
 
+# the widths the hand-written kernels are built for: the dense-block kernels
+# K1, K4, K5 and K6 take F = 64 trunk channels and G = 32 growth channels
+# (ops/rdb.py FEATURES, GROWTH), the deformable tail K2/K3 and K7/K8 64 input
+# channels (ops/deform_conv.py), K10 64 outputs from 64 or 128 inputs
+# (ops/conv3x3.py C_INS)
+CARD_BASE_CHANNELS = 64
+CARD_GROWTH_CHANNELS = 32
+CARD_CONV_C_INS = (64, 128)
+
+
+def check_card_supported(cfg: GeneratorConfig) -> None:
+    """Raise ``NotImplementedError`` for a generator whose widths or offset
+    clamp the kernels of its configuration do not take, so that a generator
+    built on a CUDA device fails at construction instead of at its first
+    launch. The CPU runs any width and clamp through the plain versions and
+    does not call this."""
+    from deepbedmap_tpu_torch.ops.deform_conv import WINDOW_MAX_CLAMP, check_window_clamp
+
+    bad = []
+    if cfg.base_channels != CARD_BASE_CHANNELS:
+        bad.append(f"base_channels={cfg.base_channels}")
+    if cfg.growth_channels != CARD_GROWTH_CHANNELS:
+        bad.append(f"growth_channels={cfg.growth_channels}")
+    if cfg.fused_conv != "never" and cfg.concat_channels not in CARD_CONV_C_INS:
+        bad.append(f"inblock_channels={cfg.inblock_channels} with fused_conv="
+                   f"{cfg.fused_conv!r}")
+    try:  # both tails run through kernels with windows (K2/K3 or K7/K8)
+        check_window_clamp(cfg.deform_clamp)
+    except ValueError:
+        bad.append(f"deform_clamp={cfg.deform_clamp!r}")
+    if bad:
+        raise NotImplementedError(
+            f"GeneratorConfig({', '.join(bad)}) has no kernels on the card: the "
+            f"{trunk_kernel(cfg)} trunk's dense-block kernel takes base_channels="
+            f"{CARD_BASE_CHANNELS} and growth_channels={CARD_GROWTH_CHANNELS}, the "
+            f"deformable tail {CARD_BASE_CHANNELS} input channels and an integer "
+            f"deform_clamp in [0, {WINDOW_MAX_CLAMP}], and K10 (fused_conv) "
+            f"{CARD_BASE_CHANNELS} outputs from {CARD_CONV_C_INS} inputs "
+            "(4 x inblock_channels); other widths and clamps run only on the CPU"
+        )
+
+
 def check_train_supported(cfg: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for a training setting that selects
     unported code (bf16 compute)."""

@@ -11,8 +11,8 @@ copies from the host.
 the same numpy ``RandomState`` calls, so the index batches equal JAX's bit for
 bit. As in JAX the last partial minibatch of an epoch is dropped (the
 reference tops it up from the next epoch): 28 x 128 = 3584 of 3634 reference
-train tiles per epoch. ``from_package`` (the content-addressed packages of
-``data/packaging.py``) is not ported yet and raises.
+train tiles per epoch. ``from_package`` restores the arrays from a
+content-addressed package (``data/packaging.py``).
 """
 
 from __future__ import annotations
@@ -73,12 +73,15 @@ class TileDataset:
 
     @classmethod
     def load_npy_dir(
-        cls, directory: str, expected_hash: Optional[str] = None, device="cuda"
+        cls, directory: str, expected_hash: Optional[str] = None, device="cuda",
+        suffix: str = "",
     ) -> "TileDataset":
-        """Load X.npy, W1.npy, ... from a directory (the model/train layout).
+        """Load X.npy, W1.npy, ... from a directory (the model/train layout;
+        ``suffix="_data"`` reads the X_data.npy, ... that ``build`` writes).
         ``expected_hash`` pins the content (the reference pins a quilt hash,
         srgan_train.py:89); a mismatch raises."""
-        arrays = {k: np.load(os.path.join(directory, f"{k}.npy")) for k in ARRAY_KEYS}
+        arrays = {k: np.load(os.path.join(directory, f"{k}{suffix}.npy"))
+                  for k in ARRAY_KEYS}
         if expected_hash is not None:
             actual = content_hash(arrays)
             if actual != expected_hash:
@@ -98,12 +101,13 @@ class TileDataset:
     @classmethod
     def from_package(cls, registry: str, name: str = "deepbedmap/model/train",
                      pkg_hash: Optional[str] = None, device="cuda") -> "TileDataset":
-        """The content-addressed package route of the JAX package: not
-        ported yet (``data/packaging.py``)."""
-        raise NotImplementedError(
-            "TileDataset.from_package needs data/packaging.py, which is not "
-            "ported to the PyTorch package yet; use load_npy_dir"
-        )
+        """Restore the training arrays from a content-addressed package
+        (the reference's quilt.load-by-hash path, srgan_train.py:87-125) onto
+        ``device``; every blob's sha256 is verified on the way out."""
+        from deepbedmap_tpu_torch.data.packaging import load_arrays
+
+        loaded = load_arrays(registry, name, pkg_hash)
+        return cls.from_nchw({k: loaded[f"{k}_data"] for k in ARRAY_KEYS}, device)
 
     @classmethod
     def synthetic(cls, n: int, seed: int = 0, device="cuda") -> "TileDataset":

@@ -12,6 +12,8 @@ RMSE.
 
 from __future__ import annotations
 
+import csv
+
 import numpy as np
 import torch
 
@@ -81,17 +83,43 @@ def track_rmse(
     return float(rmse(_sample(raster, x, y, method, dev), as_f32(z, dev)))
 
 
+# pandas.read_csv's default NA strings (``keep_default_na``): a field equal
+# to one of them, after the quotes are taken off, reads as NaN
+NA_STRINGS = frozenset({
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+    "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
+    "nan", "null",
+})
+
+
+def _field(value: str) -> float:
+    return np.nan if value in NA_STRINGS else float(value)
+
+
 def read_track_csv(path: str, columns=("x", "y", "z")):
     """The ``columns`` of a comma-separated track file with a header row, found
     by name, as float64 numpy arrays: what the JAX package reads with
-    ``pandas.read_csv`` (``serve.py:_evaluate``, ``cli.py:cmd_evaluate``),
-    without pandas, which the card's machine does not have. Header names may
-    be quoted; other columns are ignored."""
+    ``pandas.read_csv(path)[list(columns)]`` (``serve.py:_evaluate``,
+    ``cli.py:cmd_evaluate``), without pandas, which the card's machine does
+    not have. As pandas reads them: fields and header names may be quoted;
+    other columns, in any order, are ignored; an empty field or one of
+    pandas' NA strings is NaN, and so is a field missing from a short row;
+    blank lines are skipped; CRLF line endings are read; a file with only
+    its header gives empty arrays. A field that is not a number raises
+    ``ValueError``."""
     with open(path, newline="") as f:
-        header = [h.strip().strip('"').strip() for h in f.readline().split(",")]
+        rows = [row for row in csv.reader(f) if row]
+    header = rows[0] if rows else []
     missing = [c for c in columns if c not in header]
     if missing:
         raise ValueError(f"{path}: no column {missing} in header {header}")
-    data = np.loadtxt(path, delimiter=",", skiprows=1, ndmin=2,
-                      usecols=[header.index(c) for c in columns], dtype=np.float64)
-    return tuple(data[:, i] for i in range(len(columns)))
+    at = [header.index(c) for c in columns]
+    out = []
+    for i in at:
+        try:
+            out.append(np.asarray(
+                [_field(row[i]) if i < len(row) else np.nan for row in rows[1:]],
+                np.float64))
+        except ValueError as e:
+            raise ValueError(f"{path}: column {header[i]!r}: {e}") from None
+    return tuple(out)

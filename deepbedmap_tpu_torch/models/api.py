@@ -14,7 +14,11 @@ from typing import Mapping, Union
 import torch
 from torch import nn
 
-from deepbedmap_tpu_torch.config import DiscriminatorConfig, GeneratorConfig
+from deepbedmap_tpu_torch.config import (
+    DiscriminatorConfig,
+    GeneratorConfig,
+    check_card_supported,
+)
 from deepbedmap_tpu_torch.device import resolve_device
 from deepbedmap_tpu_torch.models.discriminator import Discriminator
 from deepbedmap_tpu_torch.models.generator import Generator
@@ -27,12 +31,23 @@ def count_params(model: Union[nn.Module, Mapping[str, torch.Tensor]]) -> int:
     return sum(t.numel() for t in tensors)
 
 
+def check_generator_device(cfg: GeneratorConfig, device) -> None:
+    """On a CUDA device, refuse widths the kernels do not take
+    (``config.check_card_supported``); the CPU takes any width. Called
+    before the device is resolved, so the refusal does not need a card."""
+    if torch.device(device).type == "cuda":
+        check_card_supported(cfg)
+
+
 def build_generator(
     cfg: GeneratorConfig = GeneratorConfig(), seed: int = 42, device="cuda"
 ) -> Generator:
     """The generator with seeded initial weights, on ``device`` (the card
     unless the caller asks for the CPU; see ``device.resolve_device``). The
-    weights are drawn on the CPU, so every device gets the same numbers."""
+    weights are drawn on the CPU, so every device gets the same numbers.
+    Widths the kernels do not take raise ``NotImplementedError`` on a CUDA
+    device (``check_generator_device``)."""
+    check_generator_device(cfg, device)
     dev = resolve_device(device)
     model = Generator(cfg)
     model.reset_parameters(torch.Generator().manual_seed(seed))

@@ -322,6 +322,30 @@ def tap_projection(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 METHODS = ("auto", "pallas", "zproj", "shifts", "gather")  # JAX's names
 
 
+def _kernel_shape(x_shape, weight_shape, padding: int) -> bool:
+    """A 3x3 kernel, padding 1, 64 input channels and 1 or 64 outputs."""
+    c_out, c_in, kh, kw = weight_shape
+    return padding == 1 and (kh, kw) == (3, 3) and c_in == _C and x_shape[-1] == _C \
+        and c_out in (1, _C)
+
+
+def choose_method(device_type: str, x_shape, weight_shape, padding: int, clamp) -> str:
+    """What ``deform_conv2d(method='auto')`` runs, by shape alone: on a CUDA
+    tensor ``'pallas'`` (the kernels) for every layer K7 / K8 take (3x3,
+    padding 1, 64 input channels, 1 or 64 outputs), and there a clamp their
+    windows do not cover raises ``ValueError`` (``check_window_clamp``)
+    instead of leaving the card's layer to a plain sampler; every other
+    layer takes JAX's rule off the TPU (``deepbedmap_tpu/ops/deform_conv.py``),
+    ``'zproj'`` for an image of at least 256^2 px whose layer contracts
+    channels (C_out * 4 <= C_in), else ``'shifts'``."""
+    if device_type == "cuda" and _kernel_shape(x_shape, weight_shape, padding):
+        check_window_clamp(clamp)
+        return "pallas"
+    c_out, c_in = weight_shape[:2]
+    large = x_shape[1] * x_shape[2] >= 256 * 256
+    return "zproj" if large and c_out * 4 <= c_in else "shifts"
+
+
 def deform_conv2d(
     x: torch.Tensor,  # (N, H, W, C_in)
     offsets: torch.Tensor,  # (N, H, W, 2K), [:K] dy, [K:] dx
@@ -349,28 +373,23 @@ def deform_conv2d(
       ``deform_conv_shifts`` / ``deform_conv_shifts_zproj``, any shape.
     - ``'gather'``: ``deform_conv_gather``, the exact sampler without a
       clamp, any shape.
-    - ``'auto'``: ``'pallas'`` on a CUDA tensor; elsewhere JAX's rule off
-      the TPU, ``'zproj'`` for an image of at least 256^2 px whose layer
-      contracts channels (C_out * 4 <= C_in), else ``'shifts'``.
+    - ``'auto'``: ``choose_method``, the kernels on a CUDA tensor whose
+      layer they take (a clamp they do not cover raises), JAX's rule off
+      the TPU everywhere else.
 
     ``bias`` None adds nothing. Another method raises ``ValueError``."""
     if method not in METHODS:
         raise ValueError(f"unknown deform_conv2d method {method!r}")
-    c_out, c_in, kh, kw = weight.shape
+    c_out = weight.shape[0]
     if method == "auto":
-        if x.device.type == "cuda":
-            method = "pallas"
-        else:
-            large = x.shape[1] * x.shape[2] >= 256 * 256
-            method = "zproj" if large and c_out * 4 <= c_in else "shifts"
+        method = choose_method(x.device.type, x.shape, weight.shape, padding, clamp)
     if method == "shifts":
         return deform_conv_shifts(x, offsets, weight, bias, padding, clamp)
     if method == "zproj":
         return deform_conv_shifts_zproj(x, offsets, weight, bias, padding, clamp)
     if method == "gather":
         return deform_conv_gather(x, offsets, weight, bias, padding)
-    if padding != 1 or (kh, kw) != (3, 3) or c_in != _C or x.shape[-1] != _C \
-            or c_out not in (1, _C):
+    if not _kernel_shape(x.shape, weight.shape, padding):
         raise ValueError(
             "deform_conv2d(method='pallas') takes padding 1, a 3x3 kernel, 64 input "
             f"channels and 1 or 64 output channels; got padding {padding}, weight "

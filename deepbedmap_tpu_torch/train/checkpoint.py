@@ -45,6 +45,7 @@ import torch
 
 from deepbedmap_tpu_torch.config import DiscriminatorConfig, GeneratorConfig
 from deepbedmap_tpu_torch.device import resolve_device
+from deepbedmap_tpu_torch.models.api import check_generator_device
 from deepbedmap_tpu_torch.models.discriminator import Discriminator
 from deepbedmap_tpu_torch.models.generator import Generator
 from deepbedmap_tpu_torch.train.state import GANState
@@ -101,7 +102,9 @@ def restore_checkpoint(path: str, device="cuda") -> GANState:
     caller asks for the CPU)."""
     dev = resolve_device(device)
     payload = _load(path, dev)
-    g = Generator(GeneratorConfig(**payload["g_cfg"]))
+    g_cfg = GeneratorConfig(**payload["g_cfg"])
+    check_generator_device(g_cfg, dev)
+    g = Generator(g_cfg)
     g.load_state_dict(payload["g"])
     g.to(dev)
     d = Discriminator(DiscriminatorConfig(**payload["d_cfg"]), in_px=payload["d_in_px"])

@@ -30,7 +30,6 @@ from deepbedmap_tpu_torch.config import (
     TrainConfig,
     check_train_supported,
 )
-from deepbedmap_tpu_torch.device import resolve_device
 from deepbedmap_tpu_torch.models.api import build_discriminator, build_generator
 from deepbedmap_tpu_torch.models.discriminator import Discriminator
 from deepbedmap_tpu_torch.models.generator import Generator
@@ -106,12 +105,13 @@ def create_gan_state(
 ) -> GANState:
     """Seeded generator (``seed``) and discriminator (``seed + 1``), as in
     JAX, with zeroed Adam states, on ``device`` (the card unless the caller
-    asks for the CPU). ``seed`` defaults to ``t_cfg.seed``."""
+    asks for the CPU). ``seed`` defaults to ``t_cfg.seed``. On a CUDA
+    device, generator widths the kernels do not take raise
+    ``NotImplementedError`` before anything is built (``build_generator``)."""
     check_train_supported(t_cfg)
-    dev = resolve_device(device)
     seed = t_cfg.seed if seed is None else seed
-    g = build_generator(g_cfg, seed=seed, device=dev)
-    d = build_discriminator(d_cfg, seed=seed + 1, device=dev)
+    g = build_generator(g_cfg, seed=seed, device=device)
+    d = build_discriminator(d_cfg, seed=seed + 1, device=device)
     g_ema = None
     if t_cfg.ema_decay > 0:
         g_ema = {k: p.detach().clone() for k, p in g.named_parameters()}

@@ -100,8 +100,13 @@ def test_port_import_loads_no_jax():
         "import deepbedmap_tpu_torch.models.discriminator, deepbedmap_tpu_torch.data.dataset\n"
         "import deepbedmap_tpu_torch.train.state, deepbedmap_tpu_torch.train.steps\n"
         "import deepbedmap_tpu_torch.train.loop, deepbedmap_tpu_torch.train\n"
+        "import deepbedmap_tpu_torch.hpo, deepbedmap_tpu_torch.hpo.engine\n"
+        "import deepbedmap_tpu_torch.models.summary, deepbedmap_tpu_torch.evalx.fixed\n"
+        "import deepbedmap_tpu_torch.train.objective, deepbedmap_tpu_torch.data.manifest\n"
+        "import deepbedmap_tpu_torch.data.packaging\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'deepbedmap_tpu', 'h5py', 'pandas')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'deepbedmap_tpu', 'h5py', 'pandas', "
+        "'yaml', 'matplotlib')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

@@ -47,6 +47,7 @@ from deepbedmap_tpu.train.steps import make_train_step as jax_make_train_step
 from deepbedmap_tpu_torch import DeepBedMap
 from deepbedmap_tpu_torch.bridge import state_dict_to_jax_d_vars, state_dict_to_jax_params
 from deepbedmap_tpu_torch.config import GeneratorConfig, LossConfig, TrainConfig
+from deepbedmap_tpu_torch.data import packaging
 from deepbedmap_tpu_torch.data.dataset import (
     TileDataset,
     content_hash,
@@ -338,8 +339,13 @@ def test_dataset_matches_jax(tmp_path):
     assert content_hash({k: v.numpy().transpose(0, 3, 1, 2) for k, v in back.arrays.items()}) == h
     with pytest.raises(ValueError):
         TileDataset.load_npy_dir(str(tmp_path), expected_hash="0" * 64, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TileDataset.from_package(str(tmp_path), device="cpu")
+    # the package route restores the same arrays, each blob's sha256 checked
+    registry = str(tmp_path / "registry")
+    files = {f"{k}_data.npy": str(tmp_path / f"{k}.npy") for k in jax_dataset.ARRAY_KEYS}
+    pkg_hash = packaging.push("deepbedmap/model/train", files, registry)
+    packed = TileDataset.from_package(registry, pkg_hash=pkg_hash, device="cpu")
+    for k in jax_dataset.ARRAY_KEYS:
+        np.testing.assert_array_equal(packed.arrays[k].numpy(), ds.arrays[k].numpy())
 
 
 def test_bf16_training_is_not_ported():
