@@ -144,12 +144,33 @@ Phases (any failure ends the run with a non-zero exit code):
     weights perturbed by 1e-5), and the same trial twice in each of two
     more new processes (``library_trials``), logged beside it; s per trial
     epoch, ms per evaluation (CUDA events) and the study's wall time without
-    the check's own recomputed evaluations.
+    the check's own recomputed evaluations;
+24. data prep, which launches none of the kernels: (a) the 11 packaged
+    survey formats at reference cardinality (12,000 points each on a 4 x 3
+    mosaic, written by ``write_survey``, a pandas-free copy of
+    ``tests/survey_fixtures.make_survey_miniature``): ``ascii_to_xyz``, each
+    table against the written one; ``get_region``; ``xyz_to_grid`` (exact
+    backend, blockmedian on the card) equal to the same call on the CPU bit
+    for bit; ``get_window_bounds`` and ``filter_within_polygon`` with a
+    notched polygon, the counts the CPU's; ``build_training_arrays`` on the
+    card against the CPU's within 1e-6 of each array's range, the shape
+    contract, finite arrays, ``CONTENT_HASH`` against the saved files and
+    ``TileDataset.load_npy_dir`` against the returned dataset; (b) one
+    survey of ~2e6 points on flight lines over 801^2 gridline nodes through
+    the relax backend on the card: ``blockmedian`` card vs CPU exactly, the
+    solve's constrained nodes equal to their constraints, the grid's NaN
+    cells those of scipy's dilation, a 257^2 cut card vs CPU within 1e-4 of
+    the range; (c) ``python -m deepbedmap_tpu_torch grid`` (``.tif`` out)
+    and ``build`` (``.tif`` surveys and rasters) in new processes, equal to
+    the library's grid and arrays bit for bit, with equal JSON lines; the
+    time of each stage (parse, exact grids, windows + filter, build, relax
+    blockmedian and solve by CUDA events and host clock, the CLI calls).
 
 Each main path checks its own configuration's launch counts (``PER_FORWARD``).
 It prints the script's wall time, one JSON line of phase 22's training
-numbers, one of phase 23's search numbers, one JSON line with each kernel's
-launches (from the main path that runs it), error, times and bound, and ends with
+numbers, one of phase 23's search numbers, one of phase 24's data-prep
+numbers, one JSON line with each kernel's launches (from the main path that
+runs it), error, times and bound, and ends with
 ``{"ok": true, "device": {...}}``. It refuses to run without a CUDA device and
 imports nothing of JAX.
 """
@@ -2605,6 +2626,457 @@ def search(card_name: str, rasters: dict, window, tmp: str) -> dict:
     return out
 
 
+# --- phase 24: data prep ------------------------------------------------------
+
+# (a) tests/test_dataprep_scale.py's reference-cardinality rehearsal: the 11
+# packaged survey formats, 12,000 points each, on a 4 x 3 mosaic of 23 km
+# patches at a 26 km pitch around the West Antarctica lon/lat patch
+PREP_POINTS, PREP_SPAN, PREP_PITCH = 12_000, 23_000.0, 26_000.0
+PREP_BASE_LONLAT = (-99.9, -75.99)
+PREP_BUFFER = 10_000.0  # the grounding-line buffer (data_prep.py:599-607)
+# the parsed tables against the writer's: the fixture's relative 1e-9 (the
+# writer prints 17 digits, which pandas' parser, and so the port's, does not
+# always round correctly); the built arrays card vs CPU: 1e-6 of each array's
+# range (the same float32 sampling, fused multiply-adds on the card)
+TOL_PREP_PARSE = 1e-9
+TOL_PREP_ARRAYS = 1e-6
+# (b) one large survey through the relax backend: 801^2 gridline nodes (200 km
+# at 250 m, above the exact backend's 300,000), ~2e6 points on flight lines;
+# card vs CPU at a 257^2 cut (64 km), within 1e-4 of the range (float32 sums
+# over 500 sweeps per level, fused multiply-adds on the card)
+RELAX_NODES, RELAX_CUT_NODES = 801, 257
+RELAX_LINES, RELAX_LINE_POINTS, RELAX_LINE_KM = 200, 20_000, 300.0
+RELAX_ORIGIN = (-1_700_000.0, -350_000.0)
+RELAX_NOISE_M = 5.0
+TOL_RELAX = 1e-4
+PREP_CLI_SURVEY = "20xx_Antarctica_TO"  # (c): a two-file glob, a converter, lon/lat
+
+
+def survey_bed(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """The smooth synthetic bed of ``tests/survey_fixtures.py`` (metres)."""
+    return -500.0 + 120.0 * np.sin(x / 800.0) + 80.0 * np.cos(y / 700.0) + 1e-4 * (x - y)
+
+
+def write_survey(config: str, out_dir: str, n_points: int, seed: int, span_m: float,
+                 origin) -> tuple:
+    """A pandas-free copy of ``tests/survey_fixtures.make_survey_miniature``:
+    writes the file(s) of ``config``'s format (junk header lines and columns,
+    ``*`` markers, a single-member zip, two files for a ``*`` glob, lon/lat
+    columns where the config reprojects) over ``survey_bed``, and returns the
+    (x, y, z) table ``ascii_to_xyz`` must give."""
+    import fnmatch
+    import zipfile
+
+    from deepbedmap_tpu_torch.data.proj import lonlat_to_xy, xy_to_lonlat
+
+    with open(config) as f:
+        stages = {s["type"]: s for s in json.load(f)["pipeline"]}
+    reader = stages["readers.text"]
+    sep, skip = reader["separator"], int(reader["skip"])
+    names, usecols = reader["header"].split(sep), reader["usecols"].split(sep)
+    rs = np.random.RandomState(seed)
+    px = rs.uniform(origin[0], origin[0] + span_m, n_points)
+    py = rs.uniform(origin[1], origin[1] + span_m, n_points)
+    file_x, file_y = px, py
+    if "filters.reprojection" in stages:
+        file_x, file_y = xy_to_lonlat(px, py)
+        px, py = lonlat_to_xy(file_x, file_y)  # what the reader's reprojection gives
+    z = survey_bed(px, py)
+    values = {}
+    if reader.get("converters"):
+        lhs, _, rhs = dict(reader["converters"]).popitem()[1].partition("-")
+        thickness = rs.uniform(500.0, 1500.0, n_points)
+        values = {lhs: z + thickness, rhs: thickness}
+    plain = sorted(c for c in usecols if c not in values)
+    values.update(zip(plain, (file_x, file_y, z)))
+    columns = [values.get(name, np.full(n_points, float(i))) for i, name in enumerate(names)]
+    write_sep = {"\t": "\t", ",": ","}.get(sep, " ")
+    body = [write_sep.join(map(repr, row)) for row in zip(*(c.tolist() for c in columns))]
+    na_marker = reader.get("na_values")
+    if na_marker:  # the z column's marker in the first two rows, which the reader drops
+        zcol = names.index(lhs if reader.get("converters") else plain[2])
+        for bad in (0, 1):
+            parts = body[bad].split(write_sep)
+            parts[zcol] = na_marker
+            body[bad] = write_sep.join(parts)
+    content = "\n".join([f"# junk header line {r}" for r in range(skip)]
+                        + [write_sep.join(names)] + body) + "\n"
+    pattern = reader["filename"]
+    files = [pattern.replace("?", "1").replace("*", "")]
+    if "*" in pattern:
+        files.append(pattern.replace("?", "1").replace("*", "_b"))
+    for name in files:
+        assert fnmatch.fnmatch(name, pattern), (name, pattern)
+        if name.endswith(".zip"):
+            with zipfile.ZipFile(os.path.join(out_dir, name), "w") as zf:
+                zf.writestr(name[:-4] + ".txt", content)
+        else:
+            with open(os.path.join(out_dir, name), "w") as f:
+                f.write(content)
+    keep = slice(2, None) if na_marker else slice(None)
+    return tuple(np.tile(a[keep], len(files)) for a in (px, py, z))
+
+
+def _prep_raster(bounds, res: float, fn):
+    """A float32 Raster over ``bounds`` (xmin, ymin, xmax, ymax) of ``fn`` at
+    the cell centres."""
+    from deepbedmap_tpu_torch.data.raster import Raster
+
+    xmin, ymin, xmax, ymax = bounds
+    xs = xmin + (np.arange(int((xmax - xmin) / res)) + 0.5) * res
+    ys = ymax - (np.arange(int((ymax - ymin) / res)) + 0.5) * res
+    return Raster(fn(*np.meshgrid(xs, ys)).astype(np.float32), left=float(xmin),
+                  top=float(ymax), res=float(res), nodata=None)
+
+
+def _prep_conditioning(bounds) -> dict:
+    """tests/test_dataprep_scale.py's conditioning rasters over ``bounds``:
+    the bed at 1000 m, the surface at 100 m, velocity x/y at 500 m and
+    accumulation at 1000 m."""
+    x0, y0 = bounds[0] + 9_000.0, bounds[1] + 9_000.0
+    return {"lowres": _prep_raster(bounds, 1000.0, survey_bed),
+            "surface": _prep_raster(bounds, 100.0, lambda x, y: survey_bed(x, y) + 1500.0),
+            "velocity_x": _prep_raster(bounds, 500.0, lambda x, y: 0.001 * (x - x0)),
+            "velocity_y": _prep_raster(bounds, 500.0, lambda x, y: 0.001 * (y - y0)),
+            "accumulation": _prep_raster(bounds, 1000.0, lambda x, y: 0.2 + 0 * x)}
+
+
+def _build(highres, bounds, cond, device, out_dir=None):
+    from deepbedmap_tpu_torch.data.builder import build_training_arrays
+
+    return build_training_arrays(
+        {k: highres[k] for k in bounds}, bounds, lowres=cond["lowres"],
+        surface=cond["surface"], velocity=(cond["velocity_x"], cond["velocity_y"]),
+        accumulation=cond["accumulation"], out_dir=out_dir, device=device)
+
+
+def _synced(fn):
+    """``fn()`` and its host-clock seconds, ended by a synchronise."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _events(fn):
+    """``fn()``, its CUDA-event ms and its host-clock ms, from one call."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end), 1e3 * (time.perf_counter() - t0)
+
+
+def prep_reference(card_name: str, tmp: str) -> tuple:
+    """Phase 24 (a): the 11 survey formats at reference cardinality through
+    parse -> region -> exact grid -> windows -> polygon filter -> training
+    arrays on the card, each stage's counts and the arrays against the same
+    calls on the CPU. Returns (numbers, grids, data dirs, conditioning
+    rasters)."""
+    import torch
+
+    from deepbedmap_tpu_torch.data.dataset import ARRAY_KEYS, TileDataset, content_hash
+    from deepbedmap_tpu_torch.data.gridder import blockmedian, get_region, xyz_to_grid
+    from deepbedmap_tpu_torch.data.pipeline import ascii_to_xyz, list_survey_configs
+    from deepbedmap_tpu_torch.data.proj import lonlat_to_xy
+    from deepbedmap_tpu_torch.data.windows import filter_within_polygon, get_window_bounds
+
+    configs = list_survey_configs()
+    if len(configs) != 11:
+        raise AssertionError(f"{len(configs)} packaged survey configs, not 11")
+    bx, by = lonlat_to_xy(np.array([PREP_BASE_LONLAT[0]]), np.array([PREP_BASE_LONLAT[1]]))
+    base = (float(bx[0]), float(by[0]))
+    out = {"card": card_name, "surveys": len(configs)}
+    xyzs, dirs, t_parse, off_bits = {}, {}, 0.0, 0
+    for k, config in enumerate(configs):
+        name = os.path.splitext(os.path.basename(config))[0]
+        dirs[name] = f"{tmp}/prep/{name}"
+        os.makedirs(dirs[name])
+        want = write_survey(config, dirs[name], PREP_POINTS, 100 + k, PREP_SPAN,
+                            (base[0] + (k % 4) * PREP_PITCH, base[1] + (k // 4) * PREP_PITCH))
+        t0 = time.perf_counter()
+        xyzs[name] = ascii_to_xyz(config, data_dir=dirs[name])
+        t_parse += time.perf_counter() - t0
+        for got, exp in zip((xyzs[name].x, xyzs[name].y, xyzs[name].z), want):
+            if got.shape != exp.shape or not np.allclose(got, exp, rtol=TOL_PREP_PARSE, atol=0):
+                raise AssertionError(f"ascii_to_xyz({name}) differs from the written table")
+            off_bits += int((got != exp).sum())
+    points = sum(map(len, xyzs.values()))
+    out.update(points=points, parse_s=t_parse, parse_values_not_bit_equal=off_bits)
+    log(f"  parse: 11 formats, {points} points in {t_parse:.2f} s ({points / t_parse:.0f} "
+        f"points/s); every table within {TOL_PREP_PARSE:g} relative of the written one, "
+        f"{off_bits} of {3 * points} values not bit-equal (17-digit text, pandas' parser)")
+
+    # the solver imports scipy inside; its first import (~2 s) stays out of
+    # both timings
+    import scipy.ndimage  # noqa: F401
+    import scipy.sparse.linalg  # noqa: F401
+
+    grids, grids_cpu, t_grid, t_grid_cpu = {}, {}, 0.0, 0.0
+    for name, xyz in xyzs.items():
+        region = get_region(xyz)
+        grids[name], dt = _synced(lambda: xyz_to_grid(xyz, region, spacing=250,
+                                                      device=DEVICE))
+        t_grid += dt
+        t0 = time.perf_counter()
+        grids_cpu[name] = xyz_to_grid(xyz, region, spacing=250, device="cpu")
+        t_grid_cpu += time.perf_counter() - t0
+        if grids[name].data.tobytes() != grids_cpu[name].data.tobytes():
+            raise AssertionError(f"the exact grid of {name} differs card vs CPU")
+    # the block medians alone, warm, on the card and on the CPU
+    t_median = {DEVICE: 0.0, "cpu": 0.0}
+    for xyz in xyzs.values():
+        for dev in t_median:
+            t_median[dev] += _synced(lambda: blockmedian(xyz, get_region(xyz), device=dev))[1]
+    cells = sum(g.data.size for g in grids.values())
+    out.update(exact_grids_s=t_grid, exact_grids_cpu_s=t_grid_cpu, grid_cells=cells,
+               exact_blockmedian_s=t_median[DEVICE], exact_blockmedian_cpu_s=t_median["cpu"])
+    log(f"  exact grids (blockmedian on the card, the GMT-surface solve on the host): "
+        f"{cells} cells in {t_grid:.2f} s (all-CPU {t_grid_cpu:.2f} s), equal bit for bit; "
+        f"the 11 block medians again, warm: card {t_median[DEVICE]:.3f} s, CPU "
+        f"{t_median['cpu']:.3f} s  [{card_name}]")
+
+    xmin, ymin = base[0] - 5_000.0, base[1] - 5_000.0
+    xmax, ymax = base[0] + 4 * PREP_PITCH + 5_000.0, base[1] + 3 * PREP_PITCH + 5_000.0
+    notch_x, notch_y = xmin + 20_000.0, ymin + 20_000.0
+    polygon = np.array([(notch_x, ymin), (xmax, ymin), (xmax, ymax), (xmin, ymax),
+                        (xmin, notch_y), (notch_x, notch_y)])
+    t0 = time.perf_counter()
+    windows = {k: get_window_bounds(g) for k, g in grids.items()}
+    kept = {k: [wb[i] for i in filter_within_polygon(wb, polygon, buffer=PREP_BUFFER)]
+            for k, wb in windows.items()}
+    t_windows = time.perf_counter() - t0
+    windows_cpu = {k: get_window_bounds(g) for k, g in grids_cpu.items()}
+    n_windows, n_kept = sum(map(len, windows.values())), sum(map(len, kept.values()))
+    if windows != windows_cpu or not 0 < n_kept < n_windows:
+        raise AssertionError(f"windows {n_windows} -> {n_kept}: not the CPU's, or the "
+                             "notch dropped none")
+    out.update(windows=n_windows, kept=n_kept, windows_filter_s=t_windows)
+    log(f"  windows + filter: {n_windows} -> {n_kept} windows in {t_windows:.2f} s "
+        "(the CPU's grids give the same)")
+
+    cond = _prep_conditioning((xmin - 4_000.0, ymin - 4_000.0, xmax + 4_000.0, ymax + 4_000.0))
+    kept = {k: v for k, v in kept.items() if v}
+    model = f"{tmp}/prep_model"
+    dataset, t_build = _synced(lambda: _build(grids, kept, cond, DEVICE, model))
+    t0 = time.perf_counter()
+    dataset_cpu = _build(grids_cpu, kept, cond, "cpu")
+    t_build_cpu = time.perf_counter() - t0
+    n = len(dataset)
+    if n != len(dataset_cpu) or n != n_kept:
+        raise AssertionError(f"{n} tiles on the card, {len(dataset_cpu)} on the CPU, "
+                             f"{n_kept} windows")
+    shapes = {"X": (n, 11, 11, 1), "W1": (n, 110, 110, 1), "W2": (n, 22, 22, 2),
+              "W3": (n, 11, 11, 1), "Y": (n, 36, 36, 1)}
+    for k in ARRAY_KEYS:
+        got, want = dataset.arrays[k], dataset_cpu.arrays[k]
+        if tuple(got.shape) != shapes[k] or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{k}: shape {tuple(got.shape)} or non-finite values")
+        err = float((got.cpu().double() - want.double()).abs().max())
+        scale = float(want.max() - want.min())
+        if not err <= TOL_PREP_ARRAYS * scale:
+            raise AssertionError(f"{k}: card vs CPU {err:.3e} above "
+                                 f"{TOL_PREP_ARRAYS:g} x range {scale:.3e}")
+    saved = {k: np.load(f"{model}/{k}_data.npy") for k in ARRAY_KEYS}
+    with open(f"{model}/CONTENT_HASH") as f:
+        if f.read().strip() != content_hash(saved):
+            raise AssertionError("CONTENT_HASH is not the content hash of the saved files")
+    loaded = TileDataset.load_npy_dir(model, suffix="_data", device=DEVICE)
+    if not all(torch.equal(loaded.arrays[k], dataset.arrays[k]) for k in ARRAY_KEYS):
+        raise AssertionError("load_npy_dir of the saved arrays differs from the dataset")
+    mb = sum(a.nbytes for a in saved.values()) / 2**20
+    out.update(tiles=n, build_s=t_build, build_cpu_s=t_build_cpu, tiles_per_s=n / t_build,
+               arrays_mb=mb)
+    log(f"  build on the card: {n} tiles, {mb:.1f} MB in {t_build:.2f} s ({n / t_build:.0f} "
+        f"tiles/s, np.save included; CPU {t_build_cpu:.2f} s); card vs CPU within "
+        f"{TOL_PREP_ARRAYS:g} of each range, shapes, finite, CONTENT_HASH, load_npy_dir  "
+        f"[{card_name}]")
+    return out, grids, dirs, cond
+
+
+def _flight_lines(rs, bounds) -> tuple:
+    """~``RELAX_LINES * RELAX_LINE_POINTS / 2`` points along straight
+    flight lines (random centre and heading, 15 m spacing) inside ``bounds``,
+    over ``survey_bed`` with seeded noise."""
+    xmin, ymin, xmax, ymax = bounds
+    cx = rs.uniform(xmin, xmax, RELAX_LINES)[:, None]
+    cy = rs.uniform(ymin, ymax, RELAX_LINES)[:, None]
+    angle = rs.uniform(0.0, np.pi, RELAX_LINES)[:, None]
+    t = np.linspace(-500.0 * RELAX_LINE_KM, 500.0 * RELAX_LINE_KM, RELAX_LINE_POINTS)[None]
+    x, y = (cx + t * np.cos(angle)).ravel(), (cy + t * np.sin(angle)).ravel()
+    inside = (x >= xmin) & (x <= xmax) & (y >= ymin) & (y <= ymax)
+    x, y = x[inside], y[inside]
+    return x, y, survey_bed(x, y) + rs.normal(0.0, RELAX_NOISE_M, x.size)
+
+
+def prep_relax(card_name: str) -> dict:
+    """Phase 24 (b): one large survey through the relax backend on the card:
+    blockmedian card vs CPU, the solve's constrained nodes, the mask against
+    scipy's dilation, stage times; then card vs CPU at a 257^2 cut."""
+    import torch
+    from scipy import ndimage
+
+    from deepbedmap_tpu_torch.data import gridder
+    from deepbedmap_tpu_torch.data.pipeline import XYZ
+    from deepbedmap_tpu_torch.ops.spline import solve_tension_spline
+
+    side = (RELAX_NODES - 1) * 250.0
+    x0, y0 = RELAX_ORIGIN
+    region = (x0, x0 + side, y0, y0 + side)
+    xyz = XYZ(*_flight_lines(np.random.RandomState(24), (x0, y0, x0 + side, y0 + side)))
+    out = {"card": card_name, "relax_points": len(xyz), "relax_nodes": RELAX_NODES ** 2}
+    med, bm_ms, bm_host_ms = _events(lambda: gridder.blockmedian(xyz, region, device=DEVICE))
+    t0 = time.perf_counter()
+    med_cpu = gridder.blockmedian(xyz, region, device="cpu")
+    bm_cpu_s = time.perf_counter() - t0
+    _, bm_warm_ms, bm_warm_host_ms = _events(
+        lambda: gridder.blockmedian(xyz, region, device=DEVICE))
+    for k in "xyz":
+        if not np.array_equal(getattr(med, k), getattr(med_cpu, k), equal_nan=True):
+            raise AssertionError(f"blockmedian {k}: card differs from the CPU")
+    log(f"  relax: {len(xyz)} points on {RELAX_LINES} flight lines, {RELAX_NODES}^2 nodes; "
+        f"blockmedian {len(med)} blocks: {bm_ms:.1f} ms CUDA events / {bm_host_ms:.1f} ms host "
+        f"cold, {bm_warm_ms:.1f} / {bm_warm_host_ms:.1f} ms warm (CPU {bm_cpu_s:.2f} s), "
+        f"card vs CPU equal  [{card_name}]")
+
+    row, col = gridder.relax_nodes(med, region, 250.0)
+    data, has = gridder.node_constraints(row, col, med.z, (RELAX_NODES, RELAX_NODES))
+    z, solve_ms, solve_host_ms = _events(
+        lambda: solve_tension_spline(data, has, iterations=500, device=DEVICE))
+    z = z.cpu().numpy()
+    if not (np.isfinite(z).all() and np.array_equal(z[has], data[has])):
+        raise AssertionError("the solve is not finite or moved a constrained node")
+    grid, grid_ms, grid_host_ms = _events(lambda: gridder.xyz_to_grid(xyz, region,
+                                                                      device=DEVICE))
+    far = ~ndimage.binary_dilation(has, np.ones((3, 3), bool), iterations=3)
+    far_pixel = far[:-1, :-1] | far[:-1, 1:] | far[1:, :-1] | far[1:, 1:]
+    if not np.array_equal(np.isnan(grid.data), far_pixel):
+        raise AssertionError("the relax grid's NaN cells are not scipy's dilation mask")
+    per_1e5 = solve_ms / (RELAX_NODES ** 2 / 1e5)
+    out.update(blockmedian_ms=bm_warm_ms, blockmedian_host_ms=bm_warm_host_ms,
+               blockmedian_cold_ms=bm_ms, blockmedian_cpu_s=bm_cpu_s, solve_ms=solve_ms,
+               solve_host_ms=solve_host_ms, solve_ms_per_1e5_nodes=per_1e5,
+               xyz_to_grid_ms=grid_ms, xyz_to_grid_host_ms=grid_host_ms)
+    log(f"  relax solve (500 sweeps per level): {solve_ms:.1f} ms CUDA events / "
+        f"{solve_host_ms:.1f} ms host = {per_1e5:.2f} ms per 1e5 nodes; constrained nodes "
+        f"exact; whole xyz_to_grid (two solves, offset correction): {grid_ms:.1f} / "
+        f"{grid_host_ms:.1f} ms; NaN cells = scipy's dilation  [{card_name}]")
+
+    cut = (RELAX_CUT_NODES - 1) * 250.0
+    cut_region = (x0, x0 + cut, y0, y0 + cut)
+    inside = (xyz.x <= x0 + cut) & (xyz.y <= y0 + cut)
+    sub = XYZ(xyz.x[inside], xyz.y[inside], xyz.z[inside])
+    got = gridder.xyz_to_grid(sub, cut_region, backend="relax", device=DEVICE).data
+    t0 = time.perf_counter()
+    want = gridder.xyz_to_grid(sub, cut_region, backend="relax", device="cpu").data
+    cut_cpu_s = time.perf_counter() - t0
+    finite = ~np.isnan(want)
+    err = float(np.abs(got[finite].astype(np.float64) - want[finite]).max())
+    scale = float(np.ptp(want[finite]))
+    if not (np.array_equal(np.isnan(got), ~finite) and err <= TOL_RELAX * scale):
+        raise AssertionError(f"relax {RELAX_CUT_NODES}^2 card vs CPU: {err:.3e} above "
+                             f"{TOL_RELAX:g} x range {scale:.3e}, or other NaN cells")
+    out.update(relax_cut_err=err, relax_cut_range=scale, relax_cut_cpu_s=cut_cpu_s)
+    log(f"  relax {RELAX_CUT_NODES}^2 ({int(inside.sum())} points) card vs CPU: max_abs_err "
+        f"{err:.3e} (tolerance {TOL_RELAX * scale:.3e} = {TOL_RELAX:g} x range {scale:.3e}), "
+        f"the same NaN cells; the CPU took {cut_cpu_s:.1f} s")
+    return out
+
+
+def _run_cli(argv, what: str) -> tuple:
+    """``python -m deepbedmap_tpu_torch`` with ``argv`` in a new process from
+    the checkout's root: (its JSON line, its wall seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "deepbedmap_tpu_torch"] + argv,
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI's {what} failed ({proc.returncode}):\n"
+                             + proc.stdout[-4000:] + proc.stderr[-4000:])
+    return json.loads(proc.stdout.strip().splitlines()[-1]), wall
+
+
+def prep_cli(card_name: str, tmp: str, grids: dict, dirs: dict, cond: dict) -> dict:
+    """Phase 24 (c): the CLI's ``grid`` and ``build`` in new processes on the
+    card with GeoTIFF files, each equal to the library's results of (a) bit
+    for bit, and their JSON lines to the library's numbers."""
+    from deepbedmap_tpu_torch.data import geotiff
+    from deepbedmap_tpu_torch.data.dataset import ARRAY_KEYS
+    from deepbedmap_tpu_torch.data.gridder import get_region
+    from deepbedmap_tpu_torch.data.pipeline import ascii_to_xyz, survey_config_path
+    from deepbedmap_tpu_torch.data.raster import read_raster
+    from deepbedmap_tpu_torch.data.windows import get_window_bounds
+
+    name = PREP_CLI_SURVEY
+    config = survey_config_path(name)
+    surveys = f"{tmp}/cli_prep/surveys"
+    os.makedirs(surveys)
+    grid_tif = f"{surveys}/{name}.tif"
+    line, grid_s = _run_cli(["grid", config, "-o", grid_tif, "--data-dir", dirs[name],
+                             "--device", DEVICE], "grid")
+    want = grids[name]
+    xyz = ascii_to_xyz(config, data_dir=dirs[name])
+    expected = {"command": "grid", "points": len(xyz), "region": list(get_region(xyz)),
+                "shape": list(want.data.shape), "out": grid_tif}
+    got = read_raster(grid_tif)
+    if line != expected or got.data.tobytes() != want.data.tobytes() or (
+            got.left, got.top, got.res) != (want.left, want.top, want.res):
+        raise AssertionError(f"the CLI's grid {line} differs from the library's {expected}")
+    log(f"  CLI grid {name} in a new process (GeoTIFF out): equal to (a)'s grid bit for "
+        f"bit, JSON line equal; {grid_s:.1f} s wall  [{card_name}]")
+
+    for other, raster in grids.items():
+        if other != name:
+            geotiff.write_geotiff(f"{surveys}/{other}.tif", raster.data, raster.left,
+                                  raster.top, raster.res, compress=True)
+    argv = ["build", "--surveys", surveys, "-o", f"{tmp}/cli_prep/model", "--device", DEVICE]
+    for key, raster in cond.items():
+        path = f"{tmp}/cli_prep/{key}.tif"
+        geotiff.write_geotiff(path, raster.data, raster.left, raster.top, raster.res,
+                              compress=True)
+        argv += ["--" + key.replace("_", "-"), path]
+    line, build_s = _run_cli(argv, "build")
+    windows = {k: get_window_bounds(g) for k, g in grids.items()}
+    dataset = _build(grids, {k: v for k, v in windows.items() if v}, cond, DEVICE)
+    expected = {"command": "build", "surveys": sorted(grids),
+                "windows": {k: len(v) for k, v in sorted(windows.items())},
+                "tiles": len(dataset), "out": f"{tmp}/cli_prep/model"}
+    if line != expected:
+        raise AssertionError(f"the CLI's build {line} differs from the library's {expected}")
+    for k in ARRAY_KEYS:
+        saved = np.load(f"{tmp}/cli_prep/model/{k}_data.npy")
+        if saved.tobytes() != dataset.arrays[k].permute(0, 3, 1, 2).contiguous().cpu(
+                ).numpy().tobytes():
+            raise AssertionError(f"the CLI's build: {k} differs from the library's")
+    log(f"  CLI build in a new process (GeoTIFF surveys and rasters): {len(dataset)} tiles "
+        f"equal to build_training_arrays' bit for bit, JSON line equal; {build_s:.1f} s wall"
+        f"  [{card_name}]")
+    return {"cli_grid_s": grid_s, "cli_build_s": build_s, "cli_build_tiles": len(dataset)}
+
+
+def data_prep(card_name: str, tmp: str) -> dict:
+    """Phase 24: data prep on the card, (a), (b) and (c) (the module
+    docstring lists their checks). Returns the numbers of its JSON line."""
+    t0 = time.perf_counter()
+    log("  (a) 11 survey formats at reference cardinality")
+    out, grids, dirs, cond = prep_reference(card_name, tmp)
+    log("  (b) one large survey through the relax backend")
+    out.update(prep_relax(card_name))
+    log("  (c) the CLI's grid and build in new processes")
+    out.update(prep_cli(card_name, tmp, grids, dirs, cond))
+    out["phase_wall_s"] = time.perf_counter() - t0
+    log(f"  phase 24 wall time {out['phase_wall_s']:.1f} s  [{card_name}]")
+    return out
+
+
 # (launch-counter name, source, TPU kernel it replaces, check, small shapes,
 # main-path shape, phase, the configuration whose main path gives its
 # launches); K9's launches come from its own path in phase 15
@@ -2738,6 +3210,9 @@ def main() -> int:
         searched = search(card_name, rasters, window, tmp)
         searched["phase_wall_s"] = time.perf_counter() - t0
         log(f"  phase 23 wall time {searched['phase_wall_s']:.1f} s  [{card_name}]")
+        log("phase 24: data prep (survey ascii, blockmedian, gridding, windows, training "
+            "arrays, the CLI's grid and build)")
+        prepared = data_prep(card_name, tmp)
 
     rows = []
     for name, src, rep, *_, path in KERNELS:
@@ -2751,6 +3226,7 @@ def main() -> int:
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"training": train}), flush=True)
     print(json.dumps({"search": searched}), flush=True)
+    print(json.dumps({"data_prep": prepared}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,14 @@
-"""Command-line interface of the port: data packages, training, search,
-inference and serving on the card.
+"""Command-line interface of the port: data packages, data prep, training,
+search, inference and serving on the card.
 
-Counterpart of the data-package, training and inference parts of
+Counterpart of the data-package, data-prep, training and inference parts of
 ``deepbedmap_tpu/cli.py``:
 
     python -m deepbedmap_tpu_torch verify-data [--datalist FILE]
     python -m deepbedmap_tpu_torch package-data {push,install,list} --registry DIR
     python -m deepbedmap_tpu_torch catalog [--root DIR]
+    python -m deepbedmap_tpu_torch grid SURVEY.json -o out.tif [--data-dir DIR]
+    python -m deepbedmap_tpu_torch build --surveys DIR --lowres BED ... -o DIR
     python -m deepbedmap_tpu_torch train [--tiles DIR | --synthetic-tiles N] --out CK
     python -m deepbedmap_tpu_torch hpo --tiles DIR --trials N --storage sqlite:///db
     python -m deepbedmap_tpu_torch predict --npz W.npz --bounds xmin,ymin,xmax,ymax ...
@@ -21,9 +23,10 @@ card it raises; ``--device cpu`` runs the plain versions on the CPU), runs in fp
 stdout; human logs go to stderr. ``--checkpoint`` reads the port's own
 train-state checkpoints (``train``'s ``--out``; a JAX Orbax directory raises
 ``ValueError``). ``--mesh-devices``, ``--multihost`` and ``train``'s
-``--live-png`` / ``--live-term`` raise ``NotImplementedError``. The JAX
-CLI's other subcommands (``grid``, ``build``, ``figures``) are not
-registered here yet.
+``--live-png`` / ``--live-term`` raise ``NotImplementedError``. ``grid``
+writes a GeoTIFF for ``-o *.tif`` and NetCDF otherwise; ``build`` reads
+``*.nc`` and ``*.tif`` surveys. The JAX CLI's ``figures`` is not registered
+here yet.
 """
 
 from __future__ import annotations
@@ -158,6 +161,88 @@ def cmd_catalog(args) -> int:
         write_catalog_markdown(datalist, out_path=args.catalog)
         written.append(args.catalog)
     _emit({"command": "catalog", "written": written})
+    return 0
+
+
+def _write_grid(raster, path: str) -> None:
+    """``.tif``/``.tiff``: a float32 LZW GeoTIFF, NaN kept (the card's
+    machine has no h5py); anything else NetCDF, as the JAX CLI writes."""
+    if path.endswith((".tif", ".tiff")):
+        from deepbedmap_tpu_torch.data import geotiff
+
+        geotiff.write_geotiff(path, raster.data.astype(np.float32), raster.left,
+                              raster.top, raster.res, compress=True)
+    else:
+        from deepbedmap_tpu_torch.data.raster import write_netcdf
+
+        write_netcdf(raster, path)
+
+
+def cmd_grid(args) -> int:
+    from deepbedmap_tpu_torch.data.gridder import get_region, xyz_to_grid
+    from deepbedmap_tpu_torch.data.pipeline import ascii_to_xyz
+
+    xyz = ascii_to_xyz(args.survey, data_dir=args.data_dir)
+    _log(f"{len(xyz)} points from {args.survey}")
+    region = get_region(xyz, args.spacing, mode=args.region_mode)
+    raster = xyz_to_grid(xyz, region, spacing=args.spacing, device=args.device)
+    _write_grid(raster, args.out)
+    _emit(
+        {
+            "command": "grid",
+            "points": int(len(xyz)),
+            "region": list(region),
+            "shape": list(raster.data.shape),
+            "out": args.out,
+        }
+    )
+    return 0
+
+
+def cmd_build(args) -> int:
+    """Gridded surveys + conditioning rasters -> X/W1/W2/W3/Y training arrays
+    (reference data_prep.py:745-930: window proposal over each high-res grid,
+    selective tiling of every input on the card, .npy stack with content-hash
+    pin). Surveys and rasters are NetCDF or GeoTIFF (``read_raster``)."""
+    import glob as _glob
+    import os
+
+    from deepbedmap_tpu_torch.data.builder import build_training_arrays
+    from deepbedmap_tpu_torch.data.raster import read_raster
+    from deepbedmap_tpu_torch.data.windows import get_window_bounds
+
+    survey_paths = sorted(p for ext in ("*.nc", "*.tif")
+                          for p in _glob.glob(os.path.join(args.surveys, ext)))
+    if not survey_paths:
+        raise ValueError(f"no gridded surveys (*.nc, *.tif) under {args.surveys}")
+    names = [os.path.splitext(os.path.basename(p))[0] for p in survey_paths]
+    if len(set(names)) != len(names):
+        raise ValueError(f"a survey is under {args.surveys} twice: {names}")
+    highres = {name: read_raster(p) for name, p in zip(names, survey_paths)}
+    window_bounds = {
+        name: get_window_bounds(r, step=args.window_step)
+        for name, r in highres.items()
+    }
+    dataset = build_training_arrays(
+        highres,
+        window_bounds,
+        lowres=read_raster(args.lowres),
+        surface=read_raster(args.surface),
+        velocity=(read_raster(args.velocity_x), read_raster(args.velocity_y)),
+        accumulation=read_raster(args.accumulation),
+        lowres_gapfiller=args.gapfiller,
+        out_dir=args.out,
+        device=args.device,
+    )
+    _emit(
+        {
+            "command": "build",
+            "surveys": sorted(highres),
+            "windows": {k: len(v) for k, v in window_bounds.items()},
+            "tiles": len(dataset),
+            "out": args.out,
+        }
+    )
     return 0
 
 
@@ -546,6 +631,39 @@ def build_parser() -> argparse.ArgumentParser:
     cat.add_argument("--datalist", default=None)
     cat.add_argument("--catalog", default=None, help="also write a full catalog table")
     cat.set_defaults(fn=cmd_catalog)
+
+    g = sub.add_parser("grid", help="survey config -> gridded NetCDF or GeoTIFF")
+    g.add_argument("survey", help="per-survey pipeline JSON (highres/*.json format)")
+    g.add_argument("-o", "--out", required=True,
+                   help="output grid: .tif/.tiff for GeoTIFF, else NetCDF")
+    g.add_argument("--data-dir", default=None)
+    g.add_argument("--spacing", type=float, default=250.0)
+    g.add_argument("--region-mode", choices=("round", "surface"), default="round")
+    g.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; 'cpu' runs on the CPU)")
+    g.set_defaults(fn=cmd_grid)
+
+    b = sub.add_parser(
+        "build", help="gridded surveys + conditioning rasters -> training arrays"
+    )
+    b.add_argument(
+        "--surveys", required=True,
+        help="dir of gridded surveys (*.nc NetCDF or *.tif GeoTIFF)",
+    )
+    b.add_argument("--lowres", required=True, help="BEDMAP2-style bed (NetCDF or GeoTIFF)")
+    b.add_argument("--surface", required=True, help="REMA-style surface")
+    b.add_argument("--velocity-x", required=True)
+    b.add_argument("--velocity-y", required=True)
+    b.add_argument("--accumulation", required=True)
+    b.add_argument("-o", "--out", required=True, help="output dir for *_data.npy")
+    b.add_argument("--window-step", type=int, default=3)
+    b.add_argument(
+        "--gapfiller", type=float, default=None,
+        help="nodata fill for the lowres bed (reference inference uses -5000)",
+    )
+    b.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; 'cpu' runs on the CPU)")
+    b.set_defaults(fn=cmd_build)
 
     t = sub.add_parser("train", help="train the GAN on tile arrays")
     t.add_argument("--tiles", default=None, help="dir with X/W1/W2/W3/Y_data.npy")

@@ -1,11 +1,12 @@
 """Typed configuration for the PyTorch port.
 
 Counterpart of ``deepbedmap_tpu/config.py``: ``GeneratorConfig``,
-``DiscriminatorConfig``, ``LossConfig``, ``TrainConfig`` and
-``InferenceConfig`` are copied field for field with the same defaults, so a
-configuration written for the JAX package means the same model and the same
-training run here. They are copied rather than imported because importing
-anything from ``deepbedmap_tpu`` loads JAX, which the port never needs.
+``DiscriminatorConfig``, ``LossConfig``, ``TrainConfig``,
+``InferenceConfig`` and ``TilingConfig`` are copied field for field with the
+same defaults, so a configuration written for the JAX package means the
+same model and the same training run here. They are copied rather than
+imported because importing anything from ``deepbedmap_tpu`` loads JAX, which
+the port never needs.
 
 Several generator fields select JAX code paths that the port does not have yet
 (the plain XLA dense block ``fused_rdb='never'``, bf16 compute, the
@@ -180,6 +181,22 @@ class InferenceConfig:
     halo_lr: int = 18  # extra low-res input pixels at borders ("xtrapad")
     scale: int = 4
     tile_axis: str = "data"  # mesh axis name in the JAX package; unused here
+
+
+@dataclasses.dataclass(frozen=True)
+class TilingConfig:
+    """Training-tile proposal (reference data_prep.py:501-572)."""
+
+    tile_px: int = 36  # 36 px * 250 m = 9 km square tiles
+    step_px: int = 3  # slide by 3 px = 750 m
+    resolution: float = 250.0
+    padding: float = 1000.0  # metres of context added to conditioning tiles
+    gapfill_bed: float = -5000.0
+    gapfill_vel: float = 0.0
+    gapfill_accum: float = 0.0
+
+
+DEFAULT_TILING = TilingConfig()
 
 
 def check_supported(cfg: GeneratorConfig) -> None:

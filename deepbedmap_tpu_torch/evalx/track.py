@@ -17,6 +17,7 @@ import csv
 import numpy as np
 import torch
 
+from deepbedmap_tpu_torch.data.pipeline import parse_floats
 from deepbedmap_tpu_torch.data.raster import Raster
 from deepbedmap_tpu_torch.device import resolve_device
 from deepbedmap_tpu_torch.ops.interp import (
@@ -83,19 +84,6 @@ def track_rmse(
     return float(rmse(_sample(raster, x, y, method, dev), as_f32(z, dev)))
 
 
-# pandas.read_csv's default NA strings (``keep_default_na``): a field equal
-# to one of them, after the quotes are taken off, reads as NaN
-NA_STRINGS = frozenset({
-    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
-    "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
-    "nan", "null",
-})
-
-
-def _field(value: str) -> float:
-    return np.nan if value in NA_STRINGS else float(value)
-
-
 def read_track_csv(path: str, columns=("x", "y", "z")):
     """The ``columns`` of a comma-separated track file with a header row, found
     by name, as float64 numpy arrays: what the JAX package reads with
@@ -104,6 +92,8 @@ def read_track_csv(path: str, columns=("x", "y", "z")):
     not have. As pandas reads them: fields and header names may be quoted;
     other columns, in any order, are ignored; an empty field or one of
     pandas' NA strings is NaN, and so is a field missing from a short row;
+    numbers are parsed as pandas' C parser parses them
+    (``data.pipeline.parse_floats``);
     blank lines are skipped; CRLF line endings are read; a file with only
     its header gives empty arrays. A field that is not a number raises
     ``ValueError``."""
@@ -117,9 +107,7 @@ def read_track_csv(path: str, columns=("x", "y", "z")):
     out = []
     for i in at:
         try:
-            out.append(np.asarray(
-                [_field(row[i]) if i < len(row) else np.nan for row in rows[1:]],
-                np.float64))
+            out.append(parse_floats([row[i] if i < len(row) else "" for row in rows[1:]]))
         except ValueError as e:
             raise ValueError(f"{path}: column {header[i]!r}: {e}") from None
     return tuple(out)

@@ -103,7 +103,11 @@ def test_port_import_loads_no_jax():
         "import deepbedmap_tpu_torch.hpo, deepbedmap_tpu_torch.hpo.engine\n"
         "import deepbedmap_tpu_torch.models.summary, deepbedmap_tpu_torch.evalx.fixed\n"
         "import deepbedmap_tpu_torch.train.objective, deepbedmap_tpu_torch.data.manifest\n"
-        "import deepbedmap_tpu_torch.data.packaging\n"
+        "import deepbedmap_tpu_torch.data.packaging, deepbedmap_tpu_torch.data.proj\n"
+        "import deepbedmap_tpu_torch.data.windows, deepbedmap_tpu_torch.data.geojson\n"
+        "import deepbedmap_tpu_torch.data.pipeline, deepbedmap_tpu_torch.data.gridder\n"
+        "import deepbedmap_tpu_torch.data.builder, deepbedmap_tpu_torch.ops.spline\n"
+        "import deepbedmap_tpu_torch.ops.gmt_surface, deepbedmap_tpu_torch.data\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'deepbedmap_tpu', 'h5py', 'pandas', "
         "'yaml', 'matplotlib')]\n"
