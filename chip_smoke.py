@@ -164,13 +164,38 @@ Phases (any failure ends the run with a non-zero exit code):
     and ``build`` (``.tif`` surveys and rasters) in new processes, equal to
     the library's grid and arrays bit for bit, with equal JSON lines; the
     time of each stage (parse, exact grids, windows + filter, build, relax
-    blockmedian and solve by CUDA events and host clock, the CLI calls).
+    blockmedian and solve by CUDA events and host clock, the CLI calls);
+25. evaluation and figures, on phase 19's window, rasters, npz weights and
+    10^5 track points: (a) ``dbm.predict`` with its launch counts (K1 36,
+    K2 1, K3 1); the 'cubicbedmap' baseline, ``bicubic_upsample`` x4 of the
+    gapfilled BEDMAP2 input the model saw (``get_model_inputs``' X as a
+    ``Raster``), and the synthetic-HRES one, ``bilinear_resample`` x1/2.5 of
+    the 100 m surface; ``track_rmse`` of DeepBedMap and of cubicbedmap
+    (deepbedmap.py:577-626); ``standard_deviation_2d`` (window 5) and
+    ``hillshade`` of both grids; elevation and roughness transects of both on
+    400 points; each card vs CPU (``TOL_BASELINE`` and the rest) and each
+    stage timed warm by CUDA events; (b) the figure set: with matplotlib,
+    ``viz.figure_set.main`` and the CLI's ``figures`` in a new process (seven
+    non-empty PNGs each); without it (the card's machine), the figure set's
+    hillshades, roughness grids and transects card vs CPU and the CLI's
+    ``figures`` refusing with an error that names matplotlib; (c) the CLI's
+    ``train --live-term`` (and ``--live-png`` with matplotlib) in a new
+    process, 256 synthetic tiles, 2 epochs, 12 RRDBs, batch 128: one
+    sparkline line per metric after each epoch, then the JSON line; (d) a
+    ``utils.profiling.trace`` of one warm default ``predict_continent`` on
+    phase 6's region: K1's, K2's and K3's kernel symbols among the trace's
+    CUDA kernel events, the five device operations with the most time, the
+    longest idle gaps and the device's idle share (``trace_summary``), not
+    timed; (e) the analytic FLOPs (``utils.flops``) of the forwards of phases
+    6, 12, 17 and 18 and of phase 22's step over their CUDA-event times, as
+    a share of the TF32 tensor-core peak (log lines).
 
 Each main path checks its own configuration's launch counts (``PER_FORWARD``).
 It prints the script's wall time, one JSON line of phase 22's training
 numbers, one of phase 23's search numbers, one of phase 24's data-prep
-numbers, one JSON line with each kernel's launches (from the main path that
-runs it), error, times and bound, and ends with
+numbers, one of phase 25's evaluation numbers, one JSON line with each
+kernel's launches (from the main path that runs it), error, times and bound,
+and ends with
 ``{"ok": true, "device": {...}}``. It refuses to run without a CUDA device and
 imports nothing of JAX.
 """
@@ -285,11 +310,13 @@ CLI_FLAGS = {"bed_lowres": "--bed", "surface": "--surface", "velocity_x": "--vel
              "velocity_y": "--velocity-y", "accumulation": "--accumulation"}
 
 # the H100 SXM's published peaks (NVIDIA's data sheet, dense rates, at its
-# 700 W limit): fp32 outside the tensor cores, TF32 on the tensor cores, HBM
-# bandwidth. See bound().
-PEAK_FP32_FLOPS = 67e12
-PEAK_TF32_TC = 495e12
-PEAK_HBM_BYTES = 3.35e12
+# 700 W limit), kept in the port's utils/flops.py: fp32 outside the tensor
+# cores, TF32 on the tensor cores, HBM bandwidth. See bound().
+from deepbedmap_tpu_torch.utils.flops import (  # noqa: E402
+    H100_FP32_PEAK_FLOPS as PEAK_FP32_FLOPS,
+    H100_HBM_BYTES_PER_S as PEAK_HBM_BYTES,
+    H100_TF32_TC_PEAK_FLOPS as PEAK_TF32_TC,
+)
 
 # the four ported generator configurations and the kernels one forward of
 # each launches (every other counter must stay 0)
@@ -861,22 +888,10 @@ def check_launches(launches: dict, expected: dict) -> None:
         raise AssertionError(f"launch counts {launches} != expected {expected}")
 
 
-def main_path(card_name: str, config: str, params=None, want=None):
-    """Phases 6, 12, 17 and 18: DeepBedMap.predict_continent in the
-    configuration ``CONFIGS[config]`` on a 2 x 2-tile region, with ``params``
-    (a state_dict) or the seeded weights; its launch counts are held against
-    ``PER_FORWARD[config]`` and its output against ``want`` when given.
-    Returns the kernels' launch counts in that run, the model and the
-    output."""
-    import torch
-
-    from deepbedmap_tpu_torch import DeepBedMap
-    from deepbedmap_tpu_torch.config import GeneratorConfig
-    from deepbedmap_tpu_torch.inference import TilePlan, predict_region
-    from deepbedmap_tpu_torch.ops import _kernels
-
-    res_m, tile_out, halo_lr, tpd = 250.0, TILE_OUT, HALO_LR, TILES_PER_DISPATCH
-    out = 2 * tile_out
+def continent_region():
+    """Phase 6's region: (NCHW inputs of a 2 x 2-tile region at 250 m, its
+    bounds, ``predict_continent``'s tiling keywords)."""
+    out = 2 * TILE_OUT
     lh = out // 4
     rng = np.random.default_rng(2)
     inputs = {
@@ -885,10 +900,29 @@ def main_path(card_name: str, config: str, params=None, want=None):
         "W2": rng.random((1, 2, 2 * lh, 2 * lh), dtype=np.float32),
         "W3": rng.random((1, 1, lh, lh), dtype=np.float32),
     }
-    bounds = (0.0, 0.0, out * res_m, out * res_m)
+    kw = dict(tile_out=TILE_OUT, halo_lr=HALO_LR, tiles_per_dispatch=TILES_PER_DISPATCH)
+    return inputs, (0.0, 0.0, out * 250.0, out * 250.0), kw
+
+
+def main_path(card_name: str, config: str, params=None, want=None):
+    """Phases 6, 12, 17 and 18: DeepBedMap.predict_continent in the
+    configuration ``CONFIGS[config]`` on a 2 x 2-tile region, with ``params``
+    (a state_dict) or the seeded weights; its launch counts are held against
+    ``PER_FORWARD[config]`` and its output against ``want`` when given.
+    Returns the kernels' launch counts in that run, the model, the output and
+    the device time of one forward at batch 2 (CUDA events)."""
+    import torch
+
+    from deepbedmap_tpu_torch import DeepBedMap
+    from deepbedmap_tpu_torch.config import GeneratorConfig
+    from deepbedmap_tpu_torch.inference import TilePlan, predict_region
+    from deepbedmap_tpu_torch.ops import _kernels
+
+    tile_out, halo_lr, tpd = TILE_OUT, HALO_LR, TILES_PER_DISPATCH
+    out = 2 * tile_out
+    inputs, bounds, kw = continent_region()
     flags = CONFIGS[config]
     dbm = DeepBedMap(params, cfg=GeneratorConfig(**flags), device=DEVICE)
-    kw = dict(tile_out=tile_out, halo_lr=halo_lr, tiles_per_dispatch=tpd)
 
     _kernels.reset_launches()
     t0 = time.perf_counter()
@@ -928,7 +962,7 @@ def main_path(card_name: str, config: str, params=None, want=None):
         log(f"  forward at batch {tpd} x {plan.crop_lr} px, {name}: {ms:.2f} ms  "
             f"[{card_name}]")
     log(f"  forward total: {sum(stage_ms.values()):.2f} ms  [{card_name}]")
-    return launches, dbm.model, got
+    return launches, dbm.model, got, sum(stage_ms.values())
 
 
 def _smooth_field(rs, xc, yc, base: float, amp: float, terms: int = 6) -> np.ndarray:
@@ -1051,10 +1085,12 @@ def region_kernels(model, nhwc, dem: np.ndarray) -> None:
                 sample_tap_fields(z[..., None], off2, b2, 1, clamp), TOL_KERNEL)
 
 
-def single_region(card_name: str, params):
+def single_region(card_name: str, params) -> dict:
     """Phase 19: the reference's single-region workflow with phase 6's
     weights (``params``, a state_dict on the card). Returns the five source
-    rasters and the 286 km window, which phase 21 serves."""
+    ``rasters`` and the 286 km ``window``, which phase 21 serves, the
+    ``dbm`` loaded from the npz and the ``track`` (x, y, z), which phase 25
+    evaluates."""
     import tempfile
 
     import torch
@@ -1182,7 +1218,7 @@ def single_region(card_name: str, params):
     log(f"  track_rmse {TRACK_POINTS} points, warm: {rmse_ms:.2f} ms  [{card_name}]")
     for name, ms in forward_breakdown(dbm.model, nhwc).items():
         log(f"  forward at batch 1 x {REGION_KM + 2} px, {name}: {ms:.2f} ms  [{card_name}]")
-    return rasters, window
+    return {"rasters": rasters, "window": window, "dbm": dbm, "track": (tx, ty, tz)}
 
 
 def _expected_launches(forwards: int) -> dict:
@@ -3077,6 +3113,359 @@ def data_prep(card_name: str, tmp: str) -> dict:
     return out
 
 
+# phase 25: evaluation, figures, live curves and a trace, on phase 19's
+# window, rasters, weights and track
+EVAL_HRES_FACTOR = 1 / 2.5  # the synthetic-HRES baseline (deepbedmap.py:344-356)
+ROUGH_WINDOW = 5  # the paper's roughness window (paper_figures.py:847-865)
+TRANSECT_POINTS, TRANSECT_INSET = 400, 2000.0
+# card vs CPU: the baselines 1e-6 of each output's range; the roughness
+# variance 1e-6 x max(x^2) (the one-pass formula's error scale, JAX's);
+# the hillshade 1e-5 absolute; transects 1e-4 of each profile's range; the
+# track RMSEs 1e-5 relative
+TOL_BASELINE, TOL_VARIANCE, TOL_HILLSHADE = 1e-6, 1e-6, 1e-5
+TOL_TRANSECT, TOL_EVAL_RMSE = 1e-4, 1e-5
+EVAL_REPS = 3
+LIVE_TILES, LIVE_EPOCHS = 256, 2  # the CLI's train, 12 RRDBs at batch 128
+# a kernel of each of the main path's three wrappers, as its symbol appears
+# among the trace's CUDA kernel events (K1 runs its five conv stages as
+# conv3x3_tc_stage launches)
+TRACE_SYMBOLS = {"rdb_forward": "conv3x3_tc_stage", "deform64_lrelu": "deform64_tc_kernel",
+                 "deform_zproj1": "deform_zproj1_kernel"}
+TRACE_DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def close_nan(label: str, got: np.ndarray, want: np.ndarray, tol: float,
+              scale: float = None, squared: bool = False) -> float:
+    """``got`` against ``want`` with NaN masks equal; the error is of the
+    finite cells (of their squares when ``squared``), the tolerance ``tol`` x
+    ``scale`` (default: ``want``'s finite range). Returns the error."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{label}: shape {got.shape} != {want.shape}")
+    nan = np.isnan(want)
+    if not np.array_equal(np.isnan(got), nan):
+        raise AssertionError(f"{label}: NaN masks differ")
+    if nan.all():
+        raise AssertionError(f"{label}: all NaN")
+    g, w = got[~nan].astype(np.float64), want[~nan].astype(np.float64)
+    if squared:
+        g, w = g * g, w * w
+    scale = float(np.ptp(w)) if scale is None else scale
+    err = float(np.abs(g - w).max())
+    log(f"  {label}: max_abs_err{' of the squares' if squared else ''} {err:.3e} "
+        f"(tolerance {tol * scale:.3e}), NaN masks equal ({int(nan.sum())} NaN)")
+    if not err <= tol * scale:
+        raise AssertionError(f"{label}: error {err:.3e} above {tol * scale:.3e}")
+    return err
+
+
+def close_analysis(label: str, got, want, grid: np.ndarray) -> None:
+    """Phase 25's checks by kind, from ``label``: a roughness grid (its
+    variance), a hillshade, or a transect."""
+    if "roughness" in label and got.ndim == 2:
+        close_nan(label, got, want, TOL_VARIANCE,
+                  scale=float(np.nanmax(grid.astype(np.float64) ** 2)), squared=True)
+    elif "hillshade" in label:
+        close_nan(label, got, want, TOL_HILLSHADE, scale=1.0)
+    else:
+        close_nan(label, got, want, TOL_TRANSECT)
+
+
+def trace_summary(events: list, top: int = 5) -> dict:
+    """A ``torch.profiler`` Chrome trace's device side: the device events
+    (kernels, copies, sets), the total time of the ``top`` operations by
+    name, the longest idle gaps, and the idle share: one minus the union of
+    the device events' intervals over the window from the first device event
+    to the last."""
+    dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in TRACE_DEVICE_CATEGORIES]
+    if not dev:
+        raise AssertionError("the trace holds no device event")
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)), e["name"])
+                   for e in dev)
+    merged = []  # [start, end, name of the event that ends it, of the one that starts it]
+    for s, e, name in spans:
+        if merged and s <= merged[-1][1]:
+            if e > merged[-1][1]:
+                merged[-1][1:3] = [e, name]
+        else:
+            merged.append([s, e, name, name])
+    start, end = merged[0][0], merged[-1][1]
+    busy = sum(m[1] - m[0] for m in merged)
+    gaps = [(b[0] - a[1], a[2], b[3]) for a, b in zip(merged, merged[1:])]
+    totals: dict = {}
+    for s, e, name in spans:
+        totals[name] = totals.get(name, 0.0) + (e - s)
+    return {
+        "device_events": len(dev),
+        "kernel_names": sorted({e["name"] for e in dev if e["cat"] == "kernel"}),
+        "window_ms": (end - start) / 1e3,
+        "busy_ms": busy / 1e3,
+        "idle_share": 1.0 - busy / (end - start),
+        "top_ops_ms": [(n, t / 1e3)
+                       for n, t in sorted(totals.items(), key=lambda kv: -kv[1])[:top]],
+        "longest_gaps_ms": [(g / 1e3, a, b) for g, a, b in sorted(gaps, reverse=True)[:top]],
+    }
+
+
+def _short(name: str, n: int = 70) -> str:
+    return name if len(name) <= n else name[: n - 3] + "..."
+
+
+def evaluate_region(card_name: str, region: dict) -> dict:
+    """Phase 25 (a): the reference's last notebook on phase 19's window at
+    full width: ``predict``, the 'cubicbedmap' and synthetic-HRES baselines,
+    ``track_rmse`` of DeepBedMap and cubicbedmap, the roughness and hillshade
+    of both grids and their transects, each card vs CPU, each stage timed."""
+    import torch
+
+    from deepbedmap_tpu_torch.data.groundtruth import get_model_inputs
+    from deepbedmap_tpu_torch.data.raster import Raster
+    from deepbedmap_tpu_torch.evalx import bicubic_upsample, bilinear_resample, track_rmse
+    from deepbedmap_tpu_torch.ops import _kernels
+    from deepbedmap_tpu_torch.viz import hillshade, standard_deviation_2d
+    from deepbedmap_tpu_torch.viz.paper import transect_profiles
+
+    dbm, rasters, window = region["dbm"], region["rasters"], region["window"]
+    tx, ty, tz = region["track"]
+    xmin, ymin, xmax, ymax = window
+    _kernels.reset_launches()
+    dem = dbm.predict(window, rasters)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launches)
+    log(f"  launches in predict: {launches}")
+    check_launches(launches, {k: PER_FORWARD["default"].get(k, 0) for k in launches})
+
+    names = ("bed_lowres", "surface", "velocity_x", "velocity_y", "accumulation")
+    x = get_model_inputs(window, *(rasters[k] for k in names), device=DEVICE)["X"]
+    bed = rasters["bed_lowres"]
+    x_raster = Raster(x[0, 0].cpu().numpy(), left=xmin - 1000.0, top=ymax + 1000.0,
+                      res=bed.res)
+    if not np.isfinite(x_raster.data).all() or not (x_raster.data == -5000.0).any():
+        raise AssertionError("X should be finite and hold gapfilled (-5000) cells")
+    cubic = bicubic_upsample(x_raster, 4, device=DEVICE)
+    hres = bilinear_resample(rasters["surface"], EVAL_HRES_FACTOR, device=DEVICE)
+    log(f"  cubicbedmap {cubic.data.shape} @ {cubic.res:g} m from X {x_raster.data.shape}; "
+        f"synthetic HRES {hres.data.shape} @ {hres.res:g} m from the surface "
+        f"{rasters['surface'].data.shape} @ {rasters['surface'].res:g} m")
+    close_nan(f"bicubic_upsample x4 {cubic.data.shape} card vs CPU", cubic.data,
+              bicubic_upsample(x_raster, 4, device="cpu").data, TOL_BASELINE)
+    close_nan(f"bilinear_resample x{EVAL_HRES_FACTOR:g} {hres.data.shape} card vs CPU",
+              hres.data, bilinear_resample(rasters["surface"], EVAL_HRES_FACTOR,
+                                           device="cpu").data, TOL_BASELINE)
+    if (cubic.left, cubic.top, cubic.res) != (x_raster.left, x_raster.top, 250.0):
+        raise AssertionError(f"cubicbedmap georeferencing {cubic.left, cubic.top, cubic.res}")
+
+    out = {"card": card_name, "launches": launches}
+    grids = {"DeepBedMap": dem, "cubicbedmap": cubic}
+    for name, grid in grids.items():
+        card = track_rmse(grid, tx, ty, tz, device=DEVICE)
+        cpu = track_rmse(grid, tx, ty, tz, device="cpu")
+        if not abs(card - cpu) <= TOL_EVAL_RMSE * abs(cpu):
+            raise AssertionError(f"track_rmse {name}: card {card!r} vs CPU {cpu!r}")
+        out[f"rmse_{name}_m"] = card
+        log(f"  track_rmse {name} on {len(tx)} points: card {card!r}, CPU {cpu!r}")
+
+    for name, grid in grids.items():
+        for label, fn in (("roughness", lambda d, g: standard_deviation_2d(
+                g, ROUGH_WINDOW, device=d)), ("hillshade", lambda d, g: hillshade(
+                    g, grid.res, device=d))):
+            close_analysis(f"{name} {label} {grid.data.shape} card vs CPU",
+                           fn(DEVICE, grid.data).cpu().numpy(), fn("cpu", grid.data).numpy(),
+                           grid.data)
+    xs = np.linspace(xmin + TRANSECT_INSET, xmax - TRANSECT_INSET, TRANSECT_POINTS)
+    ys = np.linspace(ymin + TRANSECT_INSET, ymax - TRANSECT_INSET, TRANSECT_POINTS)
+    card_profiles = transect_profiles(grids, xs, ys, ROUGH_WINDOW, device=DEVICE)
+    cpu_profiles = transect_profiles(grids, xs, ys, ROUGH_WINDOW, device="cpu")
+    for name, (z, r) in card_profiles.items():
+        close_analysis(f"{name} elevation transect ({TRANSECT_POINTS} points) card vs CPU",
+                       z, cpu_profiles[name][0], None)
+        close_analysis(f"{name} roughness transect card vs CPU", r, cpu_profiles[name][1],
+                       None)
+
+    stages = {
+        "predict": lambda: dbm.predict(window, rasters),
+        "bicubic_upsample x4": lambda: bicubic_upsample(x_raster, 4, device=DEVICE),
+        f"bilinear_resample x{EVAL_HRES_FACTOR:g}": lambda: bilinear_resample(
+            rasters["surface"], EVAL_HRES_FACTOR, device=DEVICE),
+        "track_rmse x2": lambda: [track_rmse(g, tx, ty, tz, device=DEVICE)
+                                  for g in grids.values()],
+        "roughness + hillshade x2": lambda: [
+            (standard_deviation_2d(g.data, ROUGH_WINDOW, device=DEVICE),
+             hillshade(g.data, g.res, device=DEVICE)) for g in grids.values()],
+        "transects x2": lambda: transect_profiles(grids, xs, ys, ROUGH_WINDOW, device=DEVICE),
+    }
+    out["stage_ms"] = {k: time_ms(fn, EVAL_REPS) for k, fn in stages.items()}
+    for k, ms in out["stage_ms"].items():
+        log(f"  {k}: {ms:.2f} ms (CUDA events, warm)  [{card_name}]")
+    log(f"  RMSE on {len(tx)} track points: DeepBedMap {out['rmse_DeepBedMap_m']:.4f} m, "
+        f"cubicbedmap {out['rmse_cubicbedmap_m']:.4f} m  [{card_name}]")
+    return out
+
+
+def figures_phase(card_name: str, tmp: str) -> dict:
+    """Phase 25 (b): the figure set. With matplotlib, ``figure_set.main`` on
+    the card and the CLI's ``figures`` in a new process, seven non-empty
+    PNGs each; without it, the figure set's device work card vs CPU and the
+    CLI's refusal naming matplotlib."""
+    import importlib.util
+
+    from deepbedmap_tpu_torch.viz import figure_set
+
+    if importlib.util.find_spec("matplotlib") is not None:
+        log("  matplotlib present: the figure set drawn in this process and by the CLI")
+        figure_set.main(f"{tmp}/figures", device=DEVICE)
+        out = f"{tmp}/cli_figures"
+        line, _ = _run_cli(["figures", "-o", out, "--device", DEVICE], "figures")
+        if line != {"command": "figures", "out": out, "rc": 0}:
+            raise AssertionError(f"the CLI's figures printed {line}")
+        for label, out in (("figure_set.main", f"{tmp}/figures"), ("CLI figures", out)):
+            sizes = {n: os.path.getsize(f"{out}/{n}") for n in figure_set.FIGURES}
+            if sorted(os.listdir(out)) != sorted(figure_set.FIGURES) or min(sizes.values()) == 0:
+                raise AssertionError(f"{label} wrote {sorted(os.listdir(out))}")
+            log(f"  {label}: {len(sizes)} PNGs, {sum(sizes.values()) / 2**20:.1f} MB")
+        return {"branch": "matplotlib", "pngs": len(figure_set.FIGURES)}
+
+    log("  matplotlib absent: the figure set's device work card vs CPU, the CLI refuses")
+    got = figure_set.figure_arrays(device=DEVICE)
+    want = figure_set.figure_arrays(device="cpu")
+    dems = figure_set.synthetic_dems()
+    for key in want:
+        close_analysis(f"figure set {key} {got[key].shape}", got[key], want[key],
+                       dems["DeepBedMap"].data)
+    proc = subprocess.run([sys.executable, "-m", "deepbedmap_tpu_torch", "figures", "-o",
+                           f"{tmp}/cli_figures", "--device", DEVICE],
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    if proc.returncode == 0 or "matplotlib" not in line.get("error", ""):
+        raise AssertionError(f"the CLI's figures without matplotlib: rc {proc.returncode}, "
+                             f"{line}")
+    log(f"  CLI figures: rc {proc.returncode}, {line['error']!r}")
+    return {"branch": "no matplotlib", "arrays": len(want)}
+
+
+def live_curves(card_name: str, tmp: str) -> dict:
+    """Phase 25 (c): the CLI's ``train --live-term`` (and ``--live-png``
+    with matplotlib) in a new process at 12 RRDBs and batch 128: one
+    sparkline line per metric after each epoch, then the JSON line."""
+    import importlib.util
+
+    argv = ["train", "--synthetic-tiles", str(LIVE_TILES), "--epochs", str(LIVE_EPOCHS),
+            "--live-term", "--device", DEVICE]
+    png = f"{tmp}/live.png" if importlib.util.find_spec("matplotlib") else None
+    if png:
+        argv += ["--live-png", png]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "deepbedmap_tpu_torch"] + argv,
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI's train --live-term failed ({proc.returncode}):\n"
+                             + proc.stdout[-4000:] + proc.stderr[-4000:])
+    lines = proc.stdout.strip().splitlines()
+    res = json.loads(lines[-1])
+    spark = lines[:-1]
+    per_epoch = len(spark) // LIVE_EPOCHS
+    names = [line.split()[1] for line in spark]
+    if res["command"] != "train" or res["epochs"] != LIVE_EPOCHS or not per_epoch or \
+            len(spark) != per_epoch * LIVE_EPOCHS or \
+            names != names[:per_epoch] * LIVE_EPOCHS or \
+            len(set(names[:per_epoch])) != per_epoch or \
+            [len(line.split()[2]) for line in spark[-per_epoch:]] != [LIVE_EPOCHS] * per_epoch:
+        raise AssertionError("the CLI's train --live-term printed:\n" + proc.stdout[-4000:])
+    if png and not os.path.getsize(png):
+        raise AssertionError("--live-png wrote no PNG")
+    for line in spark[-per_epoch:]:
+        log(f"  | {line}")
+    log(f"  CLI train --live-term{' --live-png' if png else ''}: {LIVE_EPOCHS} epochs x "
+        f"{per_epoch} sparkline lines, then {res}; {wall:.1f} s wall  [{card_name}]")
+    return {"sparkline_lines": len(spark), "png": bool(png), "wall_s": wall}
+
+
+def trace_continent(card_name: str, params, tmp: str) -> dict:
+    """Phase 25 (d): a ``torch.profiler`` trace of one warm default
+    ``predict_continent`` on phase 6's region: K1's, K2's and K3's kernels
+    among its CUDA kernel events, the top device operations, the longest
+    idle gaps and the device's idle share. The traced run is not timed."""
+    import glob
+
+    import torch
+
+    from deepbedmap_tpu_torch import DeepBedMap
+    from deepbedmap_tpu_torch.utils.profiling import trace
+
+    inputs, bounds, kw = continent_region()
+    dbm = DeepBedMap(params, device=DEVICE)
+    dbm.predict_continent(inputs, bounds, **kw)
+    torch.cuda.synchronize()
+    with trace(f"{tmp}/trace", device=DEVICE):
+        dbm.predict_continent(inputs, bounds, **kw)
+    files = glob.glob(f"{tmp}/trace/*.pt.trace.json")
+    if len(files) != 1:
+        raise AssertionError(f"trace files {files}")
+    with open(files[0]) as f:
+        summary = trace_summary(json.load(f)["traceEvents"])
+    for wrapper, symbol in TRACE_SYMBOLS.items():
+        hits = [n for n in summary["kernel_names"] if symbol in n]
+        if not hits:
+            raise AssertionError(f"{wrapper}'s kernel {symbol} is not in the trace")
+        log(f"  {wrapper}: {len(hits)} kernel symbol(s) with {symbol} in the trace")
+    log(f"  {summary['device_events']} device events over {summary['window_ms']:.2f} ms, "
+        f"busy {summary['busy_ms']:.2f} ms: idle share {summary['idle_share']:.4f}  "
+        f"[{card_name}]")
+    for name, ms in summary["top_ops_ms"]:
+        log(f"  top device op {ms:.3f} ms: {_short(name)}")
+    for gap, before, after in summary["longest_gaps_ms"]:
+        log(f"  idle gap {gap:.3f} ms after {_short(before, 40)} before {_short(after, 40)}")
+    del summary["kernel_names"]
+    return summary
+
+
+def flop_shares(card_name: str, forward_ms: dict, train: dict) -> dict:
+    """Phase 25 (e): the analytic FLOPs of each main path's forward (lr 288,
+    batch 2) and of phase 22's train step over their CUDA-event times, as a
+    share of the card's TF32 tensor-core peak. Log lines only."""
+    from deepbedmap_tpu_torch.config import GeneratorConfig
+    from deepbedmap_tpu_torch.utils.flops import generator_tile_flops, train_step_flops
+
+    out = {}
+    for config, ms in forward_ms.items():
+        flops = TILES_PER_DISPATCH * generator_tile_flops(GeneratorConfig(**CONFIGS[config]),
+                                                          288)["total"]
+        out[f"forward_{config}"] = rate = flops / (ms / 1e3)
+        log(f"  forward {config}: {flops / 1e12:.3f} TFLOP in {ms:.2f} ms = "
+            f"{rate / 1e12:.2f} TFLOP/s, {100 * rate / PEAK_TF32_TC:.2f}% of the TF32 "
+            f"tensor-core peak  [{card_name}]")
+    ms = train["ms_per_step_median"]
+    flops = train_step_flops(batch=TRAIN_BATCH)["total"]
+    out["train_step"] = rate = flops / (ms / 1e3)
+    log(f"  train step (batch {TRAIN_BATCH}): {flops / 1e12:.3f} TFLOP in {ms:.1f} ms = "
+        f"{rate / 1e12:.2f} TFLOP/s, {100 * rate / PEAK_TF32_TC:.2f}% of the TF32 "
+        f"tensor-core peak  [{card_name}]")
+    return {k: v / PEAK_TF32_TC for k, v in out.items()}
+
+
+def evaluation(card_name: str, region: dict, params, forward_ms: dict, train: dict,
+               tmp: str) -> dict:
+    """Phase 25: (a) to (e) (the module docstring lists their checks).
+    Returns the numbers of its JSON line."""
+    t0 = time.perf_counter()
+    log("  (a) evaluation at full width: predict, baselines, track RMSE, roughness, "
+        "hillshade, transects")
+    out = evaluate_region(card_name, region)
+    log("  (b) the figure set")
+    out["figures"] = figures_phase(card_name, tmp)
+    log("  (c) the CLI's train with live curves")
+    out["live"] = live_curves(card_name, tmp)
+    log("  (d) a torch.profiler trace of predict_continent")
+    out["trace"] = trace_continent(card_name, params, tmp)
+    log("  (e) FLOPs as a share of the TF32 tensor-core peak")
+    out["tf32_peak_share"] = flop_shares(card_name, forward_ms, train)
+    out["phase_wall_s"] = time.perf_counter() - t0
+    log(f"  phase 25 wall time {out['phase_wall_s']:.1f} s  [{card_name}]")
+    return out
+
+
 # (launch-counter name, source, TPU kernel it replaces, check, small shapes,
 # main-path shape, phase, the configuration whose main path gives its
 # launches); K9's launches come from its own path in phase 15
@@ -3170,8 +3559,9 @@ def main() -> int:
     check_generator(1.0, {})
 
     log("phase 6: main path")
-    path_launches = {}
-    path_launches["default"], model, default_out = main_path(card_name, "default")
+    path_launches, forward_ms = {}, {}
+    path_launches["default"], model, default_out, forward_ms["default"] = main_path(
+        card_name, "default")
     params = model.state_dict()
 
     kernels(7, 8, 9, 10)
@@ -3180,7 +3570,8 @@ def main() -> int:
     check_generator(1.0, CONFIGS["kernel"])
 
     log(f"phase 12: second main path, {CONFIGS['kernel']}")
-    path_launches["kernel"], _, _ = main_path(card_name, "kernel", params, default_out)
+    path_launches["kernel"], _, _, forward_ms["kernel"] = main_path(card_name, "kernel", params,
+                                                                     default_out)
 
     kernels(13, 14, 15)
     log(f"phase 16: whole generator in {CONFIGS['banded']} and {CONFIGS['sweep']}, "
@@ -3191,10 +3582,12 @@ def main() -> int:
 
     for phase, config in ((17, "banded"), (18, "sweep")):
         log(f"phase {phase}: main path in {CONFIGS[config]}")
-        path_launches[config], _, _ = main_path(card_name, config, params, default_out)
+        path_launches[config], _, _, forward_ms[config] = main_path(card_name, config, params,
+                                                                    default_out)
 
     log("phase 19: single region (from_chainer_npz, from_experiment, predict, track_rmse)")
-    rasters, window = single_region(card_name, params)
+    region = single_region(card_name, params)
+    rasters, window = region["rasters"], region["window"]
 
     with tempfile.TemporaryDirectory() as tmp:
         log("phase 20: the continent product (buffered and streamed int16 LZW GeoTIFF)")
@@ -3213,6 +3606,10 @@ def main() -> int:
         log("phase 24: data prep (survey ascii, blockmedian, gridding, windows, training "
             "arrays, the CLI's grid and build)")
         prepared = data_prep(card_name, tmp)
+        log("phase 25: evaluation and figures (predict, the baselines, track RMSE, roughness, "
+            "hillshade, transects, the figure set, the CLI's live curves, a torch.profiler "
+            "trace, FLOP shares)")
+        evaluated = evaluation(card_name, region, params, forward_ms, train, tmp)
 
     rows = []
     for name, src, rep, *_, path in KERNELS:
@@ -3227,6 +3624,7 @@ def main() -> int:
     print(json.dumps({"training": train}), flush=True)
     print(json.dumps({"search": searched}), flush=True)
     print(json.dumps({"data_prep": prepared}), flush=True)
+    print(json.dumps({"evaluation": evaluated}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,11 +17,14 @@ JAX package:
                   host (``ops.gmt_surface``)
 - ``csrc``      : the hand-written CUDA C++ kernels (sm_90a)
 - ``models``    : generator building blocks, the generator and the
-                  discriminator
+                  discriminator; NCHW helpers (``models.api``)
 - ``bridge``    : JAX flax params <-> the port's state_dict
 - ``train``     : the GAN's train state, steps, epoch loop and ``fit``;
                   train-state checkpoints and Chainer-npz weights
-- ``utils``     : experiment trackers and the weight fetcher (``utils.tracking``)
+- ``utils``     : experiment trackers and the weight fetcher (``utils.tracking``),
+                  torch.profiler traces and timers (``utils.profiling``),
+                  analytic FLOP counts and the H100's peaks (``utils.flops``),
+                  JSONL/CSV metric logs (``utils.logging``)
 - ``inference`` : halo'd tile engine, band-streamed continent inference and
                   the streamed int16 GeoTIFF product
 - ``data``      : data prep (survey ascii ``data.pipeline``, blockmedian
@@ -31,12 +34,17 @@ JAX package:
                   Raster, NetCDF and GeoTIFF I/O (``data.geotiff``, its
                   native LZW codec ``native/tiffcodec.cc``), ``selective_tile``,
                   the model's inputs for one region (``data.groundtruth``)
-- ``evalx``     : grdtrack-style track sampling, track RMSE, track CSVs
+- ``evalx``     : grdtrack-style track sampling, track RMSE, track CSVs, the
+                  fixed-area evaluator, the bicubic and bilinear baselines
+                  (``evalx.baselines``)
+- ``viz``       : terrain analysis (roughness, hillshade) on a device, the
+                  paper's figures, live training curves and the figure set
+                  (matplotlib imported only where a figure is drawn)
 - ``api``       : DeepBedMap
 - ``serve``     : the HTTP inference service
 - ``cli``       : ``python -m deepbedmap_tpu_torch`` (grid, build, train,
                   hpo, predict, evaluate, continent, verify-weights, serve,
-                  verify-data, package-data, catalog)
+                  verify-data, package-data, catalog, figures)
 - ``device``    : the entry points' device (the card by default)
 """
 

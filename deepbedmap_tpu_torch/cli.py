@@ -1,8 +1,7 @@
 """Command-line interface of the port: data packages, data prep, training,
-search, inference and serving on the card.
+search, inference, serving and the figures, on the card.
 
-Counterpart of the data-package, data-prep, training and inference parts of
-``deepbedmap_tpu/cli.py``:
+Counterpart of ``deepbedmap_tpu/cli.py``:
 
     python -m deepbedmap_tpu_torch verify-data [--datalist FILE]
     python -m deepbedmap_tpu_torch package-data {push,install,list} --registry DIR
@@ -16,17 +15,23 @@ Counterpart of the data-package, data-prep, training and inference parts of
     python -m deepbedmap_tpu_torch continent --inputs DIR --bounds ... -o OUT [--stream]
     python -m deepbedmap_tpu_torch verify-weights --npz W.npz --inputs DIR --expected GRID
     python -m deepbedmap_tpu_torch serve --npz W.npz [--port 8500]
+    python -m deepbedmap_tpu_torch figures -o OUTDIR
 
 Every command that computes takes ``--device`` (default ``cuda``: without a
 card it raises; ``--device cpu`` runs the plain versions on the CPU), runs in fp32
 (TF32 off, see ``device.disable_tf32``) and prints a one-line JSON result to
 stdout; human logs go to stderr. ``--checkpoint`` reads the port's own
 train-state checkpoints (``train``'s ``--out``; a JAX Orbax directory raises
-``ValueError``). ``--mesh-devices``, ``--multihost`` and ``train``'s
-``--live-png`` / ``--live-term`` raise ``NotImplementedError``. ``grid``
-writes a GeoTIFF for ``-o *.tif`` and NetCDF otherwise; ``build`` reads
-``*.nc`` and ``*.tif`` surveys. The JAX CLI's ``figures`` is not registered
-here yet.
+``ValueError``). ``--mesh-devices`` and ``--multihost`` raise
+``NotImplementedError``. ``grid`` writes a GeoTIFF for ``-o *.tif`` and
+NetCDF otherwise; ``build`` reads ``*.nc`` and ``*.tif`` surveys. ``train
+--live-term`` prints sparklines of the metrics after each epoch and
+``--live-png`` redraws their curves into a PNG (``viz.live.LiveCurves``;
+JAX's ``--live-term`` acts only beside ``--live-png``); ``figures`` writes
+the paper's figure set (``viz.figure_set``, in this process, where JAX runs
+``examples/figure_set.py`` in a new one). Drawing
+needs matplotlib: without it ``figures`` and ``train --live-png`` exit with
+an error that names it, ``train`` before its first step.
 """
 
 from __future__ import annotations
@@ -59,6 +64,18 @@ def _model(args):
         return DeepBedMap.from_chainer_npz(args.npz, cfg, device=args.device)
     _log("untrained generator (no --checkpoint/--npz)")
     return DeepBedMap(cfg=cfg, device=args.device)
+
+
+def _matplotlib_missing(command: str, what: str) -> bool:
+    """Whether matplotlib cannot be imported; if so, print ``command``'s JSON
+    error line saying that ``what`` needs it."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as e:
+        _emit({"command": command, "error": f"{what} needs matplotlib, which cannot be "
+               f"imported here ({e})"})
+        return True
+    return False
 
 
 def _load_inputs(path: str) -> dict:
@@ -255,11 +272,13 @@ def cmd_train(args) -> int:
     from deepbedmap_tpu_torch.train.loop import fit
     from deepbedmap_tpu_torch.train.state import create_gan_state
 
+    from deepbedmap_tpu_torch.viz.live import LiveCurves
+
+    if args.live_png and _matplotlib_missing("train", "--live-png"):
+        return 1
+    callback = None
     if args.live_png or args.live_term:
-        raise NotImplementedError(
-            "--live-png / --live-term need viz/live.py, which is not ported to "
-            "the PyTorch package yet"
-        )
+        callback = LiveCurves(out_png=args.live_png, terminal=args.live_term)
     if args.tiles:
         dataset = TileDataset.load_npy_dir(args.tiles, device=args.device, suffix="_data")
     else:
@@ -270,7 +289,7 @@ def cmd_train(args) -> int:
         learning_rate=args.learning_rate,
     )
     state = create_gan_state(g_cfg, t_cfg=t_cfg, device=args.device)
-    state, history = fit(state, dataset, t_cfg=t_cfg, epochs=args.epochs)
+    state, history = fit(state, dataset, t_cfg=t_cfg, epochs=args.epochs, callback=callback)
     if args.out:
         save_checkpoint(state, args.out)
     _emit(
@@ -455,6 +474,17 @@ def cmd_evaluate(args) -> int:
             "method": args.method,
         }
     )
+    return 0
+
+
+def cmd_figures(args) -> int:
+    """The paper's figure set (``viz.figure_set.main``), in this process."""
+    from deepbedmap_tpu_torch.viz import figure_set
+
+    if _matplotlib_missing("figures", "the figure set"):
+        return 1
+    figure_set.main(args.out, device=args.device)
+    _emit({"command": "figures", "out": args.out, "rc": 0})
     return 0
 
 
@@ -674,9 +704,10 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--learning-rate", type=float, default=1.6e-4)
     t.add_argument("--out", default=None, help="checkpoint path")
     t.add_argument("--live-png", default=None,
-                   help="redraw training curves to this PNG (not ported yet: raises)")
+                   help="redraw training curves to this PNG every epoch (livelossplot "
+                   "role; needs matplotlib)")
     t.add_argument("--live-term", action="store_true",
-                   help="terminal sparklines per epoch (not ported yet: raises)")
+                   help="print a sparkline of each metric after every epoch")
     t.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' runs the plain versions)")
     t.set_defaults(fn=cmd_train)
@@ -808,6 +839,12 @@ def build_parser() -> argparse.ArgumentParser:
         "output px (multiple of 4)",
     )
     s.set_defaults(fn=cmd_serve)
+
+    f = sub.add_parser("figures", help="regenerate the paper figure set")
+    f.add_argument("-o", "--out", default="figures")
+    f.add_argument("--device", default="cuda",
+                   help="torch device of the analysis (default cuda; 'cpu' runs on the CPU)")
+    f.set_defaults(fn=cmd_figures)
 
     return p
 

@@ -1,15 +1,17 @@
 """Model construction.
 
 Counterpart of ``deepbedmap_tpu/models/api.py`` (``build_generator``,
-``build_discriminator``, ``count_params``). Weights come from a
-``torch.Generator`` seeded with ``seed``; they differ from the JAX package's
-for the same seed (``bridge.jax_params_to_state_dict`` and
-``bridge.jax_d_vars_to_state_dict`` carry the JAX weights across).
+``build_discriminator``, ``count_params``, ``example_inputs_nhwc`` and the
+reference-layout helpers ``nchw_to_nhwc``, ``nhwc_to_nchw`` and
+``generator_forward_nchw``). Weights come from a ``torch.Generator`` seeded
+with ``seed``; they differ from the JAX package's for the same seed
+(``bridge.jax_params_to_state_dict`` and ``bridge.jax_d_vars_to_state_dict``
+carry the JAX weights across).
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Union
+from typing import Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -64,3 +66,36 @@ def build_discriminator(
     model = Discriminator(cfg, in_px=hr)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.to(dev)
+
+
+def example_inputs_nhwc(
+    batch: int = 1, lr: int = 11, device="cuda", generator: Optional[torch.Generator] = None
+) -> Tuple[torch.Tensor, ...]:
+    """Training-shaped example inputs, uniform in [0, 1): x (batch, lr, lr, 1),
+    w1 (batch, 10 lr, 10 lr, 1), w2 (batch, 2 lr, 2 lr, 2), w3 (batch, lr,
+    lr, 1); lr=11 low-res px is a 9 km tile + 1 km pad. Drawn on the CPU from
+    ``generator`` (a ``torch.Generator`` seeded with 0 when None), so every
+    device gets the same numbers, then moved to ``device``. They differ from
+    the JAX package's, which come from ``jax.random.PRNGKey(0)``."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(0) if generator is None else generator
+    shapes = [(batch, lr, lr, 1), (batch, 10 * lr, 10 * lr, 1),
+              (batch, 2 * lr, 2 * lr, 2), (batch, lr, lr, 1)]
+    return tuple(torch.rand(s, generator=gen).to(dev) for s in shapes)
+
+
+def nchw_to_nhwc(a: torch.Tensor) -> torch.Tensor:
+    return a.permute(0, 2, 3, 1)
+
+
+def nhwc_to_nchw(a: torch.Tensor) -> torch.Tensor:
+    return a.permute(0, 3, 1, 2)
+
+
+def generator_forward_nchw(model: Generator, x, w1, w2, w3) -> torch.Tensor:
+    """Reference-contract forward: NCHW in, NCHW out
+    ((N,1,h,h)... -> (N,1,(h-2)*4,(h-2)*4)), on the model's device. The
+    generator holds its weights, so there is no ``params`` argument as in
+    JAX; the call keeps autograd's graph unless the caller turns it off."""
+    out = model(nchw_to_nhwc(x), nchw_to_nhwc(w1), nchw_to_nhwc(w2), nchw_to_nhwc(w3))
+    return nhwc_to_nchw(out).contiguous()

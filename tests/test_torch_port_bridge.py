@@ -108,6 +108,10 @@ def test_port_import_loads_no_jax():
         "import deepbedmap_tpu_torch.data.pipeline, deepbedmap_tpu_torch.data.gridder\n"
         "import deepbedmap_tpu_torch.data.builder, deepbedmap_tpu_torch.ops.spline\n"
         "import deepbedmap_tpu_torch.ops.gmt_surface, deepbedmap_tpu_torch.data\n"
+        "import deepbedmap_tpu_torch.evalx.baselines, deepbedmap_tpu_torch.viz\n"
+        "import deepbedmap_tpu_torch.viz.live, deepbedmap_tpu_torch.viz.figure_set\n"
+        "import deepbedmap_tpu_torch.utils.profiling, deepbedmap_tpu_torch.utils.flops\n"
+        "import deepbedmap_tpu_torch.utils.logging\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'deepbedmap_tpu', 'h5py', 'pandas', "
         "'yaml', 'matplotlib')]\n"

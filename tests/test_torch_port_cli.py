@@ -4,7 +4,7 @@ data: ``train`` then ``predict --checkpoint`` on its checkpoint, ``predict``
 (NetCDF, and GeoTIFF without h5py), ``evaluate``,
 ``continent --stream --overviews 1``, the ``verify-weights`` rehearsal of
 ``tests/test_cli.py``, TF32 turned off by the programs, and the options that
-are not ported yet. ``pandas``
+are not ported yet (the multi-device ones). ``pandas``
 is unimportable in every test (the card's machine has none)."""
 
 import json
@@ -246,11 +246,9 @@ def test_cli_verify_weights_rehearsal(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    # train's live curves need viz/live.py (not ported); --checkpoint reads
-    # the port's own checkpoints (test_cli_train_then_predict_from_checkpoint)
-    ["train", "--synthetic-tiles", "8", "--live-png", "curves.png"],
-    ["train", "--synthetic-tiles", "8", "--live-term"],
-    ["train", "--synthetic-tiles", "8", "--live-png", "curves.png", "--live-term"],
+    # train's live curves are ported (tests/test_torch_port_viz.py);
+    # --checkpoint reads the port's own checkpoints
+    # (test_cli_train_then_predict_from_checkpoint)
     ["continent", "--inputs", "x", "--bounds", "0,0,1,1", "-o", "y", "--mesh-devices", "2"],
     ["continent", "--inputs", "x", "--bounds", "0,0,1,1", "-o", "y", "--multihost"],
 ])
