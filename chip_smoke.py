@@ -188,12 +188,29 @@ Phases (any failure ends the run with a non-zero exit code):
     longest idle gaps and the device's idle share (``trace_summary``), not
     timed; (e) the analytic FLOPs (``utils.flops``) of the forwards of phases
     6, 12, 17 and 18 and of phase 22's step over their CUDA-event times, as
-    a share of the TF32 tensor-core peak (log lines).
+    a share of the TF32 tensor-core peak (log lines);
+26. the parallel layer (``parallel_phase``): (a) world size 1 on NCCL in this
+    process: ``distributed.initialize``, ``make_mesh(1)``,
+    ``predict_continent(mesh=)`` on phase 6's region and weights against phase
+    6's canvas (``TOL_SEAM``) with its launch counts, one
+    ``make_sharded_train_step`` step at batch 128 against the one-device step
+    at phase 22's tolerances (``hold_step``); (b) world size 2 on the one
+    card, two processes of this script (``parallel_worker``) on NCCL if a
+    two-rank NCCL all-reduce on one GPU succeeds (``parallel_probe``), else
+    on Gloo: the tile-sharded continent against phase 6's canvas, the
+    band-distributed streamed product on phase 20's region against the same
+    options in one process (largest int16 difference and differing pixels),
+    the data-parallel step at 64 rows per rank against the one-device step at
+    128, ``make_tp_forward`` on a (1, 2) mesh against the one-device forward
+    (``TOL_GENERATOR``), and the CLI's ``continent --mesh-devices 2`` and
+    ``--multihost`` in two processes each, rank 0's JSON line checked; every
+    process of (b) ends within ``PARALLEL_TIMEOUT_S`` or the phase fails.
 
 Each main path checks its own configuration's launch counts (``PER_FORWARD``).
 It prints the script's wall time, one JSON line of phase 22's training
 numbers, one of phase 23's search numbers, one of phase 24's data-prep
-numbers, one of phase 25's evaluation numbers, one JSON line with each
+numbers, one of phase 25's evaluation numbers, one of phase 26's parallel
+numbers, one JSON line with each
 kernel's launches (from the main path that runs it), error, times and bound,
 and ends with
 ``{"ok": true, "device": {...}}``. It refuses to run without a CUDA device and
@@ -1247,6 +1264,15 @@ def product_inputs(bounds, lh: int, seed: int) -> dict:
     return out
 
 
+def product_region():
+    """Phase 20's region: (NCHW inputs, bounds) of PRODUCT_TILES x
+    PRODUCT_TILES tiles at 250 m from REGION_ORIGIN."""
+    out = PRODUCT_TILES * TILE_OUT
+    x0, y0 = REGION_ORIGIN
+    bounds = (x0, y0, x0 + out * 250.0, y0 + out * 250.0)
+    return product_inputs(bounds, out // 4, seed=20), bounds
+
+
 def continent_product(card_name: str, tmp: str) -> str:
     """Phase 20: ``DeepBedMap.predict_continent`` writing the int16 LZW
     GeoTIFF, buffered (``save_continent_dem``) and streamed (writer thread,
@@ -1264,10 +1290,7 @@ def continent_product(card_name: str, tmp: str) -> str:
 
     res_m, tpd = 250.0, TILES_PER_DISPATCH
     out = PRODUCT_TILES * TILE_OUT
-    lh = out // 4
-    x0, y0 = REGION_ORIGIN
-    bounds = (x0, y0, x0 + out * res_m, y0 + out * res_m)
-    inputs = product_inputs(bounds, lh, seed=20)
+    inputs, bounds = product_region()
     plan = TilePlan(out_h=out, out_w=out, tile_out=TILE_OUT, halo_lr=HALO_LR)
     forwards = plan.grid[0] * -(-plan.grid[1] // tpd)
     log(f"  region {out}^2 output ({plan.grid[0]} x {plan.grid[1]} tiles, {forwards} "
@@ -1878,6 +1901,73 @@ def _step_tensors(state, b1: float) -> dict:
     return out
 
 
+def hold_step(tag: str, got: dict, want: dict, other: dict, metrics, init: dict, t_cfg,
+              who: str = "card", ref: str = "the CPU", floors=None):
+    """Phase 22's contract for one train step ``got`` against ``want`` (both
+    ``_step_tensors``; ``other``: ``want``'s step from perturbed weights;
+    ``metrics``: the three steps' metrics; ``init``: the weights before the
+    step): each metric and BatchNorm statistic within the larger of
+    ``TOL_KERNEL`` of its range and ``NOISE_K`` x the perturbation's change,
+    gradients the same with ``TOL_STEP_GRAD``; every parameter of ``got``
+    within 1e-3 * lr of Adam's update from its own moments where |g| is
+    above 1e-3 of the tensor's largest. ``floors``: name -> an absolute
+    tolerance below which a gradient passes. Returns (worst ratios, the
+    tensors beyond their relative tolerance)."""
+    import torch
+
+    b1, b2, eps = t_cfg.adam_beta1, t_cfg.adam_beta2, t_cfg.adam_eps
+    m_got, m_want, m_other = metrics
+
+    def held(label, got, want, other, rel_tol=TOL_KERNEL, atol=0.0) -> float:
+        """|got - want| against max(rel_tol * range, NOISE_K * |other - want|,
+        atol); returns the error over the range."""
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        floor = float((other - want).abs().max())
+        tol = max(rel_tol * scale, NOISE_K * floor, atol)
+        if not err <= tol:
+            raise AssertionError(f"{tag} {label}: {who} off {ref} by {err:.3e}, above "
+                                 f"{tol:.3e} (range {scale:.3e}, perturbation {floor:.3e})")
+        return err / scale if scale > 0 else 0.0
+
+    for name in ("discriminator_loss", "discriminator_accu", "generator_loss",
+                 "generator_psnr", "generator_ssim"):
+        held(name, getattr(m_got, name).cpu().double(), getattr(m_want, name).cpu().double(),
+             getattr(m_other, name).cpu().double())
+    worst = {"grad": (0.0, ""), "stats": (0.0, ""), "update": 0.0}
+    floored = []
+    for name, w in want.items():
+        g, o = got[name], other[name]
+        key = "stats" if "stat" in w else "grad"
+        field = "stat" if key == "stats" else "grad"
+        rel_tol = TOL_STEP_GRAD if key == "grad" else TOL_KERNEL
+        rel = held(f"{field} {name}", g[field], w[field], o[field], rel_tol,
+                   (floors or {}).get(name, 0.0))
+        if rel > rel_tol:
+            floored.append(name)
+        if rel > worst[key][0]:
+            worst[key] = (rel, name)
+        if key == "grad":
+            if name.startswith("G.") and not bool(g["grad"].abs().max() > 0):
+                raise AssertionError(f"{tag}: generator parameter {name} got no gradient")
+            lr = t_cfg.learning_rate * (t_cfg.d_lr_scale if name.startswith("D.") else 1.0)
+            update = g["m"] / (1 - b1) / ((g["v"] / (1 - b2)).sqrt() + eps)
+            big = g["grad"].abs() > 1e-3 * g["grad"].abs().max()
+            diff = (g["param"] - (init[name] - lr * update)).abs()
+            err = float(torch.where(big, diff, 0.0).max())
+            if not err <= 1e-3 * lr:
+                raise AssertionError(f"{tag}: {name} after the step is {err:.3e} off the "
+                                     f"Adam update of its own gradient (lr {lr:g})")
+            worst["update"] = max(worst["update"], err / lr)
+    log(f"  {tag}: worst gradient {worst['grad'][0]:.2e} of its range ({worst['grad'][1]}), "
+        f"worst BatchNorm statistic {worst['stats'][0]:.2e} ({worst['stats'][1]}); "
+        f"{len(floored)} of {len(want)} tensors beyond {TOL_STEP_GRAD:g} (gradients) or "
+        f"{TOL_KERNEL:g} (statistics) of their range, each within {NOISE_K} x {ref}'s own "
+        f"change under a {PERTURB:g} perturbation of the weights: {floored}; every parameter "
+        f"within {worst['update']:.2e} x lr of Adam's update from the {who}'s own moments")
+    return worst, floored
+
+
 def step_card_vs_cpu(card_name: str, config: str, blocks: int, batch: int) -> dict:
     """Phase 22, parts 2 and 3: one train step in ``config`` from the same
     seeded weights and tiles on the card and on the CPU, with its launch
@@ -1908,7 +1998,7 @@ def step_card_vs_cpu(card_name: str, config: str, blocks: int, batch: int) -> di
 
     g_cfg = GeneratorConfig(num_residual_blocks=blocks, **CONFIGS[config])
     t_cfg = TrainConfig(batch_size=batch)
-    b1, b2, eps = t_cfg.adam_beta1, t_cfg.adam_beta2, t_cfg.adam_eps
+    b1 = t_cfg.adam_beta1
     arrays = train_batch(batch, seed=blocks)
     step = make_train_step(t_cfg)
     runs = {}
@@ -1938,52 +2028,7 @@ def step_card_vs_cpu(card_name: str, config: str, blocks: int, batch: int) -> di
         f"{launches}")
     check_launches(launches, {k: v for k, v in per_step(config, blocks).items() if v})
 
-    def held(label, got, want, other, rel_tol=TOL_KERNEL) -> float:
-        """|got - want| against max(rel_tol * range, NOISE_K * |other - want|);
-        returns the error over the range."""
-        err = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        floor = float((other - want).abs().max())
-        tol = max(rel_tol * scale, NOISE_K * floor)
-        if not err <= tol:
-            raise AssertionError(f"{tag} {label}: card off the CPU by {err:.3e}, above "
-                                 f"{tol:.3e} (range {scale:.3e}, perturbation {floor:.3e})")
-        return err / scale if scale > 0 else 0.0
-
-    for name in ("discriminator_loss", "discriminator_accu", "generator_loss",
-                 "generator_psnr", "generator_ssim"):
-        held(name, getattr(m_card, name).cpu().double(), getattr(m_cpu, name).double(),
-             getattr(m_pert, name).double())
-    worst = {"grad": (0.0, ""), "stats": (0.0, ""), "update": 0.0}
-    floored = []
-    for name, want in cpu.items():
-        got, other = card[name], pert[name]
-        key = "stats" if "stat" in want else "grad"
-        field = "stat" if key == "stats" else "grad"
-        rel_tol = TOL_STEP_GRAD if key == "grad" else TOL_KERNEL
-        rel = held(f"{field} {name}", got[field], want[field], other[field], rel_tol)
-        if rel > rel_tol:
-            floored.append(name)
-        if rel > worst[key][0]:
-            worst[key] = (rel, name)
-        if key == "grad":
-            if name.startswith("G.") and not bool(got["grad"].abs().max() > 0):
-                raise AssertionError(f"generator parameter {name} got no gradient on the card")
-            lr = t_cfg.learning_rate * (t_cfg.d_lr_scale if name.startswith("D.") else 1.0)
-            update = got["m"] / (1 - b1) / ((got["v"] / (1 - b2)).sqrt() + eps)
-            big = got["grad"].abs() > 1e-3 * got["grad"].abs().max()
-            diff = (got["param"] - (init[name] - lr * update)).abs()
-            err = float(torch.where(big, diff, 0.0).max())
-            if not err <= 1e-3 * lr:
-                raise AssertionError(f"{tag}: {name} after the step is {err:.3e} off the "
-                                     f"Adam update of its own gradient (lr {lr:g})")
-            worst["update"] = max(worst["update"], err / lr)
-    log(f"  {tag}: worst gradient {worst['grad'][0]:.2e} of its range ({worst['grad'][1]}), "
-        f"worst BatchNorm statistic {worst['stats'][0]:.2e} ({worst['stats'][1]}); "
-        f"{len(floored)} of {len(cpu)} tensors beyond {TOL_STEP_GRAD:g} (gradients) or "
-        f"{TOL_KERNEL:g} (statistics) of their range, each within {NOISE_K} x the CPU's own "
-        f"change under a {PERTURB:g} perturbation of the weights: {floored}; every parameter within {worst['update']:.2e} x lr of Adam's "
-        f"update from the card's own moments")
+    worst, floored = hold_step(tag, card, cpu, pert, (m_card, m_cpu, m_pert), init, t_cfg)
     return {"launches": launches, "worst_grad": worst["grad"][0],
             "worst_stats": worst["stats"][0], "floored": floored}
 
@@ -3466,6 +3511,388 @@ def evaluation(card_name: str, region: dict, params, forward_ms: dict, train: di
     return out
 
 
+# --- phase 26: the parallel layer ---------------------------------------------
+# (a) world size 1 in this process (NCCL); (b) world size 2 on the one card:
+# two processes of this script (``parallel_worker``), and the CLI's continent in
+# two more pairs. NCCL refuses two ranks on one GPU, so (b) runs on Gloo unless
+# a two-rank NCCL all-reduce on the card (``parallel_probe``) succeeds; the log
+# says which ran. World 2 on one card measures correctness and the collectives'
+# overhead, not scaling.
+PARALLEL_WORLD = 2
+PARALLEL_TIMEOUT_S = 300  # every process of (b); a hang fails the phase
+PROBE_TIMEOUT_S = 90
+DP_BATCH = TRAIN_BATCH  # the reference's 128: 64 rows per rank at world 2
+TP_LR = 32  # the channel-parallel forward: a 32-px crop (output 120^2), batch 2
+# the band-distributed product against the same options in one process: the
+# same kernels on the same crops of the same card, so bit for bit is expected;
+# at most 1 m on fewer than PRODUCT_DIFF_SHARE of the pixels would mean outputs
+# that differ by round-off and round to different int16 metres
+PRODUCT_DIFF_SHARE = 1e-5
+# D's last bias: RaGAN compares each logit with the other side's mean, so a
+# shift of every logit changes nothing and this gradient is 0 up to round-off
+# (a few 1e-7 in either sum order), as in tests/test_torch_port_train.py
+ZERO_GRADS = {"D.linear_2.bias": 1e-6}
+
+
+def _spawn(args) -> subprocess.Popen:
+    return subprocess.Popen(args, cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _helper(fn: str, *args) -> list:
+    return [sys.executable, "-c", f"import sys, chip_smoke; chip_smoke.{fn}(*sys.argv[1:])",
+            *map(str, args)]
+
+
+def _wait_all(procs: dict, timeout: float) -> dict:
+    """name -> (returncode or None if it was killed at the deadline, stdout,
+    stderr); every process still running at the deadline is killed."""
+    deadline = time.monotonic() + timeout
+    done = {}
+    for name, p in procs.items():
+        try:
+            out, err = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            done[name] = (p.returncode, out, err)
+        except subprocess.TimeoutExpired:
+            for q in procs.values():
+                q.kill()
+            out, err = p.communicate()
+            done[name] = (None, out, err)
+    return done
+
+
+def _require_ok(done: dict, what: str) -> None:
+    bad = {k: v for k, v in done.items() if v[0] != 0}
+    if bad:
+        raise AssertionError(f"{what}: " + "; ".join(
+            f"{k} {'timed out' if rc is None else f'exited {rc}'}:\n{out[-2000:]}{err[-3000:]}"
+            for k, (rc, out, err) in bad.items()))
+
+
+def parallel_probe(rank: str, d: str) -> None:
+    """Phase 26: one rank of a two-rank NCCL all-reduce on the one card."""
+    import torch
+    import torch.distributed as dist
+
+    from deepbedmap_tpu_torch.parallel import distributed
+
+    distributed.initialize(f"file://{d}/probe_store", 2, int(rank), backend="nccl",
+                           device=DEVICE, timeout_s=PROBE_TIMEOUT_S / 2)
+    x = torch.ones(1, device=DEVICE)
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    dist.destroy_process_group()
+    print(f"probe rank {rank}: all_reduce {float(x)}", flush=True)
+
+
+def parallel_worker(rank: str, world: str, d: str, backend: str) -> None:
+    """Phase 26 (b): one rank of the world-2 run on the card, its group on
+    ``backend`` over a ``file://`` store in ``d``. Saves rank 0's canvas,
+    step and forward in ``d`` and every rank's counts and times in
+    ``d/rank{r}.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from deepbedmap_tpu_torch import DeepBedMap
+    from deepbedmap_tpu_torch.config import GeneratorConfig, TrainConfig
+    from deepbedmap_tpu_torch.device import disable_tf32
+    from deepbedmap_tpu_torch.ops import _kernels
+    from deepbedmap_tpu_torch.parallel import (batch_sharding, distributed, make_mesh,
+                                               make_mesh_2d, make_sharded_train_step,
+                                               make_tp_forward, shard_params_tp)
+    from deepbedmap_tpu_torch.train.state import create_gan_state
+
+    rank, world = int(rank), int(world)
+    disable_tf32()
+    distributed.initialize(f"file://{d}/store", world, rank, backend=backend, device=DEVICE,
+                           timeout_s=PARALLEL_TIMEOUT_S / 2)
+    rec = {"backend": dist.get_backend(), "cuda_device": torch.cuda.current_device()}
+    mesh = make_mesh(world, device=DEVICE)
+
+    def timed(fn):
+        dist.barrier()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    # tile-sharded continent inference on phase 6's region and weights
+    dbm = DeepBedMap(torch.load(f"{d}/params.pt", weights_only=True), cfg=GeneratorConfig(),
+                     device=DEVICE)
+    inputs, bounds, kw = continent_region()
+    _kernels.reset_launches()
+    raster, rec["continent_cold_s"] = timed(
+        lambda: dbm.predict_continent(inputs, bounds, mesh=mesh, **kw))
+    rec["continent_launches"] = dict(_kernels.launches)
+    _, rec["continent_s"] = timed(lambda: dbm.predict_continent(inputs, bounds, mesh=mesh, **kw))
+    if rank == 0:
+        np.save(f"{d}/canvas.npy", raster.data)
+
+    # the band-distributed streamed product on phase 20's region and generator
+    prod = DeepBedMap(cfg=GeneratorConfig(init_scale=PRODUCT_INIT_SCALE), device=DEVICE)
+    p_inputs, p_bounds = product_region()
+    _kernels.reset_launches()
+    rec["multihost_returned"], rec["multihost_s"] = timed(lambda: prod.predict_continent(
+        p_inputs, p_bounds, outfilepath=f"{d}/multihost", tile_out=TILE_OUT, halo_lr=HALO_LR,
+        multihost=True, stream_product=True))
+    rec["multihost_launches"] = dict(_kernels.launches)
+
+    # one data-parallel step at the reference's batch, 64 rows per rank
+    t_cfg = TrainConfig(batch_size=DP_BATCH)
+    state = create_gan_state(GeneratorConfig(), t_cfg=t_cfg, seed=0, device=DEVICE)
+    step = make_sharded_train_step(mesh, t_cfg)
+    local = batch_sharding(mesh)({k: torch.from_numpy(v).to(DEVICE)
+                                  for k, v in train_batch(DP_BATCH, seed=26).items()})
+    _kernels.reset_launches()
+    (state, metrics), rec["dp_cold_s"] = timed(lambda: step(state, local))
+    rec["dp_launches"] = dict(_kernels.launches)
+    if rank == 0:
+        torch.save({"tensors": _step_tensors(state, t_cfg.adam_beta1),
+                    "metrics": {k: v.cpu() for k, v in vars(metrics).items()}}, f"{d}/dp.pt")
+    _, rec["dp_step_s"] = timed(lambda: step(state, local))
+
+    # the channel-parallel forward on a (1, 2) mesh, phase 20's generator
+    mesh2 = make_mesh_2d(1, world, device=DEVICE)
+    shards = shard_params_tp(mesh2, prod.model.state_dict())
+    xs = [torch.from_numpy(a).to(DEVICE) for a in _crop_inputs(TP_LR, 2, seed=26)]
+    with torch.no_grad():
+        out, rec["tp_forward_s"] = timed(lambda: make_tp_forward(mesh2, prod.model, shards)(*xs))
+    if rank == 0:
+        np.save(f"{d}/tp.npy", out.cpu().numpy())
+    with open(f"{d}/rank{rank}.json", "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+    print(f"parallel worker {rank} ok", flush=True)
+
+
+def _dp_runs(t_cfg, mesh) -> dict:
+    """Phase 26 (a): one step at DP_BATCH from the seeded state on one device
+    (also from perturbed weights) and through ``make_sharded_train_step`` at
+    world 1: name -> (``_step_tensors``, metrics, launches, warm step s);
+    ``init``: the weights before the step."""
+    import torch
+
+    from deepbedmap_tpu_torch.config import GeneratorConfig
+    from deepbedmap_tpu_torch.ops import _kernels
+    from deepbedmap_tpu_torch.parallel import make_sharded_train_step
+    from deepbedmap_tpu_torch.train.state import create_gan_state
+    from deepbedmap_tpu_torch.train.steps import make_train_step
+
+    batch = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in train_batch(DP_BATCH, seed=26).items()}
+    runs = {}
+    for key in ("single", "perturbed", "world1"):
+        state = create_gan_state(GeneratorConfig(), t_cfg=t_cfg, seed=0, device=DEVICE)
+        if key == "single":
+            runs["init"] = {f"{tag}{n}": p.detach().cpu().double()
+                            for tag, model in (("G.", state.g), ("D.", state.d))
+                            for n, p in model.named_parameters()}
+        if key == "perturbed":
+            gen = torch.Generator().manual_seed(5)
+            with torch.no_grad():
+                for p in list(state.g.parameters()) + list(state.d.parameters()):
+                    p.mul_(1 + PERTURB * torch.randn(p.shape, generator=gen).to(p.device))
+        step = make_sharded_train_step(mesh, t_cfg) if key == "world1" else make_train_step(t_cfg)
+        _kernels.reset_launches()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _kernels.launches.items() if v}
+        tensors = _step_tensors(state, t_cfg.adam_beta1)
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        runs[key] = (tensors, metrics, launches, time.perf_counter() - t0)
+    return runs
+
+
+def parallel_phase(card_name: str, params, default_out, tmp: str,
+                   world: int = PARALLEL_WORLD) -> dict:
+    """Phase 26: (a) world size 1 on NCCL in this process: ``initialize``,
+    ``make_mesh(1)``, ``predict_continent(mesh=)`` on phase 6's region and
+    weights against phase 6's canvas, one ``make_sharded_train_step`` step at
+    the reference's batch against the one-device step; (b) world size
+    ``world``, one ``parallel_worker`` process per rank, rank r on card r
+    modulo the cards present (world 2 on the one card here;
+    ``chip_parallel.py`` runs one rank per card): the tile-sharded continent
+    against phase 6's canvas, the band-distributed streamed product on phase
+    20's region against the same options in this process, one data-parallel
+    step at 128 / world rows per rank against the one-device step at 128, the
+    channel-parallel forward on a (1, world) mesh against the one-device
+    forward, and the CLI's ``continent --mesh-devices`` and ``--multihost``
+    (world processes each) with rank 0's JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    from deepbedmap_tpu_torch import DeepBedMap
+    from deepbedmap_tpu_torch.config import GeneratorConfig, TrainConfig
+    from deepbedmap_tpu_torch.data import geotiff
+    from deepbedmap_tpu_torch.inference import TilePlan
+    from deepbedmap_tpu_torch.ops import _kernels
+    from deepbedmap_tpu_torch.parallel import distributed, make_mesh
+    from deepbedmap_tpu_torch.train.steps import StepMetrics
+
+    t_start = time.perf_counter()
+    res = {"card": card_name}
+    inputs, bounds, kw = continent_region()
+    plan = TilePlan(out_h=2 * TILE_OUT, out_w=2 * TILE_OUT, tile_out=TILE_OUT, halo_lr=HALO_LR)
+    t_cfg = TrainConfig(batch_size=DP_BATCH)
+
+    log("  (a) world size 1 in this process")
+    if not distributed.initialize(device=DEVICE):
+        raise AssertionError("a process group was already up before phase 26")
+    res["world1_backend"] = dist.get_backend()
+    mesh = make_mesh(1, device=DEVICE)
+    dbm = DeepBedMap(params, cfg=GeneratorConfig(), device=DEVICE)
+    _kernels.reset_launches()
+    raster = dbm.predict_continent(inputs, bounds, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.launches)
+    # the buffered mesh path predicts one tile per forward, as JAX's does
+    log(f"  launches in predict_continent(mesh=make_mesh(1)) ({plan.num_tiles} forwards, "
+        f"backend {res['world1_backend']}): {launches}")
+    check_launches(launches, _expected_launches(plan.num_tiles))
+    compare(f"world 1: predict_continent(mesh=) vs phase 6's canvas",
+            torch.from_numpy(raster.data), default_out, TOL_SEAM)
+    t0 = time.perf_counter()
+    dbm.predict_continent(inputs, bounds, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    res["continent_ms_per_tile"] = {"1": 1e3 * (time.perf_counter() - t0) / plan.num_tiles}
+    runs = _dp_runs(t_cfg, mesh)
+    check_launches(runs["world1"][2], {k: v for k, v in per_step("default", 12).items() if v})
+    single, pert, init = runs["single"], runs["perturbed"], runs["init"]
+    hold_step(f"world 1: make_sharded_train_step at batch {DP_BATCH}", runs["world1"][0],
+              single[0], pert[0], (runs["world1"][1], single[1], pert[1]), init, t_cfg,
+              who="1-rank step", ref="the one-device step", floors=ZERO_GRADS)
+    res["dp_step_ms"] = {"1": 1e3 * runs["world1"][3]}
+    res["single_step_ms"] = 1e3 * single[3]
+    dist.destroy_process_group()
+    log(f"  world 1 ({res['world1_backend']}): predict_continent(mesh=) "
+        f"{res['continent_ms_per_tile']['1']:.1f} ms/tile warm; DP step "
+        f"{res['dp_step_ms']['1']:.1f} ms, one-device step {res['single_step_ms']:.1f} ms at "
+        f"batch {DP_BATCH}  [{card_name}]")
+
+    log(f"  (b) world size {world} on {torch.cuda.device_count()} card(s)")
+    d = f"{tmp}/parallel"
+    os.makedirs(f"{d}/region")
+    torch.save({k: v.cpu() for k, v in params.items()}, f"{d}/params.pt")
+    for k, v in inputs.items():
+        np.save(f"{d}/region/{k}.npy", v)
+    probe = _wait_all({r: _spawn(_helper("parallel_probe", r, d)) for r in range(2)},
+                      PROBE_TIMEOUT_S)
+    if all(v[0] == 0 for v in probe.values()):
+        backend = "nccl"
+        res["nccl_probe"] = "ran"
+    else:
+        backend = "gloo"
+        why = [(v[2].strip().splitlines() or ["(no stderr)"])[-1] for v in probe.values()]
+        res["nccl_probe"] = "refused: " + why[0][:300]
+    cards = "one card" if torch.cuda.device_count() == 1 else "two cards"
+    log(f"  NCCL with two ranks on {cards}: {res['nccl_probe']}; world {world} runs on "
+        f"{backend}")
+    t0 = time.perf_counter()
+    done = _wait_all({f"worker{r}": _spawn(_helper("parallel_worker", r, world, d, backend))
+                      for r in range(world)}, PARALLEL_TIMEOUT_S)
+    res[f"world{world}_wall_s"] = time.perf_counter() - t0
+    _require_ok(done, f"phase 26's world-{world} workers")
+    # the CLI's processes after the workers, so that they do not share the
+    # card with the timed runs
+    procs = {}
+    cli_base = ["-m", "deepbedmap_tpu_torch", "continent", "--inputs", f"{d}/region",
+                "--bounds", ",".join(map(str, bounds)), "--device", DEVICE, "--stream",
+                "--tile-out", str(TILE_OUT), "--halo-lr", str(HALO_LR),
+                "--num-processes", str(world), "--backend", backend]
+    for name, extra in (("cli_mesh", ["--mesh-devices", str(world)]),
+                        ("cli_multihost", ["--multihost"])):
+        for r in range(world):
+            procs[f"{name}{r}"] = _spawn([sys.executable, *cli_base, "-o", f"{d}/{name}",
+                                          "--coordinator", f"file://{d}/store_{name}",
+                                          "--process-id", str(r), *extra])
+    done.update(_wait_all(procs, PARALLEL_TIMEOUT_S))
+    _require_ok(done, f"phase 26's world-{world} CLI runs")
+    recs = []
+    for r in range(world):
+        with open(f"{d}/rank{r}.json") as f:
+            recs.append(json.load(f))
+    res[f"world{world}_backend"] = recs[0]["backend"]
+    cards = [r % torch.cuda.device_count() for r in range(world)]
+    if [(x["backend"], x["cuda_device"]) for x in recs] != [(backend, c) for c in cards]:
+        raise AssertionError(f"the ranks ran on {[(x['backend'], x['cuda_device']) for x in recs]}")
+    per_rank = plan.grid[0] * -(-plan.grid[1] // world)  # each band's tiles over the ranks
+    for r, x in enumerate(recs):
+        log(f"  rank {r}: launches in predict_continent(mesh=make_mesh({world})) ({per_rank} "
+            f"forwards): {x['continent_launches']}; in the band-distributed product: "
+            f"{x['multihost_launches']}; in the DP step: {x['dp_launches']}")
+        check_launches(x["continent_launches"], _expected_launches(per_rank))
+        check_launches({k: v for k, v in x["dp_launches"].items() if v},
+                       {k: v for k, v in per_step("default", 12).items() if v})
+    compare(f"world {world}: predict_continent(mesh=) vs phase 6's canvas",
+            torch.from_numpy(np.load(f"{d}/canvas.npy")), default_out, TOL_SEAM)
+    res["continent_ms_per_tile"][str(world)] = 1e3 * recs[0]["continent_s"] / plan.num_tiles
+
+    prod = DeepBedMap(cfg=GeneratorConfig(init_scale=PRODUCT_INIT_SCALE), device=DEVICE)
+    p_inputs, p_bounds = product_region()
+    if any(x["multihost_returned"] is not None for x in recs):  # streamed: no Raster
+        raise AssertionError(f"the multihost product returned "
+                             f"{[x['multihost_returned'] for x in recs]}")
+    t0 = time.perf_counter()
+    prod.predict_continent(p_inputs, p_bounds, outfilepath=f"{d}/single", tile_out=TILE_OUT,
+                           halo_lr=HALO_LR, multihost=True, stream_product=True)
+    torch.cuda.synchronize()
+    res["single_product_s"] = time.perf_counter() - t0
+    res["multihost_product_s"] = recs[0]["multihost_s"]
+    got, _ = geotiff.read_geotiff(f"{d}/multihost.tif")
+    want, _ = geotiff.read_geotiff(f"{d}/single.tif")
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    res["product_max_int16_diff"] = int(diff.max())
+    res["product_pixels_differing"] = int((diff > 0).sum())
+    with open(f"{d}/multihost.tif", "rb") as a, open(f"{d}/single.tif", "rb") as b:
+        res["product_bytes_equal"] = a.read() == b.read()
+    log(f"  world {world} band-distributed product vs the same options in one "
+        f"process: largest int16 difference {res['product_max_int16_diff']} m on "
+        f"{res['product_pixels_differing']} of {diff.size} pixels, bytes equal "
+        f"{res['product_bytes_equal']}; wall {res['multihost_product_s']:.3f} s vs "
+        f"{res['single_product_s']:.3f} s  [{card_name}]")
+    if got.shape != want.shape or diff.max() > 1 or (diff > 0).mean() >= PRODUCT_DIFF_SHARE:
+        raise AssertionError("the band-distributed product differs from one process's")
+
+    saved = torch.load(f"{d}/dp.pt", weights_only=True)
+    hold_step(f"world {world}: make_sharded_train_step at {DP_BATCH // world} "
+              f"rows per rank", saved["tensors"], single[0], pert[0],
+              (StepMetrics(**saved["metrics"]), single[1], pert[1]), init, t_cfg,
+              who=f"{world}-rank step", ref="the one-device step",
+              floors=ZERO_GRADS)
+    res["dp_step_ms"][str(world)] = 1e3 * recs[0]["dp_step_s"]
+
+    xs = [torch.from_numpy(a).to(DEVICE) for a in _crop_inputs(TP_LR, 2, seed=26)]
+    with torch.inference_mode():
+        want_tp = prod.model(*xs).cpu()
+    compare(f"world {world}: make_tp_forward on a (1, {world}) mesh vs the "
+            "one-device forward", torch.from_numpy(np.load(f"{d}/tp.npy")), want_tp,
+            TOL_GENERATOR)
+    res["tp_forward_ms"] = 1e3 * recs[0]["tp_forward_s"]
+
+    for name, sharded in (("cli_mesh", True), ("cli_multihost", False)):
+        lines = [done[f"{name}{r}"][1].strip().splitlines() for r in range(world)]
+        line = json.loads(lines[0][-1])
+        want_line = {"command": "continent", "bounds": list(bounds), "out": f"{d}/{name}.tif",
+                     "sharded": sharded, "streamed": True, "processes": world}
+        if line != want_line or any(lines[1:]):
+            raise AssertionError(f"the CLI's {name}: rank 0 printed {line}, the others "
+                                 f"{lines[1:]}")
+        dem, _ = geotiff.read_geotiff(f"{d}/{name}.tif")
+        if dem.shape != (plan.out_h, plan.out_w):
+            raise AssertionError(f"the CLI's {name} product has shape {dem.shape}")
+        log(f"  the CLI's continent ({name}, {world} processes): rank 0 printed "
+            f"{line}, the others nothing")
+    res["phase_wall_s"] = time.perf_counter() - t_start
+    log(f"  world {world} ({res[f'world{world}_backend']}): predict_continent(mesh=) "
+        f"{res['continent_ms_per_tile'][str(world)]:.1f} ms/tile warm; DP step "
+        f"{res['dp_step_ms'][str(world)]:.1f} ms; TP forward {res['tp_forward_ms']:.1f} ms; its "
+        f"workers {res[f'world{world}_wall_s']:.1f} s wall; phase 26 wall time "
+        f"{res['phase_wall_s']:.1f} s  [{card_name}]")
+    return res
+
+
 # (launch-counter name, source, TPU kernel it replaces, check, small shapes,
 # main-path shape, phase, the configuration whose main path gives its
 # launches); K9's launches come from its own path in phase 15
@@ -3610,6 +4037,10 @@ def main() -> int:
             "hillshade, transects, the figure set, the CLI's live curves, a torch.profiler "
             "trace, FLOP shares)")
         evaluated = evaluation(card_name, region, params, forward_ms, train, tmp)
+        log("phase 26: parallel (world 1 on NCCL; world 2 on the one card: the tile-sharded "
+            "continent, the band-distributed product, the data-parallel step, the "
+            "channel-parallel forward, the CLI)")
+        parallel = parallel_phase(card_name, params, default_out, tmp)
 
     rows = []
     for name, src, rep, *_, path in KERNELS:
@@ -3625,6 +4056,7 @@ def main() -> int:
     print(json.dumps({"search": searched}), flush=True)
     print(json.dumps({"data_prep": prepared}), flush=True)
     print(json.dumps({"evaluation": evaluated}), flush=True)
+    print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

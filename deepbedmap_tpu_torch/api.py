@@ -2,8 +2,9 @@
 
 Counterpart of ``deepbedmap_tpu/api.py:DeepBedMap`` (constructors from JAX
 params, a Chainer npz or a tracker, ``forward_fn``, single-region ``predict``
-and ``track_rmse``, ``predict_continent`` on one device, buffered or streamed
-into the GeoTIFF product):
+and ``track_rmse``, ``predict_continent`` on one device, a mesh of ranks or
+with its bands split over processes, buffered or streamed into the GeoTIFF
+product):
 
     from deepbedmap_tpu_torch import DeepBedMap
 
@@ -31,6 +32,7 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from deepbedmap_tpu_torch.bridge import jax_params_to_state_dict
 from deepbedmap_tpu_torch.config import GeneratorConfig
@@ -40,12 +42,18 @@ from deepbedmap_tpu_torch.device import resolve_device
 from deepbedmap_tpu_torch.evalx.track import track_rmse
 from deepbedmap_tpu_torch.inference.continent import (
     predict_continent,
+    predict_continent_sharded,
     predict_continent_to_geotiff,
     save_continent_dem,
 )
 from deepbedmap_tpu_torch.inference.engine import TilePlan
+from deepbedmap_tpu_torch.inference.multihost import (
+    predict_continent_multihost,
+    predict_continent_multihost_to_geotiff,
+)
 from deepbedmap_tpu_torch.models.api import build_generator, check_generator_device
 from deepbedmap_tpu_torch.models.generator import Generator
+from deepbedmap_tpu_torch.parallel.mesh import mesh_rank
 from deepbedmap_tpu_torch.train.checkpoint import (
     import_chainer_generator_npz,
     load_generator_state_dict,
@@ -231,15 +239,25 @@ class DeepBedMap:
         incrementally; read back via ``read_geotiff(path, page=L)``).
         ``predictor``: with ``stream_product``, TIFF horizontal differencing
         before the LZW (data-dependent; see ``GeoTiffStripWriter``).
-        ``tiles_per_dispatch``: tiles batched per forward.
-        ``mesh`` and ``multihost`` (the multi-device paths) are not ported
-        and raise ``NotImplementedError``."""
-        unported = [k for k, on in (("mesh", mesh is not None),
-                                    ("multihost", multihost)) if on]
-        if unported:
-            raise NotImplementedError(
-                "not ported to the PyTorch package yet: " + ", ".join(unported)
-            )
+        ``tiles_per_dispatch``: tiles batched per forward on the
+        single-device paths and the streamed mesh path (JAX's use of it).
+        ``mesh``: a ``torch.distributed`` ``DeviceMesh``
+        (``parallel.make_mesh``) on the model's device type; every rank of it
+        calls this with the same inputs and each band's tiles are split over
+        the ranks (``inference.continent.predict_continent_sharded``). Every
+        rank computes and returns the Raster; only the mesh's first rank
+        writes ``outfilepath``.
+        ``multihost``: split the row bands over the processes of the group
+        (``inference.multihost``; start it with
+        ``parallel.distributed.initialize``). ``mesh`` must then hold this
+        rank alone. The Raster (or the product) comes back on rank 0 and None
+        elsewhere; world size 1 is the single-device path."""
+        if mesh is not None:
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(f"mesh must be a torch.distributed DeviceMesh "
+                                f"(parallel.make_mesh), got {type(mesh).__name__}")
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a {mesh.device_type} mesh for a model on {self.device}")
         if (overviews or predictor) and not stream_product:
             raise ValueError(
                 "overviews/predictor are features of the streamed writer: "
@@ -258,21 +276,43 @@ class DeepBedMap:
         host_inputs = {
             k: np.asarray(v).transpose(0, 2, 3, 1) for k, v in inputs_nchw.items()
         }
+        if multihost:
+            if stream_product:
+                predict_continent_multihost_to_geotiff(
+                    self.forward_fn(), host_inputs, plan, bounds, outfilepath,
+                    mesh=mesh, rows_per_strip=rows_per_strip, overviews=overviews,
+                    predictor=predictor, tile_loop=tile_loop, device=self.device,
+                )
+                return None
+            canvas = predict_continent_multihost(
+                self.forward_fn(), host_inputs, plan, mesh=mesh, tile_loop=tile_loop,
+                device=self.device,
+            )
+            if canvas is None:  # not rank 0
+                return None
+            if outfilepath is not None:
+                save_continent_dem(canvas, bounds, outfilepath)
+            return Raster(canvas, left=xmin, top=ymax, res=self.resolution)
         if stream_product:
             predict_continent_to_geotiff(
                 self.forward_fn(), host_inputs, plan, bounds, outfilepath,
                 tile_loop=tile_loop, prefetch=prefetch,
                 rows_per_strip=rows_per_strip, overviews=overviews,
                 predictor=predictor, tiles_per_dispatch=tiles_per_dispatch,
-                device=self.device,
+                device=self.device, mesh=mesh,
             )
             return None
-        canvas = predict_continent(
-            self.forward_fn(), host_inputs, plan, tile_loop=tile_loop,
-            prefetch=prefetch, tiles_per_dispatch=tiles_per_dispatch,
-            device=self.device,
-        )
-        if outfilepath is not None:
+        if mesh is not None:
+            canvas = predict_continent_sharded(
+                self.forward_fn(), host_inputs, plan, mesh, prefetch=prefetch
+            )
+        else:
+            canvas = predict_continent(
+                self.forward_fn(), host_inputs, plan, tile_loop=tile_loop,
+                prefetch=prefetch, tiles_per_dispatch=tiles_per_dispatch,
+                device=self.device,
+            )
+        if outfilepath is not None and (mesh is None or mesh_rank(mesh) == 0):
             save_continent_dem(canvas, bounds, outfilepath)
         return Raster(canvas, left=xmin, top=ymax, res=self.resolution)
 

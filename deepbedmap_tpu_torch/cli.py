@@ -489,35 +489,61 @@ def cmd_figures(args) -> int:
 
 
 def cmd_continent(args) -> int:
-    if args.mesh_devices or args.multihost:
-        raise NotImplementedError(
-            "--mesh-devices and --multihost are not ported to the PyTorch "
-            "package yet: the port predicts on one device"
+    """The continent product on one card, with the tiles split over
+    ``--mesh-devices`` ranks, or with the bands split over the processes
+    (``--multihost``). Either starts the process group first: torchrun's
+    variables, or ``--coordinator``/``--num-processes``/``--process-id``
+    (one process per card; ``--backend gloo`` for processes that share one
+    card). Only rank 0 prints the JSON line."""
+    import torch.distributed as dist
+
+    from deepbedmap_tpu_torch.parallel import distributed
+
+    started = False
+    if args.multihost or args.mesh_devices:
+        started = distributed.initialize(
+            args.coordinator or None,
+            args.num_processes or None,
+            args.process_id if args.process_id >= 0 else None,
+            backend=args.backend,
+            device=args.device,
         )
-    dbm = _model(args)
-    bounds = tuple(float(v) for v in args.bounds.split(","))
-    dbm.predict_continent(
-        _load_inputs(args.inputs),
-        bounds,
-        outfilepath=args.out,
-        tile_out=args.tile_out,
-        halo_lr=args.halo_lr,
-        stream_product=args.stream,
-        prefetch=args.prefetch,
-        tiles_per_dispatch=args.tiles_per_dispatch,
-        overviews=args.overviews,
-        predictor=args.predictor,
-    )
-    _emit(
-        {
-            "command": "continent",
-            "bounds": list(bounds),
-            "out": args.out + ".tif",
-            "sharded": False,
-            "streamed": bool(args.stream),
-            "processes": 1,
-        }
-    )
+    try:
+        mesh = None
+        if args.mesh_devices:
+            from deepbedmap_tpu_torch.parallel import make_mesh
+
+            mesh = make_mesh(args.mesh_devices, device=args.device)
+        dbm = _model(args)
+        bounds = tuple(float(v) for v in args.bounds.split(","))
+        dbm.predict_continent(
+            _load_inputs(args.inputs),
+            bounds,
+            outfilepath=args.out,
+            tile_out=args.tile_out,
+            halo_lr=args.halo_lr,
+            mesh=mesh,
+            stream_product=args.stream,
+            prefetch=args.prefetch,
+            tiles_per_dispatch=args.tiles_per_dispatch,
+            overviews=args.overviews,
+            predictor=args.predictor,
+            multihost=args.multihost,
+        )
+        if distributed.is_primary():
+            _emit(
+                {
+                    "command": "continent",
+                    "bounds": list(bounds),
+                    "out": args.out + ".tif",
+                    "sharded": mesh is not None,
+                    "streamed": bool(args.stream),
+                    "processes": distributed.process_count(),
+                }
+            )
+    finally:
+        if started:
+            dist.destroy_process_group()
     return 0
 
 
@@ -769,9 +795,22 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--tile-out", type=int, default=1000)
     c.add_argument("--halo-lr", type=int, default=18)
     c.add_argument("--mesh-devices", type=int, default=0,
-                   help="shard tiles over N devices (not ported yet: raises)")
+                   help="split each band's tiles over the first N ranks of the "
+                   "process group (one process per card, all with the same inputs)")
     c.add_argument("--multihost", action="store_true",
-                   help="distribute bands over processes (not ported yet: raises)")
+                   help="distribute the row bands over the processes; rank 0 "
+                   "writes the product (a --mesh-devices mesh must then hold "
+                   "the caller alone)")
+    c.add_argument("--coordinator", default="",
+                   help="process group address, tcp://host:port or file://path "
+                   "(default: torchrun's MASTER_ADDR/MASTER_PORT, else one process)")
+    c.add_argument("--num-processes", type=int, default=0,
+                   help="process count (default: torchrun's WORLD_SIZE)")
+    c.add_argument("--process-id", type=int, default=-1,
+                   help="this process's rank (default: torchrun's RANK)")
+    c.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                   help="collective backend (default: nccl on the card, gloo on "
+                   "the CPU; gloo for processes that share one card)")
     c.add_argument("--stream", action="store_true",
                    help="pipe strips into the GeoTIFF through a writer thread "
                    "(no full canvas in host memory)")

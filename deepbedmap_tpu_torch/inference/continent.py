@@ -1,12 +1,15 @@
 """Whole-continent inference: row-band streaming around the tiled engine.
 
-Counterpart of ``deepbedmap_tpu/inference/continent.py`` on one device
-(``predict_continent``, the streamed GeoTIFF product
-``predict_continent_to_geotiff`` and the buffered ``save_continent_dem``; the
-mesh and multi-host paths are not ported yet). The full-resolution
-conditioning rasters stay on the host as numpy arrays; one row band of tiles
-at a time moves to the device with its vertical halo taken from the
-neighbouring bands' real rows, so band-streamed output equals the
+Counterpart of ``deepbedmap_tpu/inference/continent.py``: one device
+(``predict_continent``), a mesh of ranks (``predict_continent_sharded``, each
+band's tiles split over the mesh by ``parallel.sharded_predict_tiles``), the
+streamed GeoTIFF product ``predict_continent_to_geotiff`` on either, and the
+buffered ``save_continent_dem``; ``inference.multihost`` splits the bands
+over processes instead. On a mesh every rank holds the whole host rasters,
+as JAX's single-host mesh path does, and every rank computes. The
+full-resolution conditioning rasters stay on the host as numpy arrays; one
+row band of tiles at a time moves to the device with its vertical halo taken
+from the neighbouring bands' real rows, so band-streamed output equals the
 whole-region engine. Edge bands use the engine's edge padding, and the
 conditioning rasters are clipped to >= 0 on the device (deepbedmap.py:663-665).
 The int16 LZW GeoTIFF goes through ``data.geotiff`` and its native codec.
@@ -175,6 +178,98 @@ def predict_continent(
     return canvas
 
 
+def _make_sharded_band_pipeline(
+    forward_fn: Callable[..., torch.Tensor],
+    plan: TilePlan,
+    mesh,
+    clip_conditioning: bool,
+    tiles_per_dispatch: int = 1,
+):
+    """(dispatch, fetch) for one mesh-sharded row band: ``dispatch`` slices
+    the band off the host rasters onto this rank's device and predicts its
+    tiles over the mesh (returns the (gx, T, T) tiles on the device);
+    ``fetch`` copies them back as the (tile_out, out_w) host strip. Shared by
+    the buffered (``predict_continent_sharded``), streamed
+    (``predict_continent_to_geotiff`` with ``mesh``) and multi-process
+    (``inference.multihost``, through ``dispatch.dispatch_band``) paths, so
+    their band geometry and numerics cannot diverge."""
+    from deepbedmap_tpu_torch.parallel.api import sharded_predict_tiles
+    from deepbedmap_tpu_torch.parallel.mesh import mesh_device
+
+    device = mesh_device(mesh)
+    gx = plan.grid[1]
+    band_plan = TilePlan(out_h=plan.tile_out, out_w=plan.out_w, tile_out=plan.tile_out,
+                         halo_lr=plan.halo_lr, scale=plan.scale)
+
+    def dispatch_band(band_inputs) -> torch.Tensor:
+        """Predict ONE halo'd band (numpy or tensors, NHWC) over the mesh."""
+        prepped = {}
+        for key, ratio in INPUT_RATIOS.items():
+            a = torch.as_tensor(band_inputs[key], dtype=torch.float32).to(device)
+            if clip_conditioning and key != "X":
+                a = a.clamp_min(0.0)
+            # horizontal halo: edge padding; the vertical halo rows are real
+            # data from _band_inputs
+            p = band_plan.pad_lr * ratio
+            prepped[key] = pad_edge(a, 0, 0, p, p)
+        tiles = sharded_predict_tiles(forward_fn, prepped, band_plan, mesh, prepadded=True,
+                                      tiles_per_dispatch=tiles_per_dispatch)
+        if tiles.shape != (gx, plan.tile_out, plan.tile_out):
+            raise AssertionError(f"band tiles {tuple(tiles.shape)}")
+        return tiles
+
+    def dispatch(inputs_host: Dict[str, np.ndarray], band: int) -> torch.Tensor:
+        return dispatch_band(_band_inputs(inputs_host, plan, band, device))
+
+    dispatch.dispatch_band = dispatch_band
+
+    def fetch(tiles: torch.Tensor) -> np.ndarray:
+        return tiles.cpu().numpy().transpose(1, 0, 2).reshape(plan.tile_out, plan.out_w)
+
+    return dispatch, fetch
+
+
+def _make_sharded_band_strip(
+    forward_fn: Callable[..., torch.Tensor],
+    plan: TilePlan,
+    mesh,
+    clip_conditioning: bool,
+) -> Callable[[Dict[str, np.ndarray], int], np.ndarray]:
+    """(inputs_host, band) -> (tile_out, out_w) strip: the blocking form of
+    ``_make_sharded_band_pipeline``, for callers that want one band now."""
+    dispatch, fetch = _make_sharded_band_pipeline(forward_fn, plan, mesh, clip_conditioning)
+    return lambda inputs_host, band: fetch(dispatch(inputs_host, band))
+
+
+def predict_continent_sharded(
+    forward_fn: Callable[..., torch.Tensor],
+    inputs_host: Dict[str, np.ndarray],
+    plan: TilePlan,
+    mesh,
+    clip_conditioning: bool = True,
+    progress: Optional[Callable[[int, int], None]] = None,
+    prefetch: int = 1,
+    tiles_per_dispatch: int = 1,
+) -> np.ndarray:
+    """Band streaming x mesh-sharded tiles, on every rank of ``mesh`` (a
+    ``parallel.make_mesh`` mesh; every rank calls it with the same host
+    rasters): each band moves to every rank's device with its real vertical
+    halo, and its tiles are split over the ranks
+    (``parallel.sharded_predict_tiles``). Every rank returns the whole
+    canvas. ``prefetch``: bands dispatched ahead of the blocking fetch."""
+    gy, _ = plan.grid
+    dispatch, fetch = _make_sharded_band_pipeline(
+        forward_fn, plan, mesh, clip_conditioning, tiles_per_dispatch=tiles_per_dispatch
+    )
+    canvas = np.empty((plan.out_h, plan.out_w), np.float32)
+
+    def consume(band: int, strip: np.ndarray) -> None:
+        canvas[band * plan.tile_out : (band + 1) * plan.tile_out] = strip
+
+    _run_band_pipeline(dispatch, fetch, inputs_host, gy, consume, progress, prefetch)
+    return canvas
+
+
 def predict_continent_to_geotiff(
     forward_fn: Callable[..., torch.Tensor],
     inputs_host: Dict[str, np.ndarray],
@@ -192,10 +287,19 @@ def predict_continent_to_geotiff(
     predictor: bool = False,
     tiles_per_dispatch: int = 2,
     device="cuda",
-) -> str:
+    mesh=None,
+) -> Optional[str]:
     """Band-streamed inference on ``device`` piped straight into the int16
-    LZW GeoTIFF ``{outfilepath}.tif``; returns its path. A writer thread
-    LZW-encodes and writes band strip i while the device computes band i+1
+    LZW GeoTIFF ``{outfilepath}.tif``; returns its path.
+
+    ``mesh``: split each band's tiles over the ranks of a
+    ``parallel.make_mesh`` mesh, on the mesh's devices (``device`` is then
+    unused); every rank computes, only the mesh's first rank writes and
+    returns the path, the others return None. The strips equal
+    ``predict_continent_sharded``'s canvas rows.
+
+    A writer thread LZW-encodes and writes band strip i while the device
+    computes band i+1
     (the native LZW call and the main thread's ``strip.cpu()`` release the
     GIL); what the writer has left when the band loop ends, at least the
     last band and with ``overviews`` the pyramid's pages, is paid after it.
@@ -232,20 +336,32 @@ def predict_continent_to_geotiff(
                 break
         else:
             rows_per_strip = 0  # no uniform divisor: one strip per band
-    band_predict = _make_band_predictor(
-        forward_fn, plan, clip_conditioning, tile_loop=tile_loop,
-        tiles_per_dispatch=tiles_per_dispatch,
-    )
-    device = resolve_device(device)
+    if mesh is not None:
+        from deepbedmap_tpu_torch.parallel.mesh import mesh_rank
+
+        dispatch, fetch = _make_sharded_band_pipeline(
+            forward_fn, plan, mesh, clip_conditioning, tiles_per_dispatch=tiles_per_dispatch
+        )
+        if mesh_rank(mesh) != 0:
+            _run_band_pipeline(dispatch, fetch, inputs_host, gy,
+                               lambda band, strip: None, None, prefetch)
+            return None
+    else:
+        band_predict = _make_band_predictor(
+            forward_fn, plan, clip_conditioning, tile_loop=tile_loop,
+            tiles_per_dispatch=tiles_per_dispatch,
+        )
+        device = resolve_device(device)
+        dispatch = lambda ih, band: band_predict(_band_inputs(ih, plan, band, device))
+        fetch = lambda strip: strip.cpu().numpy()
     tw = _ThreadedStripWriter(
         outfilepath, plan, bounds, nodataval, compress,
         rows_per_strip or None, overviews, predictor,
     )
     try:
         _run_band_pipeline(
-            lambda ih, band: band_predict(_band_inputs(ih, plan, band, device)),
-            lambda strip: strip.cpu().numpy(),
-            inputs_host, gy, lambda band, strip: tw.put(strip), progress, prefetch,
+            dispatch, fetch, inputs_host, gy, lambda band, strip: tw.put(strip), progress,
+            prefetch,
         )
         tw.close()
     except BaseException:

@@ -18,6 +18,12 @@ variance as ``momentum * old + (1 - momentum) * new`` (flax's momentum 0.9
 is PyTorch's 0.1; ``nn.BatchNorm2d`` would store the unbiased variance, off
 by n/(n-1)). Its parameters are ``scale`` and ``bias``, its statistics the
 buffers ``mean`` and ``var``, under flax's names.
+
+``forward(x, group)`` with a process group (data-parallel training) takes
+the batch's mean and mean square over the global batch, with gradient
+(``ops.collectives.global_mean``), before the one-pass variance: GSPMD's
+cross-device BatchNorm in JAX's sharded step. The running statistics then
+update identically on every rank.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 from torch import nn
 
 from deepbedmap_tpu_torch.config import DiscriminatorConfig
+from deepbedmap_tpu_torch.ops.collectives import global_mean
 from deepbedmap_tpu_torch.ops.conv import leaky_relu
 
 
@@ -43,10 +50,13 @@ class FlaxBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
         if self.training:
             mean = x.mean((0, 2, 3))
-            var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean, min=0.0)
+            mean_sq = (x * x).mean((0, 2, 3))
+            if group is not None:
+                mean, mean_sq = global_mean(torch.cat([mean, mean_sq]), group).chunk(2)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)
@@ -93,15 +103,15 @@ class Discriminator(nn.Module):
                     m.mean.zero_()
                     m.var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
         """x (N, H, W, 1) NHWC -> (N, 1) logits. ``train()`` mode normalises
-        with the batch's statistics and updates the running ones;
-        ``eval()`` mode uses the running ones."""
+        with the batch's statistics (the global batch's over ``group``) and
+        updates the running ones; ``eval()`` mode uses the running ones."""
         a = x.permute(0, 3, 1, 2)
         for i in range(len(self.cfg.channels)):
             a = getattr(self, f"conv_layer{i}")(a)
             if i > 0:
-                a = getattr(self, f"batch_norm{i}")(a)
+                a = getattr(self, f"batch_norm{i}")(a, group)
             a = leaky_relu(a)
         a = a.permute(0, 2, 3, 1).reshape(a.shape[0], -1)  # flax's (H, W, C) order
         return self.linear_2(leaky_relu(self.linear_1(a)))

@@ -3,6 +3,11 @@
 Counterpart of ``deepbedmap_tpu/ops/losses.py``. Image batches are NHWC,
 logits (N, 1). Golden values: ragan_loss 1.56670504 (srgan_train.py:985-991)
 and generator_loss 4.35108415 (srgan_train.py:859-868).
+
+``group`` (data-parallel training): RaGAN's relativistic means and the
+accuracy become global-batch means (``ops.collectives.global_mean``); the
+other means stay over the rank's rows, whose average over equal shards is
+the global one.
 """
 
 from __future__ import annotations
@@ -12,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from deepbedmap_tpu_torch.config import LossConfig
+from deepbedmap_tpu_torch.ops.collectives import global_mean
 from deepbedmap_tpu_torch.ops.resize import avg_pool
 from deepbedmap_tpu_torch.ops.ssim import ssim
 
@@ -33,26 +39,27 @@ def ragan_loss(
     fake_logits: torch.Tensor,
     real_target: float = 1.0,
     fake_target: float = 0.0,
+    group=None,
 ) -> torch.Tensor:
     """Relativistic-average GAN loss: real logits relative to the mean fake
     logit classified as ``real_target``, and fake relative to the mean real
     as ``fake_target``. The generator's adversarial term swaps the targets
     (srgan_train.py:874-879)."""
     real_vs_fake = sigmoid_cross_entropy(
-        real_logits - torch.mean(fake_logits),
+        real_logits - global_mean(torch.mean(fake_logits), group),
         torch.full_like(real_logits, real_target),
     )
     fake_vs_real = sigmoid_cross_entropy(
-        fake_logits - torch.mean(real_logits),
+        fake_logits - global_mean(torch.mean(real_logits), group),
         torch.full_like(fake_logits, fake_target),
     )
     return real_vs_fake + fake_vs_real
 
 
-def binary_accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def binary_accuracy(logits: torch.Tensor, labels: torch.Tensor, group=None) -> torch.Tensor:
     """Share of logits whose sign (threshold 0) matches the 0/1 label."""
     predictions = (logits >= 0.0).float()
-    return torch.mean((predictions == labels.float()).float())
+    return global_mean(torch.mean((predictions == labels.float()).float()), group)
 
 
 class GeneratorLossTerms(NamedTuple):
@@ -71,6 +78,7 @@ def generator_loss(
     x_topo: torch.Tensor,  # NHWC low-res tile cropped of its one-pixel ring
     cfg: LossConfig = LossConfig(),
     scale: int = 4,
+    group=None,
 ) -> GeneratorLossTerms:
     """Weighted perceptual loss (srgan_train.py:841-902): content L1,
     RaGAN with swapped targets, topographic L1 of the ``scale`` x ``scale``
@@ -83,6 +91,7 @@ def generator_loss(
         fake_logits=fake_logits,
         real_target=0.0,
         fake_target=1.0,
+        group=group,
     )
     topographic = torch.mean(torch.abs(avg_pool(y_pred, scale) - x_topo))
     structural = 1.0 - ssim(y_pred, y_true, window_size=cfg.ssim_window)

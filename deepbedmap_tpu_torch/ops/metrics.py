@@ -7,15 +7,19 @@ from __future__ import annotations
 
 import torch
 
+from deepbedmap_tpu_torch.ops.collectives import global_mean
 
-def psnr(y_pred: torch.Tensor, y_true: torch.Tensor, data_range: float = 2.0 ** 32) -> torch.Tensor:
-    """Batch Peak Signal-to-Noise Ratio.
+
+def psnr(y_pred: torch.Tensor, y_true: torch.Tensor, data_range: float = 2.0 ** 32,
+         group=None) -> torch.Tensor:
+    """Batch Peak Signal-to-Noise Ratio; over ``group``, of the global
+    batch's MSE (taken before the log, not a mean of the ranks' PSNRs).
 
     Keeps the reference's unusual ``data_range=2**32`` default
     (srgan_train.py:907) so logged numbers are directly comparable;
     golden value: psnr(ones, 2*ones) == 192.65919722494797.
     """
-    mse = torch.mean(torch.square(y_pred - y_true))
+    mse = global_mean(torch.mean(torch.square(y_pred - y_true)), group)
     return 20.0 * torch.log10(data_range / torch.sqrt(mse))
 
 

@@ -111,6 +111,8 @@ def test_port_import_loads_no_jax():
         "import deepbedmap_tpu_torch.evalx.baselines, deepbedmap_tpu_torch.viz\n"
         "import deepbedmap_tpu_torch.viz.live, deepbedmap_tpu_torch.viz.figure_set\n"
         "import deepbedmap_tpu_torch.utils.profiling, deepbedmap_tpu_torch.utils.flops\n"
+        "import deepbedmap_tpu_torch.parallel, deepbedmap_tpu_torch.parallel.tp\n"
+        "import deepbedmap_tpu_torch.inference.multihost\n"
         "import deepbedmap_tpu_torch.utils.logging\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'deepbedmap_tpu', 'h5py', 'pandas', "

@@ -3,8 +3,8 @@ in-process through ``main(argv)`` with ``--device cpu`` on tiny synthetic
 data: ``train`` then ``predict --checkpoint`` on its checkpoint, ``predict``
 (NetCDF, and GeoTIFF without h5py), ``evaluate``,
 ``continent --stream --overviews 1``, the ``verify-weights`` rehearsal of
-``tests/test_cli.py``, TF32 turned off by the programs, and the options that
-are not ported yet (the multi-device ones). ``pandas``
+``tests/test_cli.py``, TF32 turned off by the programs, and the multi-device
+options of ``continent`` on a world of one process. ``pandas``
 is unimportable in every test (the card's machine has none)."""
 
 import json
@@ -252,9 +252,29 @@ def test_cli_verify_weights_rehearsal(capsys, tmp_path):
     ["continent", "--inputs", "x", "--bounds", "0,0,1,1", "-o", "y", "--mesh-devices", "2"],
     ["continent", "--inputs", "x", "--bounds", "0,0,1,1", "-o", "y", "--multihost"],
 ])
-def test_cli_unported_options_raise(argv):
-    with pytest.raises(NotImplementedError):
-        main(argv + ["--device", "cpu"])
+def test_cli_unported_options_raise(argv, tmp_path, capsys):
+    # the multi-device options are ported (tests/test_torch_port_parallel.py,
+    # tests/test_torch_port_multihost.py); on a world of one process the CLI
+    # refuses a 2-rank mesh, naming the world size, and --multihost without
+    # --num-processes runs as one process; either way its group is gone after
+    if "--mesh-devices" in argv:
+        with pytest.raises(ValueError, match="world size is 1"):
+            main(argv + ["--device", "cpu"])
+        assert not torch.distributed.is_initialized()
+        return
+    inputs = tmp_path / "x"
+    inputs.mkdir()
+    rs = np.random.RandomState(0)
+    for k, c, r in (("X", 1, 1), ("W1", 1, 10), ("W2", 2, 2), ("W3", 1, 1)):
+        np.save(inputs / f"{k}.npy", rs.rand(1, c, 8 * r, 8 * r).astype(np.float32))
+    sub = {"x": str(inputs), "y": str(tmp_path / "y"), "0,0,1,1": "0,0,8000,8000"}
+    argv = [sub.get(a, a) for a in argv] + ["--device", "cpu", "--blocks", "1",
+                                            "--tile-out", "32", "--halo-lr", "3"]
+    rc, res = run_cli(capsys, argv)
+    assert rc == 0 and not torch.distributed.is_initialized()
+    assert res["sharded"] is False and res["processes"] == 1
+    dem, _ = geotiff.read_geotiff(str(tmp_path / "y.tif"))
+    assert dem.shape == (32, 32)
 
 
 def test_cli_train_then_predict_from_checkpoint(capsys, tmp_path, monkeypatch):

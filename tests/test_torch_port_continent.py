@@ -25,6 +25,17 @@ from deepbedmap_tpu_torch.models import build_generator
 CFG = dict(num_residual_blocks=2)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs files in
+    parallel worker processes, and PyTorch's default of one thread per core
+    in each worker oversubscribes the cores many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def jax_params():
     # init_scale=1.0 only draws O(1) weights, so outputs are O(1) and the
@@ -100,9 +111,20 @@ def test_port_tiled_equals_untiled():
 
 @pytest.mark.parametrize("option", [dict(mesh=object()), dict(multihost=True)])
 def test_unported_continent_options_raise(port, option):
-    with pytest.raises(NotImplementedError):
-        port.predict_continent(_inputs_nchw(8, 8, 0), (0.0, 0.0, 8000.0, 8000.0),
-                               tile_out=32, halo_lr=3, **option)
+    # the multi-device options are ported (tests/test_torch_port_parallel.py,
+    # tests/test_torch_port_multihost.py); what stays true in one process: a
+    # mesh that is not a DeviceMesh is refused, and multihost with no process
+    # group (world size 1) is the single-device path, bit for bit
+    inputs, bounds = _inputs_nchw(8, 8, 0), (0.0, 0.0, 8000.0, 8000.0)
+    kw = dict(tile_out=32, halo_lr=3)
+    if "mesh" in option:
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            port.predict_continent(inputs, bounds, **kw, **option)
+        return
+    want = port.predict_continent(inputs, bounds, tiles_per_dispatch=1, **kw)
+    got = port.predict_continent(inputs, bounds, **kw, **option)
+    assert not torch.distributed.is_initialized()
+    np.testing.assert_array_equal(got.data, want.data)
 
 
 def test_band_predictor_rejects_bad_arguments(port):

@@ -24,6 +24,17 @@ from deepbedmap_tpu_torch.ops.deform_conv import deform_conv2d
 C = 64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs files in
+    parallel worker processes, and PyTorch's default of one thread per core
+    in each worker oversubscribes the cores many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _offsets(rs, shape):
     """std-1.5 offsets with some beyond the +/-2 clamp and some exact integers,
     so the clamp, every shift branch and floor() at an integer all run."""

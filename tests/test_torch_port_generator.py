@@ -16,6 +16,17 @@ from deepbedmap_tpu_torch.config import GeneratorConfig
 from deepbedmap_tpu_torch.models import Generator
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs files in
+    parallel worker processes, and PyTorch's default of one thread per core
+    in each worker oversubscribes the cores many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize(
     "flags,lr",
     [

@@ -26,6 +26,17 @@ KEYS = ("X", "W1", "W2", "W3")
 WINDOW = (1000.0, 1000.0, 10000.0, 10000.0)  # tests/test_api.py's 9 km window
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs files in
+    parallel worker processes, and PyTorch's default of one thread per core
+    in each worker oversubscribes the cores many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _assert_same(got, want, rel=1e-6):
     """NaN masks identical; values within ``rel`` of want's range."""
     got, want = np.asarray(got), np.asarray(want)

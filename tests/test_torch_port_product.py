@@ -13,6 +13,7 @@ import threading
 import jax
 import numpy as np
 import pytest
+import torch
 
 from deepbedmap_tpu import DeepBedMap as JaxDeepBedMap
 from deepbedmap_tpu.config import GeneratorConfig as JaxGeneratorConfig
@@ -27,6 +28,17 @@ CFG = dict(num_residual_blocks=2)
 RES = 250.0
 BOUNDS = (0.0, 0.0, 96 * RES, 64 * RES)
 KW = dict(tile_out=32, halo_lr=3, tiles_per_dispatch=2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs files in
+    parallel worker processes, and PyTorch's default of one thread per core
+    in each worker oversubscribes the cores many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _inputs_nchw(lh, lw, seed):

@@ -39,6 +39,17 @@ TINY = GeneratorConfig(num_residual_blocks=1)
 TOL_GENERATOR = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs files in
+    parallel worker processes, and PyTorch's default of one thread per core
+    in each worker oversubscribes the cores many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def no_pandas(monkeypatch):
     """``import pandas`` raises in every test of this file."""

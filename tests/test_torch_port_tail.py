@@ -30,6 +30,17 @@ from deepbedmap_tpu_torch.ops.tail import (
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs files in
+    parallel worker processes, and PyTorch's default of one thread per core
+    in each worker oversubscribes the cores many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _params(seed, c, scale=0.2):
     """HWIO tail params: offset conv 1, deform64, offset conv 2, final deform."""
     rs = np.random.RandomState(seed)

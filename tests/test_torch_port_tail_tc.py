@@ -43,6 +43,17 @@ TOL_TF32X3 = 1e-5
 SHAPES = [(1, 5, 7, C), (2, 21, 37, C), (1, 18, 9, C)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs files in
+    parallel worker processes, and PyTorch's default of one thread per core
+    in each worker oversubscribes the cores many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _offsets(rs, shape, clamp):
     """std-1.5 offsets, some beyond the clamp, some exact integers, and a
     tenth set to exactly +clamp or -clamp."""
