@@ -39,9 +39,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     _kernels.library()
-    _, model, default_out, _ = cs.main_path(card_name, "default")
+    path = cs.main_path(card_name, "default")
     with tempfile.TemporaryDirectory() as tmp:
-        res = cs.parallel_phase(card_name, model.state_dict(), default_out, tmp, world=world)
+        res = cs.parallel_phase(card_name, path["model"].state_dict(), path["out"], tmp,
+                                world=world)
     print(json.dumps({"parallel": res}), flush=True)
     print(json.dumps({"device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": world}}), flush=True)

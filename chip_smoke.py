@@ -204,13 +204,29 @@ Phases (any failure ends the run with a non-zero exit code):
     128, ``make_tp_forward`` on a (1, 2) mesh against the one-device forward
     (``TOL_GENERATOR``), and the CLI's ``continent --mesh-devices 2`` and
     ``--multihost`` in two processes each, rank 0's JSON line checked; every
-    process of (b) ends within ``PARALLEL_TIMEOUT_S`` or the phase fails.
+    process of (b) ends within ``PARALLEL_TIMEOUT_S`` or the phase fails;
+27. the generator options (``generator_options``): ``compute_dtype=
+    'bfloat16'`` (K2 1, K3 1, the trunk plain bf16), ``upsample_phase_conv``
+    (K1 36, K2 1, K3 1), ``tail_hcw, tail_fused=False`` (K1 36, K7 1, K8 1),
+    ``fused_rdb='never'`` (K2 1, K3 1, the trunk plain fp32) and the same at
+    ``growth_channels=16``, each at 12 RRDBs and full width through phase 6's
+    ``main_path`` (exact launches, tiled vs untiled, the canvas against phase
+    6's within ``TOL_GENERATOR``, bf16's within ``TOL_BF16``; the growth-16
+    trunk on seeded weights of its own), the generator card vs CPU (bf16 by
+    ``hold_bf16``: nearer the CPU's bf16 forward than that lies to its
+    float32 one), K1, K2, K3, K7 and K8 on the path's own inputs against
+    their plain versions (``option_kernels``), warm ms/tile, the forward's
+    stages and its FLOP share (bf16 against the bf16 peak, float32 against
+    the TF32 peak); then a bf16 train step card vs CPU (2 RRDBs, batch 128,
+    ``hold_step`` against bf16's own distance from the float32 step,
+    ``bf16_step_card_vs_cpu``), ``fit`` at 12 RRDBs and batch 128 with its
+    launch counts, and warm bf16 steps timed.
 
 Each main path checks its own configuration's launch counts (``PER_FORWARD``).
 It prints the script's wall time, one JSON line of phase 22's training
 numbers, one of phase 23's search numbers, one of phase 24's data-prep
 numbers, one of phase 25's evaluation numbers, one of phase 26's parallel
-numbers, one JSON line with each
+numbers, one of phase 27's options numbers, one JSON line with each
 kernel's launches (from the main path that runs it), error, times and bound,
 and ends with
 ``{"ok": true, "device": {...}}``. It refuses to run without a CUDA device and
@@ -335,13 +351,19 @@ from deepbedmap_tpu_torch.utils.flops import (  # noqa: E402
     H100_TF32_TC_PEAK_FLOPS as PEAK_TF32_TC,
 )
 
-# the four ported generator configurations and the kernels one forward of
-# each launches (every other counter must stay 0)
+# the generator configurations the main paths run and the kernels one
+# forward of each launches (every other counter must stay 0): the four
+# trunk/tail configurations (phases 6, 12, 17, 18) and phase 27's options
 CONFIGS = {
     "default": {},
     "kernel": dict(rrdb_fused=True, fused_conv="always", tail_fused=False),
     "banded": dict(rdb_resident="never"),
     "sweep": dict(rrdb_sweep=True),
+    "bf16": dict(compute_dtype="bfloat16"),
+    "phase": dict(upsample_phase_conv=True),
+    "hcw": dict(tail_hcw=True, tail_fused=False),
+    "plain": dict(fused_rdb="never"),
+    "plain16": dict(fused_rdb="never", growth_channels=16),
 }
 PER_FORWARD = {
     "default": {"rdb_forward": 36, "deform64_lrelu": 1, "deform_zproj1": 1},
@@ -349,6 +371,11 @@ PER_FORWARD = {
                "deform_conv_zproj1": 1},
     "banded": {"rdb_banded_forward": 36, "deform64_lrelu": 1, "deform_zproj1": 1},
     "sweep": {"rrdb_sweep_forward": 12, "deform64_lrelu": 1, "deform_zproj1": 1},
+    "bf16": {"deform64_lrelu": 1, "deform_zproj1": 1},
+    "phase": {"rdb_forward": 36, "deform64_lrelu": 1, "deform_zproj1": 1},
+    "hcw": {"rdb_forward": 36, "deform_conv": 1, "deform_conv_zproj1": 1},
+    "plain": {"deform64_lrelu": 1, "deform_zproj1": 1},
+    "plain16": {"deform64_lrelu": 1, "deform_zproj1": 1},
 }
 
 # operations per pixel: a 3x3 conv with C_in -> C_out channels does
@@ -847,41 +874,40 @@ def check_generator(init_scale: float, flags: dict) -> float:
 
 
 def forward_breakdown(model, xs, reps: int = 3) -> dict:
-    """Device time of each stage of one forward, by CUDA events."""
+    """Device time of each stage of one forward (``Generator``'s ``head``,
+    ``trunk``, ``upsample`` and ``tail``), by CUDA events."""
     import torch
 
-    from deepbedmap_tpu_torch.config import trunk_kernel
-    from deepbedmap_tpu_torch.ops.conv import leaky_relu
-    from deepbedmap_tpu_torch.ops.resize import nearest_upsample
-    from deepbedmap_tpu_torch.ops.tail import fused_deform_tail
+    from deepbedmap_tpu_torch.config import conv_kernel, trunk_kernel
 
     cfg = model.cfg
-    k10 = cfg.fused_conv != "never"
-    conv = "K10" if k10 else "cuDNN conv"
+    dt = "bf16" if cfg.compute_dtype == "bfloat16" else "fp32"
+    conv = "K10" if conv_kernel(cfg) else f"cuDNN {dt}"
     blocks = cfg.num_residual_blocks
     trunk = {"rdb": f"{3 * blocks} x K1 + RRDB skips",
              "rdb_banded": f"{3 * blocks} x K6 + RRDB skips",
-             "rrdb_fused": f"{blocks} x K4", "rrdb_sweep": f"{blocks} x K5"}[trunk_kernel(cfg)]
+             "rrdb_fused": f"{blocks} x K4", "rrdb_sweep": f"{blocks} x K5",
+             "plain": f"{3 * blocks} plain dense blocks (cuDNN {dt}) + RRDB skips"}[
+                 trunk_kernel(cfg)]
+    if cfg.upsample_phase_conv:
+        upsample = f"2 x phase conv (cuDNN {dt})"
+    elif cfg.tail_hcw:
+        upsample = f"2 x (upsample + conv) ({conv}, then cuDNN {dt} to HCW)"
+    else:
+        upsample = f"2 x (upsample + conv) ({conv})"
+    tail = ("offset convs + K2 + projection + K3" if cfg.tail_fused else
+            "offset conv + K7 + LeakyReLU + offset conv + projection + K8"
+            + (", HCW views" if cfg.tail_hcw else ""))
 
     def stages():
-        a1 = model.pre_residual_conv_layer(model.input_block(*xs))
+        a1 = model.head(*xs)
         yield f"input block + pre-residual conv ({conv})"
-        t = a1.contiguous()
-        for block in model.residual_network:
-            t = block(t)
+        t = model.trunk(a1)
         yield f"trunk: {trunk}"
-        a4 = model.post_upsample_conv_layer_1(
-            nearest_upsample(model.post_residual_conv_layer(t, residual=a1), 2))
-        a4 = model.post_upsample_conv_layer_2(nearest_upsample(a4, 2))
-        yield f"post-residual conv + 2 x (upsample + conv) ({conv})"
-        l1, l2 = model.final_conv_layer1, model.final_conv_layer2
-        if cfg.tail_fused:
-            fused_deform_tail(a4, *l1.tensors(), *l2.tensors(),
-                              clamp=cfg.deform_clamp, w1_packed=l1.packed_weight())
-            yield "tail: offset convs + K2 + projection + K3"
-        else:
-            l2(leaky_relu(l1(a4)))
-            yield "tail: offset conv + K7 + LeakyReLU + offset conv + projection + K8"
+        a4 = model.upsample(t, a1)
+        yield f"post-residual conv ({conv}) + {upsample}"
+        model.tail(a4)
+        yield f"tail: {tail}"
 
     totals: dict = {}
     with torch.inference_mode():
@@ -921,13 +947,16 @@ def continent_region():
     return inputs, (0.0, 0.0, out * 250.0, out * 250.0), kw
 
 
-def main_path(card_name: str, config: str, params=None, want=None):
-    """Phases 6, 12, 17 and 18: DeepBedMap.predict_continent in the
+def main_path(card_name: str, config: str, params=None, want=None, tol=TOL_GENERATOR):
+    """Phases 6, 12, 17, 18 and 27: DeepBedMap.predict_continent in the
     configuration ``CONFIGS[config]`` on a 2 x 2-tile region, with ``params``
     (a state_dict) or the seeded weights; its launch counts are held against
-    ``PER_FORWARD[config]`` and its output against ``want`` when given.
-    Returns the kernels' launch counts in that run, the model, the output and
-    the device time of one forward at batch 2 (CUDA events)."""
+    ``PER_FORWARD[config]``, its output against ``want`` when given and
+    against the untiled ``predict_region``, each within ``tol`` of the range.
+    Returns the kernels' launch counts in that run (``launches``), the model,
+    the output (``out``), the device time of one forward at batch 2 (CUDA
+    events; ``forward_ms``, by stage ``stages_ms``) and the warm
+    ``tile_ms``."""
     import torch
 
     from deepbedmap_tpu_torch import DeepBedMap
@@ -958,12 +987,13 @@ def main_path(card_name: str, config: str, params=None, want=None):
         raise AssertionError(f"bad continent output {raster.data.shape}")
     if want is not None:
         compare(f"continent {out}x{out} in {flags} vs the default configuration",
-                got, want, TOL_GENERATOR)
+                got, want, tol)
 
     dev = {k: torch.from_numpy(np.ascontiguousarray(v.transpose(0, 2, 3, 1))).to(DEVICE)
            for k, v in inputs.items()}
     whole = predict_region(dbm.forward_fn(), dev, plan)[0, :, :, 0].cpu()
-    compare(f"continent {out}x{out} tiled vs untiled predict_region", got, whole, TOL_SEAM)
+    compare(f"continent {out}x{out} tiled vs untiled predict_region", got, whole,
+            max(tol, TOL_SEAM))
 
     t0 = time.perf_counter()
     dbm.predict_continent(inputs, bounds, **kw)
@@ -979,7 +1009,9 @@ def main_path(card_name: str, config: str, params=None, want=None):
         log(f"  forward at batch {tpd} x {plan.crop_lr} px, {name}: {ms:.2f} ms  "
             f"[{card_name}]")
     log(f"  forward total: {sum(stage_ms.values()):.2f} ms  [{card_name}]")
-    return launches, dbm.model, got, sum(stage_ms.values())
+    return {"launches": launches, "model": dbm.model, "out": got,
+            "forward_ms": sum(stage_ms.values()), "stages_ms": stage_ms,
+            "tile_ms": per_tile_ms}
 
 
 def _smooth_field(rs, xc, yc, base: float, amp: float, terms: int = 6) -> np.ndarray:
@@ -1055,18 +1087,13 @@ def region_kernels(model, nhwc, dem: np.ndarray) -> None:
         tap_projection,
     )
     from deepbedmap_tpu_torch.ops.rdb import rdb_fused, rdb_reference
-    from deepbedmap_tpu_torch.ops.resize import nearest_upsample
     from deepbedmap_tpu_torch.ops.tail import deform64_lrelu, deform_zproj1
 
     clamp = model.cfg.deform_clamp
     with torch.inference_mode():
-        a1 = model.pre_residual_conv_layer(model.input_block(*nhwc))
-        t = rdb_in = a1.contiguous()
-        for block in model.residual_network:
-            t = block(t)
-        a4 = model.post_upsample_conv_layer_1(
-            nearest_upsample(model.post_residual_conv_layer(t, residual=a1), 2))
-        a4 = model.post_upsample_conv_layer_2(nearest_upsample(a4, 2))
+        a1 = model.head(*nhwc)
+        rdb_in = a1.contiguous()
+        a4 = model.upsample(model.trunk(a1), a1)
         l1, l2 = model.final_conv_layer1, model.final_conv_layer2
         o1k, o1b, w1, b1 = l1.tensors()
         o2k, o2b, w2, b2 = l2.tensors()
@@ -1902,7 +1929,8 @@ def _step_tensors(state, b1: float) -> dict:
 
 
 def hold_step(tag: str, got: dict, want: dict, other: dict, metrics, init: dict, t_cfg,
-              who: str = "card", ref: str = "the CPU", floors=None):
+              who: str = "card", ref: str = "the CPU", floors=None,
+              noise: str = f"a {PERTURB:g} perturbation of the weights"):
     """Phase 22's contract for one train step ``got`` against ``want`` (both
     ``_step_tensors``; ``other``: ``want``'s step from perturbed weights;
     ``metrics``: the three steps' metrics; ``init``: the weights before the
@@ -1911,8 +1939,9 @@ def hold_step(tag: str, got: dict, want: dict, other: dict, metrics, init: dict,
     gradients the same with ``TOL_STEP_GRAD``; every parameter of ``got``
     within 1e-3 * lr of Adam's update from its own moments where |g| is
     above 1e-3 of the tensor's largest. ``floors``: name -> an absolute
-    tolerance below which a gradient passes. Returns (worst ratios, the
-    tensors beyond their relative tolerance)."""
+    tolerance below which a gradient or metric passes. ``noise`` names what
+    ``other`` changed, for the log. Returns (worst ratios, the tensors
+    beyond their relative tolerance)."""
     import torch
 
     b1, b2, eps = t_cfg.adam_beta1, t_cfg.adam_beta2, t_cfg.adam_eps
@@ -1933,7 +1962,7 @@ def hold_step(tag: str, got: dict, want: dict, other: dict, metrics, init: dict,
     for name in ("discriminator_loss", "discriminator_accu", "generator_loss",
                  "generator_psnr", "generator_ssim"):
         held(name, getattr(m_got, name).cpu().double(), getattr(m_want, name).cpu().double(),
-             getattr(m_other, name).cpu().double())
+             getattr(m_other, name).cpu().double(), atol=(floors or {}).get(name, 0.0))
     worst = {"grad": (0.0, ""), "stats": (0.0, ""), "update": 0.0}
     floored = []
     for name, w in want.items():
@@ -1963,7 +1992,7 @@ def hold_step(tag: str, got: dict, want: dict, other: dict, metrics, init: dict,
         f"worst BatchNorm statistic {worst['stats'][0]:.2e} ({worst['stats'][1]}); "
         f"{len(floored)} of {len(want)} tensors beyond {TOL_STEP_GRAD:g} (gradients) or "
         f"{TOL_KERNEL:g} (statistics) of their range, each within {NOISE_K} x {ref}'s own "
-        f"change under a {PERTURB:g} perturbation of the weights: {floored}; every parameter "
+        f"change under {noise}: {floored}; every parameter "
         f"within {worst['update']:.2e} x lr of Adam's update from the {who}'s own moments")
     return worst, floored
 
@@ -3893,6 +3922,317 @@ def parallel_phase(card_name: str, params, default_out, tmp: str,
     return res
 
 
+# --- phase 27: the generator options -------------------------------------------
+
+OPTIONS = ("bf16", "phase", "hcw", "plain", "plain16")
+# JAX's own bound on a bf16 forward's distance from the float32 one
+# (tests/test_models.py:154-194), relative to the float32 output's range
+TOL_BF16 = 2e-2
+# the bf16 train step card vs CPU: 2 RRDBs (the CPU's bf16 step at batch
+# 128 takes ~33 s), the reference's batch, the generator drawn at init scale
+# 1.0 as the tier-1 bf16 step test draws it (at 0.1 the fake is ~1e-5 m and
+# D's train-mode BatchNorm normalises round-off)
+OPTION_STEP_BLOCKS, OPTION_STEP_INIT = 2, 1.0
+# fit: 420 synthetic tiles, 3 steps of 128 and one dev batch, 12 RRDBs
+OPTION_FIT_TILES, OPTION_TIMED_STEPS = 420, 5
+
+
+def hold_bf16(label: str, got, want16, want32) -> dict:
+    """A bf16 result against the bf16 reference ``want16``: nearer it than
+    ``want16`` lies to the float32 result ``want32`` (so ``got`` ran the bf16
+    path), and both distances within ``TOL_BF16`` of ``want32``'s range."""
+    import torch
+
+    for name, t in (("got", got), ("reference", want16)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{label}: non-finite values in {name}")
+    d_got = float((got.double() - want16.double()).abs().max())
+    d_ref = float((want16.double() - want32.double()).abs().max())
+    scale = float(want32.abs().max())
+    log(f"  {label}: {d_got:.3e} from the bf16 reference, which lies {d_ref:.3e} from "
+        f"float32 (ratio {d_got / d_ref:.3g}; tolerance {TOL_BF16:g} x {scale:.3e})")
+    if not (d_got < d_ref and d_ref <= TOL_BF16 * scale and d_got <= TOL_BF16 * scale):
+        raise AssertionError(f"{label}: {d_got:.3e} / {d_ref:.3e} outside the bf16 rule")
+    return {"err": d_got, "bf16_vs_fp32": d_ref, "range": scale}
+
+
+def option_card_vs_cpu(config: str) -> dict:
+    """The 12-RRDB generator in ``config`` on phase 5's crop, the card
+    against the CPU (init scale 0.1, seeded): within ``TOL_GENERATOR``, or
+    under bf16 by ``hold_bf16`` against the CPU's bf16 and float32 forwards."""
+    import torch
+
+    from deepbedmap_tpu_torch.config import GeneratorConfig
+    from deepbedmap_tpu_torch.models import build_generator
+
+    flags = CONFIGS[config]
+    cpu_model = build_generator(GeneratorConfig(**flags), seed=0, device="cpu").eval()
+    gpu_model = copy.deepcopy(cpu_model).to(DEVICE)
+    xs = [torch.from_numpy(a) for a in _crop_inputs(GEN_LR, 1, seed=1)]
+    with torch.inference_mode():
+        want = cpu_model(*xs)
+        got = gpu_model(*[a.to(DEVICE) for a in xs]).cpu()
+        label = f"generator 12 RRDB {flags}, {GEN_LR}-px crop, card vs CPU"
+        if flags.get("compute_dtype") != "bfloat16":
+            return {"err": compare(label, got, want, TOL_GENERATOR)}
+        fp32 = GeneratorConfig(**{k: v for k, v in flags.items() if k != "compute_dtype"})
+        cpu32 = build_generator(fp32, seed=0, device="cpu").eval()
+        cpu32.load_state_dict(cpu_model.state_dict())
+        return hold_bf16(label, got, want, cpu32(*xs))
+
+
+def option_kernels(name: str, model, xs) -> dict:
+    """The kernels of ``model``'s configuration (K1; K2 and K3, or K7 and
+    K8) on the inputs its own forward gives them at the main path's shapes,
+    each against its plain version on the card within ``TOL_KERNEL``; the
+    forward is replayed stage by stage, with the layers' own dispatch
+    (``deform_conv2d``'s 'auto': the kernels on the card), and its output
+    must equal ``model.tail``'s bit for bit, so these are the path's own
+    inputs."""
+    import torch
+
+    from deepbedmap_tpu_torch.config import trunk_kernel
+    from deepbedmap_tpu_torch.ops.conv import conv_nhwc, leaky_relu
+    from deepbedmap_tpu_torch.ops.deform_conv import (
+        deform_conv2d,
+        deform_conv_shifts,
+        deform_conv_shifts_zproj,
+        sample_tap_fields,
+        tap_projection,
+    )
+    from deepbedmap_tpu_torch.ops.rdb import rdb_fused, rdb_reference
+    from deepbedmap_tpu_torch.ops.tail import deform64_lrelu, deform_zproj1
+
+    cfg, dt = model.cfg, model.dtype
+    clamp = cfg.deform_clamp
+    errs = {}
+    with torch.inference_mode():
+        a1 = model.head(*xs)
+        if trunk_kernel(cfg) == "rdb":
+            rdb = model.residual_network[0].residual_dense_block1
+            ks = [c.weight for c in rdb.convs()]
+            bs = [c.bias for c in rdb.convs()]
+            x = a1.float().contiguous()
+            errs["rdb_forward"] = compare(
+                f"{name}: K1 rdb_forward {tuple(x.shape)} (the path's input)",
+                rdb_fused(x, ks, bs, rdb.residual_scaling, rdb._packed.get(ks + bs)),
+                rdb_reference(x, ks, bs, rdb.residual_scaling), TOL_KERNEL)
+        a4 = model.upsample(model.trunk(a1), a1)
+        want = model.tail(a4)
+        l1, l2 = model.final_conv_layer1, model.final_conv_layer2
+        o1k, o1b, w1, b1 = l1.tensors()
+        o2k, o2b, w2, b2 = l2.tensors()
+        # the tail's steps, in its order, dtypes and layouts
+        x_in = a4.permute(0, 1, 3, 2) if cfg.tail_hcw else a4
+        off1 = conv_nhwc(x_in, o1k, o1b, 1, dt).float().contiguous()
+        x = x_in.float().contiguous()
+        if cfg.tail_fused:
+            a5 = deform64_lrelu(x, off1, w1, b1, clamp, l1.packed_weight())
+            plain = leaky_relu(deform_conv_shifts(x, off1, w1, b1, 1, clamp))
+            k64, k1 = "deform64_lrelu", "deform_zproj1"
+        else:
+            a5 = deform_conv2d(x, off1, w1, b1, 1, clamp, l1.packed_weight())
+            plain = deform_conv_shifts(x, off1, w1, b1, 1, clamp)
+            k64, k1 = "deform_conv", "deform_conv_zproj1"
+        errs[k64] = compare(f"{name}: {k64} {tuple(x.shape)} (the path's input)", a5, plain,
+                            TOL_KERNEL)
+        del plain
+        if not cfg.tail_fused:  # the LeakyReLU on the layer's (view of its) output
+            a5 = (leaky_relu(a5.permute(0, 1, 3, 2)).permute(0, 1, 3, 2) if cfg.tail_hcw
+                  else leaky_relu(a5))
+        off2 = conv_nhwc(a5, o2k, o2b, 1, dt).float().contiguous()
+        if cfg.tail_fused:
+            z = tap_projection(a5, w2)
+            out = deform_zproj1(z, off2, b2, clamp)
+            plain = sample_tap_fields(z[..., None], off2, b2, 1, clamp)
+        else:
+            a5 = a5.float().contiguous()
+            out = deform_conv2d(a5, off2, w2, b2, 1, clamp)
+            plain = deform_conv_shifts_zproj(a5, off2, w2, b2, 1, clamp)
+        errs[k1] = compare(f"{name}: {k1} {tuple(a5.shape)} -> 1 (the path's input)", out,
+                           plain, TOL_KERNEL)
+        if not torch.equal(out, want):
+            raise AssertionError(f"{name}: the replayed tail differs from the model's")
+    return errs
+
+
+def bf16_step_card_vs_cpu(card_name: str) -> dict:
+    """Phase 27 (c): one bf16 train step (``OPTION_STEP_*``, batch
+    ``TRAIN_BATCH``) from the same seeded weights and tiles on the card and
+    on the CPU, and the CPU's float32 step from the same weights. A bf16
+    step's round-off is bf16's, which a 1e-5 perturbation of the float32
+    weights barely reaches (it moves ~0.5% of their bf16 roundings), so
+    ``hold_step`` takes the float32 step as its ``other``: each metric,
+    gradient and BatchNorm statistic within ``NOISE_K`` x the bf16 step's own
+    distance from the float32 one, D's accuracy (a share of 2 x batch sign
+    decisions) also within ``NOISE_K`` decisions and D's last bias within
+    ``ZERO_GRADS``, as phase 26's; and G's gradients, summed
+    over every element, nearer the CPU's bf16 step than that lies to its
+    float32 one: the card ran the bf16 path. The update is checked on the
+    card's own moments, as phase 22's."""
+    import dataclasses
+
+    import torch
+
+    from deepbedmap_tpu_torch.config import GeneratorConfig, TrainConfig
+    from deepbedmap_tpu_torch.ops import _kernels
+    from deepbedmap_tpu_torch.train.state import create_gan_state
+    from deepbedmap_tpu_torch.train.steps import make_train_step
+
+    blocks, batch = OPTION_STEP_BLOCKS, TRAIN_BATCH
+    g16 = GeneratorConfig(num_residual_blocks=blocks, init_scale=OPTION_STEP_INIT,
+                          **CONFIGS["bf16"])
+    t_cfg = TrainConfig(batch_size=batch)
+    arrays = train_batch(batch, seed=blocks)
+    step = make_train_step(t_cfg)
+    runs = {}
+    for key, g_cfg, dev in (("cpu", g16, "cpu"),
+                            ("fp32", dataclasses.replace(g16, compute_dtype="float32"), "cpu"),
+                            ("card", g16, DEVICE)):
+        state = create_gan_state(g_cfg, t_cfg=t_cfg, seed=0, device=dev)
+        if key == "card":
+            init = {f"{tag}{n}": p.detach().cpu().double()
+                    for tag, model in (("G.", state.g), ("D.", state.d))
+                    for n, p in model.named_parameters()}
+        b = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        runs[key] = (_step_tensors(state, t_cfg.adam_beta1), metrics,
+                     time.perf_counter() - t0)
+    launches = {k: v for k, v in _kernels.launches.items() if v}
+    (cpu, m_cpu, s_cpu), (fp32, m_fp32, _), (card, m_card, s_card) = (
+        runs["cpu"], runs["fp32"], runs["card"])
+    tag = f"bf16, {blocks} RRDB, batch {batch}, init {OPTION_STEP_INIT}"
+    log(f"  train step {tag}: card {s_card:.2f} s (cold), CPU {s_cpu:.2f} s; card launches "
+        f"{launches}")
+    check_launches(launches, {k: v for k, v in per_step("bf16", blocks).items() if v})
+    worst, floored = hold_step(
+        tag, card, cpu, fp32, (m_card, m_cpu, m_fp32), init, t_cfg,
+        floors={**ZERO_GRADS, "discriminator_accu": NOISE_K / (2 * batch)},
+        noise="float32 compute in place of bf16 (the same weights)")
+    g_names = [k for k in cpu if k.startswith("G.")]
+    d_card = sum(float((card[k]["grad"] - cpu[k]["grad"]).abs().sum()) for k in g_names)
+    d_ref = sum(float((cpu[k]["grad"] - fp32[k]["grad"]).abs().sum()) for k in g_names)
+    log(f"  {tag}: G's gradients {d_card:.3e} from the CPU's bf16 step, which lies "
+        f"{d_ref:.3e} from its float32 one (ratio {d_card / d_ref:.3g})")
+    if not d_card < d_ref:
+        raise AssertionError(f"{tag}: the card's bf16 gradients are not nearer the CPU's "
+                             "bf16 step than its float32 one")
+    return {"launches": launches, "worst_grad": worst["grad"][0],
+            "worst_stats": worst["stats"][0], "floored": floored,
+            "g_grad_ratio": d_card / d_ref, "cpu_s": s_cpu}
+
+
+def option_training(card_name: str) -> dict:
+    """Phase 27 (c): bf16 training. One step card vs CPU
+    (``bf16_step_card_vs_cpu``), then ``fit`` at 12 RRDBs and batch 128 on
+    the card with its launch counts, and warm steps timed."""
+    import torch
+
+    from deepbedmap_tpu_torch.config import GeneratorConfig, TrainConfig
+    from deepbedmap_tpu_torch.data.dataset import TileDataset
+    from deepbedmap_tpu_torch.ops import _kernels
+    from deepbedmap_tpu_torch.train.loop import fit
+    from deepbedmap_tpu_torch.train.state import create_gan_state
+    from deepbedmap_tpu_torch.train.steps import make_train_step
+
+    out = {"step": bf16_step_card_vs_cpu(card_name)}
+    t_cfg = TrainConfig(batch_size=TRAIN_BATCH, epochs=1)
+    state = create_gan_state(GeneratorConfig(**CONFIGS["bf16"]), t_cfg=t_cfg, seed=0,
+                             device=DEVICE)
+    if any(p.dtype != torch.float32 for p in state.g.parameters()):
+        raise AssertionError("bf16 training keeps float32 parameters")
+    dataset = TileDataset.synthetic(OPTION_FIT_TILES, seed=0, device=DEVICE)
+    _kernels.reset_launches()
+    state, history = fit(state, dataset, t_cfg)
+    launches = {k: v for k, v in _kernels.launches.items() if v}
+    steps = (OPTION_FIT_TILES * 95 // 100) // TRAIN_BATCH
+    check_launches(launches, {"deform64_lrelu": 2 * steps + 1, "deform_zproj1": 2 * steps + 1})
+    for rec in history:
+        if not all(np.isfinite(v) for v in rec.values()):
+            raise AssertionError(f"non-finite bf16 training metrics {rec}")
+        log("  bf16 fit, epoch " + ", ".join(f"{k} {v:.5g}" for k, v in rec.items()))
+    times = _timed_steps(make_train_step(t_cfg), state, dataset, np.random.RandomState(1),
+                         OPTION_TIMED_STEPS)
+    out.update(fit_launches=launches, ms_per_step_median=float(np.median(times)),
+               ms_per_step_all=times)
+    log(f"  bf16 fit: {steps} steps + a dev batch, launches {launches}; median warm step "
+        f"{out['ms_per_step_median']:.1f} ms of {OPTION_TIMED_STEPS} at batch {TRAIN_BATCH}, "
+        f"12 RRDBs ({1e3 * TRAIN_BATCH / out['ms_per_step_median']:.0f} tiles/s)  "
+        f"[{card_name}]")
+    return out
+
+
+def generator_options(card_name: str, params, default_out) -> dict:
+    """Phase 27: each of ``OPTIONS`` through ``predict_continent`` on phase
+    6's region at 12 RRDBs and full width (``main_path``: exact launches,
+    tiled vs untiled, the canvas against phase 6's default one within
+    ``TOL_GENERATOR``, or bf16's within ``TOL_BF16``; the growth-16 trunk
+    has weights of its own), the generator card vs CPU, the path's kernels
+    on its own inputs, the FLOP share of its forward, and bf16 training.
+    Returns the numbers of the options JSON line."""
+    import torch
+
+    from deepbedmap_tpu_torch import DeepBedMap
+    from deepbedmap_tpu_torch.config import GeneratorConfig
+    from deepbedmap_tpu_torch.inference import TilePlan
+    from deepbedmap_tpu_torch.utils.flops import (
+        H100_BF16_TC_PEAK_FLOPS,
+        generator_tile_flops,
+    )
+
+    t_start = time.perf_counter()
+    out = {"card": card_name}
+    plan = TilePlan(out_h=2 * TILE_OUT, out_w=2 * TILE_OUT, tile_out=TILE_OUT,
+                    halo_lr=HALO_LR)
+    xs = [torch.from_numpy(a).to(DEVICE)
+          for a in _crop_inputs(plan.crop_lr, TILES_PER_DISPATCH, seed=3)]
+    for name in OPTIONS:
+        flags = CONFIGS[name]
+        bf16 = flags.get("compute_dtype") == "bfloat16"
+        log(f"  {name}: {flags}")
+        own = flags.get("growth_channels", 32) != 32  # other shapes: seeded weights
+        r = main_path(card_name, name, None if own else params, None if own else default_out,
+                      TOL_BF16 if bf16 else TOL_GENERATOR)
+        res = {"launches": r["launches"], "tile_ms": r["tile_ms"],
+               "forward_ms": r["forward_ms"], "stages_ms": r["stages_ms"]}
+        if not own:
+            res["vs_default"] = float((r["out"].double() - default_out.double()).abs().max())
+            res["default_range"] = float(default_out.abs().max())
+            log(f"  {name}: canvas {res['vs_default']:.3e} from the default's (range "
+                f"{res['default_range']:.3e})")
+        if flags.get("tail_hcw"):
+            # the layout's cost: the same weights with the NHWC unfused tail
+            nhwc = DeepBedMap(params, cfg=GeneratorConfig(tail_fused=False), device=DEVICE)
+            res["nhwc_stages_ms"] = forward_breakdown(nhwc.model, xs)
+            for stage, ms in res["nhwc_stages_ms"].items():
+                log(f"  the NHWC unfused tail's forward, {stage}: {ms:.2f} ms  [{card_name}]")
+            del nhwc
+        res["card_vs_cpu"] = option_card_vs_cpu(name)
+        res["kernel_err"] = option_kernels(name, r["model"], xs)
+        flops = TILES_PER_DISPATCH * generator_tile_flops(GeneratorConfig(**flags),
+                                                          plan.crop_lr)["total"]
+        peak, peak_name = ((H100_BF16_TC_PEAK_FLOPS, "bf16") if bf16 else
+                           (PEAK_TF32_TC, "TF32"))
+        rate = flops / (r["forward_ms"] / 1e3)
+        res["flop_share"] = rate / peak
+        log(f"  {name}: {r['tile_ms']:.1f} ms/tile warm; forward {flops / 1e12:.3f} TFLOP in "
+            f"{r['forward_ms']:.2f} ms = {rate / 1e12:.2f} TFLOP/s, "
+            f"{100 * res['flop_share']:.2f}% of the {peak_name} tensor-core peak  "
+            f"[{card_name}]")
+        out[name] = res
+        del r
+        torch.cuda.empty_cache()
+    log("  bf16 training: a step card vs CPU, then fit on the card")
+    out["bf16_training"] = option_training(card_name)
+    out["phase_wall_s"] = time.perf_counter() - t_start
+    log(f"  phase 27 wall time {out['phase_wall_s']:.1f} s  [{card_name}]")
+    return out
+
+
 # (launch-counter name, source, TPU kernel it replaces, check, small shapes,
 # main-path shape, phase, the configuration whose main path gives its
 # launches); K9's launches come from its own path in phase 15
@@ -3987,9 +4327,14 @@ def main() -> int:
 
     log("phase 6: main path")
     path_launches, forward_ms = {}, {}
-    path_launches["default"], model, default_out, forward_ms["default"] = main_path(
-        card_name, "default")
-    params = model.state_dict()
+
+    def run_path(config, *args):
+        r = main_path(card_name, config, *args)
+        path_launches[config], forward_ms[config] = r["launches"], r["forward_ms"]
+        return r
+
+    r = run_path("default")
+    params, default_out = r["model"].state_dict(), r["out"]
 
     kernels(7, 8, 9, 10)
     log(f"phase 11: whole generator in {CONFIGS['kernel']}, card vs CPU")
@@ -3997,8 +4342,7 @@ def main() -> int:
     check_generator(1.0, CONFIGS["kernel"])
 
     log(f"phase 12: second main path, {CONFIGS['kernel']}")
-    path_launches["kernel"], _, _, forward_ms["kernel"] = main_path(card_name, "kernel", params,
-                                                                     default_out)
+    run_path("kernel", params, default_out)
 
     kernels(13, 14, 15)
     log(f"phase 16: whole generator in {CONFIGS['banded']} and {CONFIGS['sweep']}, "
@@ -4009,8 +4353,7 @@ def main() -> int:
 
     for phase, config in ((17, "banded"), (18, "sweep")):
         log(f"phase {phase}: main path in {CONFIGS[config]}")
-        path_launches[config], _, _, forward_ms[config] = main_path(card_name, config, params,
-                                                                    default_out)
+        run_path(config, params, default_out)
 
     log("phase 19: single region (from_chainer_npz, from_experiment, predict, track_rmse)")
     region = single_region(card_name, params)
@@ -4041,6 +4384,9 @@ def main() -> int:
             "continent, the band-distributed product, the data-parallel step, the "
             "channel-parallel forward, the CLI)")
         parallel = parallel_phase(card_name, params, default_out, tmp)
+    log("phase 27: the generator options (bf16, the phase convs, the channels-before-width "
+        "tail, the plain trunk at growth 32 and 16; bf16 training)")
+    options = generator_options(card_name, params, default_out)
 
     rows = []
     for name, src, rep, *_, path in KERNELS:
@@ -4057,6 +4403,7 @@ def main() -> int:
     print(json.dumps({"data_prep": prepared}), flush=True)
     print(json.dumps({"evaluation": evaluated}), flush=True)
     print(json.dumps({"parallel": parallel}), flush=True)
+    print(json.dumps({"options": options}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
 """Warm wall time per tile of the port's ``DeepBedMap.predict_continent`` on
 one CUDA card, repeated, so that two versions can be compared beyond the
-run-to-run spread of a single warm run (``chip_smoke.py`` times one).
+run-to-run spread of a single warm run (``chip_smoke.py`` times one), and
+the device time of each stage of one forward.
 
 Run from the root of a checkout on a machine with an NVIDIA card:
 
-    python3 chip_tiles.py [--config default|kernel|banded|sweep] [--reps 10]
+    python3 chip_tiles.py [--config NAME] [--reps 10]
 
-It uses ``chip_smoke.py``'s main-path geometry (a 2 x 2-tile region of
-1000-px tiles, 18-px halo, 2 tiles per forward) and seeded weights, runs
-``predict_continent`` once cold and ``--reps`` times warm, and prints the card's
-name and power limit, each warm run's ms per tile and, as its last line, a
-JSON object with the runs and their median. It refuses to run without a CUDA
+``NAME`` is a key of ``chip_smoke.CONFIGS`` (default, kernel, banded, sweep
+and the options bf16, phase, hcw, plain, plain16). It uses
+``chip_smoke.py``'s main-path geometry (a 2 x 2-tile region of 1000-px
+tiles, 18-px halo, 2 tiles per forward) and seeded weights, runs
+``predict_continent`` once cold and ``--reps`` times warm, then
+``chip_smoke.forward_breakdown`` over ``--reps`` forwards at batch 2 x 288
+px, and prints the card's name and power limit, each warm run's ms per
+tile, each stage's mean device ms and, as its last line, a JSON object with
+the runs, their median and the stages. It refuses to run without a CUDA
 device.
 """
 
@@ -28,7 +33,15 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from chip_smoke import CONFIGS, HALO_LR, TILE_OUT, TILES_PER_DISPATCH, card  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    CONFIGS,
+    HALO_LR,
+    TILE_OUT,
+    TILES_PER_DISPATCH,
+    _crop_inputs,
+    card,
+    forward_breakdown,
+)
 
 
 def main() -> int:
@@ -42,6 +55,7 @@ def main() -> int:
         raise SystemExit("chip_tiles.py: no CUDA device; it does not run on the CPU")
     from deepbedmap_tpu_torch import DeepBedMap
     from deepbedmap_tpu_torch.config import GeneratorConfig
+    from deepbedmap_tpu_torch.inference import TilePlan
 
     card_name = card()
     torch.backends.cudnn.allow_tf32 = False
@@ -68,10 +82,17 @@ def main() -> int:
         dbm.predict_continent(inputs, bounds, **kw)
         torch.cuda.synchronize()
         runs.append(1e3 * (time.perf_counter() - t0) / tiles)
+    crop_lr = TilePlan(out_h=out, out_w=out, tile_out=TILE_OUT, halo_lr=HALO_LR).crop_lr
+    xs = [torch.from_numpy(a).cuda() for a in _crop_inputs(crop_lr, TILES_PER_DISPATCH, 3)]
+    stages = forward_breakdown(dbm.model, xs, reps=args.reps)
     print(card_name)
     print(f"{args.config}: warm ms/tile " + " ".join(f"{r:.1f}" for r in runs))
+    for name, ms in stages.items():
+        print(f"{args.config}: forward at batch {TILES_PER_DISPATCH} x {crop_lr} px, {name}: "
+              f"{ms:.2f} ms")
     print(json.dumps({"config": args.config, "tiles": tiles, "ms_per_tile": runs,
-                      "median": statistics.median(runs), "card": card_name}))
+                      "median": statistics.median(runs), "stages_ms": stages,
+                      "card": card_name}))
     return 0
 
 

@@ -8,27 +8,39 @@ same model and the same training run here. They are copied rather than
 imported because importing anything from ``deepbedmap_tpu`` loads JAX, which
 the port never needs.
 
-Several generator fields select JAX code paths that the port does not have yet
-(the plain XLA dense block ``fused_rdb='never'``, bf16 compute, the
-channels-before-width tail layout, the phase convs). ``check_supported``
-rejects them when a ``Generator`` is built instead of silently taking another
-path.
+Every generator field the JAX package reads is ported. ``check_supported``
+raises where JAX asserts: ``upsample_phase_conv`` with ``tail_hcw``, and
+``tail_fused`` with ``tail_hcw`` (so ``tail_hcw=True`` needs
+``tail_fused=False``).
 
-Kernel dispatch flags (``fused_rdb``, ``rdb_resident``, ``rrdb_fused``,
-``rrdb_sweep``, ``fused_conv``): in the port ``'auto'`` and ``'always'`` (or
-True) both mean "the hand-written kernel on a CUDA tensor, its plain PyTorch
-version on a CPU tensor". The JAX package's rule that takes a Pallas kernel
-only on a TPU and only for images of at least 256^2 does not carry over: on
-the card every image size goes through the kernel. The trunk follows the JAX
-precedence (``models/generator.py``, ``models/blocks.py``):
+Kernel dispatch follows the JAX precedence (``models/generator.py:148-152``,
+``models/blocks.py:171-175, 322-324``) without its TPU size rule
+(``should_fuse``): where JAX would take a Pallas kernel on a TPU image of
+at least 256^2, the port takes the hand-written kernel on a CUDA tensor (its
+plain PyTorch version on a CPU tensor), at every image size.
+``trunk_kernel`` and ``conv_kernel`` hold the rule:
 
-- the trunk is resident unless ``rdb_resident='never'``;
+- the trunk is resident when ``rdb_resident='always'``, or when
+  ``rdb_resident='auto'``, ``fused_rdb != 'never'`` and the compute dtype
+  is float32;
 - a resident trunk runs each RRDB as K5 (``rrdb_sweep``), else as K4
-  (``rrdb_fused``), else as three K1 dense blocks; the sweep wins over
-  ``rrdb_fused``;
-- a non-resident trunk ignores ``rrdb_sweep`` and ``rrdb_fused`` and runs
-  each dense block as K6, so ``rdb_resident='never', rrdb_fused=True`` is
-  36 K6 launches, not 12 K4.
+  (``rrdb_fused``), else as three K1 dense blocks, each kernel fed the
+  activation in float32;
+- a non-resident trunk ignores ``rrdb_sweep`` and ``rrdb_fused``: each dense
+  block is K6 when ``fused_rdb='always'``, or ``'auto'`` at float32, and
+  otherwise the plain composition at the compute dtype (``'plain'``). So
+  ``fused_rdb='never', rdb_resident='always'`` is K1, ``rdb_resident='never',
+  fused_rdb='never'`` is plain, and bfloat16 at the defaults is plain;
+- the four 64-channel 3x3 convs take K10 when ``fused_conv='always'`` (fed
+  float32 at any compute dtype) or ``'auto'`` at float32, else the plain
+  conv at the compute dtype. The phase convs (``upsample_phase_conv``) and
+  the channels-before-width conv (``tail_hcw``) replace the upsample stages'
+  convs and ignore ``fused_conv``, as in JAX.
+
+JAX's ``nn.scan`` over the trunk refuses a carry whose dtype changes, so JAX
+runs a kernel trunk under bfloat16 only when the pre-residual conv hands it
+float32 (``fused_conv='always'``); the port's trunk is a loop and runs every
+combination, with JAX's casts.
 """
 
 from __future__ import annotations
@@ -50,20 +62,23 @@ class GeneratorConfig:
     scale: int = 4  # super-resolution factor (two nearest x2 upsamples)
     # He-normal init std multiplier (Chainer HeNormal(scale=0.1))
     init_scale: float = 0.1
-    # only 'float32' is ported
+    # conv compute dtype, 'float32' or 'bfloat16': the plain convs take
+    # their input, kernel and bias in it (parameters stay float32); every
+    # kernel and both deformable samplers compute in float32
     compute_dtype: str = "float32"
     # rematerialise each RRDB in the backward pass (torch.utils.checkpoint,
     # as JAX's nn.remat): training memory O(1) in depth, one more trunk
     # forward per step
     remat: bool = False
-    # dense-block dispatch: 'auto'/'always' take the hand-written kernel on
-    # CUDA tensors and the plain version on CPU tensors; 'never' is not ported
+    # dense-block dispatch (trunk_kernel): 'always' forces a kernel, 'auto'
+    # takes one at float32, 'never' the plain composition unless the trunk
+    # is resident ('always')
     fused_rdb: str = "auto"
     # bf16 multiplicands inside the TPU dense-block kernel; inert here
     rdb_mxu_bf16: bool = True
-    # resident trunk: 'auto'/'always' run the dense blocks as K1 (or whole
-    # RRDBs as K4 / K5); 'never' runs each dense block as K6
-    # (csrc/rdb_banded.cu) and ignores rrdb_fused / rrdb_sweep
+    # resident trunk (trunk_kernel): the dense blocks as K1, or whole RRDBs
+    # as K4 / K5; a non-resident one runs each dense block as K6
+    # (csrc/rdb_banded.cu) or plain and ignores rrdb_fused / rrdb_sweep
     rdb_resident: str = "auto"
     # one launch per RRDB of a resident trunk (kernel K4, csrc/rdb.cu
     # rrdb_forward) instead of three dense-block launches
@@ -71,21 +86,25 @@ class GeneratorConfig:
     # one single-sweep launch per RRDB of a resident trunk (kernel K5,
     # csrc/rrdb_sweep.cu); takes precedence over rrdb_fused
     rrdb_sweep: bool = False
-    # the four 64-channel 3x3 convs: 'auto'/'always' take the hand-written
-    # kernel K10 (csrc/conv3x3.cu) as fused_rdb does; 'never' keeps cuDNN
+    # the four 64-channel 3x3 convs (conv_kernel): 'always' takes the
+    # hand-written kernel K10 (csrc/conv3x3.cu), 'auto' takes it at float32,
+    # 'never' keeps cuDNN
     fused_conv: str = "never"
     # bf16 multiplicands inside the TPU conv kernel; inert here
     conv_mxu_bf16: bool = False
     # deformable-conv offset clamp in px
     deform_clamp: int = 2
-    # channels-before-width tail layout: not ported
+    # channels-before-width (N, H, C, W) tail: the second upsample conv
+    # emits it and both deformable layers take it (needs tail_fused=False);
+    # in PyTorch the layout is a permuted view of NHWC memory
     tail_hcw: bool = False
     # both deformable output layers as one fused tail (K2 + K3); False runs
     # them as two deformable convs (K7, then the projection + K8)
     tail_fused: bool = True
     # tap-packed body of the TPU deform kernel; the CUDA kernel has one body
     tail_pack_taps: bool = True
-    # upsample + conv as a phase conv at source resolution: not ported
+    # each nearest x2 upsample + 3x3 conv as one 2x2 conv over four phase
+    # kernels at the source resolution (ops/phase_conv.py, cuDNN)
     upsample_phase_conv: bool = False
 
     @property
@@ -147,8 +166,10 @@ class LossConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Adam and the run's schedule (reference srgan_train.py:1014-1055).
-    Only ``compute_dtype='float32'`` is ported (``check_train_supported``);
-    ``data_axis`` names a mesh axis in the JAX package and is unused here."""
+    ``compute_dtype`` is inert, as in the JAX package, which never reads it:
+    bf16 training is selected by ``GeneratorConfig.compute_dtype`` (the
+    parameters and both Adams' state stay float32). ``data_axis`` names a
+    mesh axis in the JAX package and is unused here."""
 
     learning_rate: float = 1.7e-4
     adam_beta1: float = 0.9
@@ -199,20 +220,20 @@ class TilingConfig:
 DEFAULT_TILING = TilingConfig()
 
 
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
 def check_supported(cfg: GeneratorConfig) -> None:
-    """Raise ``NotImplementedError`` for every flag that selects unported code."""
-    unported = {
-        "upsample_phase_conv": cfg.upsample_phase_conv,
-        "tail_hcw": cfg.tail_hcw,
-        "compute_dtype != 'float32'": cfg.compute_dtype != "float32",
-        "fused_rdb='never'": cfg.fused_rdb == "never",
-    }
-    bad = [name for name, on in unported.items() if on]
-    if bad:
-        raise NotImplementedError(
-            "GeneratorConfig selects code the PyTorch port does not have: "
-            + ", ".join(bad)
-        )
+    """Raise ``ValueError`` for the combinations the JAX generator asserts
+    against and for a compute dtype other than ``COMPUTE_DTYPES``, and
+    ``NotImplementedError`` for a tail with more than one output channel."""
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got "
+                         f"{cfg.compute_dtype!r}")
+    if cfg.tail_hcw and cfg.upsample_phase_conv:
+        raise ValueError("upsample_phase_conv and tail_hcw are exclusive")
+    if cfg.tail_hcw and cfg.tail_fused:
+        raise ValueError("tail_fused and tail_hcw are exclusive")
     if cfg.out_channels != 1:
         raise NotImplementedError("the generator tail needs out_channels=1")
 
@@ -229,52 +250,68 @@ CARD_CONV_C_INS = (64, 128)
 
 def check_card_supported(cfg: GeneratorConfig) -> None:
     """Raise ``NotImplementedError`` for a generator whose widths or offset
-    clamp the kernels of its configuration do not take, so that a generator
-    built on a CUDA device fails at construction instead of at its first
-    launch. The CPU runs any width and clamp through the plain versions and
-    does not call this."""
+    clamp a kernel that its configuration launches does not take, naming
+    that kernel, so that a generator built on a CUDA device fails at
+    construction instead of at its first launch. Each kernel is asked only
+    where it runs: the trunk's widths when ``trunk_kernel`` is not
+    ``'plain'``, K10's when ``conv_kernel`` holds, 64 input channels and a
+    covered clamp for the fused tail (K2/K3), and for the unfused tail the
+    clamp where its layers have the shapes K7/K8 take (the others run the
+    plain samplers on the card, ``ops.deform_conv.choose_method``). The CPU
+    runs any width and clamp through the plain versions and does not call
+    this."""
     from deepbedmap_tpu_torch.ops.deform_conv import WINDOW_MAX_CLAMP, check_window_clamp
 
+    c = cfg.base_channels
     bad = []
-    if cfg.base_channels != CARD_BASE_CHANNELS:
-        bad.append(f"base_channels={cfg.base_channels}")
-    if cfg.growth_channels != CARD_GROWTH_CHANNELS:
-        bad.append(f"growth_channels={cfg.growth_channels}")
-    if cfg.fused_conv != "never" and cfg.concat_channels not in CARD_CONV_C_INS:
-        bad.append(f"inblock_channels={cfg.inblock_channels} with fused_conv="
-                   f"{cfg.fused_conv!r}")
-    try:  # both tails run through kernels with windows (K2/K3 or K7/K8)
-        check_window_clamp(cfg.deform_clamp)
-    except ValueError:
-        bad.append(f"deform_clamp={cfg.deform_clamp!r}")
+    trunk = trunk_kernel(cfg)
+    if trunk != "plain" and (c, cfg.growth_channels) != (CARD_BASE_CHANNELS,
+                                                         CARD_GROWTH_CHANNELS):
+        bad.append(f"the {trunk} trunk's dense-block kernel takes base_channels="
+                   f"{CARD_BASE_CHANNELS} and growth_channels={CARD_GROWTH_CHANNELS}, got "
+                   f"{c} and {cfg.growth_channels} (fused_rdb='never' runs the plain "
+                   "trunk at any width)")
+    if conv_kernel(cfg) and (c != CARD_BASE_CHANNELS
+                             or cfg.concat_channels not in CARD_CONV_C_INS):
+        bad.append(f"K10 (fused_conv={cfg.fused_conv!r}) takes {CARD_BASE_CHANNELS} "
+                   f"outputs from {CARD_CONV_C_INS} inputs, got base_channels={c} and "
+                   f"inblock_channels={cfg.inblock_channels} (4 x inblock_channels "
+                   "inputs)")
+    if cfg.tail_fused and c != CARD_BASE_CHANNELS:
+        bad.append(f"the fused tail (K2/K3) takes {CARD_BASE_CHANNELS} input channels, "
+                   f"got base_channels={c}")
+    if cfg.tail_fused or c == CARD_BASE_CHANNELS:  # K2/K3, or K7/K8
+        try:
+            check_window_clamp(cfg.deform_clamp)
+        except ValueError:
+            bad.append(f"the deformable tail's kernels take an integer deform_clamp in "
+                       f"[0, {WINDOW_MAX_CLAMP}], got {cfg.deform_clamp!r}")
     if bad:
         raise NotImplementedError(
-            f"GeneratorConfig({', '.join(bad)}) has no kernels on the card: the "
-            f"{trunk_kernel(cfg)} trunk's dense-block kernel takes base_channels="
-            f"{CARD_BASE_CHANNELS} and growth_channels={CARD_GROWTH_CHANNELS}, the "
-            f"deformable tail {CARD_BASE_CHANNELS} input channels and an integer "
-            f"deform_clamp in [0, {WINDOW_MAX_CLAMP}], and K10 (fused_conv) "
-            f"{CARD_BASE_CHANNELS} outputs from {CARD_CONV_C_INS} inputs "
-            "(4 x inblock_channels); other widths and clamps run only on the CPU"
-        )
-
-
-def check_train_supported(cfg: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for a training setting that selects
-    unported code (bf16 compute)."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            "TrainConfig selects code the PyTorch port does not have: "
-            f"compute_dtype={cfg.compute_dtype!r} (only 'float32')"
+            "GeneratorConfig has no kernels on the card: " + "; ".join(bad)
+            + "; other widths and clamps run only on the CPU"
         )
 
 
 def trunk_kernel(cfg: GeneratorConfig) -> str:
-    """Which kernel runs the trunk, by the JAX precedence: ``'rrdb_sweep'``
-    (K5), ``'rrdb_fused'`` (K4) or ``'rdb'`` (K1) on a resident trunk,
-    ``'rdb_banded'`` (K6) on a non-resident one."""
-    if cfg.rdb_resident == "never":
+    """What runs the trunk, by the JAX precedence (module docstring):
+    ``'rrdb_sweep'`` (K5), ``'rrdb_fused'`` (K4) or ``'rdb'`` (K1) on a
+    resident trunk; ``'rdb_banded'`` (K6) or ``'plain'`` (the plain dense
+    block at the compute dtype) on a non-resident one."""
+    fp32 = cfg.compute_dtype == "float32"
+    resident = cfg.rdb_resident == "always" or (
+        cfg.rdb_resident == "auto" and cfg.fused_rdb != "never" and fp32)
+    if resident:
+        if cfg.rrdb_sweep:
+            return "rrdb_sweep"
+        return "rrdb_fused" if cfg.rrdb_fused else "rdb"
+    if cfg.fused_rdb == "always" or (cfg.fused_rdb == "auto" and fp32):
         return "rdb_banded"
-    if cfg.rrdb_sweep:
-        return "rrdb_sweep"
-    return "rrdb_fused" if cfg.rrdb_fused else "rdb"
+    return "plain"
+
+
+def conv_kernel(cfg: GeneratorConfig) -> bool:
+    """Whether the 64-channel 3x3 convs run K10: ``fused_conv='always'``, or
+    ``'auto'`` at float32 (JAX ``models/blocks.py:322-324``)."""
+    return cfg.fused_conv == "always" or (
+        cfg.fused_conv == "auto" and cfg.compute_dtype == "float32")

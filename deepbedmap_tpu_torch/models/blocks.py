@@ -6,15 +6,24 @@ Counterpart of ``deepbedmap_tpu/models/blocks.py``:
 - the input block, kept as space-to-depth + 3x3 VALID conv so the JAX HWIO
   kernels map onto these by a plain HWIO -> OIHW transpose;
 - the dense blocks and the residual-in-residual block, whose forward
-  dispatches by device to the K1 / K6 (dense block) or K4 / K5 (whole RRDB)
-  kernels (CUDA) or their plain versions (CPU) through ``ops.rdb``;
-- ``FusedConv3x3``: with ``fused='never'`` a cuDNN conv and its bias /
-  residual / LeakyReLU epilogue in PyTorch, otherwise ``ops.conv3x3`` (K10 on
-  the card);
+  runs what ``config.trunk_kernel`` names: the K1 / K6 (dense block) or K4 /
+  K5 (whole RRDB) kernels (CUDA) or their plain versions (CPU) through
+  ``ops.rdb``, fed float32, or the plain dense block at the compute dtype
+  (``'plain'``, PyTorch's convs on either device, JAX's XLA path);
+- ``FusedConv3x3``: K10 (``ops.conv3x3``; its plain version on a CPU tensor)
+  where ``config.conv_kernel`` says so, otherwise a cuDNN conv at the compute
+  dtype and its bias / residual / LeakyReLU epilogue in PyTorch;
+- ``ConvHCW``, the 3x3 conv of the channels-before-width tail;
 - the deformable conv layer, applied as one layer (``ops.deform_conv``, K7 /
-  K8 on the card) or, with its partner, by the fused tail (``ops.tail``).
+  K8 on the card; its offset conv at the compute dtype, its sampler in
+  float32, NHWC or channels-before-width in and out) or, with its partner,
+  by the fused tail (``ops.tail``).
 
-Parameter names follow the JAX tree (``bridge.py`` maps one onto the other).
+``dtype`` is the compute dtype as JAX's blocks take it: None for float32, or
+a torch dtype (``ops.conv.torch_dtype``) in which the plain convs take their
+input, kernel and bias, rounding where flax rounds (``ops.conv.conv_nhwc``).
+Parameters stay float32. Parameter names follow the JAX tree (``bridge.py``
+maps one onto the other) under every configuration.
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from deepbedmap_tpu_torch.ops.conv import conv_nhwc, leaky_relu
+from deepbedmap_tpu_torch.ops.conv import conv_nhwc, leaky_relu, scaled
 from deepbedmap_tpu_torch.ops.conv3x3 import conv3x3_fused, pack_conv_weight
 from deepbedmap_tpu_torch.ops.deform_conv import deform_conv2d, pack_deform64_weight_tc
 from deepbedmap_tpu_torch.ops.rdb import (
@@ -36,6 +45,7 @@ from deepbedmap_tpu_torch.ops.rdb import (
     pack_rrdb_weights_tc,
     rdb_banded,
     rdb_fused,
+    rdb_reference,
     rrdb_fused,
     rrdb_sweep,
 )
@@ -103,14 +113,16 @@ class StridedInputConv(Conv3x3):
     """VALID conv with kernel 3b x 3b and stride b, computed as
     space_to_depth(b) + 3x3 VALID conv (reference srgan_train.py:223-254)."""
 
-    def __init__(self, in_channels: int, out_channels: int, block: int):
+    def __init__(self, in_channels: int, out_channels: int, block: int,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__(block * block * in_channels, out_channels)
         self.block = block
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.block > 1:
             x = space_to_depth(x, self.block)
-        return conv_nhwc(x, self.weight, self.bias, 0)
+        return conv_nhwc(x, self.weight, self.bias, 0, self.dtype)
 
 
 class InputBlock(nn.Module):
@@ -118,12 +130,12 @@ class InputBlock(nn.Module):
     x (N,h,w,1), w1 (N,10h,10w,1), w2 (N,2h,2w,2), w3 (N,h,w,1)
     -> (N, h-2, w-2, 4 * out_channels)."""
 
-    def __init__(self, out_channels: int = 32):
+    def __init__(self, out_channels: int = 32, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv_on_X = StridedInputConv(1, out_channels, 1)
-        self.conv_on_W1 = StridedInputConv(1, out_channels, 10)
-        self.conv_on_W2 = StridedInputConv(2, out_channels, 2)
-        self.conv_on_W3 = StridedInputConv(1, out_channels, 1)
+        self.conv_on_X = StridedInputConv(1, out_channels, 1, dtype)
+        self.conv_on_W1 = StridedInputConv(1, out_channels, 10, dtype)
+        self.conv_on_W2 = StridedInputConv(2, out_channels, 2, dtype)
+        self.conv_on_W3 = StridedInputConv(1, out_channels, 1, dtype)
 
     def forward(self, x, w1, w2, w3) -> torch.Tensor:
         return torch.cat(
@@ -135,41 +147,65 @@ class InputBlock(nn.Module):
 
 class FusedConv3x3(Conv3x3):
     """3x3 SAME conv with optional residual-add and LeakyReLU epilogues
-    (reference layers srgan_train.py:470-505). ``fused`` is the config's
-    ``fused_conv``: 'auto' / 'always' run ``conv3x3_fused`` (K10 on a CUDA
-    tensor, its plain version on a CPU tensor), 'never' the cuDNN conv."""
+    (reference layers srgan_train.py:470-505). ``kernel`` is
+    ``config.conv_kernel``: True runs ``conv3x3_fused`` (K10 on a CUDA
+    tensor, its plain version on a CPU tensor) on the input and residual in
+    float32, at any compute dtype, as JAX's ``fused='always'``; False the
+    cuDNN conv at ``dtype``, then the bias, residual and LeakyReLU."""
 
     def __init__(
         self, in_channels: int, out_channels: int, leaky: bool = False,
-        fused: str = "never",
+        kernel: bool = False, dtype: Optional[torch.dtype] = None,
     ):
         super().__init__(in_channels, out_channels)
         self.leaky = leaky
-        self.fused = fused in ("auto", "always")
+        self.kernel = kernel
+        self.dtype = dtype
         self._packed = _Cached(lambda w: pack_conv_weight(w).contiguous())
 
     def forward(
         self, x: torch.Tensor, residual: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
-        if self.fused:
+        if self.kernel:
             packed = self._packed.get([self.weight]) if x.is_cuda else None
             return conv3x3_fused(
-                x.contiguous(), self.weight, self.bias, self.leaky,
-                None if residual is None else residual.contiguous(), packed,
+                x.float().contiguous(), self.weight, self.bias, self.leaky,
+                None if residual is None else residual.float().contiguous(), packed,
             )
-        z = conv_nhwc(x, self.weight, self.bias, 1)
+        z = conv_nhwc(x, self.weight, self.bias, 1, self.dtype)
         if residual is not None:
             z = z + residual
         return leaky_relu(z) if self.leaky else z
 
 
+class ConvHCW(Conv3x3):
+    """3x3 SAME conv of an NHWC input whose output is laid out
+    channels-before-width (N, H, C, W), the JAX ``ConvHCW``
+    (``models/blocks.py:347-381``) as the generator uses it. In PyTorch the
+    layout is a view: ``conv_nhwc(...).permute(0, 1, 3, 2)``, no copy. At
+    ``dtype`` as ``conv_nhwc``. The parameters are ``Conv3x3``'s."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(in_channels, out_channels)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_nhwc(x, self.weight, self.bias, 1, self.dtype).permute(0, 1, 3, 2)
+
+
+TRUNK_KERNELS = ("rdb", "rdb_banded", "rrdb_fused", "rrdb_sweep", "plain")
+
+
 class ResidualDenseBlock(nn.Module):
     """5-conv dense block with residual scaling (reference
-    srgan_train.py:275-360): one K1 launch on the card, or one K6 launch
-    with ``banded`` (the non-resident trunk)."""
+    srgan_train.py:275-360). ``kernel``: 'rdb' one K1 launch on the card,
+    'rdb_banded' one K6 launch (both fed the input in float32, JAX's
+    ``x.astype(float32)``), 'plain' ``ops.rdb.rdb_reference`` at ``dtype``
+    on either device."""
 
     def __init__(self, features: int = 64, growth: int = 32, residual_scaling: float = 0.1,
-                 banded: bool = False):
+                 kernel: str = "rdb", dtype: Optional[torch.dtype] = None):
         super().__init__()
         f, g = features, growth
         c_ins = (f, f + g, f + 2 * g, f + 3 * g, f + 4 * g)
@@ -177,8 +213,9 @@ class ResidualDenseBlock(nn.Module):
         for i, (ci, co) in enumerate(zip(c_ins, c_outs), start=1):
             setattr(self, f"conv_layer{i}", Conv3x3(ci, co))
         self.residual_scaling = residual_scaling
-        self.banded = banded
-        pack = pack_rdb_weights_tc if banded else pack_rdb_weights  # K6's or K1's
+        self.kernel = kernel
+        self.dtype = dtype
+        pack = pack_rdb_weights_tc if kernel == "rdb_banded" else pack_rdb_weights
         self._packed = _Cached(lambda *p: pack(p[:5], p[5:]))
 
     def convs(self) -> Tuple[Conv3x3, ...]:
@@ -187,28 +224,36 @@ class ResidualDenseBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         kernels = [c.weight for c in self.convs()]
         biases = [c.bias for c in self.convs()]
+        if self.kernel == "plain":
+            return rdb_reference(x, kernels, biases, self.residual_scaling, self.dtype)
         packed = self._packed.get(kernels + biases) if x.is_cuda else None
-        block = rdb_banded if self.banded else rdb_fused
-        return block(x, kernels, biases, self.residual_scaling, packed)
+        block = rdb_banded if self.kernel == "rdb_banded" else rdb_fused
+        return block(x.float(), kernels, biases, self.residual_scaling, packed)
 
 
 class ResInResDenseBlock(nn.Module):
     """3 chained dense blocks + scaled outer skip (reference srgan_train.py:364-404).
-    ``kernel`` (``config.trunk_kernel``) picks what runs it on the card:
-    'rrdb_sweep' one K5 launch, 'rrdb_fused' one K4 launch, 'rdb' three K1
-    launches and 'rdb_banded' three K6 launches (the skip in PyTorch)."""
+    ``kernel`` (``config.trunk_kernel``) picks what runs it: 'rrdb_sweep' one
+    K5 launch, 'rrdb_fused' one K4 launch (both fed float32), 'rdb' three K1
+    launches and 'rdb_banded' three K6 launches (the skip in PyTorch),
+    'plain' three plain dense blocks at ``dtype``. The skip adds the input
+    as it came, so a bfloat16 input and a float32 kernel output give float32,
+    as JAX's promotion does."""
 
     def __init__(
         self, features: int = 64, growth: int = 32, residual_scaling: float = 0.1,
-        kernel: str = "rdb",
+        kernel: str = "rdb", dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
-        if kernel not in ("rdb", "rdb_banded", "rrdb_fused", "rrdb_sweep"):
+        if kernel not in TRUNK_KERNELS:
             raise ValueError(f"unknown trunk kernel {kernel!r}")
-        banded = kernel == "rdb_banded"
-        self.residual_dense_block1 = ResidualDenseBlock(features, growth, residual_scaling, banded)
-        self.residual_dense_block2 = ResidualDenseBlock(features, growth, residual_scaling, banded)
-        self.residual_dense_block3 = ResidualDenseBlock(features, growth, residual_scaling, banded)
+        block = "rdb" if kernel in ("rrdb_fused", "rrdb_sweep") else kernel
+        self.residual_dense_block1 = ResidualDenseBlock(features, growth, residual_scaling,
+                                                        block, dtype)
+        self.residual_dense_block2 = ResidualDenseBlock(features, growth, residual_scaling,
+                                                        block, dtype)
+        self.residual_dense_block3 = ResidualDenseBlock(features, growth, residual_scaling,
+                                                        block, dtype)
         self.residual_scaling = residual_scaling
         self.kernel = kernel
         pack = pack_rrdb_weights_tc if kernel == "rrdb_sweep" else pack_rrdb_weights
@@ -229,35 +274,50 @@ class ResInResDenseBlock(nn.Module):
                 self._packed.get([t for k, b in zip(kernels, biases) for t in k + b])
                 if x.is_cuda else None
             )
-            return whole(x, kernels, biases, self.residual_scaling, packed)
+            return whole(x.float(), kernels, biases, self.residual_scaling, packed)
         a = x
         for block in self.blocks():
             a = block(a)
-        return x + self.residual_scaling * a
+        return x + scaled(self.residual_scaling, a)
 
 
 class DeformableConv(nn.Module):
     """One deformable conv layer (reference srgan_train.py:506-523):
     ``offset_conv`` (18 offsets), ``weight`` OIHW and ``bias``. Its forward is
-    the JAX ``models.blocks.DeformableConv``: the offset conv (cuDNN), then
-    ``ops.deform_conv.deform_conv2d`` (K7 or K8 on the card). The fused tail
-    (``ops.tail.fused_deform_tail``) applies two of them at once instead."""
+    the JAX ``models.blocks.DeformableConv``: the offset conv (cuDNN) at
+    ``dtype``, then ``ops.deform_conv.deform_conv2d`` (K7 or K8 on the card)
+    on the input and offsets in float32, whatever the compute dtype (JAX
+    ``models/blocks.py:429-434``). ``in_hcw`` / ``out_hcw``: the input /
+    output is channels-before-width (N, H, C, W), the offsets follow the
+    input. The fused tail (``ops.tail.fused_deform_tail``) applies two of
+    them at once instead."""
 
-    def __init__(self, in_channels: int, features: int, clamp: int = 2):
+    def __init__(self, in_channels: int, features: int, clamp: int = 2,
+                 dtype: Optional[torch.dtype] = None, in_hcw: bool = False,
+                 out_hcw: bool = False):
         super().__init__()
         self.offset_conv = Conv3x3(in_channels, 18)
         self.weight = nn.Parameter(torch.empty(features, in_channels, 3, 3))
         self.bias = nn.Parameter(torch.zeros(features))
         self.clamp = clamp
+        self.dtype = dtype
+        self.in_hcw = in_hcw
+        self.out_hcw = out_hcw
         self._packed = _Cached(pack_deform64_weight_tc)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        offsets = conv_nhwc(x, self.offset_conv.weight, self.offset_conv.bias)
+        x_nhwc = x.permute(0, 1, 3, 2) if self.in_hcw else x
+        offsets = conv_nhwc(x_nhwc, self.offset_conv.weight, self.offset_conv.bias, 1,
+                            self.dtype)
+        # K7's packed weights, for the one layer shape it takes (64 -> 64); a
+        # narrower trunk's layers run the plain samplers on the card
         packed = (
-            self.packed_weight() if x.is_cuda and self.weight.shape[0] > 1 else None
+            self.packed_weight() if x.is_cuda and tuple(self.weight.shape) == (64, 64, 3, 3)
+            else None
         )
-        return deform_conv2d(x.contiguous(), offsets.contiguous(), self.weight,
-                             self.bias, 1, self.clamp, packed)
+        return deform_conv2d(x_nhwc.float().contiguous(), offsets.float().contiguous(),
+                             self.weight, self.bias, 1, self.clamp, packed,
+                             out_hcw=self.out_hcw)
 
     def reset_parameters(self, init_scale: float, generator: torch.Generator) -> None:
         """Own weight and bias; ``offset_conv`` is a ``Conv3x3`` of its own."""

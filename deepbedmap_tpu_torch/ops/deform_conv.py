@@ -347,14 +347,16 @@ def choose_method(device_type: str, x_shape, weight_shape, padding: int, clamp) 
 
 
 def deform_conv2d(
-    x: torch.Tensor,  # (N, H, W, C_in)
-    offsets: torch.Tensor,  # (N, H, W, 2K), [:K] dy, [K:] dx
+    x: torch.Tensor,  # (N, H, W, C_in), or (N, H, C_in, W) with in_hcw
+    offsets: torch.Tensor,  # (N, H, W, 2K), [:K] dy, [K:] dx; (N, H, 2K, W) with in_hcw
     weight: torch.Tensor,  # (C_out, C_in, kh, kw) OIHW
     bias: Optional[torch.Tensor] = None,  # (C_out,) or None
     padding: int = 1,
     clamp: int = 2,
     w_packed: Optional[torch.Tensor] = None,
     method: str = "auto",
+    in_hcw: bool = False,
+    out_hcw: bool = False,
 ) -> torch.Tensor:
     """One deformable conv layer, the JAX ``deform_conv2d`` with its
     ``method`` names:
@@ -377,9 +379,26 @@ def deform_conv2d(
       layer they take (a clamp they do not cover raises), JAX's rule off
       the TPU everywhere else.
 
+    ``in_hcw`` / ``out_hcw``: the channels-before-width layout (N, H, C, W)
+    of ``x`` and ``offsets`` / of the output, for every method. The kernels
+    take NHWC: ``x`` and ``offsets`` are permuted back and made contiguous,
+    which copies only where their memory really is (N, H, C, W) (a permuted
+    view of NHWC memory, as ``models.blocks.ConvHCW`` returns, costs
+    nothing), and the output is returned as a permuted view.
+
     ``bias`` None adds nothing. Another method raises ``ValueError``."""
     if method not in METHODS:
         raise ValueError(f"unknown deform_conv2d method {method!r}")
+    if in_hcw:
+        x = x.permute(0, 1, 3, 2).contiguous()
+        offsets = offsets.permute(0, 1, 3, 2).contiguous()
+    out = _deform_conv2d_nhwc(x, offsets, weight, bias, padding, clamp, w_packed, method)
+    return out.permute(0, 1, 3, 2) if out_hcw else out
+
+
+def _deform_conv2d_nhwc(x, offsets, weight, bias, padding, clamp, w_packed,
+                        method) -> torch.Tensor:
+    """``deform_conv2d`` on NHWC tensors."""
     c_out = weight.shape[0]
     if method == "auto":
         method = choose_method(x.device.type, x.shape, weight.shape, padding, clamp)

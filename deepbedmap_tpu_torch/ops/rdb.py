@@ -2,8 +2,11 @@
 wrappers.
 
 Counterpart of ``deepbedmap_tpu/ops/pallas_rdb.py``. ``rdb_reference`` is the
-port of its ``rdb_reference`` (the plain composition of five 3x3 SAME convs).
-Two kernels compute it on the card: ``rdb_fused``, K1 (``csrc/rdb.cu``
+port of its ``rdb_reference`` (the plain composition of five 3x3 SAME convs)
+and, at a compute dtype, of JAX's XLA dense block: it is the plain trunk's
+block (``config.trunk_kernel`` 'plain', e.g. ``fused_rdb='never'`` or
+bfloat16 at the defaults), which runs PyTorch's convs on either device, as
+JAX runs XLA's. Two kernels compute it on the card: ``rdb_fused``, K1 (``csrc/rdb.cu``
 ``rdb_forward``, the resident trunk's block: five conv launches on a dense
 (N, H, W, 192) workspace in device memory, each a 3xTF32 implicit GEMM on
 the tensor cores, ``csrc/conv3x3_tc.cuh``), and ``rdb_banded``, K6
@@ -36,14 +39,13 @@ packer repacks them once per model: ``pack_rdb_weights`` /
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from deepbedmap_tpu_torch.ops import _kernels
 from deepbedmap_tpu_torch.ops._autograd import kernel_with_plain_grad
-from deepbedmap_tpu_torch.ops.conv import leaky_relu
+from deepbedmap_tpu_torch.ops.conv import conv_nhwc, leaky_relu, scaled
 from deepbedmap_tpu_torch.ops.conv3x3 import pack_conv_weight
 from deepbedmap_tpu_torch.ops.deform_conv import tf32_split
 
@@ -61,15 +63,21 @@ def rdb_reference(
     kernels: Sequence[torch.Tensor],  # five OIHW (C_out_j, C_in_j, 3, 3)
     biases: Sequence[torch.Tensor],  # five (C_out_j,)
     scaling: float,
+    dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """out = x + scaling * conv5(dense(x)), LeakyReLU(0.2) after conv1-4."""
-    xc = x.permute(0, 3, 1, 2)
-    acts = [xc]
+    """out = x + scaling * conv5(dense(x)), LeakyReLU(0.2) after conv1-4: JAX's
+    XLA composition (``models/blocks.py:182-202``). With a ``dtype`` each
+    conv takes its input, kernel and bias in it and rounds as flax's
+    (``ops.conv.conv_nhwc``); the concatenations, the LeakyReLUs and the
+    residual follow PyTorch's type promotion, which is JAX's, so a bfloat16
+    block computes in bfloat16 and one whose input is float32 returns
+    float32, as JAX's."""
+    acts = [x]
     for j in range(5):
-        z = F.conv2d(torch.cat(acts, 1), kernels[j], biases[j], padding=1)
+        z = conv_nhwc(torch.cat(acts, -1), kernels[j], biases[j], 1, dtype)
         if j < 4:
             acts.append(leaky_relu(z))
-    return (xc + scaling * z).permute(0, 2, 3, 1)
+    return x + scaled(scaling, z)
 
 
 def pack_rdb_weights(
@@ -190,13 +198,14 @@ def rrdb_reference(
     kernels: Sequence[Sequence[torch.Tensor]],  # three blocks' five OIHW kernels
     biases: Sequence[Sequence[torch.Tensor]],  # three blocks' five biases
     scaling: float,
+    dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """x + scaling * rdb3(rdb2(rdb1(x))): three ``rdb_reference`` calls and
     the scaled outer skip."""
     a = x
     for ks, bs in zip(kernels, biases):
-        a = rdb_reference(a, ks, bs, scaling)
-    return x + scaling * a
+        a = rdb_reference(a, ks, bs, scaling, dtype)
+    return x + scaled(scaling, a)
 
 
 def pack_rrdb_weights(

@@ -30,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from deepbedmap_tpu_torch.ops.conv import conv_nhwc, leaky_relu
+from deepbedmap_tpu_torch.ops.conv import conv_nhwc, leaky_relu, torch_dtype
 from deepbedmap_tpu_torch.ops.deform_conv import (
     deform64,
     deform_conv_shifts,
@@ -41,11 +41,16 @@ from deepbedmap_tpu_torch.ops.deform_conv import (
 )
 
 
-def tail_reference(x, o1k, o1b, w1, b1, o2k, o2b, w2, b2, padding=1, clamp=2):
-    """Plain composition of the two deformable layers (OIHW weights, NHWC x)."""
-    off1 = conv_nhwc(x, o1k, o1b)
-    a5 = leaky_relu(deform_conv_shifts(x, off1, w1, b1, padding, clamp))
-    off2 = conv_nhwc(a5, o2k, o2b)
+def tail_reference(x, o1k, o1b, w1, b1, o2k, o2b, w2, b2, padding=1, clamp=2,
+                   compute_dtype: Optional[str] = None):
+    """Plain composition of the two deformable layers (OIHW weights, NHWC x).
+    ``compute_dtype`` ('bfloat16') runs the two offset convs at that
+    precision, their offsets returned in float32; x is cast to float32 for
+    the samplers, which compute in float32 (JAX ``pallas_tail.py:100-148``)."""
+    dt = torch_dtype(compute_dtype)
+    off1 = conv_nhwc(x, o1k, o1b, 1, dt).float()
+    a5 = leaky_relu(deform_conv_shifts(x.float(), off1, w1, b1, padding, clamp))
+    off2 = conv_nhwc(a5, o2k, o2b, 1, dt).float()
     return deform_conv_shifts_zproj(a5, off2, w2, b2, padding, clamp)
 
 
@@ -94,11 +99,17 @@ def fused_deform_tail(
     b2: torch.Tensor,  # (1,)
     clamp: int = 2,
     w1_packed: Optional[torch.Tensor] = None,
+    compute_dtype: Optional[str] = None,
 ) -> torch.Tensor:
-    """Both deformable output layers (module docstring) -> (N, H, W, 1)."""
+    """Both deformable output layers (module docstring) -> (N, H, W, 1).
+    ``compute_dtype`` ('bfloat16') runs the two offset convs at that
+    precision and returns their offsets in float32, as ``tail_reference``;
+    x is cast to float32 before K2, and K2, the projection and K3 compute
+    in float32."""
     if w2.shape[0] != 1:
         raise ValueError("the fused tail needs a single output channel")
-    off1 = conv_nhwc(x, o1k, o1b).contiguous()
-    a5 = deform64_lrelu(x.contiguous(), off1, w1, b1, clamp, w1_packed)
-    off2 = conv_nhwc(a5, o2k, o2b).contiguous()
+    dt = torch_dtype(compute_dtype)
+    off1 = conv_nhwc(x, o1k, o1b, 1, dt).float().contiguous()
+    a5 = deform64_lrelu(x.float().contiguous(), off1, w1, b1, clamp, w1_packed)
+    off2 = conv_nhwc(a5, o2k, o2b, 1, dt).float().contiguous()
     return deform_zproj1(tap_projection(a5, w2), off2, b2, clamp)

@@ -28,9 +28,10 @@ out. ``reduce_tp_grads`` completes DP x TP by summing each shard's gradient
 over ``"data"`` (each data rank holds its rows' share of the loss).
 
 Under TP with ``n_model`` > 1 the trunk runs the plain dense block with
-sharded convs (the dense-block kernels take F = 64 and G = 32 whole) and
-the tail the plain deformable convs; with ``n_model`` = 1 the model's own
-forward runs, kernels included.
+sharded convs (the dense-block kernels take F = 64 and G = 32 whole) at the
+configuration's compute dtype, and the tail the plain deformable convs in
+float32; with ``n_model`` = 1 the model's own forward runs, kernels
+included.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import Replicate, Shard
 
-from deepbedmap_tpu_torch.ops.conv import conv_nhwc, leaky_relu
+from deepbedmap_tpu_torch.ops.conv import conv_nhwc, leaky_relu, scaled, torch_dtype
 from deepbedmap_tpu_torch.ops.deform_conv import deform_conv_shifts, deform_conv_shifts_zproj
 from deepbedmap_tpu_torch.ops.resize import nearest_upsample, space_to_depth
 from deepbedmap_tpu_torch.parallel.mesh import _mesh, mesh_device, mesh_rank, mesh_size
@@ -137,7 +138,10 @@ class _Gather(torch.autograd.Function):
 def _tp_generator_forward(cfg, p: Mapping[str, torch.Tensor], sharded: Mapping[str, bool],
                           group, x, w1, w2, w3) -> torch.Tensor:
     """``models.generator.Generator.forward`` with every conv's output
-    channels split over ``group`` (plain PyTorch convolutions)."""
+    channels split over ``group`` (plain PyTorch convolutions, at the
+    configuration's compute dtype; the upsample stages and the tail in
+    their literal NHWC form, the function ``upsample_phase_conv`` and
+    ``tail_hcw`` compute too)."""
 
     def layer(name: str, a: torch.Tensor, op) -> torch.Tensor:
         if not sharded[f"{name}.weight"]:
@@ -145,8 +149,10 @@ def _tp_generator_forward(cfg, p: Mapping[str, torch.Tensor], sharded: Mapping[s
         return _Gather.apply(op(_Copy.apply(a, group), p[f"{name}.weight"],
                                 p[f"{name}.bias"]), group, -1)
 
+    dt = torch_dtype(cfg.compute_dtype)
+
     def conv(name, a, padding=1):
-        return layer(name, a, lambda a, w, b: conv_nhwc(a, w, b, padding))
+        return layer(name, a, lambda a, w, b: conv_nhwc(a, w, b, padding, dt))
 
     branches = []
     for name, a, block in (("conv_on_X", x, 1), ("conv_on_W1", w1, 10),
@@ -166,17 +172,18 @@ def _tp_generator_forward(cfg, p: Mapping[str, torch.Tensor], sharded: Mapping[s
                          torch.cat(acts, -1))
                 if j < 5:
                     acts.append(leaky_relu(z))
-            r = r + s * z
-        t = t + s * r
+            r = r + scaled(s, z)
+        t = t + scaled(s, r)
     a3 = conv("post_residual_conv_layer", t) + a1
     a4 = leaky_relu(conv("post_upsample_conv_layer_1", nearest_upsample(a3, 2)))
     a4 = leaky_relu(conv("post_upsample_conv_layer_2", nearest_upsample(a4, 2)))
     clamp = cfg.deform_clamp
-    off1 = conv("final_conv_layer1.offset_conv", a4)
+    # the samplers compute in float32, whatever the compute dtype
+    off1 = conv("final_conv_layer1.offset_conv", a4).float()
     off1_in = _Copy.apply(off1, group) if sharded["final_conv_layer1.weight"] else off1
-    a5 = leaky_relu(layer("final_conv_layer1", a4, lambda a, w, b: deform_conv_shifts(
+    a5 = leaky_relu(layer("final_conv_layer1", a4.float(), lambda a, w, b: deform_conv_shifts(
         a, off1_in, w, b, 1, clamp)))
-    off2 = conv("final_conv_layer2.offset_conv", a5)
+    off2 = conv("final_conv_layer2.offset_conv", a5).float()
     off2_in = _Copy.apply(off2, group) if sharded["final_conv_layer2.weight"] else off2
     return layer("final_conv_layer2", a5, lambda a, w, b: deform_conv_shifts_zproj(
         a, off2_in, w, b, 1, clamp))

@@ -28,7 +28,6 @@ from deepbedmap_tpu_torch.config import (
     DiscriminatorConfig,
     GeneratorConfig,
     TrainConfig,
-    check_train_supported,
 )
 from deepbedmap_tpu_torch.models.api import build_discriminator, build_generator
 from deepbedmap_tpu_torch.models.discriminator import Discriminator
@@ -107,8 +106,10 @@ def create_gan_state(
     JAX, with zeroed Adam states, on ``device`` (the card unless the caller
     asks for the CPU). ``seed`` defaults to ``t_cfg.seed``. On a CUDA
     device, generator widths the kernels do not take raise
-    ``NotImplementedError`` before anything is built (``build_generator``)."""
-    check_train_supported(t_cfg)
+    ``NotImplementedError`` before anything is built (``build_generator``).
+    A ``GeneratorConfig(compute_dtype='bfloat16')`` trains with float32
+    parameters and Adam states; ``t_cfg.compute_dtype`` is inert, as in
+    JAX."""
     seed = t_cfg.seed if seed is None else seed
     g = build_generator(g_cfg, seed=seed, device=device)
     d = build_discriminator(d_cfg, seed=seed + 1, device=device)

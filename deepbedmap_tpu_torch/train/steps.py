@@ -48,7 +48,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from deepbedmap_tpu_torch.config import LossConfig, TrainConfig, check_train_supported
+from deepbedmap_tpu_torch.config import LossConfig, TrainConfig
 from deepbedmap_tpu_torch.models.discriminator import Discriminator
 from deepbedmap_tpu_torch.models.generator import Generator
 from deepbedmap_tpu_torch.ops.collectives import global_mean
@@ -194,7 +194,6 @@ def make_train_step(
 ) -> Callable[[GANState, Batch], Tuple[GANState, StepMetrics]]:
     """The D+G train step (module docstring); it updates the state in place.
     ``group``: the data-parallel reduction group (None: one device)."""
-    check_train_supported(t_cfg)
 
     def train_step(state: GANState, batch: Batch) -> Tuple[GANState, StepMetrics]:
         g, d = state.g, state.d

@@ -132,15 +132,43 @@ def test_port_import_loads_no_jax():
 @pytest.mark.parametrize(
     "flags",
     [
-        dict(upsample_phase_conv=True),
+        # the combinations the JAX generator asserts against
+        # (deepbedmap_tpu/models/generator.py:193-195, 225)
+        dict(upsample_phase_conv=True, tail_hcw=True, tail_fused=False),
         dict(tail_hcw=True),
+        # a compute dtype the port has no path for
+        dict(compute_dtype="float16"),
+    ],
+)
+def test_unported_config_flags_raise(flags):
+    with pytest.raises(ValueError):
+        Generator(GeneratorConfig(num_residual_blocks=1, **flags))
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [
+        dict(upsample_phase_conv=True),
+        dict(tail_hcw=True, tail_fused=False),
         dict(compute_dtype="bfloat16"),
         dict(fused_rdb="never"),
     ],
 )
-def test_unported_config_flags_raise(flags):
-    with pytest.raises(NotImplementedError):
-        Generator(GeneratorConfig(num_residual_blocks=1, **flags))
+def test_option_trees_map_onto_jax(flags):
+    # each option's JAX tree bridges onto the port's generator in that
+    # option, key for key and shape for shape, and back exactly
+    _, params = jax_build_generator(JaxGeneratorConfig(num_residual_blocks=2, **flags))
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    sd = jax_params_to_state_dict(tree)
+    model = Generator(GeneratorConfig(num_residual_blocks=2, **flags))
+    model.load_state_dict(sd, strict=True)
+    assert {k: v.shape for k, v in model.state_dict().items()} == {
+        k: v.shape for k, v in sd.items()}
+    assert all(v.dtype == torch.float32 for v in model.state_dict().values())
+    a, b = _leaves(tree), _leaves(state_dict_to_jax_params(model.state_dict()))
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 @pytest.mark.parametrize(
@@ -154,6 +182,10 @@ def test_unported_config_flags_raise(flags):
         dict(rrdb_sweep=True),
         dict(rdb_resident="never"),
         dict(rdb_resident="never", rrdb_fused=True),
+        dict(upsample_phase_conv=True),
+        dict(tail_hcw=True, tail_fused=False),
+        dict(compute_dtype="bfloat16"),
+        dict(fused_rdb="never"),
     ],
 )
 def test_ported_config_flags_build(flags):

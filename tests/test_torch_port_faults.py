@@ -11,7 +11,9 @@
    not cover), and follows JAX's off-TPU rule everywhere else (a table of
    shapes, no card needed).
 3. ``config.check_card_supported`` refuses generator widths and offset
-   clamps the kernels do not take, and a generator built on
+   clamps that a kernel the configuration launches does not take, and
+   passes those that only plain versions meet (the plain trunk at any
+   width, the unfused tail's plain samplers); a generator built on
    ``device="cuda"`` with such widths or clamps raises
    ``NotImplementedError`` at construction (before the device is resolved,
    so no card is needed); the CPU runs any width and clamp.
@@ -180,7 +182,11 @@ def test_auto_on_an_odd_layer_runs_the_plain_sampler():
     [dict(base_channels=48), dict(growth_channels=16),
      dict(base_channels=32, growth_channels=16),
      dict(inblock_channels=24, fused_conv="always"), dict(deform_clamp=3),
-     dict(deform_clamp=3, tail_fused=False)],
+     dict(deform_clamp=3, tail_fused=False),
+     # a resident trunk is K1 even with fused_rdb='never'
+     dict(growth_channels=16, fused_rdb="never", rdb_resident="always"),
+     # the plain trunk takes any width, the fused tail (K2/K3) only 64
+     dict(base_channels=48, fused_rdb="never")],
 )
 def test_widths_the_kernels_do_not_take_are_refused_on_the_card(flags):
     cfg = GeneratorConfig(num_residual_blocks=1, **flags)
@@ -205,6 +211,19 @@ def test_widths_the_kernels_do_not_take_are_refused_on_the_card(flags):
 @pytest.mark.parametrize("flags", [{}, dict(rrdb_fused=True, fused_conv="always"),
                                    dict(inblock_channels=16, fused_conv="always"),
                                    dict(inblock_channels=24), dict(deform_clamp=0),
-                                   dict(deform_clamp=1, tail_fused=False)])
+                                   dict(deform_clamp=1, tail_fused=False),
+                                   # no kernel runs the trunk: any growth width
+                                   dict(fused_rdb="never", growth_channels=16),
+                                   dict(fused_rdb="never", growth_channels=48),
+                                   dict(compute_dtype="bfloat16", growth_channels=16),
+                                   # nor the unfused tail at other than 64 channels,
+                                   # where the plain samplers take any clamp
+                                   dict(fused_rdb="never", base_channels=48,
+                                        tail_fused=False, deform_clamp=3),
+                                   dict(fused_rdb="never", base_channels=20,
+                                        tail_fused=False),
+                                   # K10 runs only at float32 under 'auto'
+                                   dict(compute_dtype="bfloat16", fused_conv="auto",
+                                        inblock_channels=24)])
 def test_kernel_widths_pass(flags):
     check_card_supported(GeneratorConfig(**flags))
