@@ -220,14 +220,41 @@ Phases (any failure ends the run with a non-zero exit code):
     the TF32 peak); then a bf16 train step card vs CPU (2 RRDBs, batch 128,
     ``hold_step`` against bf16's own distance from the float32 step,
     ``bf16_step_card_vs_cpu``), ``fit`` at 12 RRDBs and batch 128 with its
-    launch counts, and warm bf16 steps timed.
+    launch counts, and warm bf16 steps timed;
+28. the kernels' bf16-multiplicand mode and the last surfaces
+    (``bf16_routes_phase``): (a) the bf16 routes of K1, K4, K6 and K5 at the
+    ragged (3,37,9,64) and at (2,286,286,64), and of K10 at its four
+    main-path shapes, each against its plain version on bf16-rounded
+    operands on the card (``hold_mxu``: largest difference within
+    ``TOL_MXU_MAX`` and mean within ``TOL_MXU_MEAN`` of the range, the 3xTF32
+    kernel beyond both), timed beside the 3xTF32 route and the rounded plain
+    version, K10 also beside cuDNN's ``F.conv2d`` on bf16 inputs; (b) the
+    four forced trunks in the mode (``k1_mxu`` ``rdb_resident='always'``,
+    ``k4_mxu`` with K10's mode, ``k6_mxu``, ``k5_mxu``) through phase 6's
+    ``main_path`` with phase 6's weights: exact launches of the bf16 routes,
+    tiled vs untiled, the canvas against phase 6's within ``TOL_BF16``;
+    ``k1_mxu`` is the default configuration with the mode honoured, the
+    decision measurement (its canvas's distance from float32 as a share of
+    the range, its ms/tile beside phase 6's); (c) each forced trunk at 12
+    RRDBs and init scale 1.0 card vs CPU (``hold_mxu_generator``); (d)
+    growth 16 under 'auto' (the plain trunk), ``out_channels=2`` on the
+    unfused tail and ``compute_dtype='float16'``, card vs CPU with their
+    launches; (e) ``save_checkpoint`` of a 12-RRDB train state blocking and
+    with ``block=False`` (the time to return, a train step during the write,
+    the commit), the restore bit for bit; (f) the determinism finding
+    (``determinism_worker`` in a new process with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``: a 12-RRDB step twice by default,
+    with ``cudnn.deterministic`` and with ``use_deterministic_algorithms``,
+    what differs, what PyTorch names as nondeterministic, the step's time).
 
 Each main path checks its own configuration's launch counts (``PER_FORWARD``).
 It prints the script's wall time, one JSON line of phase 22's training
 numbers, one of phase 23's search numbers, one of phase 24's data-prep
 numbers, one of phase 25's evaluation numbers, one of phase 26's parallel
-numbers, one of phase 27's options numbers, one JSON line with each
-kernel's launches (from the main path that runs it), error, times and bound,
+numbers, one of phase 27's options numbers, one of phase 28's
+(``bf16_routes``), one JSON line with each kernel's launches (from the main
+path that runs it; the five bf16 routes from phase 28's), error, times and
+bound,
 and ends with
 ``{"ok": true, "device": {...}}``. It refuses to run without a CUDA device and
 imports nothing of JAX.
@@ -346,6 +373,7 @@ CLI_FLAGS = {"bed_lowres": "--bed", "surface": "--surface", "velocity_x": "--vel
 # 700 W limit), kept in the port's utils/flops.py: fp32 outside the tensor
 # cores, TF32 on the tensor cores, HBM bandwidth. See bound().
 from deepbedmap_tpu_torch.utils.flops import (  # noqa: E402
+    H100_BF16_TC_PEAK_FLOPS as PEAK_BF16_TC,
     H100_FP32_PEAK_FLOPS as PEAK_FP32_FLOPS,
     H100_HBM_BYTES_PER_S as PEAK_HBM_BYTES,
     H100_TF32_TC_PEAK_FLOPS as PEAK_TF32_TC,
@@ -364,6 +392,17 @@ CONFIGS = {
     "hcw": dict(tail_hcw=True, tail_fused=False),
     "plain": dict(fused_rdb="never"),
     "plain16": dict(fused_rdb="never", growth_channels=16),
+    # phase 28: the forced trunks with rdb_mxu_bf16 at its default (on), K10
+    # with conv_mxu_bf16 beside K4; and three configurations JAX builds that
+    # the port refused before
+    "k1_mxu": dict(rdb_resident="always"),
+    "k4_mxu": dict(rdb_resident="always", rrdb_fused=True, fused_conv="always",
+                   conv_mxu_bf16=True, tail_fused=False),
+    "k6_mxu": dict(rdb_resident="never", fused_rdb="always"),
+    "k5_mxu": dict(rdb_resident="always", rrdb_sweep=True),
+    "growth16": dict(growth_channels=16),
+    "out2": dict(out_channels=2, tail_fused=False),
+    "fp16": dict(compute_dtype="float16"),
 }
 PER_FORWARD = {
     "default": {"rdb_forward": 36, "deform64_lrelu": 1, "deform_zproj1": 1},
@@ -376,6 +415,16 @@ PER_FORWARD = {
     "hcw": {"rdb_forward": 36, "deform_conv": 1, "deform_conv_zproj1": 1},
     "plain": {"deform64_lrelu": 1, "deform_zproj1": 1},
     "plain16": {"deform64_lrelu": 1, "deform_zproj1": 1},
+    "k1_mxu": {"rdb_forward_bf16": 36, "deform64_lrelu": 1, "deform_zproj1": 1},
+    "k4_mxu": {"rrdb_forward_bf16": 12, "conv3x3_forward_bf16": 4, "deform_conv": 1,
+               "deform_conv_zproj1": 1},
+    "k6_mxu": {"rdb_banded_forward_bf16": 36, "deform64_lrelu": 1, "deform_zproj1": 1},
+    "k5_mxu": {"rrdb_sweep_forward_bf16": 12, "deform64_lrelu": 1, "deform_zproj1": 1},
+    # 'auto' at growth 16: the plain trunk; the second layer of 64 -> 2 runs
+    # the plain samplers
+    "growth16": {"deform64_lrelu": 1, "deform_zproj1": 1},
+    "out2": {"rdb_forward": 36, "deform_conv": 1},
+    "fp16": {"deform64_lrelu": 1, "deform_zproj1": 1},
 }
 
 # operations per pixel: a 3x3 conv with C_in -> C_out channels does
@@ -3938,9 +3987,10 @@ OPTION_FIT_TILES, OPTION_TIMED_STEPS = 420, 5
 
 
 def hold_bf16(label: str, got, want16, want32) -> dict:
-    """A bf16 result against the bf16 reference ``want16``: nearer it than
-    ``want16`` lies to the float32 result ``want32`` (so ``got`` ran the bf16
-    path), and both distances within ``TOL_BF16`` of ``want32``'s range."""
+    """A bf16 (or float16) result against the reference at that dtype
+    ``want16``: nearer it than ``want16`` lies to the float32 result
+    ``want32`` (so ``got`` ran the reduced-precision path), and both
+    distances within ``TOL_BF16`` of ``want32``'s range."""
     import torch
 
     for name, t in (("got", got), ("reference", want16)):
@@ -3949,8 +3999,9 @@ def hold_bf16(label: str, got, want16, want32) -> dict:
     d_got = float((got.double() - want16.double()).abs().max())
     d_ref = float((want16.double() - want32.double()).abs().max())
     scale = float(want32.abs().max())
-    log(f"  {label}: {d_got:.3e} from the bf16 reference, which lies {d_ref:.3e} from "
-        f"float32 (ratio {d_got / d_ref:.3g}; tolerance {TOL_BF16:g} x {scale:.3e})")
+    log(f"  {label}: {d_got:.3e} from the reference at its compute dtype, which lies "
+        f"{d_ref:.3e} from float32 (ratio {d_got / d_ref:.3g}; tolerance {TOL_BF16:g} x "
+        f"{scale:.3e})")
     if not (d_got < d_ref and d_ref <= TOL_BF16 * scale and d_got <= TOL_BF16 * scale):
         raise AssertionError(f"{label}: {d_got:.3e} / {d_ref:.3e} outside the bf16 rule")
     return {"err": d_got, "bf16_vs_fp32": d_ref, "range": scale}
@@ -4233,9 +4284,507 @@ def generator_options(card_name: str, params, default_out) -> dict:
     return out
 
 
+# --- phase 28: the kernels' bf16-multiplicand routes and the last surfaces ---
+
+# The bf16 routes (K1, K4, K5, K6, K10 with mxu_bf16) against their plain
+# versions on bf16-rounded operands on the card: products of bf16 values are
+# exact in fp32, so only the sum order differs, and where a later stage
+# rounds a sum that lies on a bf16 boundary the two round it to neighbouring
+# bf16 values (a flip) and carry that on. With the dense blocks' weights at
+# MXU_WEIGHT_SCALE (the generator's init scale 0.1 gives ~0.006; at 0.05
+# each conv amplifies and a flip in an RRDB's first block spreads over most
+# of its third's outputs) the mean difference stays within TOL_MXU_MEAN of
+# the range (measured 1e-8 to 7e-8 at the main-path shapes, NVIDIA H100 80GB
+# HBM3, 700 W) and the largest, a few flips' tail, within TOL_MXU_MAX (up to
+# 9.1e-6 measured at (2,286,286,64)); an indexing or layout fault is of the
+# order of the range. The 3xTF32 kernel's mean distance from the rounded
+# plain version must exceed TOL_MXU_MEAN, which shows the cast is live (5e-6
+# to 3e-4 measured). tests/test_torch_port_mxu_bf16.py holds the CPU to JAX
+# by the same rule
+TOL_MXU_MAX, TOL_MXU_MEAN = 5e-5, 1e-6
+MXU_WEIGHT_SCALE = 0.01
+# the residual scaling of those checks, JAX's tests' 0.2: at 0.1 a whole
+# RRDB's convs reach its output at 0.01 and the 3xTF32 kernel's distance from
+# the rounded plain version falls under TOL_MXU_MAX
+MXU_SCALING = 0.2
+MXU_CONFIGS = ("k1_mxu", "k4_mxu", "k6_mxu", "k5_mxu")
+# the generators card vs CPU: a 32-px crop (latent 30^2), 12 RRDBs
+MXU_GEN_LR = 32
+# the determinism finding: one 12-RRDB step at the reference's batch, in a
+# process of its own (cuBLAS reads CUBLAS_WORKSPACE_CONFIG when it starts)
+DET_BATCH = TRAIN_BATCH
+DET_TIMED_STEPS = 5  # warm steps timed in each setting
+DET_TIMEOUT_S = 300
+MODE_TIMING_ROUNDS = 3  # rounds of default, mode, mode, default
+
+
+def bound_bf16(mm_flops: float, nbytes: float) -> dict:
+    """``bound`` for work on bf16 multiplicands: the matrix products at the
+    bf16 tensor-core peak (the least time the card could take for them),
+    against the bytes; ``bound_tf32_ms`` is the bound of route (b), one TF32
+    pass at the TF32 peak, for the log lines."""
+    t_mm = 1e3 * mm_flops / PEAK_BF16_TC
+    t_bytes = 1e3 * nbytes / PEAK_HBM_BYTES
+    return {"bound_ms": max(t_mm, t_bytes),
+            "bound_by": "operations" if t_mm >= t_bytes else "bytes",
+            "bound_route": "bf16 tensor cores" if t_mm >= t_bytes else "HBM bytes",
+            "bound_tf32_ms": max(1e3 * mm_flops / PEAK_TF32_TC, t_bytes)}
+
+
+def hold_mxu(label: str, got, want, tf32x3) -> dict:
+    """A bf16 route ``got`` against its plain version on rounded operands
+    ``want``, by the rule above; ``tf32x3`` is the 3xTF32 kernel on the same
+    inputs."""
+    import torch
+
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: non-finite values")
+    scale = float(want.abs().max())
+    d = (got.double() - want.double()).abs()
+    d32 = (tf32x3.double() - want.double()).abs()
+    err, mean = float(d.max()), float(d.mean())
+    log(f"  {label}: max_abs_err {err:.3e} = {err / scale:.3e} of the range {scale:.3e}, "
+        f"mean {mean / scale:.3e} (tolerances {TOL_MXU_MAX:g}, {TOL_MXU_MEAN:g}); the "
+        f"3xTF32 kernel: {float(d32.max()) / scale:.3e}, mean {float(d32.mean()) / scale:.3e}; "
+        f"route vs 3xTF32 {float((got - tf32x3).abs().max()) / scale:.3e}")
+    if not (err <= TOL_MXU_MAX * scale and mean <= TOL_MXU_MEAN * scale):
+        raise AssertionError(f"{label}: bf16 route outside its tolerance")
+    if not float(d32.mean()) > TOL_MXU_MEAN * scale:
+        raise AssertionError(f"{label}: the 3xTF32 kernel is as near the rounded plain "
+                             "version as the bf16 route: the cast is not live")
+    return {"max_abs_err": err, "mean_rel_err": mean / scale}
+
+
+def _mxu_dense(kind: str, shape, gen, timed: bool) -> dict:
+    """K1 (``rdb_fused``), K6 (``rdb_banded``), K4 (``rrdb_fused``) or K5
+    (``rrdb_sweep``) in the mode, beside the same kernel's 3xTF32 route."""
+    import torch
+
+    from deepbedmap_tpu_torch.ops import rdb
+
+    fn = getattr(rdb, kind)
+    blocks = 3 if kind.startswith("rrdb") else 1
+    pack = {"rdb_fused": rdb.pack_rdb_weights, "rdb_banded": rdb.pack_rdb_weights_tc,
+            "rrdb_fused": rdb.pack_rrdb_weights, "rrdb_sweep": rdb.pack_rrdb_weights_tc}[kind]
+    ref = rdb.rdb_reference if blocks == 1 else rdb.rrdb_reference
+    f, g = 64, 32
+    cins, couts = [f + g * j for j in range(5)], [g, g, g, g, f]
+    kernels = [[_randn((co, ci, 3, 3), gen, MXU_WEIGHT_SCALE) for ci, co in zip(cins, couts)]
+               for _ in range(blocks)]
+    biases = [[_randn((co,), gen, 0.1) for co in couts] for _ in range(blocks)]
+    if blocks == 1:
+        kernels, biases = kernels[0], biases[0]
+    x = _randn(shape, gen)
+    p16, p32 = pack(kernels, biases, True), pack(kernels, biases)
+    got = fn(x, kernels, biases, MXU_SCALING, p16, True)
+    want = ref(x, kernels, biases, MXU_SCALING, mxu_bf16=True)
+    other = fn(x, kernels, biases, MXU_SCALING, p32)
+    torch.cuda.synchronize()
+    res = hold_mxu(f"{kind} bf16 route {shape}", got, want, other)
+    del got, want, other
+    if timed:
+        res["ms"] = time_ms(lambda: fn(x, kernels, biases, MXU_SCALING, p16, True), 10)
+        res["tf32x3_ms"] = time_ms(lambda: fn(x, kernels, biases, MXU_SCALING, p32), 10)
+        res["plain_ms"] = time_ms(lambda: ref(x, kernels, biases, MXU_SCALING, mxu_bf16=True), 10)
+        flat = sum(kernels + biases, []) if blocks == 3 else kernels + biases
+        res.update(bound_bf16(blocks * 2 * (x.numel() // 64) * RDB_MACS,
+                              4 * (2 * x.numel() + _numel(*flat))), library_ms=None)
+    return res
+
+
+def _mxu_conv(shape, gen, timed: bool) -> dict:
+    """K10 in the mode at one shape, beside its 3xTF32 route; timed, also
+    cuDNN's ``F.conv2d`` on bf16 inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepbedmap_tpu_torch.ops.conv3x3 import (
+        conv3x3_fused,
+        conv3x3_reference,
+        pack_conv_weight,
+    )
+
+    n, h, w, cin, leaky, residual = shape
+    x = _randn((n, h, w, cin), gen)
+    wt, b = _randn((64, cin, 3, 3), gen, 0.05), _randn((64,), gen, 0.1)
+    r = _randn((n, h, w, 64), gen) if residual else None
+    p16 = pack_conv_weight(wt, True).contiguous()
+    p32 = pack_conv_weight(wt).contiguous()
+    got = conv3x3_fused(x, wt, b, leaky, r, p16, True)
+    want = conv3x3_reference(x, wt, b, leaky, r, True)
+    other = conv3x3_fused(x, wt, b, leaky, r, p32)
+    torch.cuda.synchronize()
+    res = hold_mxu(f"conv3x3_forward bf16 route {(n, h, w, cin)}, leaky {leaky}, residual "
+                   f"{residual}", got, want, other)
+    del got, want, other
+    if timed:
+        res["ms"] = time_ms(lambda: conv3x3_fused(x, wt, b, leaky, r, p16, True), 10)
+        res["tf32x3_ms"] = time_ms(lambda: conv3x3_fused(x, wt, b, leaky, r, p32), 10)
+        res["plain_ms"] = time_ms(lambda: conv3x3_reference(x, wt, b, leaky, r, True), 10)
+        xb = x.permute(0, 3, 1, 2).bfloat16()  # channels_last, as the port keeps it
+        wb, bb = wt.bfloat16(), b.bfloat16()
+        res["library_ms"] = time_ms(lambda: F.conv2d(xb, wb, bb, padding=1), 10)
+        res.update(bound_bf16(2 * n * h * w * 9 * cin * 64,
+                              4 * (x.numel() + n * h * w * 64 * (2 if residual else 1)
+                                   + _numel(wt, b))))
+    return res
+
+
+def mxu_kernels(card_name: str) -> dict:
+    """Phase 28 (a): each bf16 route at the ragged shape and the main-path
+    shapes (K10's four calls of one forward, summed), held to its plain
+    version on rounded operands, and timed beside its 3xTF32 route."""
+    import torch
+
+    gen = torch.Generator().manual_seed(28)
+    out = {}
+    for name, kind in (("rdb_forward_bf16", "rdb_fused"), ("rrdb_forward_bf16", "rrdb_fused"),
+                       ("rdb_banded_forward_bf16", "rdb_banded"),
+                       ("rrdb_sweep_forward_bf16", "rrdb_sweep")):
+        _mxu_dense(kind, RAGGED_RDB, gen, False)
+        out[name] = _mxu_dense(kind, MAIN_RDB, gen, True)
+    parts = [_mxu_conv(s, gen, True) for s in MAIN_CONVS]
+    for s, p in zip(MAIN_CONVS, parts):
+        log(f"  K10 bf16 route at {s}: {p['ms']:.3f} ms (3xTF32 {p['tf32x3_ms']:.3f}), plain "
+            f"{p['plain_ms']:.3f}, F.conv2d bf16 {p['library_ms']:.3f}, bound "
+            f"{p['bound_ms']:.3f} ms  [{card_name}]")
+    conv = {"max_abs_err": max(p["max_abs_err"] for p in parts),
+            "mean_rel_err": max(p["mean_rel_err"] for p in parts)}
+    for key in ("ms", "tf32x3_ms", "plain_ms", "library_ms", "bound_ms", "bound_tf32_ms"):
+        conv[key] = sum(p[key] for p in parts)
+    top = max(parts, key=lambda p: p["bound_ms"])
+    conv.update(bound_by=top["bound_by"], bound_route=" / ".join(
+        dict.fromkeys(p["bound_route"] for p in parts)))
+    out["conv3x3_forward_bf16"] = conv
+    for name, r in out.items():
+        lib = "" if r["library_ms"] is None else f", F.conv2d bf16 {r['library_ms']:.3f} ms"
+        log(f"  {name} at the main-path shape: {r['ms']:.3f} ms against 3xTF32 "
+            f"{r['tf32x3_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms{lib}, bound "
+            f"{r['bound_ms']:.3f} ms at the bf16 peak ({100 * r['bound_ms'] / r['ms']:.0f}%), "
+            f"{r['bound_tf32_ms']:.3f} ms for one TF32 pass  [{card_name}]")
+    return out
+
+
+def hold_mxu_generator(label: str, got, want16, want32) -> dict:
+    """A generator in the mode, the card against the CPU's rounded plain
+    versions (``want16``): nearer them than the CPU's float32 forward
+    (``want32``) lies to them, ``hold_bf16``'s rule (a generator at init
+    scale 1.0 carries bf16 flips through its 180 chained convs). No bound on
+    the mode's own distance: with K10's mode the offsets move, and at init
+    scale 1.0 the output with them, by 6.5% of the range (measured), beyond
+    ``TOL_BF16``."""
+    import torch
+
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: non-finite values")
+    d_got = float((got.double() - want16.double()).abs().max())
+    d_32 = float((want32.double() - want16.double()).abs().max())
+    scale = float(want16.abs().max())
+    log(f"  {label}: card {d_got:.3e} from the CPU's mode, whose float32 forward lies "
+        f"{d_32:.3e} from it (ratio {d_got / d_32:.3g}; range {scale:.3e})")
+    if not d_got < d_32:
+        raise AssertionError(f"{label}: {d_got:.3e} / {d_32:.3e} outside the mode's rule")
+    return {"err": d_got, "mode_vs_fp32": d_32, "range": scale}
+
+
+def mxu_card_vs_cpu(config: str) -> dict:
+    """Phase 28 (c): the 12-RRDB generator in ``config`` (a forced trunk in
+    the mode) at init scale 1.0 on a ``MXU_GEN_LR``-px crop, the card against
+    the CPU (``hold_mxu_generator``)."""
+    import torch
+
+    from deepbedmap_tpu_torch.config import GeneratorConfig
+    from deepbedmap_tpu_torch.models import build_generator
+
+    flags = CONFIGS[config]
+    fp32 = dict(flags, rdb_mxu_bf16=False, conv_mxu_bf16=False)
+    xs = [torch.from_numpy(a) for a in _crop_inputs(MXU_GEN_LR, 1, seed=1)]
+    models = {key: build_generator(GeneratorConfig(init_scale=1.0, **f), seed=0,
+                                   device="cpu").eval()
+              for key, f in (("mode", flags), ("fp32", fp32))}
+    gpu = copy.deepcopy(models["mode"]).to(DEVICE)
+    with torch.inference_mode():
+        outs = {key: model(*xs) for key, model in models.items()}
+        got = gpu(*[a.to(DEVICE) for a in xs]).cpu()
+    return hold_mxu_generator(f"generator 12 RRDB {flags}, init 1.0, {MXU_GEN_LR}-px crop",
+                              got, outs["mode"], outs["fp32"])
+
+
+def surfaces_card_vs_cpu(config: str) -> dict:
+    """Phase 28 (d): ``config`` (growth 16 under 'auto', two output
+    channels on the unfused tail, float16) at 12 RRDBs on phase 5's crop,
+    the card against the CPU, with the card forward's launch counts (float16
+    by ``hold_bf16``'s rule against the CPU's float16 and float32 forwards,
+    the others within ``TOL_GENERATOR``)."""
+    import torch
+
+    from deepbedmap_tpu_torch.config import GeneratorConfig
+    from deepbedmap_tpu_torch.models import build_generator
+    from deepbedmap_tpu_torch.ops import _kernels
+
+    flags = CONFIGS[config]
+    xs = [torch.from_numpy(a) for a in _crop_inputs(GEN_LR, 1, seed=1)]
+    cpu = build_generator(GeneratorConfig(**flags), seed=0, device="cpu").eval()
+    gpu = copy.deepcopy(cpu).to(DEVICE)
+    with torch.inference_mode():
+        want = cpu(*xs)
+        _kernels.reset_launches()
+        got = gpu(*[a.to(DEVICE) for a in xs])
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _kernels.launches.items() if v}
+        got = got.cpu()
+    check_launches(launches, PER_FORWARD[config])
+    label = f"generator 12 RRDB {flags}, {GEN_LR}-px crop -> {tuple(got.shape)}"
+    if flags.get("compute_dtype") == "float16":
+        cpu32 = build_generator(GeneratorConfig(**dict(flags, compute_dtype="float32")),
+                                seed=0, device="cpu").eval()
+        with torch.inference_mode():
+            want32 = cpu32(*xs)
+        res = hold_bf16(label + ", float16", got, want, want32)
+    else:
+        res = {"err": compare(label, got, want, TOL_GENERATOR)}
+    res["launches"] = launches
+    return res
+
+
+def checkpoint_phase(card_name: str, tmp: str) -> dict:
+    """Phase 28 (e): ``save_checkpoint`` of a 12-RRDB train state at the
+    reference's batch, blocking and with ``block=False``: the time until the
+    call returns and until ``wait_for_checkpoints`` has committed the file,
+    the restore of the non-blocking file equal to the saved state bit for
+    bit, and a training step run while the write is in flight."""
+    import torch
+
+    from deepbedmap_tpu_torch.config import GeneratorConfig, TrainConfig
+    from deepbedmap_tpu_torch.train.checkpoint import (
+        restore_checkpoint,
+        save_checkpoint,
+        wait_for_checkpoints,
+    )
+    from deepbedmap_tpu_torch.train.state import create_gan_state
+    from deepbedmap_tpu_torch.train.steps import make_train_step
+
+    t_cfg = TrainConfig(batch_size=TRAIN_BATCH, ema_decay=TRAIN_EMA)
+    state = create_gan_state(GeneratorConfig(), t_cfg=t_cfg, seed=0, device=DEVICE)
+    step = make_train_step(t_cfg)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in train_batch(TRAIN_BATCH, 7).items()}
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    out = {"card": card_name}
+    blocking, nonblocking = os.path.join(tmp, "blocking.pt"), os.path.join(tmp, "async.pt")
+    t0 = time.perf_counter()
+    save_checkpoint(state, blocking)
+    out["blocking_s"] = time.perf_counter() - t0
+    saved = {"g": copy.deepcopy(state.g.state_dict()), "d": copy.deepcopy(state.d.state_dict()),
+             "g_ema": copy.deepcopy(state.g_ema), "step": int(state.step)}
+    t0 = time.perf_counter()
+    save_checkpoint(state, nonblocking, block=False)
+    out["nonblocking_return_s"] = time.perf_counter() - t0
+    state, _ = step(state, batch)  # the state moves on while the file is written
+    torch.cuda.synchronize()
+    out["step_during_write_s"] = time.perf_counter() - t0
+    wait_for_checkpoints()
+    out["nonblocking_commit_s"] = time.perf_counter() - t0
+    back = restore_checkpoint(nonblocking, device=DEVICE)
+    for key in ("g", "d"):
+        got = getattr(back, key).state_dict()
+        for name, t in saved[key].items():
+            if not torch.equal(got[name], t):
+                raise AssertionError(f"checkpoint: {key}.{name} differs after the restore")
+    for name, t in (saved["g_ema"] or {}).items():
+        if not torch.equal(back.g_ema[name], t):
+            raise AssertionError(f"checkpoint: g_ema.{name} differs after the restore")
+    if int(back.step) != saved["step"]:
+        raise AssertionError("checkpoint: the step differs after the restore")
+    out["mb"] = _mb(nonblocking)
+    log(f"  save_checkpoint ({out['mb']:.1f} MB): blocking {out['blocking_s']:.3f} s; "
+        f"block=False returns in {out['nonblocking_return_s']:.3f} s, a train step after it "
+        f"ends at {out['step_during_write_s']:.3f} s, committed at "
+        f"{out['nonblocking_commit_s']:.3f} s; the restore equals the saved state bit for "
+        f"bit  [{card_name}]")
+    return out
+
+
+def determinism_worker(path: str) -> None:
+    """Phase 28 (f), in a process of its own: one 12-RRDB train step at
+    ``DET_BATCH`` from the same seeded state and tiles, twice in each of
+    three settings: as the port runs by default, with
+    ``torch.backends.cudnn.deterministic`` alone, and with it and
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``. For each:
+    the largest difference of the updated parameters between the two runs,
+    the tensors that differ, the median of ``DET_TIMED_STEPS`` warm steps,
+    and (the last) the operations PyTorch warns have no deterministic
+    implementation. Writes a JSON file to ``path``."""
+    import warnings
+
+    import torch
+
+    from deepbedmap_tpu_torch.config import GeneratorConfig, TrainConfig
+    from deepbedmap_tpu_torch.train.state import create_gan_state
+    from deepbedmap_tpu_torch.train.steps import make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_cfg = TrainConfig(batch_size=DET_BATCH)
+    step = make_train_step(t_cfg)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in train_batch(DET_BATCH, 12).items()}
+
+    def once(steps: int = 1) -> tuple:
+        state = create_gan_state(GeneratorConfig(), t_cfg=t_cfg, seed=0, device=DEVICE)
+        first, times = None, []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            if first is None:
+                first = {f"{tag}{n}": p.detach().clone()
+                         for tag, m in (("G.", state.g), ("D.", state.d))
+                         for n, p in m.named_parameters()}
+        return first, times
+
+    out = {}
+    for setting in ("default", "cudnn_deterministic", "deterministic_algorithms"):
+        torch.backends.cudnn.deterministic = setting != "default"
+        torch.use_deterministic_algorithms(setting == "deterministic_algorithms",
+                                           warn_only=True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            once()  # warm
+            (a, _), (b, times) = once(), once(1 + DET_TIMED_STEPS)
+        diff = {k: float((a[k].double() - b[k].double()).abs().max()) for k in a}
+        differ = [k for k, v in diff.items() if v > 0]
+        ops = sorted({str(w.message).split(" does not have")[0] for w in caught
+                      if "deterministic" in str(w.message)})
+        out[setting] = {"max_param_diff": max(diff.values()), "tensors_differ": len(differ),
+                        "first_differ": differ[:8],
+                        "step_ms_median": float(np.median(times[1:])),
+                        "step_ms": times[1:], "nondeterministic_ops": ops}
+    torch.use_deterministic_algorithms(False)
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def determinism_phase(card_name: str, tmp: str) -> dict:
+    """Phase 28 (f): ``determinism_worker`` in a new process with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, its finding logged."""
+    path = os.path.join(tmp, "determinism.json")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    proc = subprocess.run(_helper("determinism_worker", path),
+                          cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                          capture_output=True, text=True, timeout=DET_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"determinism worker exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    with open(path) as f:
+        out = json.load(f)
+    for setting, r in out.items():
+        log(f"  determinism, {setting}: two 12-RRDB steps at batch {DET_BATCH} differ by "
+            f"{r['max_param_diff']:.3e} in {r['tensors_differ']} parameter tensors (first: "
+            f"{r['first_differ'][:4]}); median warm step {r['step_ms_median']:.1f} ms of "
+            f"{DET_TIMED_STEPS}; no deterministic implementation: "
+            f"{r['nondeterministic_ops']}  [{card_name}]")
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def mode_tile_ms(card_name: str, params) -> dict:
+    """Phase 28 (b), the decision measurement's time: warm
+    ``predict_continent`` ms/tile on phase 6's region and weights of the
+    default configuration and of ``k1_mxu`` (the default with the mode
+    honoured), in turns default, mode, mode, default, ``MODE_TIMING_ROUNDS``
+    times; the medians and every run."""
+    import torch
+
+    from deepbedmap_tpu_torch import DeepBedMap
+    from deepbedmap_tpu_torch.config import GeneratorConfig
+
+    inputs, bounds, kw = continent_region()
+    tiles = 4
+    dbms = {c: DeepBedMap(params, cfg=GeneratorConfig(**CONFIGS[c]), device=DEVICE)
+            for c in ("default", "k1_mxu")}
+    runs = {c: [] for c in dbms}
+    for c in dbms:  # warm
+        dbms[c].predict_continent(inputs, bounds, **kw)
+    for _ in range(MODE_TIMING_ROUNDS):
+        for c in ("default", "k1_mxu", "k1_mxu", "default"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dbms[c].predict_continent(inputs, bounds, **kw)
+            torch.cuda.synchronize()
+            runs[c].append(1e3 * (time.perf_counter() - t0) / tiles)
+    out = {c: {"median_ms": float(np.median(r)), "runs_ms": r} for c, r in runs.items()}
+    log(f"  ms/tile in turns: default {out['default']['median_ms']:.1f} (median of "
+        f"{len(runs['default'])}), the mode honoured {out['k1_mxu']['median_ms']:.1f}  "
+        f"[{card_name}]")
+    return out
+
+
+def bf16_routes_phase(card_name: str, params, default_out, default_tile_ms: float,
+                      tmp: str) -> tuple:
+    """Phase 28: (a) the five bf16 routes (``mxu_kernels``); (b) the four
+    forced trunks in the mode through ``main_path`` on phase 6's region and
+    weights (exact launches of the bf16 routes, tiled vs untiled, the canvas
+    against phase 6's within ``TOL_BF16``); the first, the default
+    configuration with the trunk forced, is the decision measurement: the
+    default canvas's distance from float32 and its ms/tile, timed in turns
+    with the default's (``mode_tile_ms``); (c) each forced
+    trunk card vs CPU (``mxu_card_vs_cpu``); (d) growth 16 under 'auto',
+    ``out_channels=2`` and float16 card vs CPU (``surfaces_card_vs_cpu``);
+    (e) the non-blocking checkpoint; (f) the determinism finding. Returns
+    (the numbers of the ``bf16_routes`` JSON line, the routes' kernel
+    results, each mode path's launches)."""
+    import torch
+
+    t_start = time.perf_counter()
+    out = {"card": card_name}
+    kernels = mxu_kernels(card_name)
+    launches = {}
+    for config in MXU_CONFIGS:
+        log(f"  main path in {CONFIGS[config]}")
+        r = main_path(card_name, config, params, default_out, TOL_BF16)
+        launches[config] = r["launches"]
+        vs = float((r["out"].double() - default_out.double()).abs().max())
+        rng = float(default_out.abs().max())
+        out[config] = {"launches": r["launches"], "tile_ms": r["tile_ms"],
+                       "forward_ms": r["forward_ms"], "vs_default": vs,
+                       "vs_default_share": vs / rng}
+        log(f"  {config}: canvas {vs:.3e} from the float32 default's = {vs / rng:.3e} of its "
+            f"range {rng:.3e}; {r['tile_ms']:.1f} ms/tile against the default's "
+            f"{default_tile_ms:.1f}  [{card_name}]")
+        del r
+        torch.cuda.empty_cache()
+        out[config]["card_vs_cpu"] = mxu_card_vs_cpu(config)
+    out["mode_tile_ms"] = mode_tile_ms(card_name, params)
+    for config in ("growth16", "out2", "fp16"):
+        out[config] = surfaces_card_vs_cpu(config)
+    out["checkpoint"] = checkpoint_phase(card_name, tmp)
+    out["determinism"] = determinism_phase(card_name, tmp)
+    out["phase_wall_s"] = time.perf_counter() - t_start
+    log(f"  phase 28 wall time {out['phase_wall_s']:.1f} s  [{card_name}]")
+    return out, kernels, launches
+
+
 # (launch-counter name, source, TPU kernel it replaces, check, small shapes,
 # main-path shape, phase, the configuration whose main path gives its
 # launches); K9's launches come from its own path in phase 15
+# phase 28's bf16 routes: (launch-counter name, source, TPU kernel it
+# replaces, the mode's main path that gives its launches)
+MXU_KERNELS = [
+    ("rdb_forward_bf16", "deepbedmap_tpu_torch/csrc/rdb.cu",
+     "deepbedmap_tpu/ops/pallas_rdb.py:635", "k1_mxu"),
+    ("rrdb_forward_bf16", "deepbedmap_tpu_torch/csrc/rdb.cu",
+     "deepbedmap_tpu/ops/pallas_rdb.py:908", "k4_mxu"),
+    ("conv3x3_forward_bf16", "deepbedmap_tpu_torch/csrc/conv3x3.cu",
+     "deepbedmap_tpu/ops/pallas_conv.py:166", "k4_mxu"),
+    ("rdb_banded_forward_bf16", "deepbedmap_tpu_torch/csrc/rdb_banded.cu",
+     "deepbedmap_tpu/ops/pallas_rdb.py:391", "k6_mxu"),
+    ("rrdb_sweep_forward_bf16", "deepbedmap_tpu_torch/csrc/rrdb_sweep.cu",
+     "deepbedmap_tpu/ops/pallas_rdb.py:1234", "k5_mxu"),
+]
+
 KERNELS = [
     ("rdb_forward", "deepbedmap_tpu_torch/csrc/rdb.cu",
      "deepbedmap_tpu/ops/pallas_rdb.py:635", check_rdb, [SMALL_RDB, RAGGED_RDB],
@@ -4334,7 +4883,7 @@ def main() -> int:
         return r
 
     r = run_path("default")
-    params, default_out = r["model"].state_dict(), r["out"]
+    params, default_out, default_tile_ms = r["model"].state_dict(), r["out"], r["tile_ms"]
 
     kernels(7, 8, 9, 10)
     log(f"phase 11: whole generator in {CONFIGS['kernel']}, card vs CPU")
@@ -4387,6 +4936,12 @@ def main() -> int:
     log("phase 27: the generator options (bf16, the phase convs, the channels-before-width "
         "tail, the plain trunk at growth 32 and 16; bf16 training)")
     options = generator_options(card_name, params, default_out)
+    log("phase 28: the kernels' bf16-multiplicand routes (K1, K4, K5, K6, K10), the forced "
+        "trunks in the mode, growth 16 under 'auto', out_channels=2, float16, non-blocking "
+        "checkpoints, the determinism finding")
+    with tempfile.TemporaryDirectory() as tmp:
+        routes, mxu_results, mxu_launches = bf16_routes_phase(
+            card_name, params, default_out, default_tile_ms, tmp)
 
     rows = []
     for name, src, rep, *_, path in KERNELS:
@@ -4395,6 +4950,10 @@ def main() -> int:
         launches = r.pop("launches") if path is None else path_launches[path][name]
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                      "launches": launches, **r})
+    for name, src, rep, config in MXU_KERNELS:
+        r = {k: v for k, v in mxu_results[name].items() if k != "bound_tf32_ms"}
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                     "launches": mxu_launches[config][name], **r})
     if not all(row["launches"] > 0 for row in rows):
         raise AssertionError("a kernel was never launched on its path")
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
@@ -4404,6 +4963,7 @@ def main() -> int:
     print(json.dumps({"evaluation": evaluated}), flush=True)
     print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps({"options": options}), flush=True)
+    print(json.dumps({"bf16_routes": routes}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

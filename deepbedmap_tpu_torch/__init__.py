@@ -50,5 +50,11 @@ JAX package:
 
 __version__ = "0.1.0"
 
-from deepbedmap_tpu_torch.config import GeneratorConfig, InferenceConfig  # noqa: F401
+from deepbedmap_tpu_torch.config import (  # noqa: F401
+    DiscriminatorConfig,
+    GeneratorConfig,
+    InferenceConfig,
+    LossConfig,
+    TrainConfig,
+)
 from deepbedmap_tpu_torch.api import DeepBedMap  # noqa: F401

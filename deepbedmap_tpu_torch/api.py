@@ -76,8 +76,9 @@ class DeepBedMap:
         """``params``: a port ``state_dict``; None draws seeded random
         weights (``models.build_generator``'s default seed). ``device``
         defaults to the card and raises where there is none; pass
-        ``device="cpu"`` for the CPU. On a CUDA device, widths the kernels do
-        not take raise ``NotImplementedError`` (``check_generator_device``)."""
+        ``device="cpu"`` for the CPU. On a CUDA device, widths a forced
+        (``'always'``) kernel does not take raise ``NotImplementedError``
+        (``check_generator_device``)."""
         self.cfg = cfg
         self.resolution = resolution
         if params is None:

@@ -9,9 +9,9 @@ imported because importing anything from ``deepbedmap_tpu`` loads JAX, which
 the port never needs.
 
 Every generator field the JAX package reads is ported. ``check_supported``
-raises where JAX asserts: ``upsample_phase_conv`` with ``tail_hcw``, and
+raises where JAX asserts: ``upsample_phase_conv`` with ``tail_hcw``,
 ``tail_fused`` with ``tail_hcw`` (so ``tail_hcw=True`` needs
-``tail_fused=False``).
+``tail_fused=False``), and ``tail_fused`` with ``out_channels != 1``.
 
 Kernel dispatch follows the JAX precedence (``models/generator.py:148-152``,
 ``models/blocks.py:171-175, 322-324``) without its TPU size rule
@@ -21,21 +21,38 @@ plain PyTorch version on a CPU tensor), at every image size.
 ``trunk_kernel`` and ``conv_kernel`` hold the rule:
 
 - the trunk is resident when ``rdb_resident='always'``, or when
-  ``rdb_resident='auto'``, ``fused_rdb != 'never'`` and the compute dtype
-  is float32;
+  ``rdb_resident='auto'``, the compute dtype is float32 and ``fused_rdb``
+  is ``'always'``, or ``'auto'`` at the widths the kernels take
+  (``CARD_BASE_CHANNELS``, ``CARD_GROWTH_CHANNELS``);
 - a resident trunk runs each RRDB as K5 (``rrdb_sweep``), else as K4
   (``rrdb_fused``), else as three K1 dense blocks, each kernel fed the
   activation in float32;
 - a non-resident trunk ignores ``rrdb_sweep`` and ``rrdb_fused``: each dense
-  block is K6 when ``fused_rdb='always'``, or ``'auto'`` at float32, and
-  otherwise the plain composition at the compute dtype (``'plain'``). So
-  ``fused_rdb='never', rdb_resident='always'`` is K1, ``rdb_resident='never',
-  fused_rdb='never'`` is plain, and bfloat16 at the defaults is plain;
+  block is K6 when ``fused_rdb='always'``, or ``'auto'`` at float32 and the
+  kernels' widths, and otherwise the plain composition at the compute dtype
+  (``'plain'``). So ``fused_rdb='never', rdb_resident='always'`` is K1,
+  ``rdb_resident='never', fused_rdb='never'`` is plain, and bfloat16 at the
+  defaults is plain;
 - the four 64-channel 3x3 convs take K10 when ``fused_conv='always'`` (fed
-  float32 at any compute dtype) or ``'auto'`` at float32, else the plain
-  conv at the compute dtype. The phase convs (``upsample_phase_conv``) and
+  float32 at any compute dtype) or ``'auto'`` at float32 and K10's widths
+  (``CARD_CONV_C_INS``), else the plain conv at the compute dtype;
+- the fused tail (``tail_fused``, JAX's ``method='auto'``) runs K2 + K3 at 64
+  input channels and a clamp their windows cover, else its plain composition
+  (``tail_kernel``); the unfused tail's layers choose by shape and clamp
+  (``ops.deform_conv.choose_method``). The phase convs (``upsample_phase_conv``) and
   the channels-before-width conv (``tail_hcw``) replace the upsample stages'
   convs and ignore ``fused_conv``, as in JAX.
+
+So ``'auto'`` never refuses a width: what the kernels do not take runs the
+plain composition on either device, decided from the config before any
+launch, as JAX's ``'auto'`` sends what it does not fuse to XLA. ``'always'``
+(``fused_rdb``, ``rdb_resident``, ``fused_conv``) forces a kernel, and
+``check_card_supported`` refuses a width it does not take, naming it.
+
+bf16 multiplicands (the TPU kernels' ``mxu_bf16``): ``trunk_mxu_bf16`` and
+``conv_mxu_bf16`` say where the port honours ``rdb_mxu_bf16`` and
+``conv_mxu_bf16`` (their docstrings); elsewhere the kernels compute in fp32
+(3xTF32).
 
 JAX's ``nn.scan`` over the trunk refuses a carry whose dtype changes, so JAX
 runs a kernel trunk under bfloat16 only when the pre-residual conv hands it
@@ -62,8 +79,8 @@ class GeneratorConfig:
     scale: int = 4  # super-resolution factor (two nearest x2 upsamples)
     # He-normal init std multiplier (Chainer HeNormal(scale=0.1))
     init_scale: float = 0.1
-    # conv compute dtype, 'float32' or 'bfloat16': the plain convs take
-    # their input, kernel and bias in it (parameters stay float32); every
+    # conv compute dtype, 'float32', 'bfloat16' or 'float16': the plain convs
+    # take their input, kernel and bias in it (parameters stay float32); every
     # kernel and both deformable samplers compute in float32
     compute_dtype: str = "float32"
     # rematerialise each RRDB in the backward pass (torch.utils.checkpoint,
@@ -74,7 +91,10 @@ class GeneratorConfig:
     # takes one at float32, 'never' the plain composition unless the trunk
     # is resident ('always')
     fused_rdb: str = "auto"
-    # bf16 multiplicands inside the TPU dense-block kernel; inert here
+    # bf16 multiplicands, fp32 accumulation, in the dense-block kernels (K1,
+    # K4, K5, K6: their bf16 route) where the trunk kernel is forced
+    # (fused_rdb='always' or rdb_resident='always'), as JAX honours it off the
+    # TPU; under 'auto' the trunk stays fp32 (trunk_mxu_bf16)
     rdb_mxu_bf16: bool = True
     # resident trunk (trunk_kernel): the dense blocks as K1, or whole RRDBs
     # as K4 / K5; a non-resident one runs each dense block as K6
@@ -90,7 +110,8 @@ class GeneratorConfig:
     # hand-written kernel K10 (csrc/conv3x3.cu), 'auto' takes it at float32,
     # 'never' keeps cuDNN
     fused_conv: str = "never"
-    # bf16 multiplicands inside the TPU conv kernel; inert here
+    # bf16 multiplicands, fp32 accumulation, wherever K10 runs (its bf16
+    # route; conv_kernel)
     conv_mxu_bf16: bool = False
     # deformable-conv offset clamp in px
     deform_clamp: int = 2
@@ -217,16 +238,25 @@ class TilingConfig:
     gapfill_accum: float = 0.0
 
 
+DEFAULT_GENERATOR = GeneratorConfig()
+DEFAULT_DISCRIMINATOR = DiscriminatorConfig()
+DEFAULT_LOSS = LossConfig()
+DEFAULT_TRAIN = TrainConfig()
+DEFAULT_INFERENCE = InferenceConfig()
 DEFAULT_TILING = TilingConfig()
 
 
-COMPUTE_DTYPES = ("float32", "bfloat16")
+def replace(cfg, **kwargs):
+    """Functional update helper for any config dataclass."""
+    return dataclasses.replace(cfg, **kwargs)
+
+
+COMPUTE_DTYPES = ("float32", "bfloat16", "float16")
 
 
 def check_supported(cfg: GeneratorConfig) -> None:
     """Raise ``ValueError`` for the combinations the JAX generator asserts
-    against and for a compute dtype other than ``COMPUTE_DTYPES``, and
-    ``NotImplementedError`` for a tail with more than one output channel."""
+    against and for a compute dtype other than ``COMPUTE_DTYPES``."""
     if cfg.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got "
                          f"{cfg.compute_dtype!r}")
@@ -234,8 +264,9 @@ def check_supported(cfg: GeneratorConfig) -> None:
         raise ValueError("upsample_phase_conv and tail_hcw are exclusive")
     if cfg.tail_hcw and cfg.tail_fused:
         raise ValueError("tail_fused and tail_hcw are exclusive")
-    if cfg.out_channels != 1:
-        raise NotImplementedError("the generator tail needs out_channels=1")
+    if cfg.tail_fused and cfg.out_channels != 1:
+        raise ValueError("the fused tail requires a single output channel "
+                         "(out_channels != 1 needs tail_fused=False)")
 
 
 # the widths the hand-written kernels are built for: the dense-block kernels
@@ -248,48 +279,48 @@ CARD_GROWTH_CHANNELS = 32
 CARD_CONV_C_INS = (64, 128)
 
 
-def check_card_supported(cfg: GeneratorConfig) -> None:
-    """Raise ``NotImplementedError`` for a generator whose widths or offset
-    clamp a kernel that its configuration launches does not take, naming
-    that kernel, so that a generator built on a CUDA device fails at
-    construction instead of at its first launch. Each kernel is asked only
-    where it runs: the trunk's widths when ``trunk_kernel`` is not
-    ``'plain'``, K10's when ``conv_kernel`` holds, 64 input channels and a
-    covered clamp for the fused tail (K2/K3), and for the unfused tail the
-    clamp where its layers have the shapes K7/K8 take (the others run the
-    plain samplers on the card, ``ops.deform_conv.choose_method``). The CPU
-    runs any width and clamp through the plain versions and does not call
-    this."""
-    from deepbedmap_tpu_torch.ops.deform_conv import WINDOW_MAX_CLAMP, check_window_clamp
+def trunk_widths(cfg: GeneratorConfig) -> bool:
+    """Whether the dense-block kernels K1, K4, K5 and K6 take the trunk's
+    widths."""
+    return (cfg.base_channels, cfg.growth_channels) == (CARD_BASE_CHANNELS,
+                                                        CARD_GROWTH_CHANNELS)
 
-    c = cfg.base_channels
+
+def conv_widths(cfg: GeneratorConfig) -> bool:
+    """Whether K10 takes the four 3x3 convs: 64 outputs from 64 or 128
+    inputs."""
+    return (cfg.base_channels == CARD_BASE_CHANNELS
+            and cfg.concat_channels in CARD_CONV_C_INS)
+
+
+def check_card_supported(cfg: GeneratorConfig) -> None:
+    """Raise ``NotImplementedError`` for a generator that forces a kernel
+    (``'always'``) whose widths that kernel does not take, naming that
+    kernel, so that a generator built on a CUDA device fails at construction
+    instead of at its first launch: the trunk's widths when ``trunk_kernel``
+    is not ``'plain'``, K10's when ``conv_kernel`` holds. Under ``'auto'``
+    the resolution already sent such widths to the plain path
+    (``trunk_kernel``, ``conv_kernel``, ``tail_kernel``), and the unfused
+    tail's layers to the plain samplers (``ops.deform_conv.choose_method``),
+    so nothing else is refused. The CPU runs every width through the plain
+    versions and does not call this."""
     bad = []
     trunk = trunk_kernel(cfg)
-    if trunk != "plain" and (c, cfg.growth_channels) != (CARD_BASE_CHANNELS,
-                                                         CARD_GROWTH_CHANNELS):
+    if trunk != "plain" and not trunk_widths(cfg):
         bad.append(f"the {trunk} trunk's dense-block kernel takes base_channels="
                    f"{CARD_BASE_CHANNELS} and growth_channels={CARD_GROWTH_CHANNELS}, got "
-                   f"{c} and {cfg.growth_channels} (fused_rdb='never' runs the plain "
-                   "trunk at any width)")
-    if conv_kernel(cfg) and (c != CARD_BASE_CHANNELS
-                             or cfg.concat_channels not in CARD_CONV_C_INS):
+                   f"{cfg.base_channels} and {cfg.growth_channels} (fused_rdb='auto' or "
+                   "'never' with rdb_resident other than 'always' runs the plain trunk at "
+                   "any width)")
+    if conv_kernel(cfg) and not conv_widths(cfg):
         bad.append(f"K10 (fused_conv={cfg.fused_conv!r}) takes {CARD_BASE_CHANNELS} "
-                   f"outputs from {CARD_CONV_C_INS} inputs, got base_channels={c} and "
-                   f"inblock_channels={cfg.inblock_channels} (4 x inblock_channels "
-                   "inputs)")
-    if cfg.tail_fused and c != CARD_BASE_CHANNELS:
-        bad.append(f"the fused tail (K2/K3) takes {CARD_BASE_CHANNELS} input channels, "
-                   f"got base_channels={c}")
-    if cfg.tail_fused or c == CARD_BASE_CHANNELS:  # K2/K3, or K7/K8
-        try:
-            check_window_clamp(cfg.deform_clamp)
-        except ValueError:
-            bad.append(f"the deformable tail's kernels take an integer deform_clamp in "
-                       f"[0, {WINDOW_MAX_CLAMP}], got {cfg.deform_clamp!r}")
+                   f"outputs from {CARD_CONV_C_INS} inputs, got base_channels="
+                   f"{cfg.base_channels} and inblock_channels={cfg.inblock_channels} "
+                   "(4 x inblock_channels inputs)")
     if bad:
         raise NotImplementedError(
             "GeneratorConfig has no kernels on the card: " + "; ".join(bad)
-            + "; other widths and clamps run only on the CPU"
+            + "; other widths run only on the CPU"
         )
 
 
@@ -297,21 +328,53 @@ def trunk_kernel(cfg: GeneratorConfig) -> str:
     """What runs the trunk, by the JAX precedence (module docstring):
     ``'rrdb_sweep'`` (K5), ``'rrdb_fused'`` (K4) or ``'rdb'`` (K1) on a
     resident trunk; ``'rdb_banded'`` (K6) or ``'plain'`` (the plain dense
-    block at the compute dtype) on a non-resident one."""
+    block at the compute dtype) on a non-resident one. ``'auto'`` takes a
+    kernel only at the widths the kernels take (``trunk_widths``)."""
     fp32 = cfg.compute_dtype == "float32"
+    auto = cfg.fused_rdb == "auto" and fp32 and trunk_widths(cfg)
     resident = cfg.rdb_resident == "always" or (
-        cfg.rdb_resident == "auto" and cfg.fused_rdb != "never" and fp32)
+        cfg.rdb_resident == "auto" and fp32 and (cfg.fused_rdb == "always" or auto))
     if resident:
         if cfg.rrdb_sweep:
             return "rrdb_sweep"
         return "rrdb_fused" if cfg.rrdb_fused else "rdb"
-    if cfg.fused_rdb == "always" or (cfg.fused_rdb == "auto" and fp32):
+    if cfg.fused_rdb == "always" or auto:
         return "rdb_banded"
     return "plain"
 
 
+def trunk_mxu_bf16(cfg: GeneratorConfig) -> bool:
+    """Whether the trunk's kernel takes its bf16-multiplicand route:
+    ``rdb_mxu_bf16`` where the trunk kernel is forced (``fused_rdb='always'``
+    or ``rdb_resident='always'``), which is where JAX's own CPU run honours
+    it (its interpreted kernel casts; its ``'auto'`` is XLA in fp32). Under
+    ``'auto'`` the kernels stay fp32 (3xTF32), so the default path computes
+    what JAX's CPU default computes."""
+    forced = cfg.fused_rdb == "always" or cfg.rdb_resident == "always"
+    return cfg.rdb_mxu_bf16 and forced and trunk_kernel(cfg) != "plain"
+
+
 def conv_kernel(cfg: GeneratorConfig) -> bool:
     """Whether the 64-channel 3x3 convs run K10: ``fused_conv='always'``, or
-    ``'auto'`` at float32 (JAX ``models/blocks.py:322-324``)."""
+    ``'auto'`` at float32 (JAX ``models/blocks.py:322-324``) and K10's widths
+    (``conv_widths``)."""
     return cfg.fused_conv == "always" or (
-        cfg.fused_conv == "auto" and cfg.compute_dtype == "float32")
+        cfg.fused_conv == "auto" and cfg.compute_dtype == "float32" and conv_widths(cfg))
+
+
+def conv_mxu_bf16(cfg: GeneratorConfig) -> bool:
+    """Whether K10 takes its bf16-multiplicand route: ``conv_mxu_bf16``
+    wherever K10 runs (``conv_kernel``)."""
+    return cfg.conv_mxu_bf16 and conv_kernel(cfg)
+
+
+def tail_kernel(cfg: GeneratorConfig) -> bool:
+    """Whether the fused tail runs K2 + K3: ``tail_fused`` at 64 input
+    channels and an integer ``deform_clamp`` in [0, 2], which their
+    shared-memory windows cover; otherwise the fused tail is its plain
+    composition (``ops.tail.tail_reference``) on either device, as JAX's
+    ``fused_deform_tail(method='auto')`` off the TPU."""
+    from deepbedmap_tpu_torch.ops.deform_conv import window_covers
+
+    return (cfg.tail_fused and cfg.base_channels == CARD_BASE_CHANNELS
+            and window_covers(cfg.deform_clamp))

@@ -22,29 +22,46 @@
 // the only store, in the plain version's rounding order. The TPU kernel's
 // padded row pitch and lane-rolled [x[m-1] | x[m] | x[m+1]] operand exist to
 // feed its 128-wide matrix unit one dot per row band; here each tap is a
-// shifted view of the staged halo, so neither is carried over.
+// shifted view of the staged halo, so neither is carried over. With bf16
+// multiplicands (the TPU kernel's mxu_bf16, pallas_conv.py:77, 131-132) the
+// launch takes conv3x3_tc.cuh's bf16 route: one TF32 pass, hi.hi, over
+// operands rounded to bf16 (round to nearest even).
 
 #include <cuda_runtime.h>
 
 #include "conv3x3_tc.cuh"
 
-// x: (N, H, W, cin); w_packed: [64/32][cin][9][32]; bias: (64,);
-// res: (N, H, W, 64) or null; out: (N, H, W, 64). Returns cudaGetLastError().
-extern "C" int conv3x3_forward(const float* x, const float* w_packed,
-                               const float* bias, const float* res, float* out,
-                               int N, int H, int W, int cin, int leaky,
-                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+namespace {
+
+template <bool kBf16>
+cudaError_t conv3x3(const float* x, const float* w_packed, const float* bias,
+                    const float* res, float* out, int N, int H, int W, int cin, int leaky,
+                    cudaStream_t s) {
   constexpr int kCout = 64;
   const Epilogue ep{out, kCout, res, kCout, nullptr, 0.f};
   if (res == nullptr) {
-    return leaky ? (int)launch_conv3x3_tc<kCout, kLrelu>(x, cin, cin, w_packed, bias, ep,
-                                                         N, H, W, s)
-                 : (int)launch_conv3x3_tc<kCout, kLinear>(x, cin, cin, w_packed, bias, ep,
-                                                          N, H, W, s);
+    return leaky ? launch_conv3x3_tc<kCout, kLrelu, kBf16>(x, cin, cin, w_packed, bias, ep,
+                                                           N, H, W, s)
+                 : launch_conv3x3_tc<kCout, kLinear, kBf16>(x, cin, cin, w_packed, bias, ep,
+                                                            N, H, W, s);
   }
-  return leaky ? (int)launch_conv3x3_tc<kCout, kAddLrelu>(x, cin, cin, w_packed, bias, ep,
-                                                          N, H, W, s)
-               : (int)launch_conv3x3_tc<kCout, kAdd>(x, cin, cin, w_packed, bias, ep, N,
-                                                     H, W, s);
+  return leaky ? launch_conv3x3_tc<kCout, kAddLrelu, kBf16>(x, cin, cin, w_packed, bias, ep,
+                                                            N, H, W, s)
+               : launch_conv3x3_tc<kCout, kAdd, kBf16>(x, cin, cin, w_packed, bias, ep, N,
+                                                       H, W, s);
+}
+
+}  // namespace
+
+// x: (N, H, W, cin); w_packed: [64/32][cin][9][32] (rounded to bf16 when bf16
+// is nonzero: ops/conv3x3.py:pack_conv_weight(mxu_bf16=True)); bias: (64,);
+// res: (N, H, W, 64) or null; out: (N, H, W, 64); bf16: nonzero for bf16
+// multiplicands (conv3x3_tc.cuh's bf16 route). Returns cudaGetLastError().
+extern "C" int conv3x3_forward(const float* x, const float* w_packed,
+                               const float* bias, const float* res, float* out,
+                               int N, int H, int W, int cin, int leaky, int bf16,
+                               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? (int)conv3x3<true>(x, w_packed, bias, res, out, N, H, W, cin, leaky, s)
+              : (int)conv3x3<false>(x, w_packed, bias, res, out, N, H, W, cin, leaky, s);
 }

@@ -50,6 +50,18 @@
 // than chip_smoke.py's 3xTF32 precision check allows; chains of three taps
 // keep the drift below fp32 round-off.
 //
+// bf16 multiplicands (kBf16, the TPU kernels' mxu_bf16: pallas_rdb.py:124-128,
+// pallas_conv.py:77, 131-132): the weights arrive rounded to bf16 by the
+// packer (ops/rdb.py, ops/conv3x3.py, round to nearest even), each staged
+// activation is rounded to bf16 at its dot by cvt.rn.bf16x2.f32 (round to
+// nearest even, as XLA's astype; cvt.rna.tf32 would round ties away from
+// zero), and one TF32 pass, hi.hi, does the products: a bf16 value is exact
+// in TF32 and the product of two is exact in fp32, so this is the function
+// of bf16 multiplicands with fp32 accumulation, in one wgmma where 3xTF32
+// takes three. Biases, LeakyReLU, the dense concat and the residuals stay
+// fp32; a stage reads the fp32 outputs of the stages before it and rounds
+// them only at its own dot.
+//
 // Route: wgmma, Hopper's warpgroup MMA, from inline PTX (no new build
 // dependency). A first version of this design on mma.sync.m16n8k8 (the Ampere
 // instruction) was clearly slower: per warp and per 16 x 8 tile, the hi/lo
@@ -130,6 +142,24 @@ __device__ __forceinline__ float4 split_pair(float a, float b) {
                      __uint_as_float(lb));
 }
 
+// {bf16(a), bf16(b), 0, 0}: both rounded to nearest even (cvt.rn.bf16x2.f32
+// puts a in the upper half), widened back to fp32 (exact, and exact in TF32)
+__device__ __forceinline__ float4 bf16_pair(float a, float b) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(a), "f"(b));
+  return make_float4(__uint_as_float(r & 0xFFFF0000u), __uint_as_float(r << 16), 0.f, 0.f);
+}
+
+// a pair as a stage's A operand takes it: TF32 hi/lo (3xTF32) or bf16
+template <bool kBf16>
+__device__ __forceinline__ float4 operand_pair(float a, float b) {
+  if constexpr (kBf16) {
+    return bf16_pair(a, b);
+  } else {
+    return split_pair(a, b);
+  }
+}
+
 // 16-byte cp.async; with valid false it reads nothing and writes zeros
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -195,7 +225,7 @@ __device__ __forceinline__ void wgmma_k8(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
-template <int kCout, int kMode>
+template <int kCout, int kMode, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
 conv3x3_tc_stage(const float* __restrict__ in, int in_pitch, int cin,
                  const float* __restrict__ w, const float* __restrict__ bias,
@@ -248,7 +278,7 @@ conv3x3_tc_stage(const float* __restrict__ in, int in_pitch, int cin,
     __syncthreads();  // chunk q has landed; every warpgroup is done with chunk q - 1
     for (int i = tid; i < kHaloPix * kCK / 2; i += kThreads) {
       const float2 v = reinterpret_cast<const float2*>(s_raw_halo)[i];
-      s_halo[i] = split_pair(v.x, v.y);
+      s_halo[i] = operand_pair<kBf16>(v.x, v.y);
     }
     // one core-matrix row (4 k slots of one output channel, hi and lo) per item
     for (int i = tid; i < 9 * kCout * 2; i += kThreads) {
@@ -286,9 +316,13 @@ conv3x3_tc_stage(const float* __restrict__ in, int in_pitch, int cin,
 #pragma unroll
       for (int kx = 0; kx < 3; ++kx) {
         const float* bw = s_w + (3 * ky + kx) * 2 * kCout * kCK;
-        wgmma_k8(part, al[kx], weight_desc(bw), kx > 0);          // lo . hi
-        wgmma_k8(part, ah[kx], weight_desc(bw + kCout * kCK), 1);  // hi . lo
-        wgmma_k8(part, ah[kx], weight_desc(bw), 1);                // hi . hi
+        if constexpr (kBf16) {
+          wgmma_k8(part, ah[kx], weight_desc(bw), kx > 0);         // bf16 . bf16
+        } else {
+          wgmma_k8(part, al[kx], weight_desc(bw), kx > 0);          // lo . hi
+          wgmma_k8(part, ah[kx], weight_desc(bw + kCout * kCK), 1);  // hi . lo
+          wgmma_k8(part, ah[kx], weight_desc(bw), 1);                // hi . hi
+        }
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
@@ -342,21 +376,22 @@ conv3x3_tc_stage(const float* __restrict__ in, int in_pitch, int cin,
 }
 
 // One stage: the first `cin` channels of `in` (channel pitch `in_pitch`) ->
-// kCout channels through the epilogue. cin must be a multiple of 8; `in`,
+// kCout channels through the epilogue, in 3xTF32 or, with kBf16, on bf16
+// multiplicands (`w` then holds bf16 values). cin must be a multiple of 8; `in`,
 // `w`, `bias` and the epilogue's pointers 8-byte aligned (16 for `in` and
 // `w`, with pitches that keep every pixel 16-byte aligned). Returns
 // cudaGetLastError().
-template <int kCout, int kMode>
+template <int kCout, int kMode, bool kBf16 = false>
 cudaError_t launch_conv3x3_tc(const float* in, int in_pitch, int cin, const float* w,
                               const float* bias, const Epilogue& ep, int N, int H, int W,
                               cudaStream_t s) {
   using S = StageShape<kCout>;
-  cudaError_t err = cudaFuncSetAttribute(conv3x3_tc_stage<kCout, kMode>,
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_tc_stage<kCout, kMode, kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)S::kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileRows - 1) / kTileRows, N);
-  conv3x3_tc_stage<kCout, kMode><<<grid, kThreads, S::kSmemBytes, s>>>(
+  conv3x3_tc_stage<kCout, kMode, kBf16><<<grid, kThreads, S::kSmemBytes, s>>>(
       in, in_pitch, cin, w, bias, ep.out, ep.out_pitch, ep.res, ep.res_pitch, ep.skip,
       ep.scaling, H, W);
   return cudaGetLastError();

@@ -34,6 +34,12 @@
 // order of the plain composition. So one RRDB is 16 device launches (1 copy +
 // 15 convs) instead of 3 x 6 + 2. Intermediates in shared memory are later
 // work.
+//
+// bf16 multiplicands (the TPU kernels' mxu_bf16, pallas_rdb.py:124-128): with
+// bf16 != 0 every stage runs conv3x3_tc.cuh's bf16 route (one TF32 pass on
+// operands rounded to bf16, round to nearest even; w_packed then holds the
+// weights rounded to bf16 by ops/rdb.py:pack_rdb_weights(mxu_bf16=True)).
+// The workspace, the biases, the LeakyReLUs and the skips stay fp32.
 
 #include <cuda_runtime.h>
 
@@ -70,13 +76,14 @@ cudaError_t launch_copy(const float* x, float* ws, int N, int H, int W,
 // Stages 1-4 of one dense block on `ws`, whose channels 0-63 hold its input.
 // `w` / `bias` point at the block's packed weights / its 192 biases; on
 // return they have advanced to stage 5's.
+template <bool kBf16>
 cudaError_t dense_stages(float* ws, const float*& w, const float*& bias, int N,
                          int H, int W, cudaStream_t s) {
   for (int j = 0; j < 4; ++j) {
     const int cin = kFeat + kGrowth * j;
     const Epilogue ep{ws + cin, kWsC, nullptr, 0, nullptr, 0.f};
     cudaError_t err =
-        launch_conv3x3_tc<kGrowth, kLrelu>(ws, kWsC, cin, w, bias, ep, N, H, W, s);
+        launch_conv3x3_tc<kGrowth, kLrelu, kBf16>(ws, kWsC, cin, w, bias, ep, N, H, W, s);
     if (err != cudaSuccess) return err;
     w += (size_t)cin * 9 * kGrowth;
     bias += kGrowth;
@@ -84,56 +91,73 @@ cudaError_t dense_stages(float* ws, const float*& w, const float*& bias, int N,
   return cudaSuccess;
 }
 
-}  // namespace
-
-// x, out: (N, H, W, 64); ws: (N, H, W, 192) scratch; w_packed: the five
-// stages' [cout/32][cin][9][32] blocks back to back; bias: b1|b2|b3|b4|b5
-// (192 floats). Returns cudaGetLastError() after the last launch.
-extern "C" int rdb_forward(const float* x, float* ws, float* out,
-                           const float* w_packed, const float* bias, int N,
-                           int H, int W, float scaling, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <bool kBf16>
+cudaError_t rdb(const float* x, float* ws, float* out, const float* w_packed,
+                const float* bias, int N, int H, int W, float scaling, cudaStream_t s) {
   cudaError_t err = launch_copy(x, ws, N, H, W, s);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   const float* w = w_packed;
   const float* b = bias;
-  err = dense_stages(ws, w, b, N, H, W, s);
-  if (err != cudaSuccess) return (int)err;
+  err = dense_stages<kBf16>(ws, w, b, N, H, W, s);
+  if (err != cudaSuccess) return err;
   const Epilogue ep{out, kFeat, x, kFeat, nullptr, scaling};
-  return (int)launch_conv3x3_tc<kFeat, kScaledSkip>(ws, kWsC, kWsC, w, b, ep, N, H, W,
-                                                    s);
+  return launch_conv3x3_tc<kFeat, kScaledSkip, kBf16>(ws, kWsC, kWsC, w, b, ep, N, H, W, s);
 }
 
-// x, out: (N, H, W, 64), out must not alias x; ws_a, ws_b: (N, H, W, 192)
-// scratch; w_packed: the three blocks' rdb_forward weight packs back to back;
-// bias: the three blocks' 192 biases back to back. Returns
-// cudaGetLastError() after the last launch.
-extern "C" int rrdb_forward(const float* x, float* ws_a, float* ws_b, float* out,
-                            const float* w_packed, const float* bias, int N,
-                            int H, int W, float scaling, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <bool kBf16>
+cudaError_t rrdb(const float* x, float* ws_a, float* ws_b, float* out,
+                 const float* w_packed, const float* bias, int N, int H, int W,
+                 float scaling, cudaStream_t s) {
   cudaError_t err = launch_copy(x, ws_a, N, H, W, s);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   float* cur = ws_a;
   float* nxt = ws_b;
   for (int p = 0; p < 3; ++p) {
     const float* w = w_packed + p * kBlockWeights;
     const float* b = bias + p * kWsC;
-    err = dense_stages(cur, w, b, N, H, W, s);
-    if (err != cudaSuccess) return (int)err;
+    err = dense_stages<kBf16>(cur, w, b, N, H, W, s);
+    if (err != cudaSuccess) return err;
     if (p < 2) {
       // a_{p+1} = a_p + s * (conv5 + b5) -> channels 0-63 of the other workspace
       const Epilogue ep{nxt, kWsC, cur, kWsC, nullptr, scaling};
-      err = launch_conv3x3_tc<kFeat, kScaledSkip>(cur, kWsC, kWsC, w, b, ep, N, H, W, s);
+      err = launch_conv3x3_tc<kFeat, kScaledSkip, kBf16>(cur, kWsC, kWsC, w, b, ep, N, H,
+                                                         W, s);
       float* t = cur;
       cur = nxt;
       nxt = t;
     } else {
       // out = x + s * (a_2 + s * (conv5 + b5))
       const Epilogue ep{out, kFeat, cur, kWsC, x, scaling};
-      err = launch_conv3x3_tc<kFeat, kDoubleSkip>(cur, kWsC, kWsC, w, b, ep, N, H, W, s);
+      err = launch_conv3x3_tc<kFeat, kDoubleSkip, kBf16>(cur, kWsC, kWsC, w, b, ep, N, H,
+                                                         W, s);
     }
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) return err;
   }
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// x, out: (N, H, W, 64); ws: (N, H, W, 192) scratch; w_packed: the five
+// stages' [cout/32][cin][9][32] blocks back to back; bias: b1|b2|b3|b4|b5
+// (192 floats); bf16: nonzero for bf16 multiplicands. Returns
+// cudaGetLastError() after the last launch.
+extern "C" int rdb_forward(const float* x, float* ws, float* out,
+                           const float* w_packed, const float* bias, int N,
+                           int H, int W, float scaling, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? (int)rdb<true>(x, ws, out, w_packed, bias, N, H, W, scaling, s)
+              : (int)rdb<false>(x, ws, out, w_packed, bias, N, H, W, scaling, s);
+}
+
+// x, out: (N, H, W, 64), out must not alias x; ws_a, ws_b: (N, H, W, 192)
+// scratch; w_packed: the three blocks' rdb_forward weight packs back to back;
+// bias: the three blocks' 192 biases back to back; bf16 as rdb_forward's.
+// Returns cudaGetLastError() after the last launch.
+extern "C" int rrdb_forward(const float* x, float* ws_a, float* ws_b, float* out,
+                            const float* w_packed, const float* bias, int N,
+                            int H, int W, float scaling, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? (int)rrdb<true>(x, ws_a, ws_b, out, w_packed, bias, N, H, W, scaling, s)
+              : (int)rrdb<false>(x, ws_a, ws_b, out, w_packed, bias, N, H, W, scaling, s);
 }

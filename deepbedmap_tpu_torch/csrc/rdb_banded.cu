@@ -49,6 +49,7 @@ struct SkipStore {  // out = x + s * v
   }
 };
 
+template <bool kBf16>
 __global__ void __launch_bounds__(rdbtile::kThreads, 1)
 rdb_banded_kernel(const float* __restrict__ x, float* __restrict__ out,
                   const float* __restrict__ w, const float* __restrict__ bias,
@@ -56,27 +57,36 @@ rdb_banded_kernel(const float* __restrict__ x, float* __restrict__ out,
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const size_t img = (size_t)blockIdx.z * H * W * rdbtile::kFeat;
-  rdbtile::dense_block_tile(smem, ImageSource{x + img, W}, w, bias,
+  rdbtile::dense_block_tile<kBf16>(smem, ImageSource{x + img, W}, w, bias,
                             blockIdx.y * rdbtile::kTH, blockIdx.x * rdbtile::kTW, H,
                             W, SkipStore{x + img, out + img, W, scaling});
+}
+
+template <bool kBf16>
+cudaError_t rdb_banded(const float* x, float* out, const float* w_packed,
+                       const float* bias, int N, int H, int W, float scaling,
+                       cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(rdb_banded_kernel<kBf16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)rdbtile::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((W + rdbtile::kTW - 1) / rdbtile::kTW,
+                  (H + rdbtile::kTH - 1) / rdbtile::kTH, N);
+  rdb_banded_kernel<kBf16><<<grid, rdbtile::kThreads, rdbtile::kSmemBytes, s>>>(
+      x, out, w_packed, bias, H, W, scaling);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // x, out: (N, H, W, 64), out must not alias x; w_packed: the five stages'
-// split weights back to back (ops/rdb.py:pack_rdb_weights_tc);
-// bias: b1|b2|b3|b4|b5 (192 floats). Returns cudaGetLastError().
+// split weights back to back (ops/rdb.py:pack_rdb_weights_tc, rounded to bf16
+// first when bf16 is nonzero); bias: b1|b2|b3|b4|b5 (192 floats); bf16:
+// nonzero for bf16 multiplicands. Returns cudaGetLastError().
 extern "C" int rdb_banded_forward(const float* x, float* out, const float* w_packed,
                                   const float* bias, int N, int H, int W,
-                                  float scaling, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      rdb_banded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)rdbtile::kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((W + rdbtile::kTW - 1) / rdbtile::kTW,
-                  (H + rdbtile::kTH - 1) / rdbtile::kTH, N);
-  rdb_banded_kernel<<<grid, rdbtile::kThreads, rdbtile::kSmemBytes,
-                      static_cast<cudaStream_t>(stream)>>>(x, out, w_packed, bias, H,
-                                                           W, scaling);
-  return (int)cudaGetLastError();
+                                  float scaling, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? (int)rdb_banded<true>(x, out, w_packed, bias, N, H, W, scaling, s)
+              : (int)rdb_banded<false>(x, out, w_packed, bias, N, H, W, scaling, s);
 }

@@ -55,6 +55,14 @@
 // Shared memory: a1..a4 142,336 B, two x-chunk slots 29,952 B, the weight
 // ring 36,864 B: 209,152 B, one block (512 threads, <= 128 registers) per SM.
 //
+// bf16 multiplicands (kBf16, the TPU kernels' mxu_bf16, pallas_rdb.py:124-128):
+// the weights arrive rounded to bf16 by ops/rdb.py:pack_rdb_weights_tc(
+// mxu_bf16=True) (their lo halves are then zero and are not read), each A
+// value is rounded to bf16 at its dot (conv3x3_tc.cuh's bf16_pair, round to
+// nearest even), and one TF32 pass, hi.hi, does the products, exact in fp32.
+// a1..a4 stay fp32 in shared memory and are rounded only where a later stage
+// reads them; biases, LeakyReLU and the skip stay fp32.
+//
 // Every read of the block input goes through L2 (cp.async.cg in the staging,
 // the loader's own choice in the epilogue), because K5's block inputs are ring
 // slots that other blocks rewrite between grid barriers.
@@ -185,7 +193,7 @@ struct Pipe {
 // lrelu(conv + b) into a_kJ, zero outside the image; stage 5 calls
 // epi(gy, gx, co, v0, v1) for each in-image output pixel and channel pair
 // co, co + 1, v = conv5 + b5.
-template <int kJ, class Source, class Epilogue>
+template <int kJ, bool kBf16, class Source, class Epilogue>
 __device__ __forceinline__ void stage(const Pipe<Source>& pipe, const float* bias, int u0,
                                       const Epilogue& epi) {
   constexpr int kCols = win_cols(kJ), kPix = win_pix(kJ);
@@ -246,7 +254,8 @@ __device__ __forceinline__ void stage(const Pipe<Source>& pipe, const float* bia
             v[h] = *reinterpret_cast<const float2*>(base + q * pitch +
                                                     ((cl ^ (q & swz)) << 3) + 2 * t);
           }
-          const float4 p0 = split_pair(v[0].x, v[0].y), p8 = split_pair(v[1].x, v[1].y);
+          const float4 p0 = operand_pair<kBf16>(v[0].x, v[0].y);
+          const float4 p8 = operand_pair<kBf16>(v[1].x, v[1].y);
           ah[kx][0] = __float_as_uint(p0.x);
           ah[kx][1] = __float_as_uint(p8.x);
           ah[kx][2] = __float_as_uint(p0.y);
@@ -261,9 +270,13 @@ __device__ __forceinline__ void stage(const Pipe<Source>& pipe, const float* bia
 #pragma unroll
         for (int kx = 0; kx < 3; ++kx) {
           const float* bh = bn + kx * 2 * kCK * kCout;
-          wgmma_k8(part, al[kx], weight_desc(bh), kx > 0);               // lo . hi
-          wgmma_k8(part, ah[kx], weight_desc(bh + kCK * kCout), 1);      // hi . lo
-          wgmma_k8(part, ah[kx], weight_desc(bh), 1);                    // hi . hi
+          if constexpr (kBf16) {
+            wgmma_k8(part, ah[kx], weight_desc(bh), kx > 0);             // bf16 . bf16
+          } else {
+            wgmma_k8(part, al[kx], weight_desc(bh), kx > 0);             // lo . hi
+            wgmma_k8(part, ah[kx], weight_desc(bh + kCK * kCout), 1);    // hi . lo
+            wgmma_k8(part, ah[kx], weight_desc(bh), 1);                  // hi . hi
+          }
         }
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
         asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
@@ -310,10 +323,10 @@ __device__ __forceinline__ void stage(const Pipe<Source>& pipe, const float* bia
 }
 
 // The whole dense block on the 8 x 16 tile whose origin is (ty0, tx0). `w` /
-// `bias` are the block's pack_rdb_weights_tc weights and its 192 biases.
-// Ends with every copy drained and a barrier, so the caller may start the
-// next tile at once.
-template <class Source, class Epilogue>
+// `bias` are the block's pack_rdb_weights_tc weights and its 192 biases;
+// kBf16 the bf16-multiplicand route. Ends with every copy drained and a
+// barrier, so the caller may start the next tile at once.
+template <bool kBf16, class Source, class Epilogue>
 __device__ __forceinline__ void dense_block_tile(float* smem, const Source& src,
                                                  const float* w, const float* bias,
                                                  int ty0, int tx0, int H, int W,
@@ -323,11 +336,11 @@ __device__ __forceinline__ void dense_block_tile(float* smem, const Source& src,
   pipe.issue(1);
   constexpr int u2 = stage_units(1), u3 = u2 + stage_units(2), u4 = u3 + stage_units(3),
                 u5 = u4 + stage_units(4);
-  stage<1>(pipe, bias, 0, epi);
-  stage<2>(pipe, bias, u2, epi);
-  stage<3>(pipe, bias, u3, epi);
-  stage<4>(pipe, bias, u4, epi);
-  stage<5>(pipe, bias, u5, epi);
+  stage<1, kBf16>(pipe, bias, 0, epi);
+  stage<2, kBf16>(pipe, bias, u2, epi);
+  stage<3, kBf16>(pipe, bias, u3, epi);
+  stage<4, kBf16>(pipe, bias, u4, epi);
+  stage<5, kBf16>(pipe, bias, u5, epi);
   cp_async_wait_all();
   __syncthreads();
 }

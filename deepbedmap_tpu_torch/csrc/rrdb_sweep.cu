@@ -92,6 +92,7 @@ struct SweepStore {  // t1, t2 = a + s * v; out = x + s * (t2 + s * v)
   }
 };
 
+template <bool kBf16>
 __global__ void __launch_bounds__(rdbtile::kThreads, 1)
 rrdb_sweep_kernel(Sweep sw, const float* __restrict__ w, const float* __restrict__ bias) {
   extern __shared__ float4 smem4[];
@@ -116,7 +117,7 @@ rrdb_sweep_kernel(Sweep sw, const float* __restrict__ w, const float* __restrict
       }
       const int band = step - kLag * p;
       const int n = (t % per_band) / tiles_x, tx = t % tiles_x;
-      rdbtile::dense_block_tile(
+      rdbtile::dense_block_tile<kBf16>(
           smem, SweepSource{sw, p, n}, w + p * rdbtile::kBlockWeights,
           bias + p * (rdbtile::kFeat + 4 * rdbtile::kGrowth), band * rdbtile::kTH,
           tx * rdbtile::kTW, sw.H, sw.W, SweepStore{sw, p, n});
@@ -125,38 +126,49 @@ rrdb_sweep_kernel(Sweep sw, const float* __restrict__ w, const float* __restrict
   }
 }
 
+template <bool kBf16>
+cudaError_t rrdb_sweep(const float* x, float* ring1, float* ring2, float* out,
+                       const float* w_packed, const float* bias, int N, int H, int W,
+                       float scaling, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(rrdb_sweep_kernel<kBf16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)rdbtile::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+      cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, rrdb_sweep_kernel<kBf16>, rdbtile::kThreads, rdbtile::kSmemBytes)) !=
+      cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  Sweep sw{x, {ring1, ring2}, out, N, H, W, scaling};
+  void* args[] = {&sw, (void*)&w_packed, (void*)&bias};
+  err = cudaLaunchCooperativeKernel((const void*)rrdb_sweep_kernel<kBf16>,
+                                    dim3(per_sm * sms), dim3(rdbtile::kThreads), args,
+                                    rdbtile::kSmemBytes, s);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x, out: (N, H, W, 64), out must not alias x; ring1, ring2: (4, N, 8, W, 64)
 // scratch each; w_packed: the three blocks' pack_rdb_weights_tc weights back
-// to back (ops/rdb.py:pack_rrdb_weights_tc); bias: the three blocks' 192
-// biases back to back. One cooperative launch. Returns the launch's error
+// to back (ops/rdb.py:pack_rrdb_weights_tc, rounded to bf16 first when bf16
+// is nonzero); bias: the three blocks' 192 biases back to back; bf16: nonzero
+// for bf16 multiplicands. One cooperative launch. Returns the launch's error
 // (cudaErrorCooperativeLaunchTooLarge if the card cannot hold one block per
 // SM) or cudaGetLastError().
 extern "C" int rrdb_sweep_forward(const float* x, float* ring1, float* ring2,
                                   float* out, const float* w_packed,
                                   const float* bias, int N, int H, int W,
-                                  float scaling, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      rrdb_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)rdbtile::kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-      cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, rrdb_sweep_kernel, rdbtile::kThreads, rdbtile::kSmemBytes)) !=
-      cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  Sweep sw{x, {ring1, ring2}, out, N, H, W, scaling};
-  void* args[] = {&sw, (void*)&w_packed, (void*)&bias};
-  err = cudaLaunchCooperativeKernel((const void*)rrdb_sweep_kernel,
-                                    dim3(per_sm * sms), dim3(rdbtile::kThreads),
-                                    args, rdbtile::kSmemBytes,
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+                                  float scaling, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? (int)rrdb_sweep<true>(x, ring1, ring2, out, w_packed, bias, N, H, W,
+                                      scaling, s)
+              : (int)rrdb_sweep<false>(x, ring1, ring2, out, w_packed, bias, N, H, W,
+                                       scaling, s);
 }

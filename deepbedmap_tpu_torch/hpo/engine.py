@@ -80,7 +80,8 @@ class Trial:
         if name in self._fixed:
             value = self._fixed[name]
         else:
-            idx = self.study._sample(name, 0, len(choices) - 1, 1.0, False, True)
+            idx = self.study._sample(name, 0, len(choices) - 1, 1.0, False, True,
+                                     choices=choices)
             value = choices[int(idx)]
         self.params[name] = value
         self.study._record_param(
@@ -252,28 +253,39 @@ class Study:
         return cur.rowcount
 
     # ---- sampling ----
-    def _sample(self, name, low, high, step, log, is_int):
+    def _sample(self, name, low, high, step, log, is_int, choices=None):
         completed = [
             t for t in self.trials if t.state == TrialState.COMPLETE and name in t.params
         ]
         if len(completed) < self.n_startup_trials:
             return self._random(low, high, log)
-        return self._tpe(name, completed, low, high, log)
+        return self._tpe(name, completed, low, high, log, choices=choices)
 
     def _random(self, low, high, log):
         if log:
             return math.exp(self._rng.uniform(math.log(low), math.log(high)))
         return self._rng.uniform(low, high)
 
-    def _tpe(self, name, completed, low, high, log, n_candidates=24, gamma=0.25):
-        """Univariate Parzen-estimator sampling (TPE-lite)."""
+    def _tpe(self, name, completed, low, high, log, n_candidates=24, gamma=0.25,
+             choices=None):
+        """Univariate Parzen-estimator sampling (TPE-lite). A categorical
+        parameter (``choices``, from ``suggest_categorical``) is modelled by
+        the index of each trial's choice, the index ``_record_param`` is
+        given, and the sample is rounded to an index. (JAX's engine takes
+        ``float`` of the choice itself and raises for a string choice once
+        the startup trials are done: a stated deviation.)"""
         ordered = sorted(
             completed,
             key=lambda t: t.value if self.direction == "minimize" else -t.value,
         )
+
+        def coord(t):
+            v = t.params[name]
+            return float(v if choices is None else choices.index(v))
+
         n_good = max(1, int(math.ceil(gamma * len(ordered))))
-        good = [float(t.params[name]) for t in ordered[:n_good]]
-        bad = [float(t.params[name]) for t in ordered[n_good:]] or good
+        good = [coord(t) for t in ordered[:n_good]]
+        bad = [coord(t) for t in ordered[n_good:]] or good
 
         def transform(v):
             return math.log(v) if log else v
@@ -296,7 +308,8 @@ class Study:
             score = math.log(kde(good_t, x)) - math.log(kde(bad_t, x))
             if score > best_score:
                 best_x, best_score = x, score
-        return math.exp(best_x) if log else best_x
+        x = math.exp(best_x) if log else best_x
+        return x if choices is None else float(round(x))
 
     # ---- pruning ----
     #

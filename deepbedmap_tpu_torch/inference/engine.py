@@ -1,8 +1,9 @@
 """Halo'd tile-predict-stitch engine.
 
 Counterpart of ``deepbedmap_tpu/inference/engine.py`` (reference semantics
-deepbedmap.py:689-736): inputs are edge-padded once by ``halo + 1`` low-res
-px (times each raster's resolution ratio), every tile crop has the same size,
+deepbedmap.py:689-736): inputs are padded once by ``halo + 1`` low-res
+px (times each raster's resolution ratio; by ``'edge'``, or any mode
+``jnp.pad`` takes, ``pad_hw``), every tile crop has the same size,
 and each tile's forward output loses ``halo * scale`` px per side before it
 is written into the canvas. The JAX ``lax.scan`` over tiles is a Python loop
 here. Crops are taken in unpadded coordinates, keeping correct
@@ -18,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -83,8 +85,66 @@ def pad_edge(a: torch.Tensor, top: int, bottom: int, left: int, right: int) -> t
     return F.pad(nchw, (left, right, top, bottom), mode="replicate").permute(0, 2, 3, 1)
 
 
-def pad_inputs(inputs: Dict[str, torch.Tensor], plan: TilePlan) -> Dict[str, torch.Tensor]:
-    """Edge-pad each NHWC raster by pad_lr * its resolution ratio per side."""
+# the modes of jnp.pad (numpy's, with its defaults: constant_values 0,
+# end_values 0, stat_length the whole axis, reflect_type 'even')
+PAD_MODES = ("constant", "edge", "linear_ramp", "maximum", "mean", "median", "minimum",
+             "reflect", "symmetric", "wrap", "empty")
+_INDEX_MODES = ("reflect", "symmetric", "wrap")  # pure gathers of the axis ('edge' too)
+_STAT_MODES = ("maximum", "mean", "median", "minimum")
+
+
+def _pad_axis(a: torch.Tensor, dim: int, p: int, mode: str) -> torch.Tensor:
+    """``a`` padded by ``p`` on both sides of ``dim`` as ``np.pad`` pads one
+    axis, on ``a``'s device."""
+    n = a.shape[dim]
+    if mode in _INDEX_MODES:
+        # the source index of every padded position: np.pad of the index
+        # vector itself, which also repeats the reflection where p > n
+        idx = np.pad(np.arange(n), (p, p), mode=mode)
+        return a.index_select(dim, torch.from_numpy(idx).to(a.device))
+    shape = list(a.shape)
+    shape[dim] = p
+    if mode in ("constant", "empty"):
+        # jnp.pad fills 'empty' with zeros too
+        side = torch.zeros(shape, dtype=a.dtype, device=a.device)
+        return torch.cat([side, a, side], dim)
+    if mode in _STAT_MODES:
+        if mode == "median":
+            # numpy's median: the mean of the two middle values of an even count
+            s = a.sort(dim).values
+            stat = (s.narrow(dim, (n - 1) // 2, 1) + s.narrow(dim, n // 2, 1)) / 2
+        elif mode == "mean":
+            stat = a.mean(dim, keepdim=True)
+        else:
+            stat = getattr(a, "amax" if mode == "maximum" else "amin")(dim, keepdim=True)
+        side = stat.expand(shape)
+        return torch.cat([side, a, side], dim)
+    # linear_ramp to end value 0: position i of a side's p is edge * i / p,
+    # counted from the outer end (np.linspace(0, edge, p, endpoint=False))
+    view = [1] * a.dim()
+    view[dim] = p
+    ramp = (torch.arange(p, device=a.device, dtype=a.dtype) / p).view(view)
+    before = a.narrow(dim, 0, 1) * ramp
+    after = (a.narrow(dim, n - 1, 1) * ramp).flip(dim)
+    return torch.cat([before, a, after], dim)
+
+
+def pad_hw(a: torch.Tensor, p: int, mode: str = "edge") -> torch.Tensor:
+    """``jnp.pad(a, ((0, 0), (p, p), (p, p), (0, 0)), mode=mode)`` of an NHWC
+    tensor, on its device. As numpy, H is padded first and W then from the
+    H-padded array, so the corners of 'linear_ramp' and the statistic modes
+    come from the padded first axis."""
+    if mode not in PAD_MODES:
+        raise ValueError(f"pad mode {mode!r}: one of {PAD_MODES}")
+    if mode == "edge":  # one replicate pad, the continent's band padding too
+        return pad_edge(a, p, p, p, p)
+    return _pad_axis(_pad_axis(a, 1, p, mode), 2, p, mode)
+
+
+def pad_inputs(inputs: Dict[str, torch.Tensor], plan: TilePlan,
+               mode: str = "edge") -> Dict[str, torch.Tensor]:
+    """Pad each NHWC raster by pad_lr * its resolution ratio per side, by
+    ``mode`` (``pad_hw``)."""
     padded = {}
     lh, lw = plan.lr_shape
     for key, ratio in INPUT_RATIOS.items():
@@ -92,8 +152,7 @@ def pad_inputs(inputs: Dict[str, torch.Tensor], plan: TilePlan) -> Dict[str, tor
         if a.shape[1] != ratio * lh or a.shape[2] != ratio * lw:
             raise ValueError(f"{key}: shape {tuple(a.shape)}, expected "
                              f"{(ratio * lh, ratio * lw)} spatially")
-        p = plan.pad_lr * ratio
-        padded[key] = pad_edge(a, p, p, p, p)
+        padded[key] = pad_hw(a, plan.pad_lr * ratio, mode)
     return padded
 
 
@@ -145,10 +204,12 @@ def predict_region_tiled(
     forward_fn: Callable[..., torch.Tensor],
     inputs: Dict[str, torch.Tensor],
     plan: TilePlan,
+    pad_mode: str = "edge",
 ) -> torch.Tensor:
     """Tile-predict-stitch over the full grid. ``inputs`` are unpadded NHWC
-    rasters covering exactly the output bbox. Returns (1, out_h, out_w, 1)."""
-    padded = pad_inputs(inputs, plan)
+    rasters covering exactly the output bbox, padded by ``pad_mode``.
+    Returns (1, out_h, out_w, 1)."""
+    padded = pad_inputs(inputs, plan, pad_mode)
     tile_forward = make_tile_forward(forward_fn, plan)
     gy, gx = plan.grid
     t = plan.tile_out
@@ -165,11 +226,12 @@ def predict_region(
     forward_fn: Callable[..., torch.Tensor],
     inputs: Dict[str, torch.Tensor],
     plan: TilePlan,
+    pad_mode: str = "edge",
 ) -> torch.Tensor:
     """Untiled single-shot prediction of the whole region (one big 'tile').
     Equal to ``predict_region_tiled`` where the halo covers the generator's
     far field (seam equivalence)."""
-    padded = pad_inputs(inputs, plan)
+    padded = pad_inputs(inputs, plan, pad_mode)
     return _discard_halo(
         forward_fn(padded["X"], padded["W1"], padded["W2"], padded["W3"]), plan
     )

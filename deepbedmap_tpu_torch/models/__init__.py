@@ -11,3 +11,4 @@ from deepbedmap_tpu_torch.models.api import (  # noqa: F401
 )
 from deepbedmap_tpu_torch.models.discriminator import Discriminator  # noqa: F401
 from deepbedmap_tpu_torch.models.generator import Generator  # noqa: F401
+from deepbedmap_tpu_torch.models.summary import param_table, summary, to_dot  # noqa: F401

@@ -34,9 +34,10 @@ def count_params(model: Union[nn.Module, Mapping[str, torch.Tensor]]) -> int:
 
 
 def check_generator_device(cfg: GeneratorConfig, device) -> None:
-    """On a CUDA device, refuse widths the kernels do not take
-    (``config.check_card_supported``); the CPU takes any width. Called
-    before the device is resolved, so the refusal does not need a card."""
+    """On a CUDA device, refuse widths a forced (``'always'``) kernel does
+    not take (``config.check_card_supported``); ``'auto'`` sends them to the
+    plain path, and the CPU takes any width. Called before the device is
+    resolved, so the refusal does not need a card."""
     if torch.device(device).type == "cuda":
         check_card_supported(cfg)
 

@@ -8,10 +8,13 @@ Counterpart of ``deepbedmap_tpu/models/blocks.py``:
 - the dense blocks and the residual-in-residual block, whose forward
   runs what ``config.trunk_kernel`` names: the K1 / K6 (dense block) or K4 /
   K5 (whole RRDB) kernels (CUDA) or their plain versions (CPU) through
-  ``ops.rdb``, fed float32, or the plain dense block at the compute dtype
-  (``'plain'``, PyTorch's convs on either device, JAX's XLA path);
+  ``ops.rdb``, fed float32, with bf16 multiplicands where
+  ``config.trunk_mxu_bf16`` says so, or the plain dense block at the
+  compute dtype (``'plain'``, PyTorch's convs on either device, JAX's XLA
+  path);
 - ``FusedConv3x3``: K10 (``ops.conv3x3``; its plain version on a CPU tensor)
-  where ``config.conv_kernel`` says so, otherwise a cuDNN conv at the compute
+  where ``config.conv_kernel`` says so, with bf16 multiplicands where
+  ``config.conv_mxu_bf16`` says so, otherwise a cuDNN conv at the compute
   dtype and its bias / residual / LeakyReLU epilogue in PyTorch;
 - ``ConvHCW``, the 3x3 conv of the channels-before-width tail;
 - the deformable conv layer, applied as one layer (``ops.deform_conv``, K7 /
@@ -150,18 +153,21 @@ class FusedConv3x3(Conv3x3):
     (reference layers srgan_train.py:470-505). ``kernel`` is
     ``config.conv_kernel``: True runs ``conv3x3_fused`` (K10 on a CUDA
     tensor, its plain version on a CPU tensor) on the input and residual in
-    float32, at any compute dtype, as JAX's ``fused='always'``; False the
-    cuDNN conv at ``dtype``, then the bias, residual and LeakyReLU."""
+    float32, at any compute dtype, as JAX's ``fused='always'``, on bf16
+    multiplicands with ``mxu_bf16``; False the cuDNN conv at ``dtype``, then
+    the bias, residual and LeakyReLU."""
 
     def __init__(
         self, in_channels: int, out_channels: int, leaky: bool = False,
         kernel: bool = False, dtype: Optional[torch.dtype] = None,
+        mxu_bf16: bool = False,
     ):
         super().__init__(in_channels, out_channels)
         self.leaky = leaky
         self.kernel = kernel
         self.dtype = dtype
-        self._packed = _Cached(lambda w: pack_conv_weight(w).contiguous())
+        self.mxu_bf16 = mxu_bf16
+        self._packed = _Cached(lambda w: pack_conv_weight(w, mxu_bf16).contiguous())
 
     def forward(
         self, x: torch.Tensor, residual: Optional[torch.Tensor] = None
@@ -171,6 +177,7 @@ class FusedConv3x3(Conv3x3):
             return conv3x3_fused(
                 x.float().contiguous(), self.weight, self.bias, self.leaky,
                 None if residual is None else residual.float().contiguous(), packed,
+                self.mxu_bf16,
             )
         z = conv_nhwc(x, self.weight, self.bias, 1, self.dtype)
         if residual is not None:
@@ -201,11 +208,12 @@ class ResidualDenseBlock(nn.Module):
     """5-conv dense block with residual scaling (reference
     srgan_train.py:275-360). ``kernel``: 'rdb' one K1 launch on the card,
     'rdb_banded' one K6 launch (both fed the input in float32, JAX's
-    ``x.astype(float32)``), 'plain' ``ops.rdb.rdb_reference`` at ``dtype``
-    on either device."""
+    ``x.astype(float32)``; on bf16 multiplicands with ``mxu_bf16``), 'plain'
+    ``ops.rdb.rdb_reference`` at ``dtype`` on either device."""
 
     def __init__(self, features: int = 64, growth: int = 32, residual_scaling: float = 0.1,
-                 kernel: str = "rdb", dtype: Optional[torch.dtype] = None):
+                 kernel: str = "rdb", dtype: Optional[torch.dtype] = None,
+                 mxu_bf16: bool = False):
         super().__init__()
         f, g = features, growth
         c_ins = (f, f + g, f + 2 * g, f + 3 * g, f + 4 * g)
@@ -215,8 +223,9 @@ class ResidualDenseBlock(nn.Module):
         self.residual_scaling = residual_scaling
         self.kernel = kernel
         self.dtype = dtype
+        self.mxu_bf16 = mxu_bf16
         pack = pack_rdb_weights_tc if kernel == "rdb_banded" else pack_rdb_weights
-        self._packed = _Cached(lambda *p: pack(p[:5], p[5:]))
+        self._packed = _Cached(lambda *p: pack(p[:5], p[5:], mxu_bf16))
 
     def convs(self) -> Tuple[Conv3x3, ...]:
         return tuple(getattr(self, f"conv_layer{i}") for i in range(1, 6))
@@ -228,7 +237,8 @@ class ResidualDenseBlock(nn.Module):
             return rdb_reference(x, kernels, biases, self.residual_scaling, self.dtype)
         packed = self._packed.get(kernels + biases) if x.is_cuda else None
         block = rdb_banded if self.kernel == "rdb_banded" else rdb_fused
-        return block(x.float(), kernels, biases, self.residual_scaling, packed)
+        return block(x.float(), kernels, biases, self.residual_scaling, packed,
+                     self.mxu_bf16)
 
 
 class ResInResDenseBlock(nn.Module):
@@ -238,27 +248,30 @@ class ResInResDenseBlock(nn.Module):
     launches and 'rdb_banded' three K6 launches (the skip in PyTorch),
     'plain' three plain dense blocks at ``dtype``. The skip adds the input
     as it came, so a bfloat16 input and a float32 kernel output give float32,
-    as JAX's promotion does."""
+    as JAX's promotion does. ``mxu_bf16``: the kernels' bf16-multiplicand
+    route."""
 
     def __init__(
         self, features: int = 64, growth: int = 32, residual_scaling: float = 0.1,
-        kernel: str = "rdb", dtype: Optional[torch.dtype] = None,
+        kernel: str = "rdb", dtype: Optional[torch.dtype] = None, mxu_bf16: bool = False,
     ):
         super().__init__()
         if kernel not in TRUNK_KERNELS:
             raise ValueError(f"unknown trunk kernel {kernel!r}")
         block = "rdb" if kernel in ("rrdb_fused", "rrdb_sweep") else kernel
         self.residual_dense_block1 = ResidualDenseBlock(features, growth, residual_scaling,
-                                                        block, dtype)
+                                                        block, dtype, mxu_bf16)
         self.residual_dense_block2 = ResidualDenseBlock(features, growth, residual_scaling,
-                                                        block, dtype)
+                                                        block, dtype, mxu_bf16)
         self.residual_dense_block3 = ResidualDenseBlock(features, growth, residual_scaling,
-                                                        block, dtype)
+                                                        block, dtype, mxu_bf16)
         self.residual_scaling = residual_scaling
         self.kernel = kernel
+        self.mxu_bf16 = mxu_bf16
         pack = pack_rrdb_weights_tc if kernel == "rrdb_sweep" else pack_rrdb_weights
         self._packed = _Cached(lambda *p: pack(
-            [p[i:i + 5] for i in (0, 10, 20)], [p[i + 5:i + 10] for i in (0, 10, 20)]
+            [p[i:i + 5] for i in (0, 10, 20)], [p[i + 5:i + 10] for i in (0, 10, 20)],
+            mxu_bf16,
         ))
 
     def blocks(self) -> Tuple[ResidualDenseBlock, ...]:
@@ -274,7 +287,8 @@ class ResInResDenseBlock(nn.Module):
                 self._packed.get([t for k, b in zip(kernels, biases) for t in k + b])
                 if x.is_cuda else None
             )
-            return whole(x.float(), kernels, biases, self.residual_scaling, packed)
+            return whole(x.float(), kernels, biases, self.residual_scaling, packed,
+                         self.mxu_bf16)
         a = x
         for block in self.blocks():
             a = block(a)

@@ -24,9 +24,19 @@ forward at 12 RRDBs:
   deformable layers take it (the last one emits NHWC), as permuted views;
 - ``fused_rdb='never'``: the plain trunk (PyTorch's convs), K2 1, K3 1, at
   any trunk width;
-- ``compute_dtype='bfloat16'``: every plain conv, the plain trunk included,
-  in bfloat16, from the input block to the tail's offset convs, rounding
-  where flax rounds; K2 1 and K3 1 on float32 inputs; the output is float32.
+- ``compute_dtype='bfloat16'`` (or ``'float16'``): every plain conv, the
+  plain trunk included, at that dtype, from the input block to the tail's
+  offset convs, rounding where flax rounds; K2 1 and K3 1 on float32
+  inputs; the output is float32;
+- a forced trunk (``fused_rdb='always'`` or ``rdb_resident='always'``) with
+  ``rdb_mxu_bf16`` (on by default) runs its kernels' bf16-multiplicand
+  route, and ``conv_mxu_bf16`` K10's (``config.trunk_mxu_bf16``,
+  ``conv_mxu_bf16``), counted under the kernel's name with ``_bf16``;
+- widths the kernels do not take run the plain trunk under ``'auto'``, and
+  the fused tail at other than 64 channels or an uncovered clamp its plain
+  composition (``config.tail_kernel``); ``out_channels != 1`` needs
+  ``tail_fused=False``, whose last deformable layer then runs the plain
+  samplers.
 
 The parameters are the same under every config. On CPU tensors the
 kernels' plain versions run instead.
@@ -50,7 +60,10 @@ from deepbedmap_tpu_torch.config import (
     GeneratorConfig,
     check_supported,
     conv_kernel,
+    conv_mxu_bf16,
+    tail_kernel,
     trunk_kernel,
+    trunk_mxu_bf16,
 )
 from deepbedmap_tpu_torch.models.blocks import (
     Conv3x3,
@@ -63,7 +76,7 @@ from deepbedmap_tpu_torch.models.blocks import (
 from deepbedmap_tpu_torch.ops.conv import leaky_relu, torch_dtype
 from deepbedmap_tpu_torch.ops.phase_conv import upsample2_conv3x3
 from deepbedmap_tpu_torch.ops.resize import nearest_upsample
-from deepbedmap_tpu_torch.ops.tail import fused_deform_tail
+from deepbedmap_tpu_torch.ops.tail import fused_deform_tail, tail_reference
 
 
 class Generator(nn.Module):
@@ -72,23 +85,22 @@ class Generator(nn.Module):
         check_supported(cfg)
         self.cfg = cfg
         c = cfg.base_channels
-        k10 = conv_kernel(cfg)
         dt = self.dtype = torch_dtype(cfg.compute_dtype)
+        conv = dict(kernel=conv_kernel(cfg), dtype=dt, mxu_bf16=conv_mxu_bf16(cfg))
         hcw = cfg.tail_hcw
         self.input_block = InputBlock(cfg.inblock_channels, dt)
-        self.pre_residual_conv_layer = FusedConv3x3(
-            cfg.concat_channels, c, leaky=True, kernel=k10, dtype=dt)
+        self.pre_residual_conv_layer = FusedConv3x3(cfg.concat_channels, c, leaky=True,
+                                                    **conv)
         self.residual_network = nn.ModuleList(
             ResInResDenseBlock(c, cfg.growth_channels, cfg.residual_scaling,
-                               kernel=trunk_kernel(cfg), dtype=dt)
+                               kernel=trunk_kernel(cfg), dtype=dt,
+                               mxu_bf16=trunk_mxu_bf16(cfg))
             for _ in range(cfg.num_residual_blocks)
         )
-        self.post_residual_conv_layer = FusedConv3x3(c, c, kernel=k10, dtype=dt)
-        self.post_upsample_conv_layer_1 = FusedConv3x3(c, c, leaky=True, kernel=k10,
-                                                       dtype=dt)
+        self.post_residual_conv_layer = FusedConv3x3(c, c, **conv)
+        self.post_upsample_conv_layer_1 = FusedConv3x3(c, c, leaky=True, **conv)
         self.post_upsample_conv_layer_2 = (
-            ConvHCW(c, c, dt) if hcw
-            else FusedConv3x3(c, c, leaky=True, kernel=k10, dtype=dt))
+            ConvHCW(c, c, dt) if hcw else FusedConv3x3(c, c, leaky=True, **conv))
         self.final_conv_layer1 = DeformableConv(c, c, cfg.deform_clamp, dt, hcw, hcw)
         self.final_conv_layer2 = DeformableConv(c, cfg.out_channels, cfg.deform_clamp, dt,
                                                 hcw)
@@ -133,10 +145,14 @@ class Generator(nn.Module):
         return leaky_relu(up2(a4)) if self.cfg.tail_hcw else up2(a4)
 
     def tail(self, a4: torch.Tensor) -> torch.Tensor:
-        """Both deformable output layers -> (N, H, W, 1) float32."""
+        """Both deformable output layers -> (N, H, W, out_channels) float32."""
         l1, l2 = self.final_conv_layer1, self.final_conv_layer2
         if not self.cfg.tail_fused:
             return l2(leaky_relu(l1(a4)))
+        if not tail_kernel(self.cfg):
+            return tail_reference(a4, *l1.tensors(), *l2.tensors(),
+                                  clamp=self.cfg.deform_clamp,
+                                  compute_dtype=self.cfg.compute_dtype)
         return fused_deform_tail(
             a4, *l1.tensors(), *l2.tensors(), clamp=self.cfg.deform_clamp,
             w1_packed=l1.packed_weight() if a4.is_cuda else None,

@@ -11,6 +11,9 @@ so the CPU-only test suite can import every module.
 
 Each ``launch_*`` function is the one place its kernel is launched: it adds one
 to ``launches[name]`` and raises if the C entry point reports a CUDA error.
+The five kernels with a bf16-multiplicand route (K1, K4, K5, K6, K10; the TPU
+kernels' ``mxu_bf16``) take it through an ``int bf16`` argument of their C
+entry and count it under their name with ``_bf16`` appended.
 Tensor checks (device, dtype, shape, contiguity) are the callers' job
 (``ops.rdb``, ``ops.conv3x3``, ``ops.deform_conv``, ``ops.tail``); outputs
 and scratch are allocated by the callers with ``torch.empty``. Kernels run on
@@ -46,6 +49,9 @@ launches = {
     "rrdb_forward": 0, "conv3x3_forward": 0, "deform_conv": 0,
     "deform_conv_zproj1": 0, "rdb_banded_forward": 0, "rrdb_sweep_forward": 0,
     "deform_zform": 0,
+    # the bf16-multiplicand routes of K1, K4, K10, K6 and K5
+    "rdb_forward_bf16": 0, "rrdb_forward_bf16": 0, "conv3x3_forward_bf16": 0,
+    "rdb_banded_forward_bf16": 0, "rrdb_sweep_forward_bf16": 0,
 }
 
 _lib = None
@@ -57,21 +63,21 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, ws, out, w_packed, bias, N, H, W, scaling, stream
-    "rdb_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
-    # x, ws_a, ws_b, out, w_packed, bias, N, H, W, scaling, stream
-    "rrdb_forward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
-    # x, w_packed, bias, res (or NULL), out, N, H, W, cin, leaky, stream
-    "conv3x3_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, ws, out, w_packed, bias, N, H, W, scaling, bf16, stream
+    "rdb_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # x, ws_a, ws_b, out, w_packed, bias, N, H, W, scaling, bf16, stream
+    "rrdb_forward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # x, w_packed, bias, res (or NULL), out, N, H, W, cin, leaky, bf16, stream
+    "conv3x3_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # x, off, w_packed, bias, out, N, H, W, clamp, stream
     "deform64_lrelu": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     "deform_conv": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     # z, off, bias, out, N, H, W, clamp, stream
     "deform_zproj1": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
-    # x, out, w_packed, bias, N, H, W, scaling, stream
-    "rdb_banded_forward": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
-    # x, ring1, ring2, out, w_packed, bias, N, H, W, scaling, stream
-    "rrdb_sweep_forward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # x, out, w_packed, bias, N, H, W, scaling, bf16, stream
+    "rdb_banded_forward": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # x, ring1, ring2, out, w_packed, bias, N, H, W, scaling, bf16, stream
+    "rrdb_sweep_forward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # x, off, w_packed, bias, out, N, H, W, cin, cout, clamp, stream
     "deform_zform": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
 }
@@ -183,21 +189,30 @@ def _call(name: str, *args, entry: str | None = None) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed with cudaError {err}")
 
 
-def launch_rdb_forward(x, ws, out, w_packed, bias, n, h, w, scaling) -> None:
-    _call("rdb_forward", x.data_ptr(), ws.data_ptr(), out.data_ptr(),
-          w_packed.data_ptr(), bias.data_ptr(), n, h, w, float(scaling))
+def _route(entry: str, *args, bf16: bool) -> None:
+    """One of the five kernels with a bf16 route: C entry ``entry`` with its
+    ``bf16`` flag, counted under ``entry`` or ``entry + '_bf16'``."""
+    _call(entry + "_bf16" if bf16 else entry, *args, int(bool(bf16)), entry=entry)
 
 
-def launch_rrdb_forward(x, ws_a, ws_b, out, w_packed, bias, n, h, w, scaling) -> None:
-    _call("rrdb_forward", x.data_ptr(), ws_a.data_ptr(), ws_b.data_ptr(),
-          out.data_ptr(), w_packed.data_ptr(), bias.data_ptr(), n, h, w,
-          float(scaling))
+def launch_rdb_forward(x, ws, out, w_packed, bias, n, h, w, scaling,
+                       bf16: bool = False) -> None:
+    _route("rdb_forward", x.data_ptr(), ws.data_ptr(), out.data_ptr(),
+           w_packed.data_ptr(), bias.data_ptr(), n, h, w, float(scaling), bf16=bf16)
 
 
-def launch_conv3x3_forward(x, w_packed, bias, res, out, n, h, w, cin, leaky) -> None:
-    _call("conv3x3_forward", x.data_ptr(), w_packed.data_ptr(), bias.data_ptr(),
-          None if res is None else res.data_ptr(), out.data_ptr(), n, h, w, cin,
-          int(bool(leaky)))
+def launch_rrdb_forward(x, ws_a, ws_b, out, w_packed, bias, n, h, w, scaling,
+                        bf16: bool = False) -> None:
+    _route("rrdb_forward", x.data_ptr(), ws_a.data_ptr(), ws_b.data_ptr(),
+           out.data_ptr(), w_packed.data_ptr(), bias.data_ptr(), n, h, w,
+           float(scaling), bf16=bf16)
+
+
+def launch_conv3x3_forward(x, w_packed, bias, res, out, n, h, w, cin, leaky,
+                           bf16: bool = False) -> None:
+    _route("conv3x3_forward", x.data_ptr(), w_packed.data_ptr(), bias.data_ptr(),
+           None if res is None else res.data_ptr(), out.data_ptr(), n, h, w, cin,
+           int(bool(leaky)), bf16=bf16)
 
 
 def launch_deform64(x, off, w_packed, bias, out, n, h, w, clamp, lrelu: bool) -> None:
@@ -215,16 +230,17 @@ def launch_deform_zproj1(z, off, bias, out, n, h, w, clamp,
           n, h, w, float(clamp), entry="deform_zproj1")
 
 
-def launch_rdb_banded_forward(x, out, w_packed, bias, n, h, w, scaling) -> None:
-    _call("rdb_banded_forward", x.data_ptr(), out.data_ptr(), w_packed.data_ptr(),
-          bias.data_ptr(), n, h, w, float(scaling))
+def launch_rdb_banded_forward(x, out, w_packed, bias, n, h, w, scaling,
+                              bf16: bool = False) -> None:
+    _route("rdb_banded_forward", x.data_ptr(), out.data_ptr(), w_packed.data_ptr(),
+           bias.data_ptr(), n, h, w, float(scaling), bf16=bf16)
 
 
 def launch_rrdb_sweep_forward(x, ring1, ring2, out, w_packed, bias, n, h, w,
-                              scaling) -> None:
-    _call("rrdb_sweep_forward", x.data_ptr(), ring1.data_ptr(), ring2.data_ptr(),
-          out.data_ptr(), w_packed.data_ptr(), bias.data_ptr(), n, h, w,
-          float(scaling))
+                              scaling, bf16: bool = False) -> None:
+    _route("rrdb_sweep_forward", x.data_ptr(), ring1.data_ptr(), ring2.data_ptr(),
+           out.data_ptr(), w_packed.data_ptr(), bias.data_ptr(), n, h, w,
+           float(scaling), bf16=bf16)
 
 
 def launch_deform_zform(x, off, w_packed, bias, out, n, h, w, cin, cout,

@@ -34,6 +34,13 @@ def conv_nhwc(x: torch.Tensor, weight: torch.Tensor, bias, padding: int = 1,
     return z.permute(0, 2, 3, 1) + bias.to(dtype)
 
 
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bfloat16 (to nearest, ties to even, as XLA's
+    ``astype``) and returned in its own dtype: a bf16 multiplicand of the
+    TPU kernels' ``mxu_bf16`` mode, as the plain versions compute it."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _rounded(s: float, dtype: torch.dtype) -> float:
     return torch.tensor(s, dtype=dtype).item()

@@ -12,6 +12,13 @@ Gradients: on a CUDA tensor ``conv3x3_fused`` goes through
 ``conv3x3_reference`` (of x, the weight, the bias and the residual)
 recomputed on the saved inputs, as JAX's ``pallas_conv.py:214-261``.
 
+bf16 multiplicands (``mxu_bf16=True``, the JAX kernel's ``mxu_bf16``,
+``pallas_conv.py:77, 131-132``): the conv's input and weight are rounded to
+bf16 (to nearest even), the sum, bias, residual and LeakyReLU stay float32.
+``conv3x3_reference(mxu_bf16=True)`` is the plain version, K10's bf16 route
+(``csrc/conv3x3_tc.cuh``) the kernel; the gradient in either mode is that of
+the float32 plain version, as JAX's custom VJP (``pallas_conv.py:224-230``).
+
 Layout: NHWC activations, OIHW weights. ``pack_conv_weight`` is the packed
 layout of the tensor-core conv (``csrc/conv3x3_tc.cuh``) that K10 and the
 dense-block kernels K1 and K4 (``ops.rdb``) share.
@@ -19,6 +26,7 @@ dense-block kernels K1 and K4 (``ops.rdb``) share.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -26,7 +34,7 @@ import torch.nn.functional as F
 
 from deepbedmap_tpu_torch.ops import _kernels
 from deepbedmap_tpu_torch.ops._autograd import kernel_with_plain_grad
-from deepbedmap_tpu_torch.ops.conv import leaky_relu
+from deepbedmap_tpu_torch.ops.conv import leaky_relu, round_bf16
 
 C_OUT = 64
 C_INS = (64, 128)
@@ -38,20 +46,26 @@ def conv3x3_reference(
     bias: torch.Tensor,  # (C_out,)
     leaky: bool = False,
     residual: Optional[torch.Tensor] = None,  # (N, H, W, C_out)
+    mxu_bf16: bool = False,
 ) -> torch.Tensor:
-    """[lrelu]((conv3x3_same(x) + bias) [+ residual])."""
+    """[lrelu]((conv3x3_same(x) + bias) [+ residual]); ``mxu_bf16`` rounds x
+    and the weight to bf16 first."""
+    if mxu_bf16:
+        x, weight = round_bf16(x), round_bf16(weight)
     z = F.conv2d(x.permute(0, 3, 1, 2), weight, padding=1).permute(0, 2, 3, 1) + bias
     if residual is not None:
         z = z + residual
     return leaky_relu(z) if leaky else z
 
 
-def pack_conv_weight(weight: torch.Tensor) -> torch.Tensor:
+def pack_conv_weight(weight: torch.Tensor, mxu_bf16: bool = False) -> torch.Tensor:
     """OIHW (C_out, C_in, 3, 3) -> flat [C_out/32][C_in][9][32], the layout
-    the tensor-core conv stages each 8-channel chunk's weights from."""
+    the tensor-core conv stages each 8-channel chunk's weights from; rounded
+    to bf16 for the bf16 route (``mxu_bf16``)."""
     co, ci = weight.shape[:2]
+    weight = weight.detach()
     return (
-        weight.detach().reshape(co // 32, 32, ci, 9).permute(0, 2, 3, 1).reshape(-1)
+        (round_bf16(weight) if mxu_bf16 else weight).reshape(co // 32, 32, ci, 9).permute(0, 2, 3, 1).reshape(-1)
     )
 
 
@@ -62,27 +76,36 @@ def conv3x3_fused(
     leaky: bool = False,
     residual: Optional[torch.Tensor] = None,
     w_packed: Optional[torch.Tensor] = None,
+    mxu_bf16: bool = False,
 ) -> torch.Tensor:
     """K10 (``csrc/conv3x3.cu``) on a CUDA tensor, the plain
     ``conv3x3_reference`` on a CPU tensor. Shapes the kernel does not take
     (C_in not in {64, 128}, C_out != 64) raise ``ValueError`` on either
-    device. ``w_packed`` is ``pack_conv_weight(weight)``, cached by the
-    caller."""
+    device. ``w_packed`` is ``pack_conv_weight(weight, mxu_bf16)``, cached
+    by the caller. ``mxu_bf16``: bf16 multiplicands (module docstring)."""
     n, h, w, c_in = x.shape
     if c_in not in C_INS or tuple(weight.shape) != (C_OUT, c_in, 3, 3):
         raise ValueError(
             f"conv3x3_fused takes C_in in {C_INS} and a ({C_OUT}, C_in, 3, 3) "
             f"weight, got x {tuple(x.shape)} and weight {tuple(weight.shape)}"
         )
+
+    def plain(x, weight, bias, residual, mxu_bf16=False):
+        return conv3x3_reference(x, weight, bias, leaky, residual, mxu_bf16)
+
     if x.device.type == "cpu":
-        return conv3x3_reference(x, weight, bias, leaky, residual)
+        if not mxu_bf16:
+            return plain(x, weight, bias, residual)
+        # the rounded plain version, differentiated as the float32 one
+        return kernel_with_plain_grad(functools.partial(plain, mxu_bf16=True), plain,
+                                      x, weight, bias, residual)
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_fused: unsupported device {x.device}")
     _kernels.check_tensor(x, "x", (n, h, w, c_in))
     _kernels.check_image_shape(n, h, w, max(c_in, C_OUT))
     if w_packed is None:
         with torch.no_grad():
-            w_packed = pack_conv_weight(weight).contiguous()
+            w_packed = pack_conv_weight(weight, mxu_bf16).contiguous()
     _kernels.check_tensor(w_packed, "packed weight", (C_OUT * c_in * 9,))
     _kernels.check_tensor(bias, "bias", (C_OUT,))
     if residual is not None:
@@ -91,10 +114,7 @@ def conv3x3_fused(
     def launch(x, weight, bias, residual):
         out = torch.empty((n, h, w, C_OUT), device=x.device)
         _kernels.launch_conv3x3_forward(x, w_packed, bias, residual, out, n, h, w, c_in,
-                                        leaky)
+                                        leaky, mxu_bf16)
         return out
-
-    def plain(x, weight, bias, residual):
-        return conv3x3_reference(x, weight, bias, leaky, residual)
 
     return kernel_with_plain_grad(launch, plain, x, weight, bias, residual)

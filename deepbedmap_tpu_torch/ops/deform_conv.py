@@ -242,11 +242,17 @@ def pack_deform64_weight_tc(weight: torch.Tensor) -> torch.Tensor:
     return torch.stack(tf32_split(b), dim=1).reshape(-1).contiguous()
 
 
+def window_covers(clamp) -> bool:
+    """Whether the CUDA kernels' windows, which reach ``WINDOW_MAX_CLAMP``
+    px, cover ``clamp``: an integer in [0, WINDOW_MAX_CLAMP]."""
+    return not isinstance(clamp, bool) and int(clamp) == clamp \
+        and 0 <= clamp <= WINDOW_MAX_CLAMP
+
+
 def check_window_clamp(clamp) -> None:
-    """The CUDA kernels' windows reach ``WINDOW_MAX_CLAMP`` px of clamp:
-    anything but an integer in [0, WINDOW_MAX_CLAMP] raises ``ValueError``."""
-    if isinstance(clamp, bool) or int(clamp) != clamp \
-            or not 0 <= clamp <= WINDOW_MAX_CLAMP:
+    """Raise ``ValueError`` for a clamp the kernels' windows do not cover
+    (``window_covers``)."""
+    if not window_covers(clamp):
         raise ValueError(
             f"the deformable-conv kernels take an integer clamp in [0, "
             f"{WINDOW_MAX_CLAMP}], got {clamp!r}")
@@ -330,16 +336,17 @@ def _kernel_shape(x_shape, weight_shape, padding: int) -> bool:
 
 
 def choose_method(device_type: str, x_shape, weight_shape, padding: int, clamp) -> str:
-    """What ``deform_conv2d(method='auto')`` runs, by shape alone: on a CUDA
-    tensor ``'pallas'`` (the kernels) for every layer K7 / K8 take (3x3,
-    padding 1, 64 input channels, 1 or 64 outputs), and there a clamp their
-    windows do not cover raises ``ValueError`` (``check_window_clamp``)
-    instead of leaving the card's layer to a plain sampler; every other
-    layer takes JAX's rule off the TPU (``deepbedmap_tpu/ops/deform_conv.py``),
-    ``'zproj'`` for an image of at least 256^2 px whose layer contracts
-    channels (C_out * 4 <= C_in), else ``'shifts'``."""
-    if device_type == "cuda" and _kernel_shape(x_shape, weight_shape, padding):
-        check_window_clamp(clamp)
+    """What ``deform_conv2d(method='auto')`` runs, by shape and clamp alone:
+    on a CUDA tensor ``'pallas'`` (the kernels) for every layer K7 / K8 take
+    (3x3, padding 1, 64 input channels, 1 or 64 outputs, a clamp their
+    windows cover: ``window_covers``); every other layer takes JAX's rule
+    off the TPU (``deepbedmap_tpu/ops/deform_conv.py``), ``'zproj'`` for an
+    image of at least 256^2 px whose layer contracts channels (C_out * 4 <=
+    C_in), else ``'shifts'``. So ``'auto'`` sends what the kernels do not
+    take to a plain sampler, as JAX's ``'auto'`` does; ``'pallas'`` refuses
+    it."""
+    if device_type == "cuda" and _kernel_shape(x_shape, weight_shape, padding) \
+            and window_covers(clamp):
         return "pallas"
     c_out, c_in = weight_shape[:2]
     large = x_shape[1] * x_shape[2] >= 256 * 256
@@ -376,8 +383,7 @@ def deform_conv2d(
     - ``'gather'``: ``deform_conv_gather``, the exact sampler without a
       clamp, any shape.
     - ``'auto'``: ``choose_method``, the kernels on a CUDA tensor whose
-      layer they take (a clamp they do not cover raises), JAX's rule off
-      the TPU everywhere else.
+      layer and clamp they take, JAX's rule off the TPU everywhere else.
 
     ``in_hcw`` / ``out_hcw``: the channels-before-width layout (N, H, C, W)
     of ``x`` and ``offsets`` / of the output, for every method. The kernels

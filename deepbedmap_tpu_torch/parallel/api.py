@@ -98,8 +98,8 @@ def sharded_predict_tiles(
 
     ``prepadded``: the inputs already carry the plan's ``pad_lr`` halo on
     every side (a continent row band whose vertical halo is real neighbour
-    rows, ``inference.continent``); otherwise they are edge-padded here
-    (``pad_mode`` 'edge', the engine's only mode).
+    rows, ``inference.continent``); otherwise they are padded here by
+    ``pad_mode``, any mode ``jnp.pad`` takes (``inference.engine.pad_hw``).
 
     ``tiles_per_dispatch``: tiles stacked per forward within each rank's
     block; the block's last id is repeated to fill the last group
@@ -107,8 +107,6 @@ def sharded_predict_tiles(
     """
     if tiles_per_dispatch < 1:
         raise ValueError(f"tiles_per_dispatch must be >= 1, got {tiles_per_dispatch}")
-    if pad_mode != "edge":
-        raise ValueError(f"pad_mode {pad_mode!r}: the tile engine pads by 'edge' only")
     r = mesh_rank(mesh, axis_name)
     n = mesh_size(mesh, axis_name)
     gx = plan.grid[1]
@@ -116,7 +114,7 @@ def sharded_predict_tiles(
     per = -(-num // n)
     # padding tiles wrap (recomputed, dropped); rank r takes the r-th block
     ids = [t % num for t in range(r * per, (r + 1) * per)]
-    padded = inputs if prepadded else pad_inputs(inputs, plan)
+    padded = inputs if prepadded else pad_inputs(inputs, plan, pad_mode)
     b = tiles_per_dispatch
     if b == 1:
         tile_forward = make_tile_forward(forward_fn, plan)

@@ -4,11 +4,13 @@ Counterpart of ``deepbedmap_tpu/train/checkpoint.py``, copied because
 importing the JAX package loads JAX.
 
 The port's own checkpoints replace JAX's Orbax ones: ``save_checkpoint``
-writes the whole ``GANState`` (step, both models' ``state_dict``s with the
-discriminator's BatchNorm statistics, both Adams, the EMA weights, and the
-two models' configurations) with ``torch.save`` to a temporary name in the
-target's directory and renames it into place, so a killed write leaves no
-half file. ``restore_checkpoint`` rebuilds the state on a device,
+copies the whole ``GANState`` to the host (step, both models' ``state_dict``s
+with the discriminator's BatchNorm statistics, both Adams, the EMA weights,
+and the two models' configurations) and writes it with ``torch.save`` to a
+temporary name in the target's directory, then renames it into place, so a
+killed write leaves no half file; with ``block=False`` the write runs on a
+thread while training goes on, and ``wait_for_checkpoints`` commits it, as
+JAX's ``AsyncCheckpointer`` does. ``restore_checkpoint`` rebuilds the state on a device,
 ``checkpoint_has_ema`` says whether a run kept EMA weights, and
 ``load_generator_state_dict`` gives the weights ``DeepBedMap.from_checkpoint``
 runs. A JAX Orbax checkpoint (a directory) cannot be read here, since the
@@ -38,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 from typing import Any, Dict, List
 
 import numpy as np
@@ -53,12 +56,63 @@ from deepbedmap_tpu_torch.train.state import GANState
 _FORMAT = "deepbedmap_tpu_torch.GANState/1"
 
 
-def save_checkpoint(state: GANState, path: str) -> None:
+_writers: List[threading.Thread] = []  # saves of save_checkpoint(block=False) in flight
+_errors: List[Exception] = []  # what those writers raised, for wait_for_checkpoints
+_writers_lock = threading.Lock()
+
+
+def _to_host(tree):
+    """A copy on the host of every tensor in a nested state, so that the
+    caller may go on updating the state in place while it is written."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        out = type(tree)((k, _to_host(v)) for k, v in tree.items())
+        if hasattr(tree, "_metadata"):  # a state_dict's per-module versions
+            out._metadata = tree._metadata
+        return out
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    return tree
+
+
+def _write(payload: Dict[str, Any], path: str) -> None:
+    """``torch.save`` to a temporary name beside ``path``, then
+    ``os.replace``: a failed or killed write leaves nothing at ``path``."""
+    directory = os.path.dirname(os.path.abspath(path))
+    os.makedirs(directory, exist_ok=True)
+    tmp = os.path.join(directory, f".{os.path.basename(path)}.tmp.{os.getpid()}."
+                                  f"{threading.get_ident()}")
+    try:
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def _write_in_background(payload: Dict[str, Any], path: str) -> None:
+    try:
+        _write(payload, path)
+    except Exception as e:  # raised again by wait_for_checkpoints
+        with _writers_lock:
+            _errors.append(e)
+
+
+def save_checkpoint(state: GANState, path: str, block: bool = True) -> None:
     """The whole train state to the file ``path``, atomically (a temporary
-    name in the same directory, then ``os.replace``)."""
+    name in the same directory, then ``os.replace``).
+
+    The state is copied to the host once, before this returns. With
+    ``block=False`` the file is then written on a thread of its own while
+    the caller runs on (JAX's Orbax ``AsyncCheckpointer``): a later save
+    first waits for the one in flight, and ``wait_for_checkpoints()`` must
+    be called before the file is read or the process exits; it raises what
+    a writer raised. A failed write leaves no file at ``path``."""
     if os.path.isdir(path):
         raise ValueError(f"{path} is a directory; a checkpoint of the port is one file")
-    payload = {
+    wait_for_checkpoints()
+    payload = _to_host({
         "format": _FORMAT,
         "step": int(state.step),
         "g_cfg": dataclasses.asdict(state.g.cfg),
@@ -69,16 +123,30 @@ def save_checkpoint(state: GANState, path: str) -> None:
         "g_opt": state.g_opt.state_dict(),
         "d_opt": state.d_opt.state_dict(),
         "g_ema": state.g_ema,
-    }
-    directory = os.path.dirname(os.path.abspath(path))
-    os.makedirs(directory, exist_ok=True)
-    tmp = os.path.join(directory, f".{os.path.basename(path)}.tmp.{os.getpid()}")
-    try:
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    })
+    if block:
+        _write(payload, path)
+        return
+    writer = threading.Thread(target=_write_in_background, args=(payload, path),
+                              name=f"save_checkpoint {path}")
+    with _writers_lock:  # started before a waiter on another thread can join it
+        writer.start()
+        _writers.append(writer)
+
+
+def wait_for_checkpoints() -> None:
+    """Block until every ``save_checkpoint(block=False)`` has committed its
+    file; raise the first error a writer met (its file was not written)."""
+    with _writers_lock:
+        writers = list(_writers)
+        _writers.clear()
+    for writer in writers:
+        writer.join()
+    with _writers_lock:
+        errors = list(_errors)
+        _errors.clear()
+    if errors:
+        raise errors[0]
 
 
 def _load(path: str, device="cpu") -> Dict[str, Any]:

@@ -12,16 +12,13 @@ events:
 - divergence pruning (NaN losses / PSNR <= 0) and Hyperband-style pruning —
   srgan_train.py:1698-1706;
 - a checkpoint of the whole train state whenever the test RMSE improves —
-  srgan_train.py:1659-1669;
+  srgan_train.py:1659-1669 — saved with ``block=False``, so that the write
+  overlaps the next epoch, and committed when the trial ends, as JAX's;
 - the metric records handed to ``log`` and a tracker (the reference streams
   them to Comet.ML).
 
 The trial trains on the dataset's device: a ``TileDataset`` on the card
-trains through the kernels there. JAX saves its Orbax checkpoints with
-``block=False`` so that the write overlaps the next epoch, and waits on them
-when the trial ends; the port's ``save_checkpoint`` is synchronous (one
-``torch.save`` file renamed into place), so nothing overlaps and
-``_finish_trial`` waits on nothing.
+trains through the kernels there.
 """
 
 from __future__ import annotations
@@ -37,7 +34,11 @@ from deepbedmap_tpu_torch.config import GeneratorConfig, TrainConfig
 from deepbedmap_tpu_torch.data.dataset import TileDataset, epoch_batches, train_dev_split
 from deepbedmap_tpu_torch.hpo import Trial, TrialPruned
 from deepbedmap_tpu_torch.models.summary import to_dot
-from deepbedmap_tpu_torch.train.checkpoint import export_generator_npz, save_checkpoint
+from deepbedmap_tpu_torch.train.checkpoint import (
+    export_generator_npz,
+    save_checkpoint,
+    wait_for_checkpoints,
+)
 from deepbedmap_tpu_torch.train.loop import _metrics_to_host, make_epoch_fns
 from deepbedmap_tpu_torch.train.state import create_gan_state
 
@@ -212,8 +213,11 @@ def _run_epochs(
         if rmse_test < best_rmse:
             best_rmse = rmse_test
             if checkpoint_dir is not None and rmse_test < rmse_save_threshold:
+                # non-blocking: the write overlaps the next epoch
+                # (_finish_trial commits it before the trial ends)
                 save_checkpoint(
-                    state, os.path.join(checkpoint_dir, f"trial_{trial.number}")
+                    state, os.path.join(checkpoint_dir, f"trial_{trial.number}"),
+                    block=False,
                 )
             if tracker is not None and rmse_test < rmse_save_threshold:
                 # reference save_model_weights_and_architecture on improve
@@ -265,8 +269,9 @@ def _log_predicted_image(tracker, evaluate_rmse, g, epoch, rmse_test):
 def _finish_trial(tracker, state, best_rmse, rmse_upload_threshold, weights_dir) -> None:
     """End-of-trial asset upload (reference srgan_train.py:1673-1688): if the
     trial ever beat ``rmse_upload_threshold``, upload the staged best-weights
-    npz and set the model-architecture graph on the experiment. The
-    checkpoints are already on disk (``save_checkpoint`` is synchronous)."""
+    npz and set the model-architecture graph on the experiment. Also commits
+    any in-flight non-blocking checkpoint save."""
+    wait_for_checkpoints()
     if tracker is None or best_rmse >= rmse_upload_threshold:
         return
     npz = os.path.join(weights_dir, WEIGHTS_NPZ)

@@ -105,7 +105,7 @@ def create_gan_state(
     """Seeded generator (``seed``) and discriminator (``seed + 1``), as in
     JAX, with zeroed Adam states, on ``device`` (the card unless the caller
     asks for the CPU). ``seed`` defaults to ``t_cfg.seed``. On a CUDA
-    device, generator widths the kernels do not take raise
+    device, widths that a forced (``'always'``) kernel does not take raise
     ``NotImplementedError`` before anything is built (``build_generator``).
     A ``GeneratorConfig(compute_dtype='bfloat16')`` trains with float32
     parameters and Adam states; ``t_cfg.compute_dtype`` is inert, as in

@@ -133,11 +133,11 @@ def test_port_import_loads_no_jax():
     "flags",
     [
         # the combinations the JAX generator asserts against
-        # (deepbedmap_tpu/models/generator.py:193-195, 225)
+        # (deepbedmap_tpu/models/generator.py:193-195, 225-226)
         dict(upsample_phase_conv=True, tail_hcw=True, tail_fused=False),
         dict(tail_hcw=True),
-        # a compute dtype the port has no path for
-        dict(compute_dtype="float16"),
+        # the fused tail has a single output channel
+        dict(out_channels=2),
     ],
 )
 def test_unported_config_flags_raise(flags):
@@ -152,6 +152,8 @@ def test_unported_config_flags_raise(flags):
         dict(tail_hcw=True, tail_fused=False),
         dict(compute_dtype="bfloat16"),
         dict(fused_rdb="never"),
+        dict(compute_dtype="float16"),
+        dict(out_channels=2, tail_fused=False),
     ],
 )
 def test_option_trees_map_onto_jax(flags):

@@ -7,16 +7,16 @@
    (``rmse_m`` rounded to 4 decimals by both; ``track_rmse`` within 1e-6
    relative of JAX's, the float32 sums taken in another order).
 2. ``ops.deform_conv.choose_method`` sends a CUDA tensor to the kernels
-   exactly where K7 / K8 take the layer's shape (raising for a clamp they do
-   not cover), and follows JAX's off-TPU rule everywhere else (a table of
+   exactly where K7 / K8 take the layer's shape and clamp, and follows JAX's
+   off-TPU rule everywhere else, an uncovered clamp included (a table of
    shapes, no card needed).
-3. ``config.check_card_supported`` refuses generator widths and offset
-   clamps that a kernel the configuration launches does not take, and
-   passes those that only plain versions meet (the plain trunk at any
-   width, the unfused tail's plain samplers); a generator built on
-   ``device="cuda"`` with such widths or clamps raises
-   ``NotImplementedError`` at construction (before the device is resolved,
-   so no card is needed); the CPU runs any width and clamp.
+3. ``config.check_card_supported`` refuses generator widths that a kernel
+   the configuration forces (``'always'``) does not take; a generator built
+   on ``device="cuda"`` with such widths raises ``NotImplementedError`` at
+   construction (before the device is resolved, so no card is needed).
+   Under ``'auto'`` the widths and clamps the kernels do not take resolve to
+   the plain trunk and the plain tail (``trunk_kernel``, ``tail_kernel``)
+   and pass; the CPU runs any width and clamp.
 """
 
 import json
@@ -32,7 +32,12 @@ from deepbedmap_tpu.data.raster import Raster as JaxRaster
 from deepbedmap_tpu.evalx import track_rmse as jax_track_rmse
 from deepbedmap_tpu_torch import DeepBedMap, GeneratorConfig
 from deepbedmap_tpu_torch.cli import main
-from deepbedmap_tpu_torch.config import check_card_supported
+from deepbedmap_tpu_torch.config import (
+    check_card_supported,
+    conv_kernel,
+    tail_kernel,
+    trunk_kernel,
+)
 from deepbedmap_tpu_torch.data import geotiff
 from deepbedmap_tpu_torch.data.raster import Raster
 from deepbedmap_tpu_torch.evalx.track import read_track_csv, track_rmse
@@ -130,15 +135,15 @@ def test_cli_evaluate_on_a_pandas_track_equals_jax(tmp_path, capsys, monkeypatch
 
 
 # (device, x shape NHWC, weight OIHW, padding, clamp) -> JAX's method off the
-# TPU, or 'pallas' where K7 / K8 take the layer on the card, or ValueError
-# where they take its shape but not its clamp (no plain sampler on the card)
+# TPU, or 'pallas' where K7 / K8 take the layer on the card; a clamp beyond
+# their windows takes JAX's rule, as a shape they do not take
 CHOICES = [
     ("cuda", (1, 20, 30, 64), (64, 64, 3, 3), 1, 2, "pallas"),
     ("cuda", (1, 300, 300, 64), (1, 64, 3, 3), 1, 2, "pallas"),
     ("cuda", (2, 9, 9, 64), (64, 64, 3, 3), 1, 0, "pallas"),
-    ("cuda", (1, 20, 30, 64), (64, 64, 3, 3), 1, 3, ValueError),  # beyond the window
-    ("cuda", (1, 20, 30, 64), (64, 64, 3, 3), 1, 1.5, ValueError),
-    ("cuda", (1, 300, 300, 64), (1, 64, 3, 3), 1, 3, ValueError),
+    ("cuda", (1, 20, 30, 64), (64, 64, 3, 3), 1, 3, "shifts"),  # beyond the window
+    ("cuda", (1, 20, 30, 64), (64, 64, 3, 3), 1, 1.5, "shifts"),
+    ("cuda", (1, 300, 300, 64), (1, 64, 3, 3), 1, 3, "zproj"),
     ("cuda", (1, 20, 30, 32), (16, 32, 5, 5), 2, 2, "shifts"),
     ("cuda", (1, 256, 256, 32), (8, 32, 3, 3), 1, 2, "zproj"),
     ("cuda", (1, 256, 256, 32), (16, 32, 3, 3), 1, 2, "shifts"),
@@ -156,11 +161,7 @@ CHOICES = [
 
 @pytest.mark.parametrize("device,x_shape,w_shape,padding,clamp,want", CHOICES)
 def test_choose_method(device, x_shape, w_shape, padding, clamp, want):
-    if want is ValueError:
-        with pytest.raises(ValueError, match="integer clamp"):
-            choose_method(device, x_shape, w_shape, padding, clamp)
-    else:
-        assert choose_method(device, x_shape, w_shape, padding, clamp) == want
+    assert choose_method(device, x_shape, w_shape, padding, clamp) == want
 
 
 def test_auto_on_an_odd_layer_runs_the_plain_sampler():
@@ -179,16 +180,18 @@ def test_auto_on_an_odd_layer_runs_the_plain_sampler():
 
 @pytest.mark.parametrize(
     "flags",
-    [dict(base_channels=48), dict(growth_channels=16),
-     dict(base_channels=32, growth_channels=16),
-     dict(inblock_channels=24, fused_conv="always"), dict(deform_clamp=3),
-     dict(deform_clamp=3, tail_fused=False),
+    [dict(inblock_channels=24, fused_conv="always"),
+     dict(base_channels=48, fused_conv="always"),
      # a resident trunk is K1 even with fused_rdb='never'
      dict(growth_channels=16, fused_rdb="never", rdb_resident="always"),
-     # the plain trunk takes any width, the fused tail (K2/K3) only 64
-     dict(base_channels=48, fused_rdb="never")],
+     dict(growth_channels=16, rdb_resident="always"),
+     dict(base_channels=48, fused_rdb="always"),
+     dict(growth_channels=16, rdb_resident="never", fused_rdb="always"),
+     dict(base_channels=32, growth_channels=16, rdb_resident="always", rrdb_sweep=True),
+     dict(growth_channels=16, rdb_resident="always", rrdb_fused=True)],
 )
 def test_widths_the_kernels_do_not_take_are_refused_on_the_card(flags):
+    # 'always' forces a kernel: a width it does not take is refused, naming it
     cfg = GeneratorConfig(num_residual_blocks=1, **flags)
     with pytest.raises(NotImplementedError, match="no kernels on the card"):
         check_card_supported(cfg)
@@ -199,7 +202,32 @@ def test_widths_the_kernels_do_not_take_are_refused_on_the_card(flags):
             build()
     if "fused_conv" in flags:
         return  # K10's plain version takes K10's widths only, on either device
-    # the CPU runs every trunk width and clamp through the plain versions
+    # the CPU runs every trunk width through the plain versions
+    model = build_generator(cfg, device="cpu")
+    lr = 6
+    xs = [torch.rand(1, lr, lr, 1), torch.rand(1, 10 * lr, 10 * lr, 1),
+          torch.rand(1, 2 * lr, 2 * lr, 2), torch.rand(1, lr, lr, 1)]
+    with torch.inference_mode():
+        assert torch.isfinite(model(*xs)).all()
+
+
+@pytest.mark.parametrize(
+    "flags,trunk,tail",
+    [(dict(base_channels=48), "plain", False),
+     (dict(growth_channels=16), "plain", True),
+     (dict(base_channels=32, growth_channels=16), "plain", False),
+     (dict(deform_clamp=3), "rdb", False),
+     (dict(deform_clamp=3, tail_fused=False), "rdb", False),
+     (dict(base_channels=48, fused_rdb="never"), "plain", False)],
+)
+def test_auto_sends_widths_the_kernels_do_not_take_to_the_plain_path(flags, trunk, tail):
+    # under 'auto' the resolution, made from the config before any launch,
+    # gives the plain trunk (and the plain composition of the fused tail)
+    # where the kernels do not take the widths or the clamp, as JAX's 'auto'
+    # sends what it does not fuse to XLA; nothing is refused on the card
+    cfg = GeneratorConfig(num_residual_blocks=1, **flags)
+    check_card_supported(cfg)
+    assert (trunk_kernel(cfg), tail_kernel(cfg), conv_kernel(cfg)) == (trunk, tail, False)
     model = build_generator(cfg, device="cpu")
     lr = 6
     xs = [torch.rand(1, lr, lr, 1), torch.rand(1, 10 * lr, 10 * lr, 1),

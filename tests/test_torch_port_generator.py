@@ -1,6 +1,7 @@
 """PyTorch port: the whole generator on the CPU (the plain versions of its
 kernels) with bridged weights against the JAX generator, in each ported
-configuration."""
+configuration, in float32 and, for the forced trunks, in the kernels'
+bf16-multiplicand mode (``rdb_mxu_bf16`` at its default, on)."""
 
 import jax
 import jax.numpy as jnp
@@ -81,3 +82,53 @@ def test_generator_matches_jax(flags, lr):
     # atol 1e-5 of the output's range (outputs cancel to ~0 in places, and
     # the round-off there grows with depth: 3e-5 at 12 RRDBs on a range of 7)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5 * scale)
+
+
+# the forced trunks with rdb_mxu_bf16 at its default (on), as JAX's CPU run
+# honours it: JAX runs each kernel interpreted with bf16 multiplicands, the
+# port its rounded plain version (config.trunk_mxu_bf16); K10 with
+# conv_mxu_bf16=True beside K4
+MXU_FORCED = {
+    "K1": dict(num_residual_blocks=2, rdb_resident="always", fused_rdb="always"),
+    "K4+K10": dict(num_residual_blocks=2, rdb_resident="always", fused_rdb="always",
+                   rrdb_fused=True, fused_conv="always", conv_mxu_bf16=True,
+                   tail_fused=False),
+    "K6": dict(num_residual_blocks=2, rdb_resident="never", fused_rdb="always"),
+    "K5": dict(num_residual_blocks=2, rrdb_sweep=True, rdb_resident="always",
+               fused_rdb="always"),
+}
+TOL_MXU = 2e-2  # JAX's own bf16 bound (tests/test_models.py:154-194)
+
+
+@pytest.mark.parametrize("trunk", list(MXU_FORCED))
+def test_forced_trunk_in_the_mode_matches_jax(trunk):
+    # at init scale 1.0, 2 RRDBs, a 16-px crop: the mode moves JAX's output
+    # by ~3e-4 of its range (1.6e-2 with K10's), and bf16 flips set off by
+    # the two sides' float32 sum orders carry through 30 chained convs, so
+    # the port is held as the bf16 options are (test_torch_port_options.py:
+    # _hold_bf16): nearer JAX's mode than its own float32 forward lies to it,
+    # and both within TOL_MXU of the range
+    flags, lr = MXU_FORCED[trunk], 16
+    _, params = jax_build_generator(JaxGeneratorConfig(**flags, init_scale=1.0), lr=lr)
+    rs = np.random.RandomState(42)
+    xs = [rs.rand(1, lr, lr, 1), rs.rand(1, 10 * lr, 10 * lr, 1),
+          rs.rand(1, 2 * lr, 2 * lr, 2), rs.rand(1, lr, lr, 1)]
+    xs = [a.astype(np.float32) for a in xs]
+    want = np.asarray(JaxGenerator(JaxGeneratorConfig(**flags)).apply(
+        {"params": params}, *map(jnp.asarray, xs)))
+    sd = jax_params_to_state_dict(jax.tree_util.tree_map(np.asarray, params))
+    outs = {}
+    for mode in (True, False):
+        fp32 = {} if mode else dict(rdb_mxu_bf16=False, conv_mxu_bf16=False)
+        model = Generator(GeneratorConfig(**{**flags, **fp32}))
+        model.load_state_dict(sd)
+        with torch.inference_mode():
+            outs[mode] = model(*map(torch.from_numpy, xs)).numpy()
+    scale = np.abs(want).max()
+    d_port = np.abs(outs[True] - want).max()
+    d_fp32 = np.abs(outs[False] - want).max()
+    print(f"{trunk}: port vs JAX's mode {d_port / scale:.3e}, the port's float32 "
+          f"forward {d_fp32 / scale:.3e} of the range {scale:.3e}")
+    assert outs[True].shape == want.shape == (1, 4 * (lr - 2), 4 * (lr - 2), 1)
+    assert d_port < d_fp32, (trunk, d_port, d_fp32)
+    assert d_fp32 <= TOL_MXU * scale

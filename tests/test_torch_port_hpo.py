@@ -435,9 +435,9 @@ def _analytic(trial, pruned):
     """An analytic objective the pruners act on: a bowl in (x, lr) plus a
     decaying per-epoch term, an integer and a log-scaled parameter, and NaN
     reports for some trials (pruned at their first rung). ``pruned`` is the
-    engine's TrialPruned. (No ``suggest_categorical``: both engines' TPE
-    fails on a categorical parameter once it leaves the random startup,
-    ROADMAP.md section 3.)"""
+    engine's TrialPruned. (No ``suggest_categorical``: JAX's TPE fails on a
+    categorical parameter once it leaves the random startup;
+    ``test_categorical_study_completes_past_its_startup_trials``.)"""
     x = trial.suggest_float("x", -5.0, 5.0)
     lr = trial.suggest_float("lr", 1e-4, 2e-4, step=0.1e-4)
     blocks = trial.suggest_int("blocks", 1, 12)
@@ -480,3 +480,31 @@ def test_seeded_study_matches_jax(tmp_path, pruner):
     got, want = rows(f"{tmp_path}/port.db"), rows(f"{tmp_path}/jax.db")
     assert len(got) == 40 and got == want
     assert all(len(json.loads(r[4])) == 4 for r in got)
+
+
+def _categorical(trial):
+    # a string choice and a numeric one beside a float: the TPE phase models
+    # each categorical parameter by its choice's index
+    act = trial.suggest_categorical("activation", ["relu", "lrelu", "elu"])
+    width = trial.suggest_categorical("width", [16, 32, 64])
+    x = trial.suggest_float("x", -2.0, 2.0)
+    return {"relu": 1.0, "lrelu": 0.0, "elu": 0.5}[act] + abs(width - 32) / 32 + x * x
+
+
+def test_categorical_study_completes_past_its_startup_trials():
+    # the port's TPE reads the choice's index, so a categorical study runs
+    # past its 4 random startup trials and finds the best choices; JAX's
+    # engine raises there (float() of a string choice), a stated deviation
+    kw = dict(direction="minimize", sampler_seed=3, n_startup_trials=4)
+    ours = create_study(**kw)
+    ours.optimize(_categorical, n_trials=30)
+    states = [t.state for t in ours.trials]
+    assert states.count(TrialState.COMPLETE) == 30, states
+    assert {t.params["activation"] for t in ours.trials} <= {"relu", "lrelu", "elu"}
+    # the TPE phase exploits the best width's index (32: 24 of the 26)
+    tpe_widths = [t.params["width"] for t in ours.trials[4:]]
+    assert tpe_widths.count(32) > len(tpe_widths) // 2, tpe_widths
+    assert ours.best_value <= min(t.value for t in ours.trials[:4])
+    theirs = jax_create_study(**kw)
+    with pytest.raises(ValueError):
+        theirs.optimize(_categorical, n_trials=30)

@@ -354,6 +354,16 @@ def test_mesh_refusals(runs):
     assert "not part of the mesh" in _record(runs[2], 1)["outside_mesh"]
 
 
+def _sum_forward(x, w1, w2, w3):
+    a = (x + w3 + w2[:, ::2, ::2, :1] + w1[:, ::10, ::10])[:, 1:-1, 1:-1]
+    return a.repeat_interleave(4, 1).repeat_interleave(4, 2)
+
+
+def _sum_forward_jax(x, w1, w2, w3):
+    a = (x + w3 + w2[:, ::2, ::2, :1] + w1[:, ::10, ::10])[:, 1:-1, 1:-1]
+    return jnp.repeat(jnp.repeat(a, 4, 1), 4, 2)
+
+
 def test_no_group_is_refused_and_a_one_rank_group_starts():
     assert not torch.distributed.is_initialized()
     with pytest.raises(RuntimeError, match="initialize"):
@@ -370,9 +380,21 @@ def test_no_group_is_refused_and_a_one_rank_group_starts():
             make_mesh(2, device="cpu")
         mesh = make_mesh(device="cpu")
         assert mesh.size() == 1
-        plan = TilePlan(out_h=32, out_w=32, **worker.TILING)
-        with pytest.raises(ValueError, match="edge"):
-            sharded_predict_tiles(None, {}, plan, mesh, pad_mode="reflect")
+        # any jnp.pad mode: the one-rank mesh's tiles equal JAX's on a
+        # one-device mesh, bit for bit (a forward of additions and repeats
+        # that reads every raster's padding)
+        plan = TilePlan(out_h=32, out_w=96, **worker.TILING)
+        inputs = {k: v[:, : 8 * r] for (k, v), r in
+                  zip(worker.host_inputs(1).items(), (1, 10, 2, 1))}
+        got = sharded_predict_tiles(_sum_forward, {k: torch.from_numpy(v) for k, v in
+                                                   inputs.items()},
+                                    plan, mesh, pad_mode="reflect")
+        want = jax_sharded_predict_tiles(
+            _sum_forward_jax, {k: jnp.asarray(v) for k, v in inputs.items()},
+            JaxTilePlan(out_h=32, out_w=96, **worker.TILING), jax_make_mesh(1),
+            pad_mode="reflect")
+        assert tuple(got.shape) == (3, 32, 32)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
         with pytest.raises(TypeError, match="broadcast"):
             replicated(mesh)(object())
     finally:

@@ -18,7 +18,10 @@ index arithmetic against the plain PyTorch versions.
   workspace's channel pitch, the hi/lo splits into the kernel's shared-memory
   layouts, the wgmma fragments read back from them, the partial sum per
   kernel row). Products are exact and sums float64, so these show the
-  split's precision, not the tensor cores' own rounding;
+  split's precision, not the tensor cores' own rounding. ``bf16=True``
+  emulates the bf16-multiplicand route of both headers: A rounded to bf16
+  to nearest even (``bf16_rn``, the kernels' ``cvt.rn.bf16x2.f32``), the
+  weights as packed (rounded by the packers), one pass, hi.hi;
 - ``emulate_k2_tc``: K2 / K7 in ``csrc/deform_tail.cu`` (the 64 -> 64
   deformable conv as a 3xTF32 implicit GEMM: the 16 x 16 tile's window with
   zero fill in 16-channel blocks, each lane's blended corners split into
@@ -84,7 +87,7 @@ def _swizzled(q, chunk):
     return q * G + ((chunk ^ (q & 3)) << 3)
 
 
-def dense_block_tile_tc(load, b_tc, biases, ty0, tx0, h, w, passes=3):
+def dense_block_tile_tc(load, b_tc, biases, ty0, tx0, h, w, passes=3, bf16=False):
     """One 8 x 16 tile of ``csrc/rdb_tile.cuh``: ``load(gy, gx)`` gives the
     block input at in-image pixels (index arrays). x is staged chunk by chunk
     as the kernel's [pixel][8] slot with zero outside the image; a1..a4 live in
@@ -93,7 +96,8 @@ def dense_block_tile_tc(load, b_tc, biases, ty0, tx0, h, w, passes=3):
     window read its last pixel), A gathered per tap in the permuted k order
     and split into TF32 hi/lo, B from ``_stage_b_tc``, a partial sum per
     (chunk, kernel row) added to the running sum; products exact, sums
-    float64. ``passes`` 1 keeps hi.hi only. Returns (conv5 + b5 in float32,
+    float64. ``passes`` 1 keeps hi.hi only; ``bf16`` is the bf16 route (A
+    rounded by ``bf16_rn``, one pass). Returns (conv5 + b5 in float32,
     in-image mask) over the whole tile."""
     xr, xc = _win(0)
     gy, iny = _inside(ty0 - MARGIN, xr, h)
@@ -128,8 +132,11 @@ def dense_block_tile_tc(load, b_tc, biases, ty0, tx0, h, w, passes=3):
                 for kx in range(3):
                     q = (oy + ky + d) * kcols + ox + kx + d
                     a = store[offset(q)[:, None] + SLOT_CHANNELS[None, :]]
-                    ah, al = (v.astype(np.float64) for v in split_tf32(a))
                     bh, bl = b_tc[j - 1][c, ky, kx]
+                    if bf16:
+                        part += bf16_rn(a).astype(np.float64) @ bh
+                        continue
+                    ah, al = (v.astype(np.float64) for v in split_tf32(a))
                     part += ah @ bh
                     if passes == 3:
                         part += al @ bh + ah @ bl
@@ -156,7 +163,7 @@ def _tile_span(t0, limit, size):
     return slice(t0, min(t0 + size, limit)), min(t0 + size, limit) - t0
 
 
-def emulate_k6(x, w_packed, b_packed, scaling, passes=3):
+def emulate_k6(x, w_packed, b_packed, scaling, passes=3, bf16=False):
     """csrc/rdb_banded.cu: every 8 x 16 tile from its own input window, out =
     x + s * v in float32."""
     n, h, w, _ = x.shape
@@ -167,7 +174,7 @@ def emulate_k6(x, w_packed, b_packed, scaling, passes=3):
         for ty0 in range(0, h, TH):
             for tx0 in range(0, w, TW):
                 v, _ = dense_block_tile_tc(lambda gy, gx: x[i, gy, gx], b_tc, b_packed,
-                                           ty0, tx0, h, w, passes)
+                                           ty0, tx0, h, w, passes, bf16)
                 (ys, ny), (xs, nx) = _tile_span(ty0, h, TH), _tile_span(tx0, w, TW)
                 out[i, ys, xs] = x[i, ys, xs] + np.float32(scaling) * v[:ny, :nx]
     return out
@@ -235,6 +242,20 @@ def tf32_rna(a):
     return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
 
 
+def bf16_rn(a):
+    """``cvt.rn.bf16x2.f32`` on finite values: float32 -> float32 with 7
+    mantissa bits, rounded to nearest, ties to even."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    bits = bits + np.uint32(0x7FFF) + ((bits >> np.uint32(16)) & np.uint32(1))
+    return (bits & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+def _bf16_4(a, b):
+    """``bf16_pair``: {bf16(a), bf16(b), 0, 0} along the last axis."""
+    z = np.zeros(np.shape(a), np.float32)
+    return np.stack([bf16_rn(a), bf16_rn(b), z, z], -1)
+
+
 def split_tf32(a):
     """x = hi + lo, both TF32; the kernel's ``split_pair``."""
     a = np.asarray(a, np.float32)
@@ -252,12 +273,15 @@ _G, _T = np.arange(32) >> 2, np.arange(32) & 3  # lane -> (group, thread in grou
 
 
 def emulate_tc_stage(ws_in, in_pitch, cin, w, bias, n, h, wd, cout, mode, out, out_pitch,
-                     res=None, res_pitch=0, skip=None, scaling=0.0, passes=3):
+                     res=None, res_pitch=0, skip=None, scaling=0.0, passes=3, bf16=False):
     """One launch of ``conv3x3_tc_stage``: flat float32 arrays with the
     kernel's pitches (``ws_in``: pixel p channel c at ``p * in_pitch + c``);
     ``w``, ``bias``: the stage's packed weights [C_out/32][C_in][9][32] and
     biases. Writes ``out`` in place. ``passes`` 3 is the kernel (lo.hi, hi.lo,
-    hi.hi); 1 keeps hi.hi only, a single TF32 pass."""
+    hi.hi); 1 keeps hi.hi only, a single TF32 pass. ``bf16``: the bf16 route
+    (the halo rounded by ``bf16_pair``, one pass)."""
+    if bf16:
+        passes = 1
     slice_ = TC_CK * 9 * 32
     hpix = TC_HALO_W * TC_HALO_H
     p = np.arange(hpix)
@@ -279,7 +303,8 @@ def emulate_tc_stage(ws_in, in_pitch, cin, w, bias, n, h, wd, cout, mode, out, o
                         raw_w[ct * slice_ + 4 * r + k] = w[(ct * cin + c0) * 288 + 4 * r + k]
                     # the splits, in the kernel's shared-memory layouts
                     pairs = raw_halo.reshape(-1, 2)
-                    s_halo = _split4(pairs[:, 0], pairs[:, 1])  # [pixel * 4 + t][4]
+                    pair = _bf16_4 if bf16 else _split4
+                    s_halo = pair(pairs[:, 0], pairs[:, 1])  # [pixel * 4 + t][4]
                     i = np.arange(9 * cout * 2)
                     tap, co, kc = i // (2 * cout), (i >> 1) % cout, i & 1
                     rw = (co >> 5) * slice_ + kc * 9 * 32 + tap * 32 + (co & 31)
@@ -337,7 +362,7 @@ def emulate_tc_stage(ws_in, in_pitch, cin, w, bias, n, h, wd, cout, mode, out, o
                 out[pix[:, None] * out_pitch + ch] = o
 
 
-def _dense_stages(ws, w, b, n, h, wd, passes):
+def _dense_stages(ws, w, b, n, h, wd, passes, bf16=False):
     """rdb.cu ``dense_stages``: stages 1-4 on the flat workspace; returns the
     offsets of stage 5's weights and biases."""
     off = 0
@@ -345,12 +370,12 @@ def _dense_stages(ws, w, b, n, h, wd, passes):
         cin = F + G * j
         view = ws[cin:]  # out = ws + cin, pitch 192
         emulate_tc_stage(ws, WS, cin, w[off:], b[G * j:], n, h, wd, G, LRELU, view, WS,
-                         passes=passes)
+                         passes=passes, bf16=bf16)
         off += cin * 9 * G
     return off, 4 * G
 
 
-def emulate_k1_tc(x, w_packed, b_packed, scaling, passes=3):
+def emulate_k1_tc(x, w_packed, b_packed, scaling, passes=3, bf16=False):
     """csrc/rdb.cu ``rdb_forward``: x into the workspace, four stages, stage 5
     with out = x + s * (conv + b)."""
     n, h, wd, _ = x.shape
@@ -358,10 +383,11 @@ def emulate_k1_tc(x, w_packed, b_packed, scaling, passes=3):
     ws = np.zeros(n * h * wd * WS, np.float32)
     ws.reshape(-1, WS)[:, :F] = x.reshape(-1, F)
     w, b = np.asarray(w_packed, np.float32), np.asarray(b_packed, np.float32)
-    wo, bo = _dense_stages(ws, w, b, n, h, wd, passes)
+    wo, bo = _dense_stages(ws, w, b, n, h, wd, passes, bf16)
     out = np.empty(x.size, np.float32)
     emulate_tc_stage(ws, WS, WS, w[wo:], b[bo:], n, h, wd, F, SCALED_SKIP, out, F,
-                     res=x.reshape(-1), res_pitch=F, scaling=scaling, passes=passes)
+                     res=x.reshape(-1), res_pitch=F, scaling=scaling, passes=passes,
+                     bf16=bf16)
     return out.reshape(x.shape)
 
 
