@@ -223,12 +223,13 @@ Phases (any failure ends the run with a non-zero exit code):
     launch counts, and warm bf16 steps timed;
 28. the kernels' bf16-multiplicand mode and the last surfaces
     (``bf16_routes_phase``): (a) the bf16 routes of K1, K4, K6 and K5 at the
-    ragged (3,37,9,64) and at (2,286,286,64), and of K10 at its four
-    main-path shapes, each against its plain version on bf16-rounded
-    operands on the card (``hold_mxu``: largest difference within
-    ``TOL_MXU_MAX`` and mean within ``TOL_MXU_MEAN`` of the range, the 3xTF32
-    kernel beyond both), timed beside the 3xTF32 route and the rounded plain
-    version, K10 also beside cuDNN's ``F.conv2d`` on bf16 inputs; (b) the
+    ragged (3,37,9,64) and at (2,286,286,64), and of K10 at (3,37,9) with
+    both C_in and at its four main-path shapes, each against its plain
+    version on bf16-rounded operands on the card (``hold_mxu``: largest
+    difference within ``TOL_MXU_MAX`` and mean within ``TOL_MXU_MEAN`` of the
+    range, the 3xTF32 kernel beyond both), timed beside the 3xTF32 route and
+    the rounded plain version, K10 also beside cuDNN's bare ``F.conv2d`` on
+    bf16 inputs and beside the whole function in PyTorch calls; (b) the
     four forced trunks in the mode (``k1_mxu`` ``rdb_resident='always'``,
     ``k4_mxu`` with K10's mode, ``k6_mxu``, ``k5_mxu``) through phase 6's
     ``main_path`` with phase 6's weights: exact launches of the bf16 routes,
@@ -320,6 +321,8 @@ MAIN_ZFORM = [(2, 1144, 1144, 64, 64), (2, 1144, 1144, 64, 1)]
 # post-upsample 1 and 2
 MAIN_CONVS = [(2, 286, 286, 128, True, False), (2, 286, 286, 64, False, True),
               (2, 572, 572, 64, True, False), (2, 1144, 1144, 64, True, False)]
+# phase 28's K10 bf16 route also at RAGGED_RDB's (N, H, W), both C_in
+RAGGED_CONVS = [(3, 37, 9, 128, True, False), (3, 37, 9, 64, False, True)]
 GEN_LR = 64  # phase 5 crop: latent 62, output 248^2
 TILE_OUT, HALO_LR, TILES_PER_DISPATCH = 1000, 18, 2  # phase 6, 288-px crops
 
@@ -4321,8 +4324,8 @@ MODE_TIMING_ROUNDS = 3  # rounds of default, mode, mode, default
 def bound_bf16(mm_flops: float, nbytes: float) -> dict:
     """``bound`` for work on bf16 multiplicands: the matrix products at the
     bf16 tensor-core peak (the least time the card could take for them),
-    against the bytes; ``bound_tf32_ms`` is the bound of route (b), one TF32
-    pass at the TF32 peak, for the log lines."""
+    against the bytes; ``bound_tf32_ms`` is the bound of one TF32 pass at
+    the TF32 peak (K6's and K5's bf16 route), for the log lines."""
     t_mm = 1e3 * mm_flops / PEAK_BF16_TC
     t_bytes = 1e3 * nbytes / PEAK_HBM_BYTES
     return {"bound_ms": max(t_mm, t_bytes),
@@ -4394,7 +4397,11 @@ def _mxu_dense(kind: str, shape, gen, timed: bool) -> dict:
 
 def _mxu_conv(shape, gen, timed: bool) -> dict:
     """K10 in the mode at one shape, beside its 3xTF32 route; timed, also
-    cuDNN's ``F.conv2d`` on bf16 inputs."""
+    two library yardsticks: cuDNN's bare ``F.conv2d`` on tensors already in
+    bf16 (``library_ms``: half the bytes read, bf16 written, no bias,
+    residual or LeakyReLU), and the whole function in PyTorch calls
+    (``library_fn_ms``: ``x.bfloat16()``, cuDNN's bf16 conv, ``.float()``,
+    + bias [+ residual] [LeakyReLU])."""
     import torch
     import torch.nn.functional as F
 
@@ -4424,6 +4431,15 @@ def _mxu_conv(shape, gen, timed: bool) -> dict:
         xb = x.permute(0, 3, 1, 2).bfloat16()  # channels_last, as the port keeps it
         wb, bb = wt.bfloat16(), b.bfloat16()
         res["library_ms"] = time_ms(lambda: F.conv2d(xb, wb, bb, padding=1), 10)
+        xn = x.permute(0, 3, 1, 2)
+
+        def whole():
+            z = F.conv2d(xn.bfloat16(), wb, padding=1).float().permute(0, 2, 3, 1) + b
+            if r is not None:
+                z = z + r
+            return F.leaky_relu(z, 0.2) if leaky else z
+
+        res["library_fn_ms"] = time_ms(whole, 10)
         res.update(bound_bf16(2 * n * h * w * 9 * cin * 64,
                               4 * (x.numel() + n * h * w * 64 * (2 if residual else 1)
                                    + _numel(wt, b))))
@@ -4431,7 +4447,7 @@ def _mxu_conv(shape, gen, timed: bool) -> dict:
 
 
 def mxu_kernels(card_name: str) -> dict:
-    """Phase 28 (a): each bf16 route at the ragged shape and the main-path
+    """Phase 28 (a): each bf16 route at the ragged shapes and the main-path
     shapes (K10's four calls of one forward, summed), held to its plain
     version on rounded operands, and timed beside its 3xTF32 route."""
     import torch
@@ -4443,21 +4459,27 @@ def mxu_kernels(card_name: str) -> dict:
                        ("rrdb_sweep_forward_bf16", "rrdb_sweep")):
         _mxu_dense(kind, RAGGED_RDB, gen, False)
         out[name] = _mxu_dense(kind, MAIN_RDB, gen, True)
+    for s in RAGGED_CONVS:
+        _mxu_conv(s, gen, False)
     parts = [_mxu_conv(s, gen, True) for s in MAIN_CONVS]
     for s, p in zip(MAIN_CONVS, parts):
         log(f"  K10 bf16 route at {s}: {p['ms']:.3f} ms (3xTF32 {p['tf32x3_ms']:.3f}), plain "
-            f"{p['plain_ms']:.3f}, F.conv2d bf16 {p['library_ms']:.3f}, bound "
-            f"{p['bound_ms']:.3f} ms  [{card_name}]")
+            f"{p['plain_ms']:.3f}, F.conv2d bf16 {p['library_ms']:.3f}, the whole function "
+            f"in PyTorch calls {p['library_fn_ms']:.3f}, bound {p['bound_ms']:.3f} ms  "
+            f"[{card_name}]")
     conv = {"max_abs_err": max(p["max_abs_err"] for p in parts),
             "mean_rel_err": max(p["mean_rel_err"] for p in parts)}
-    for key in ("ms", "tf32x3_ms", "plain_ms", "library_ms", "bound_ms", "bound_tf32_ms"):
+    for key in ("ms", "tf32x3_ms", "plain_ms", "library_ms", "library_fn_ms", "bound_ms",
+                "bound_tf32_ms"):
         conv[key] = sum(p[key] for p in parts)
     top = max(parts, key=lambda p: p["bound_ms"])
     conv.update(bound_by=top["bound_by"], bound_route=" / ".join(
         dict.fromkeys(p["bound_route"] for p in parts)))
     out["conv3x3_forward_bf16"] = conv
     for name, r in out.items():
-        lib = "" if r["library_ms"] is None else f", F.conv2d bf16 {r['library_ms']:.3f} ms"
+        lib = "" if r["library_ms"] is None else (
+            f", F.conv2d bf16 {r['library_ms']:.3f} ms, the whole function in PyTorch calls "
+            f"{r['library_fn_ms']:.3f} ms")
         log(f"  {name} at the main-path shape: {r['ms']:.3f} ms against 3xTF32 "
             f"{r['tf32x3_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms{lib}, bound "
             f"{r['bound_ms']:.3f} ms at the bf16 peak ({100 * r['bound_ms'] / r['ms']:.0f}%), "

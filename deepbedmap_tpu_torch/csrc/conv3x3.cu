@@ -24,8 +24,10 @@
 // feed its 128-wide matrix unit one dot per row band; here each tap is a
 // shifted view of the staged halo, so neither is carried over. With bf16
 // multiplicands (the TPU kernel's mxu_bf16, pallas_conv.py:77, 131-132) the
-// launch takes conv3x3_tc.cuh's bf16 route: one TF32 pass, hi.hi, over
-// operands rounded to bf16 (round to nearest even).
+// launch takes conv3x3_tc.cuh's bf16 route: bf16 wgmma k16 on x rounded to
+// bf16 (to nearest even) once per chunk, bf16 weights packed by the host,
+// persistent blocks. Its bound is the fp32 bytes it must move (0.575 ms for
+// the four calls), the products at the bf16 peak being a third of that.
 
 #include <cuda_runtime.h>
 
@@ -34,7 +36,7 @@
 namespace {
 
 template <bool kBf16>
-cudaError_t conv3x3(const float* x, const float* w_packed, const float* bias,
+cudaError_t conv3x3(const float* x, const void* w_packed, const float* bias,
                     const float* res, float* out, int N, int H, int W, int cin, int leaky,
                     cudaStream_t s) {
   constexpr int kCout = 64;
@@ -53,11 +55,12 @@ cudaError_t conv3x3(const float* x, const float* w_packed, const float* bias,
 
 }  // namespace
 
-// x: (N, H, W, cin); w_packed: [64/32][cin][9][32] (rounded to bf16 when bf16
-// is nonzero: ops/conv3x3.py:pack_conv_weight(mxu_bf16=True)); bias: (64,);
-// res: (N, H, W, 64) or null; out: (N, H, W, 64); bf16: nonzero for bf16
-// multiplicands (conv3x3_tc.cuh's bf16 route). Returns cudaGetLastError().
-extern "C" int conv3x3_forward(const float* x, const float* w_packed,
+// x: (N, H, W, cin); w_packed: [64/32][cin][9][32] floats, or bf16 in
+// [cin/16][9][8][2][8][8] when bf16 is nonzero
+// (ops/conv3x3.py:pack_conv_weight(mxu_bf16=True)); bias: (64,); res: (N, H,
+// W, 64) or null; out: (N, H, W, 64); bf16: nonzero for bf16 multiplicands
+// (conv3x3_tc.cuh's bf16 route). Returns cudaGetLastError().
+extern "C" int conv3x3_forward(const float* x, const void* w_packed,
                                const float* bias, const float* res, float* out,
                                int N, int H, int W, int cin, int leaky, int bf16,
                                void* stream) {

@@ -50,17 +50,12 @@
 // than chip_smoke.py's 3xTF32 precision check allows; chains of three taps
 // keep the drift below fp32 round-off.
 //
-// bf16 multiplicands (kBf16, the TPU kernels' mxu_bf16: pallas_rdb.py:124-128,
-// pallas_conv.py:77, 131-132): the weights arrive rounded to bf16 by the
-// packer (ops/rdb.py, ops/conv3x3.py, round to nearest even), each staged
-// activation is rounded to bf16 at its dot by cvt.rn.bf16x2.f32 (round to
-// nearest even, as XLA's astype; cvt.rna.tf32 would round ties away from
-// zero), and one TF32 pass, hi.hi, does the products: a bf16 value is exact
-// in TF32 and the product of two is exact in fp32, so this is the function
-// of bf16 multiplicands with fp32 accumulation, in one wgmma where 3xTF32
-// takes three. Biases, LeakyReLU, the dense concat and the residuals stay
-// fp32; a stage reads the fp32 outputs of the stages before it and rounds
-// them only at its own dot.
+// bf16 multiplicands (the TPU kernels' mxu_bf16: pallas_rdb.py:124-128,
+// pallas_conv.py:77, 131-132) take a route of their own below,
+// conv3x3_tc_stage_bf16: one pass of bf16 wgmma.m64nNk16 (the bf16 peak,
+// 989 TFLOP/s, twice TF32's) on a halo rounded to bf16 once per chunk and
+// weights packed in bf16 by the host, with persistent blocks. Its bound is
+// the flops at the bf16 peak or, for K10, the fp32 bytes it must move.
 //
 // Route: wgmma, Hopper's warpgroup MMA, from inline PTX (no new build
 // dependency). A first version of this design on mma.sync.m16n8k8 (the Ampere
@@ -73,7 +68,8 @@
 // channels of the (N, H, W, 192) workspace) and the output is written with
 // its own pitch. Weights are the packed layout of ops/rdb.py:
 // pack_rdb_weights, per stage [C_out/32][C_in][9][32] (K10's
-// ops/conv3x3.py:pack_conv_weight is the same layout). Epilogues, applied to
+// ops/conv3x3.py:pack_conv_weight is the same layout), or on the bf16 route
+// its bf16 layout [C_in/16][9][C_out/8][2][8][8]. Epilogues, applied to
 // v = acc + bias[co] before the only store, in the rounding order of the
 // plain composition: lrelu(v) (stages 1-4, K10), res + s v (stage 5),
 // skip + s (res + s v) (K4's last stage 5, the outer skip folded in), and
@@ -142,15 +138,18 @@ __device__ __forceinline__ float4 split_pair(float a, float b) {
                      __uint_as_float(lb));
 }
 
-// {bf16(a), bf16(b), 0, 0}: both rounded to nearest even (cvt.rn.bf16x2.f32
-// puts a in the upper half), widened back to fp32 (exact, and exact in TF32)
+// For rdb_tile.cuh's bf16 route (K6, K5: one TF32 pass on bf16-rounded
+// operands): {bf16(a), bf16(b), 0, 0}, both rounded to nearest even
+// (cvt.rn.bf16x2.f32 puts a in the upper half), widened back to fp32 (exact,
+// and exact in TF32)
 __device__ __forceinline__ float4 bf16_pair(float a, float b) {
   uint32_t r;
   asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(a), "f"(b));
   return make_float4(__uint_as_float(r & 0xFFFF0000u), __uint_as_float(r << 16), 0.f, 0.f);
 }
 
-// a pair as a stage's A operand takes it: TF32 hi/lo (3xTF32) or bf16
+// a pair as an rdb_tile.cuh stage's A operand takes it: TF32 hi/lo (3xTF32)
+// or bf16
 template <bool kBf16>
 __device__ __forceinline__ float4 operand_pair(float a, float b) {
   if constexpr (kBf16) {
@@ -174,9 +173,10 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // wgmma matrix descriptor of a K-major operand without swizzle: core matrices
-// of 8 rows x 16 bytes, 128 B apart along K (leading byte offset) and 256 B
-// apart along N (stride byte offset), both in 16-byte units
-__device__ __forceinline__ uint64_t weight_desc(const float* p) {
+// of 8 rows x 16 bytes (4 TF32 or 8 bf16 values a row), 128 B apart along K
+// (leading byte offset) and 256 B apart along N (stride byte offset), both
+// in 16-byte units
+__device__ __forceinline__ uint64_t weight_desc(const void* p) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
          ((uint64_t)(256 >> 4) << 32);
@@ -225,7 +225,53 @@ __device__ __forceinline__ void wgmma_k8(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
-template <int kCout, int kMode, bool kBf16>
+// The epilogue of one warp's tile row: v = acc + bias[co] through the mode,
+// the only store. Accumulator i: n tile j = i / 4, pixel g (i % 4 < 2) or
+// g + 8 of the row, channel 8 j + 2 t + i % 2 (wgmma's D fragment, the same
+// for both routes).
+template <int kCout, int kMode>
+__device__ __forceinline__ void store_row(const float (&acc)[kCout / 2], int n, int gy, int x0,
+                                          int g, int t, const float* __restrict__ bias,
+                                          float* out, int out_pitch,
+                                          const float* __restrict__ res, int res_pitch,
+                                          const float* __restrict__ skip, float scaling,
+                                          int H, int W) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int gx = x0 + g + 8 * half;
+    if (gy >= H || gx >= W) continue;
+    const size_t pix = (size_t)(n * H + gy) * W + gx;
+#pragma unroll
+    for (int j = 0; j < kCout / 8; ++j) {
+      const int co = 8 * j + 2 * t;
+      const float2 b = *reinterpret_cast<const float2*>(bias + co);
+      const float v0 = acc[4 * j + 2 * half] + b.x;
+      const float v1 = acc[4 * j + 2 * half + 1] + b.y;
+      float2 o;
+      if constexpr (kMode == kLrelu) {
+        o = make_float2(lrelu(v0), lrelu(v1));
+      } else if constexpr (kMode == kLinear) {
+        o = make_float2(v0, v1);
+      } else if constexpr (kMode == kAdd || kMode == kAddLrelu) {
+        const float2 r = *reinterpret_cast<const float2*>(res + pix * res_pitch + co);
+        o = make_float2(v0 + r.x, v1 + r.y);
+        if constexpr (kMode == kAddLrelu) o = make_float2(lrelu(o.x), lrelu(o.y));
+      } else if constexpr (kMode == kScaledSkip) {
+        const float2 r = *reinterpret_cast<const float2*>(res + pix * res_pitch + co);
+        o = make_float2(r.x + scaling * v0, r.y + scaling * v1);
+      } else {
+        static_assert(kMode == kDoubleSkip, "unknown epilogue mode");
+        const float2 r = *reinterpret_cast<const float2*>(res + pix * res_pitch + co);
+        const float2 k = *reinterpret_cast<const float2*>(skip + pix * 64 + co);
+        o = make_float2(k.x + scaling * (r.x + scaling * v0),
+                        k.y + scaling * (r.y + scaling * v1));
+      }
+      *reinterpret_cast<float2*>(out + pix * out_pitch + co) = o;
+    }
+  }
+}
+
+template <int kCout, int kMode>
 __global__ void __launch_bounds__(kThreads, 1)
 conv3x3_tc_stage(const float* __restrict__ in, int in_pitch, int cin,
                  const float* __restrict__ w, const float* __restrict__ bias,
@@ -278,7 +324,7 @@ conv3x3_tc_stage(const float* __restrict__ in, int in_pitch, int cin,
     __syncthreads();  // chunk q has landed; every warpgroup is done with chunk q - 1
     for (int i = tid; i < kHaloPix * kCK / 2; i += kThreads) {
       const float2 v = reinterpret_cast<const float2*>(s_raw_halo)[i];
-      s_halo[i] = operand_pair<kBf16>(v.x, v.y);
+      s_halo[i] = split_pair(v.x, v.y);
     }
     // one core-matrix row (4 k slots of one output channel, hi and lo) per item
     for (int i = tid; i < 9 * kCout * 2; i += kThreads) {
@@ -316,13 +362,9 @@ conv3x3_tc_stage(const float* __restrict__ in, int in_pitch, int cin,
 #pragma unroll
       for (int kx = 0; kx < 3; ++kx) {
         const float* bw = s_w + (3 * ky + kx) * 2 * kCout * kCK;
-        if constexpr (kBf16) {
-          wgmma_k8(part, ah[kx], weight_desc(bw), kx > 0);         // bf16 . bf16
-        } else {
-          wgmma_k8(part, al[kx], weight_desc(bw), kx > 0);          // lo . hi
-          wgmma_k8(part, ah[kx], weight_desc(bw + kCout * kCK), 1);  // hi . lo
-          wgmma_k8(part, ah[kx], weight_desc(bw), 1);                // hi . hi
-        }
+        wgmma_k8(part, al[kx], weight_desc(bw), kx > 0);          // lo . hi
+        wgmma_k8(part, ah[kx], weight_desc(bw + kCout * kCK), 1);  // hi . lo
+        wgmma_k8(part, ah[kx], weight_desc(bw), 1);                // hi . hi
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
@@ -337,63 +379,269 @@ conv3x3_tc_stage(const float* __restrict__ in, int in_pitch, int cin,
     }
   }
 
-  // accumulator i: n tile j = i / 4, pixel g (i % 4 < 2) or g + 8 of the
-  // warp's row, channel 8 j + 2 t + i % 2
-  const int gy = y0 + row;
+  store_row<kCout, kMode>(acc, n, y0 + row, x0, g, t, bias, out, out_pitch, res, res_pitch,
+                          skip, scaling, H, W);
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 route (K1, K4 and K10 with bf16 multiplicands): the same tile,
+// warpgroups, A/D fragment rows and epilogues, on
+// wgmma.m64nNk16.f32.bf16.bf16 (A from registers as bf16x2, B from shared
+// memory). Products of two bf16 values are exact in the fp32 accumulator, so
+// one pass is the function of bf16 multiplicands with fp32 accumulation.
+//
+// - The halo is rounded to bf16 once per chunk (cvt.rn.bf16x2.f32, round to
+//   nearest even as XLA's astype) into [16-channel plane][pixel][16] bf16:
+//   each thread lands its own 16-byte fp32 pieces of the chunk by cp.async
+//   two steps ahead (zero fill outside the image: the SAME padding) and
+//   rounds them itself one step ahead, while the current step's products
+//   run, so neither needs a barrier of its own.
+// - The k slots of a k16 step are ordered so that a lane's four A values
+//   (slots 2t, 2t + 1, 2t + 8, 2t + 9) are the adjacent channels 4t..4t + 3:
+//   one 8-byte shared load gives a lane a pixel's pair of registers, and a
+//   warp's 32 loads are 256 contiguous bytes (no bank conflict).
+// - The weights come packed by the host (ops/conv3x3.py:pack_conv_weight
+//   with mxu_bf16) in bf16, per 16 input channels and tap, in the exact
+//   K-major core-matrix layout the B descriptor reads, [n / 8][k / 8][n % 8]
+//   [k % 8] (the TF32 descriptor's strides: a core matrix is 8 rows of 16
+//   bytes either way); a chunk's weights are contiguous and copied straight
+//   into place by 16-byte cp.async, one step ahead. No split pass.
+// - One barrier per chunk of kBfChunk channels, a 2-slot ring for the
+//   weights, the rounded halo and the fp32 landing area.
+// - Per 16 channels a warpgroup loads its nine taps' A fragments and starts
+//   the nine products (one wgmma.wait_group), onto the stage's one
+//   accumulator: every product of a stage is one chain. The tensor cores'
+//   truncating fp32 sums drift with the chain's length, but a bf16 product
+//   is exact and the whole-stage chain stays well inside phase 28's
+//   tolerances. chip_conv_variants.py measures it beside a fresh partial
+//   sum per nine taps added in fp32 (2-5% slower) and kBfChunk 16 (twice
+//   the barriers, 14-17% slower).
+// - Persistent blocks: one per SM walks the tiles blockIdx.x, + gridDim.x,
+//   ...; the ring runs on across tiles, so a tile's epilogue overlaps the
+//   next tile's copies.
+
+constexpr int kBfChunk = 32;  // input channels per chunk (per barrier)
+
+template <int kCout>
+struct Bf16Shape {
+  static_assert(kCout == 32 || kCout == 64, "C_out must be 32 or 64");
+  static constexpr int kSteps = kBfChunk / 16;              // k16 steps per chunk
+  static constexpr int kPieces = kHaloPix * kBfChunk / 4;   // 16-byte fp32 pieces
+  static constexpr int kHaloElems = kHaloPix * kBfChunk;    // one slot's halo values
+  static constexpr int kWElems = kBfChunk * 9 * kCout;      // one chunk's weights
+  // per slot: bf16 weights, bf16 halo, fp32 landing area
+  static constexpr size_t kSmemBytes = 2 * (2 * kWElems + 2 * kHaloElems + 4 * kHaloElems);
+};
+
+// {bf16(lo), bf16(hi)} as bf16x2, lo in the low half; round to nearest even
+__device__ __forceinline__ uint32_t bf16x2_rn(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+template <int kN>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kN));
+}
+
+// d (+)= a b for one wgmma.m64nNk16 bf16 step: a from registers (bf16x2),
+// b from the descriptor (K-major); scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_bf16(float (&d)[16], const uint32_t (&a)[4],
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], const uint32_t (&a)[4],
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <int kCout, int kMode>
+__global__ void __launch_bounds__(kThreads, 1)
+conv3x3_tc_stage_bf16(const float* __restrict__ in, int in_pitch, int cin,
+                      const uint16_t* __restrict__ w, const float* __restrict__ bias,
+                      float* out, int out_pitch, const float* __restrict__ res,
+                      int res_pitch, const float* __restrict__ skip, float scaling, int N,
+                      int H, int W) {
+  using S = Bf16Shape<kCout>;
+  constexpr int kAcc = kCout / 2;
+  extern __shared__ float4 smem4[];
+  // per slot: s_w [k16 step][tap][n / 8][k / 8][n % 8][k % 8] (the packer's
+  // layout), s_halo [k16 step][pixel][16], s_land [piece][4] (each thread's
+  // own pieces, fp32)
+  uint16_t* s_w = reinterpret_cast<uint16_t*>(smem4);
+  uint16_t* s_halo = s_w + 2 * S::kWElems;
+  float* s_land = reinterpret_cast<float*>(s_halo + 2 * S::kHaloElems);
+
+  const int tid = threadIdx.x, lane = tid & 31, row = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int tiles_x = (W + kTileW - 1) / kTileW, tiles_y = (H + kTileRows - 1) / kTileRows;
+  const int tiles = tiles_x * tiles_y * N;
+  const int chunks = cin / kBfChunk;
+  // step s of this block: chunk s % chunks of its tile s / chunks
+  const int steps = ((tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1) * chunks;
+
+  auto tile_of = [&](int s, int& n, int& y0, int& x0) {
+    const int tile = blockIdx.x + (s / chunks) * gridDim.x;
+    x0 = tile % tiles_x * kTileW;
+    y0 = tile / tiles_x % tiles_y * kTileRows;
+    n = tile / (tiles_x * tiles_y);
+  };
+  // step s's halo, fp32, into landing slot s & 1: this thread's pieces only
+  auto land = [&](int s) {
+    int n, y0, x0;
+    tile_of(s, n, y0, x0);
+    const int c0 = s % chunks * kBfChunk;
+    float* dst = s_land + (s & 1) * S::kHaloElems;
+    for (int i = tid; i < S::kPieces; i += kThreads) {
+      const int p = i / (kBfChunk / 4), c4 = i % (kBfChunk / 4);
+      const int gy = y0 + p / kHaloW - 1, gx = x0 + p % kHaloW - 1;
+      const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      const float* src =
+          inside ? in + ((size_t)(n * H + gy) * W + gx) * in_pitch + c0 + 4 * c4 : in;
+      cp_async16(dst + 4 * i, src, inside);
+    }
+  };
+  // step s's weights (contiguous in the packed layout) into slot s & 1
+  auto stage_w = [&](int s) {
+    const uint16_t* src = w + (size_t)(s % chunks) * S::kWElems;
+    uint16_t* dst = s_w + (s & 1) * S::kWElems;
+    for (int i = tid; i < S::kWElems / 8; i += kThreads)
+      cp_async16(dst + 8 * i, src + 8 * i, true);
+  };
+  // this thread's landed pieces of step s, rounded to bf16, into halo slot s & 1
+  auto round_halo = [&](int s) {
+    const float* src = s_land + (s & 1) * S::kHaloElems;
+    uint16_t* dst = s_halo + (s & 1) * S::kHaloElems;
+    for (int i = tid; i < S::kPieces; i += kThreads) {
+      const float4 v = *reinterpret_cast<const float4*>(src + 4 * i);
+      const int p = i / (kBfChunk / 4), c4 = i % (kBfChunk / 4);
+      *reinterpret_cast<uint2*>(dst + ((c4 >> 2) * kHaloPix + p) * 16 + 4 * (c4 & 3)) =
+          make_uint2(bf16x2_rn(v.x, v.y), bf16x2_rn(v.z, v.w));
+    }
+  };
+
+  float acc[kAcc];
+  stage_w(0);
+  land(0);
+  cp_async_commit();
+  if (steps > 1) land(1);
+  cp_async_commit();
+  cp_async_wait<1>();
+  round_halo(0);
+
+#pragma unroll 1
+  for (int s = 0; s < steps; ++s) {
+    const int q = s % chunks;
+    cp_async_wait<0>();  // this thread's copies of w(s) and of step s + 1's halo
+    // make the copied weights visible to wgmma's reads (the async proxy)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // w(s) and halo(s) ready; every warpgroup is done with step s - 1
+    if (s + 1 < steps) stage_w(s + 1);
+    if (s + 2 < steps) land(s + 2);
+    cp_async_commit();
+    if (q == 0) {
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int gx = x0 + g + 8 * half;
-    if (gy >= H || gx >= W) continue;
-    const size_t pix = (size_t)(n * H + gy) * W + gx;
+      for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+    }
+    const uint16_t* halo = s_halo + (s & 1) * S::kHaloElems;
+    const uint16_t* ws = s_w + (s & 1) * S::kWElems;
 #pragma unroll
-    for (int j = 0; j < kCout / 8; ++j) {
-      const int co = 8 * j + 2 * t;
-      const float2 b = *reinterpret_cast<const float2*>(bias + co);
-      const float v0 = acc[4 * j + 2 * half] + b.x;
-      const float v1 = acc[4 * j + 2 * half + 1] + b.y;
-      float2 o;
-      if constexpr (kMode == kLrelu) {
-        o = make_float2(lrelu(v0), lrelu(v1));
-      } else if constexpr (kMode == kLinear) {
-        o = make_float2(v0, v1);
-      } else if constexpr (kMode == kAdd || kMode == kAddLrelu) {
-        const float2 r = *reinterpret_cast<const float2*>(res + pix * res_pitch + co);
-        o = make_float2(v0 + r.x, v1 + r.y);
-        if constexpr (kMode == kAddLrelu) o = make_float2(lrelu(o.x), lrelu(o.y));
-      } else if constexpr (kMode == kScaledSkip) {
-        const float2 r = *reinterpret_cast<const float2*>(res + pix * res_pitch + co);
-        o = make_float2(r.x + scaling * v0, r.y + scaling * v1);
-      } else {
-        static_assert(kMode == kDoubleSkip, "unknown epilogue mode");
-        const float2 r = *reinterpret_cast<const float2*>(res + pix * res_pitch + co);
-        const float2 k = *reinterpret_cast<const float2*>(skip + pix * 64 + co);
-        o = make_float2(k.x + scaling * (r.x + scaling * v0),
-                        k.y + scaling * (r.y + scaling * v1));
+    for (int k = 0; k < S::kSteps; ++k) {
+      // A rows: pixels g and g + 8 of the warp's tile row, shifted by the tap;
+      // one 8-byte load gives a pixel's channels 4t..4t + 3 of the plane
+      uint32_t a[9][4];
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const uint16_t* p =
+            halo + (k * kHaloPix + (row + tap / 3) * kHaloW + g + tap % 3) * 16 + 4 * t;
+        const uint2 v0 = *reinterpret_cast<const uint2*>(p);
+        const uint2 v8 = *reinterpret_cast<const uint2*>(p + 8 * 16);
+        a[tap][0] = v0.x;
+        a[tap][1] = v8.x;
+        a[tap][2] = v0.y;
+        a[tap][3] = v8.y;
       }
-      *reinterpret_cast<float2*>(out + pix * out_pitch + co) = o;
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap)
+        wgmma_bf16(acc, a[tap], weight_desc(ws + (k * 9 + tap) * 16 * kCout), 1);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      if (k == 0 && s + 1 < steps) round_halo(s + 1);  // under the products
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_operands(acc);
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) fence_operands(a[tap]);
+    }
+    if (q == chunks - 1) {
+      int n, y0, x0;
+      tile_of(s, n, y0, x0);
+      store_row<kCout, kMode>(acc, n, y0 + row, x0, g, t, bias, out, out_pitch, res,
+                              res_pitch, skip, scaling, H, W);
     }
   }
 }
 
 // One stage: the first `cin` channels of `in` (channel pitch `in_pitch`) ->
-// kCout channels through the epilogue, in 3xTF32 or, with kBf16, on bf16
-// multiplicands (`w` then holds bf16 values). cin must be a multiple of 8; `in`,
-// `w`, `bias` and the epilogue's pointers 8-byte aligned (16 for `in` and
-// `w`, with pitches that keep every pixel 16-byte aligned). Returns
-// cudaGetLastError().
+// kCout channels through the epilogue, in 3xTF32 (`w`: floats in
+// pack_conv_weight's layout) or, with kBf16, on bf16 multiplicands (`w`: bf16
+// in pack_conv_weight(mxu_bf16)'s layout; cin a multiple of kBfChunk). cin
+// must be a multiple of 8; `in`, `w`, `bias` and the epilogue's pointers
+// 8-byte aligned (16 for `in` and `w`, with pitches that keep every pixel
+// 16-byte aligned). Returns cudaGetLastError().
 template <int kCout, int kMode, bool kBf16 = false>
-cudaError_t launch_conv3x3_tc(const float* in, int in_pitch, int cin, const float* w,
+cudaError_t launch_conv3x3_tc(const float* in, int in_pitch, int cin, const void* w,
                               const float* bias, const Epilogue& ep, int N, int H, int W,
                               cudaStream_t s) {
-  using S = StageShape<kCout>;
-  cudaError_t err = cudaFuncSetAttribute(conv3x3_tc_stage<kCout, kMode, kBf16>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)S::kSmemBytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileRows - 1) / kTileRows, N);
-  conv3x3_tc_stage<kCout, kMode, kBf16><<<grid, kThreads, S::kSmemBytes, s>>>(
-      in, in_pitch, cin, w, bias, ep.out, ep.out_pitch, ep.res, ep.res_pitch, ep.skip,
-      ep.scaling, H, W);
+  if constexpr (kBf16) {
+    using S = Bf16Shape<kCout>;
+    if (cin % kBfChunk != 0) return cudaErrorInvalidValue;
+    auto kernel = conv3x3_tc_stage_bf16<kCout, kMode>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)S::kSmemBytes);
+    if (err != cudaSuccess) return err;
+    int dev = 0, sms = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+        cudaSuccess)
+      return err;
+    const long long tiles = (long long)((W + kTileW - 1) / kTileW) *
+                            ((H + kTileRows - 1) / kTileRows) * N;
+    const int grid = (int)(tiles < sms ? tiles : sms);
+    kernel<<<grid, kThreads, S::kSmemBytes, s>>>(
+        in, in_pitch, cin, static_cast<const uint16_t*>(w), bias, ep.out, ep.out_pitch,
+        ep.res, ep.res_pitch, ep.skip, ep.scaling, N, H, W);
+  } else {
+    using S = StageShape<kCout>;
+    cudaError_t err = cudaFuncSetAttribute(conv3x3_tc_stage<kCout, kMode>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)S::kSmemBytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileRows - 1) / kTileRows, N);
+    conv3x3_tc_stage<kCout, kMode><<<grid, kThreads, S::kSmemBytes, s>>>(
+        in, in_pitch, cin, static_cast<const float*>(w), bias, ep.out, ep.out_pitch, ep.res,
+        ep.res_pitch, ep.skip, ep.scaling, H, W);
+  }
   return cudaGetLastError();
 }
 

@@ -36,10 +36,14 @@
 // work.
 //
 // bf16 multiplicands (the TPU kernels' mxu_bf16, pallas_rdb.py:124-128): with
-// bf16 != 0 every stage runs conv3x3_tc.cuh's bf16 route (one TF32 pass on
-// operands rounded to bf16, round to nearest even; w_packed then holds the
-// weights rounded to bf16 by ops/rdb.py:pack_rdb_weights(mxu_bf16=True)).
-// The workspace, the biases, the LeakyReLUs and the skips stay fp32.
+// bf16 != 0 every stage runs conv3x3_tc.cuh's bf16 route (bf16 wgmma k16 on
+// the workspace rounded to bf16 at each stage's staging, round to nearest
+// even; w_packed then holds bf16 weights in the route's core-matrix layout,
+// ops/rdb.py:pack_rdb_weights(mxu_bf16=True)). The workspace, the biases,
+// the LeakyReLUs and the skips stay fp32.
+
+#include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -50,7 +54,8 @@ namespace {
 constexpr int kFeat = 64;        // block input/output channels
 constexpr int kGrowth = 32;      // channels added by conv1-4
 constexpr int kWsC = kFeat + 4 * kGrowth;  // workspace channels: 192
-// floats of one block's packed weights: 9 x sum_j C_in_j x C_out_j
+// values (fp32, or bf16 on the bf16 route) of one block's packed weights:
+// 9 x sum_j C_in_j x C_out_j
 constexpr size_t kBlockWeights =
     9 * (size_t)(64 * 32 + 96 * 32 + 128 * 32 + 160 * 32 + 192 * 64);
 
@@ -73,11 +78,15 @@ cudaError_t launch_copy(const float* x, float* ws, int N, int H, int W,
   return cudaGetLastError();
 }
 
+// The packed weights' element type: fp32, or bf16 bits on the bf16 route.
+template <bool kBf16>
+using WeightT = std::conditional_t<kBf16, uint16_t, float>;
+
 // Stages 1-4 of one dense block on `ws`, whose channels 0-63 hold its input.
 // `w` / `bias` point at the block's packed weights / its 192 biases; on
 // return they have advanced to stage 5's.
 template <bool kBf16>
-cudaError_t dense_stages(float* ws, const float*& w, const float*& bias, int N,
+cudaError_t dense_stages(float* ws, const WeightT<kBf16>*& w, const float*& bias, int N,
                          int H, int W, cudaStream_t s) {
   for (int j = 0; j < 4; ++j) {
     const int cin = kFeat + kGrowth * j;
@@ -92,11 +101,11 @@ cudaError_t dense_stages(float* ws, const float*& w, const float*& bias, int N,
 }
 
 template <bool kBf16>
-cudaError_t rdb(const float* x, float* ws, float* out, const float* w_packed,
+cudaError_t rdb(const float* x, float* ws, float* out, const void* w_packed,
                 const float* bias, int N, int H, int W, float scaling, cudaStream_t s) {
   cudaError_t err = launch_copy(x, ws, N, H, W, s);
   if (err != cudaSuccess) return err;
-  const float* w = w_packed;
+  const WeightT<kBf16>* w = static_cast<const WeightT<kBf16>*>(w_packed);
   const float* b = bias;
   err = dense_stages<kBf16>(ws, w, b, N, H, W, s);
   if (err != cudaSuccess) return err;
@@ -106,14 +115,14 @@ cudaError_t rdb(const float* x, float* ws, float* out, const float* w_packed,
 
 template <bool kBf16>
 cudaError_t rrdb(const float* x, float* ws_a, float* ws_b, float* out,
-                 const float* w_packed, const float* bias, int N, int H, int W,
+                 const void* w_packed, const float* bias, int N, int H, int W,
                  float scaling, cudaStream_t s) {
   cudaError_t err = launch_copy(x, ws_a, N, H, W, s);
   if (err != cudaSuccess) return err;
   float* cur = ws_a;
   float* nxt = ws_b;
   for (int p = 0; p < 3; ++p) {
-    const float* w = w_packed + p * kBlockWeights;
+    const WeightT<kBf16>* w = static_cast<const WeightT<kBf16>*>(w_packed) + p * kBlockWeights;
     const float* b = bias + p * kWsC;
     err = dense_stages<kBf16>(cur, w, b, N, H, W, s);
     if (err != cudaSuccess) return err;
@@ -139,11 +148,12 @@ cudaError_t rrdb(const float* x, float* ws_a, float* ws_b, float* out,
 }  // namespace
 
 // x, out: (N, H, W, 64); ws: (N, H, W, 192) scratch; w_packed: the five
-// stages' [cout/32][cin][9][32] blocks back to back; bias: b1|b2|b3|b4|b5
-// (192 floats); bf16: nonzero for bf16 multiplicands. Returns
-// cudaGetLastError() after the last launch.
+// stages' [cout/32][cin][9][32] float blocks back to back, or with bf16
+// nonzero (bf16 multiplicands) their [cin/16][9][cout/8][2][8][8] bf16
+// blocks; bias: b1|b2|b3|b4|b5 (192 floats). Returns cudaGetLastError()
+// after the last launch.
 extern "C" int rdb_forward(const float* x, float* ws, float* out,
-                           const float* w_packed, const float* bias, int N,
+                           const void* w_packed, const float* bias, int N,
                            int H, int W, float scaling, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? (int)rdb<true>(x, ws, out, w_packed, bias, N, H, W, scaling, s)
@@ -155,7 +165,7 @@ extern "C" int rdb_forward(const float* x, float* ws, float* out,
 // bias: the three blocks' 192 biases back to back; bf16 as rdb_forward's.
 // Returns cudaGetLastError() after the last launch.
 extern "C" int rrdb_forward(const float* x, float* ws_a, float* ws_b, float* out,
-                            const float* w_packed, const float* bias, int N,
+                            const void* w_packed, const float* bias, int N,
                             int H, int W, float scaling, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? (int)rrdb<true>(x, ws_a, ws_b, out, w_packed, bias, N, H, W, scaling, s)

@@ -13,7 +13,8 @@ Each ``launch_*`` function is the one place its kernel is launched: it adds one
 to ``launches[name]`` and raises if the C entry point reports a CUDA error.
 The five kernels with a bf16-multiplicand route (K1, K4, K5, K6, K10; the TPU
 kernels' ``mxu_bf16``) take it through an ``int bf16`` argument of their C
-entry and count it under their name with ``_bf16`` appended.
+entry and count it under their name with ``_bf16`` appended; K1, K4 and K10
+then take their packed weights in bf16 (``const void*`` in C).
 Tensor checks (device, dtype, shape, contiguity) are the callers' job
 (``ops.rdb``, ``ops.conv3x3``, ``ops.deform_conv``, ``ops.tail``); outputs
 and scratch are allocated by the callers with ``torch.empty``. Kernels run on
@@ -88,13 +89,15 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def check_tensor(t: torch.Tensor, name: str, shape: tuple) -> None:
-    """What every kernel takes: fp32, contiguous, 16-byte aligned, on the
-    current CUDA device, of exactly ``shape``."""
+def check_tensor(t: torch.Tensor, name: str, shape: tuple,
+                 dtype: torch.dtype = torch.float32) -> None:
+    """What every kernel takes: ``dtype`` (fp32, or bf16 for the bf16
+    route's packed weights), contiguous, 16-byte aligned, on the current
+    CUDA device, of exactly ``shape``."""
     if t.device.type != "cuda" or t.device.index != torch.cuda.current_device():
         raise ValueError(f"{name} must be on the current CUDA device, got {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous() or t.data_ptr() % 16:

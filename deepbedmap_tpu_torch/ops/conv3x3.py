@@ -16,8 +16,10 @@ bf16 multiplicands (``mxu_bf16=True``, the JAX kernel's ``mxu_bf16``,
 ``pallas_conv.py:77, 131-132``): the conv's input and weight are rounded to
 bf16 (to nearest even), the sum, bias, residual and LeakyReLU stay float32.
 ``conv3x3_reference(mxu_bf16=True)`` is the plain version, K10's bf16 route
-(``csrc/conv3x3_tc.cuh``) the kernel; the gradient in either mode is that of
-the float32 plain version, as JAX's custom VJP (``pallas_conv.py:224-230``).
+(``csrc/conv3x3_tc.cuh``: bf16 ``wgmma`` k16 on weights that
+``pack_conv_weight(mxu_bf16=True)`` packs in bf16) the kernel; the gradient
+in either mode is that of the float32 plain version, as JAX's custom VJP
+(``pallas_conv.py:224-230``).
 
 Layout: NHWC activations, OIHW weights. ``pack_conv_weight`` is the packed
 layout of the tensor-core conv (``csrc/conv3x3_tc.cuh``) that K10 and the
@@ -58,15 +60,26 @@ def conv3x3_reference(
     return leaky_relu(z) if leaky else z
 
 
+# k slot s of a bf16 k16 step -> its channel among the step's 16: a lane's
+# four A values (slots 2t, 2t + 1, 2t + 8, 2t + 9) are channels 4t..4t + 3
+BF16_SLOT_CHANNELS = tuple(4 * (s % 8 // 2) + 2 * (s // 8) + s % 2 for s in range(16))
+
+
 def pack_conv_weight(weight: torch.Tensor, mxu_bf16: bool = False) -> torch.Tensor:
-    """OIHW (C_out, C_in, 3, 3) -> flat [C_out/32][C_in][9][32], the layout
-    the tensor-core conv stages each 8-channel chunk's weights from; rounded
-    to bf16 for the bf16 route (``mxu_bf16``)."""
+    """OIHW (C_out, C_in, 3, 3) -> flat [C_out/32][C_in][9][32] float32, the
+    layout the 3xTF32 conv stages each 8-channel chunk's weights from. With
+    ``mxu_bf16`` the bf16 route's: the weight rounded to bf16 (to nearest
+    even) as a ``torch.bfloat16`` tensor [C_in/16][9][C_out/8][2][8][8], per
+    16 input channels and tap the K-major core matrices [n/8][k/8][n%8][k%8]
+    that its wgmma B descriptor reads, slot k holding channel
+    ``BF16_SLOT_CHANNELS[k]`` of the 16 (C_in a multiple of 16)."""
     co, ci = weight.shape[:2]
     weight = weight.detach()
-    return (
-        (round_bf16(weight) if mxu_bf16 else weight).reshape(co // 32, 32, ci, 9).permute(0, 2, 3, 1).reshape(-1)
-    )
+    if not mxu_bf16:
+        return weight.reshape(co // 32, 32, ci, 9).permute(0, 2, 3, 1).reshape(-1)
+    w = weight.to(torch.bfloat16).reshape(co // 8, 8, ci // 16, 16, 9)
+    w = w[:, :, :, list(BF16_SLOT_CHANNELS)].reshape(co // 8, 8, ci // 16, 2, 8, 9)
+    return w.permute(2, 5, 0, 3, 1, 4).reshape(-1)  # (c16, tap, n8, k8, n%8, k%8)
 
 
 def conv3x3_fused(
@@ -106,7 +119,8 @@ def conv3x3_fused(
     if w_packed is None:
         with torch.no_grad():
             w_packed = pack_conv_weight(weight, mxu_bf16).contiguous()
-    _kernels.check_tensor(w_packed, "packed weight", (C_OUT * c_in * 9,))
+    _kernels.check_tensor(w_packed, "packed weight", (C_OUT * c_in * 9,),
+                          torch.bfloat16 if mxu_bf16 else torch.float32)
     _kernels.check_tensor(bias, "bias", (C_OUT,))
     if residual is not None:
         _kernels.check_tensor(residual, "residual", (n, h, w, C_OUT))

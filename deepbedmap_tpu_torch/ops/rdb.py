@@ -36,8 +36,10 @@ bf16 (to nearest even) and everything else stays float32: accumulation,
 biases, LeakyReLU, the dense concat and both skips. A later stage reads the
 float32 activations of the earlier ones and rounds them only at its own dot.
 ``rdb_reference(mxu_bf16=True)`` is the plain version; the kernels take
-their bf16 route (one TF32 pass on rounded operands, ``csrc/conv3x3_tc.cuh``
-and ``csrc/rdb_tile.cuh``) with weights the packers rounded. As in JAX
+their bf16 route with weights the packers rounded: K1 and K4 bf16 ``wgmma``
+k16 on bf16 weights (``csrc/conv3x3_tc.cuh``, ``pack_rdb_weights`` /
+``pack_rrdb_weights`` with ``mxu_bf16``), K6 and K5 one TF32 pass on rounded
+operands (``csrc/rdb_tile.cuh``). As in JAX
 (``pallas_rdb.py:321-329, 686-692``) the mode's gradient is that of the
 float32 plain version: the rounding is not differentiated, on either
 device.
@@ -102,8 +104,8 @@ def pack_rdb_weights(
     mxu_bf16: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's weight layout: each stage as ``pack_conv_weight`` packs
-    it (rounded to bf16 with ``mxu_bf16``), the five stages back to back,
-    and the five biases concatenated."""
+    it (in bf16, in the bf16 route's layout, with ``mxu_bf16``), the five
+    stages back to back, and the five biases concatenated."""
     w = torch.cat([pack_conv_weight(k, mxu_bf16) for k in kernels]).contiguous()
     b = torch.cat([b_.detach() for b_ in biases]).contiguous()
     return w, b
@@ -154,9 +156,9 @@ def _kernel_args(x: torch.Tensor, kernels, biases, packed, name: str,
                  blocks: int, split: bool, mxu_bf16: bool) -> tuple:
     """What every dense-block kernel takes, checked: (N, H, W) and the packed
     weights of ``blocks`` dense blocks (1, or 3 for a whole RRDB), split into
-    TF32 hi/lo for the tile-local kernels (``split``), rounded to bf16 first
-    for the bf16 route (``mxu_bf16``), from ``packed`` when the caller cached
-    them."""
+    TF32 hi/lo for the tile-local kernels (``split``), for the bf16 route
+    (``mxu_bf16``: bf16 for K1/K4, rounded to bf16 first for K6/K5), from
+    ``packed`` when the caller cached them."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     n, h, w, _ = x.shape
@@ -169,7 +171,8 @@ def _kernel_args(x: torch.Tensor, kernels, biases, packed, name: str,
             packed = packer[blocks, split](kernels, biases, mxu_bf16)
     w_packed, b_packed = packed
     floats = blocks * _BLOCK_WEIGHTS * (2 if split else 1)
-    _kernels.check_tensor(w_packed, "packed weights", (floats,))
+    _kernels.check_tensor(w_packed, "packed weights", (floats,),
+                          torch.bfloat16 if mxu_bf16 and not split else torch.float32)
     _kernels.check_tensor(b_packed, "packed biases", (blocks * WORKSPACE,))
     return n, h, w, w_packed, b_packed
 

@@ -1,8 +1,11 @@
 """PyTorch port: the bf16-multiplicand mode (``mxu_bf16``) of K1, K4, K5, K6
 and K10 against the JAX package's Pallas kernels in the mode (interpret
 mode, JAX's own test sizes: 13 x 14 px, band 4; K5 needs a band of at least
-its margin, 8, on 22 x 14 px), and the bf16 route of the CUDA kernels as a
-numpy emulation (``tests/torch_port_emulation.py``).
+its margin, 8, on 22 x 14 px), and the bf16 routes of the CUDA kernels as
+numpy emulations (``tests/torch_port_emulation.py``): K1's, K4's and K10's
+(``csrc/conv3x3_tc.cuh``, bf16 ``wgmma`` k16 on bf16-packed weights, its
+layouts checked one by one and the whole route held against JAX and the
+rounded plain version), K6's (``csrc/rdb_tile.cuh``, one TF32 pass).
 
 The mode rounds each dot's multiplicands to bf16 (to nearest even) and keeps
 everything else float32. Products of bf16 values are exact in float32, so
@@ -38,22 +41,38 @@ from deepbedmap_tpu.ops import pallas_rdb as jax_rdb
 from deepbedmap_tpu.ops.pallas_conv import conv3x3_fused as jax_conv3x3_fused
 from deepbedmap_tpu.ops.pallas_conv import conv3x3_res_fused as jax_conv3x3_res_fused
 from deepbedmap_tpu_torch.ops.conv import round_bf16
-from deepbedmap_tpu_torch.ops.conv3x3 import conv3x3_fused, pack_conv_weight
+from deepbedmap_tpu_torch.ops.conv3x3 import (
+    BF16_SLOT_CHANNELS,
+    conv3x3_fused,
+    pack_conv_weight,
+)
 from deepbedmap_tpu_torch.ops.rdb import (
     pack_rdb_weights,
     pack_rdb_weights_tc,
+    pack_rrdb_weights,
     rdb_banded,
     rdb_fused,
     rdb_reference,
     rrdb_fused,
+    rrdb_reference,
     rrdb_sweep,
 )
 from tests.torch_port_emulation import (
+    ADD,
+    ADD_LRELU,
+    LINEAR,
     LRELU,
+    TC_HALO_H,
+    TC_HALO_W,
+    bf16_a_fragments,
+    bf16_b_operand,
+    bf16_bits,
     bf16_rn,
     emulate_k1_tc,
+    emulate_k4_tc,
     emulate_k6,
     emulate_tc_stage,
+    emulate_tc_stage_bf16,
 )
 
 F, G = 64, 32
@@ -98,6 +117,17 @@ def _hold(label, got, want, fp32):
           f"{d32.mean() / scale:.3e}")
     assert d.max() <= TOL_MAX * scale and d.mean() <= TOL_MEAN * scale, label
     assert d32.mean() > TOL_MEAN * scale, label
+
+
+def _emulated_k10(x, wt, b, leaky, r, grid=3):
+    """``conv3x3_tc.cuh``'s bf16 route for K10, emulated: (N, H, W, 64)."""
+    n, h, w, c = x.shape
+    out = np.empty(n * h * w * 64, np.float32)
+    mode = (LRELU if leaky else LINEAR) if r is None else (ADD_LRELU if leaky else ADD)
+    emulate_tc_stage_bf16(np.ascontiguousarray(x, np.float32).reshape(-1), c, c,
+                          bf16_bits(pack_conv_weight(wt, True)), b, n, h, w, 64, mode, out, 64,
+                          None if r is None else r.reshape(-1), 64, grid=grid)
+    return out.reshape(n, h, w, 64)
 
 
 def _close_grads(label, got, want):
@@ -160,6 +190,14 @@ def test_dense_block_kernels_match_jax_in_the_mode(kernel):
         else:
             fp32 = out.detach().numpy()
     _hold(f"{kernel} ({entry}) {shape}", got, np.asarray(want), fp32)
+    if kernel in ("K1", "K4"):
+        # the CUDA kernel's bf16 route (conv3x3_tc.cuh), emulated, against
+        # JAX's kernel in the mode
+        pack, emulate = ((pack_rdb_weights, emulate_k1_tc) if blocks == 1
+                         else (pack_rrdb_weights, emulate_k4_tc))
+        w16, b16 = pack(*args, True)
+        _hold(f"emulated {kernel} bf16 route vs {entry}",
+              emulate(x, w16, b16.numpy(), SCALING, bf16=True), np.asarray(want), fp32)
     # the mode's gradient is the float32 plain version's, on both sides
     for a, b in zip(grads[True], grads[False]):
         assert torch.equal(a, b)
@@ -199,6 +237,8 @@ def test_k10_matches_jax_in_the_mode(c_in, residual):
         else:
             fp32 = out.detach().numpy()
     _hold(f"K10 C_in {c_in}, residual {residual}", got, np.asarray(want), fp32)
+    _hold(f"emulated K10 bf16 route vs JAX, C_in {c_in}, residual {residual}",
+          _emulated_k10(x, _oihw(k), b, True, r), np.asarray(want), fp32)
     for a, b_ in zip(grads[True], grads[False]):
         assert torch.equal(a, b_)
     ours = [t.numpy() for t in grads[True]]
@@ -232,43 +272,128 @@ def test_bf16_rounding_is_round_to_nearest_even(bits_in, rne, rna):
     np.testing.assert_array_equal(bf16_rn(v), round_bf16(torch.from_numpy(v)).numpy())
 
 
-def _rounded_plain(x, tk, tb):
-    return rdb_reference(torch.from_numpy(x), tk, tb, SCALING, mxu_bf16=True).numpy()
-
-
-@pytest.mark.parametrize("kernel", ["K1", "K6"])
+@pytest.mark.parametrize("kernel", ["K1", "K4", "K6"])
 def test_emulated_bf16_route_matches_the_rounded_plain_version(kernel):
-    # the CUDA kernels' bf16 route step for step (conv3x3_tc.cuh for K1/K4/
-    # K10, rdb_tile.cuh for K6/K5): the packers' rounded weights, A rounded
-    # at each dot, one pass; the same criterion against the rounded plain
-    # version as the port against JAX (sums in float64 here, float32 there)
-    ks, bs = _block(seed=61)
-    tk, tb = [_oihw(k) for k in ks], [torch.from_numpy(b) for b in bs]
+    # the CUDA kernels' bf16 routes step for step: conv3x3_tc.cuh's for
+    # K1/K4/K10 (bf16 weights as packed, the halo rounded once per chunk,
+    # bf16 k16 products), rdb_tile.cuh's for K6/K5 (the packer's rounded
+    # weights, A rounded at each dot, one TF32 pass); the same criterion
+    # against the rounded plain version as the port against JAX (sums in
+    # float64 here, float32 there)
+    sets = [_block(seed=61)] if kernel != "K4" else [_block(seed=64 + i) for i in range(3)]
+    tk = [[_oihw(k) for k in s_[0]] for s_ in sets]
+    tb = [[torch.from_numpy(b) for b in s_[1]] for s_ in sets]
+    if kernel != "K4":
+        tk, tb = tk[0], tb[0]
     x = np.random.RandomState(62).randn(2, 13, 19, F).astype(np.float32)
-    if kernel == "K1":
-        w, b = pack_rdb_weights(tk, tb, mxu_bf16=True)
-        got = emulate_k1_tc(x, w.numpy(), b.numpy(), SCALING, bf16=True)
-        fp32 = emulate_k1_tc(x, *[t.numpy() for t in pack_rdb_weights(tk, tb)], SCALING)
-    else:
+    if kernel == "K6":
         w, b = pack_rdb_weights_tc(tk, tb, mxu_bf16=True)
         got = emulate_k6(x, w.numpy(), b.numpy(), SCALING, bf16=True)
         fp32 = emulate_k6(x, *[t.numpy() for t in pack_rdb_weights_tc(tk, tb)], SCALING)
-    _hold(f"emulated {kernel} bf16 route", got, _rounded_plain(x, tk, tb), fp32)
+    else:
+        pack, emulate = ((pack_rdb_weights, emulate_k1_tc) if kernel == "K1"
+                         else (pack_rrdb_weights, emulate_k4_tc))
+        w, b = pack(tk, tb, mxu_bf16=True)
+        got = emulate(x, w, b.numpy(), SCALING, bf16=True)
+        fp32 = emulate(x, *[t.numpy() for t in pack(tk, tb)], SCALING)
+    plain = rrdb_reference if kernel == "K4" else rdb_reference
+    want = plain(torch.from_numpy(x), tk, tb, SCALING, mxu_bf16=True).numpy()
+    _hold(f"emulated {kernel} bf16 route", got, want, fp32)
 
 
 def test_emulated_k10_bf16_route_matches_the_rounded_plain_version():
+    # both of K10's C_in, with LeakyReLU and with the residual, at a shape
+    # that leaves both tile edges ragged
     rs = np.random.RandomState(63)
-    x = rs.randn(2, 13, 19, 128).astype(np.float32)
-    k = rs.randn(3, 3, 128, 64).astype(np.float32) * 0.05
-    b = rs.randn(64).astype(np.float32) * 0.1
-    wt = _oihw(k)
-    n, h, w, c = x.shape
-    outs = {}
-    for mxu in (True, False):
-        out = np.empty(n * h * w * 64, np.float32)
-        emulate_tc_stage(x.reshape(-1), c, c, pack_conv_weight(wt, mxu).numpy(), b, n, h, w,
-                         64, LRELU, out, 64, bf16=mxu)
-        outs[mxu] = out.reshape(n, h, w, 64)
-    want = conv3x3_fused(torch.from_numpy(x), wt, torch.from_numpy(b), True,
-                         mxu_bf16=True).numpy()
-    _hold("emulated K10 bf16 route", outs[True], want, outs[False])
+    for c, leaky, residual in ((128, True, False), (64, False, True)):
+        x = rs.randn(2, 13, 19, c).astype(np.float32)
+        k = rs.randn(3, 3, c, 64).astype(np.float32) * 0.05
+        b = rs.randn(64).astype(np.float32) * 0.1
+        r = rs.randn(2, 13, 19, 64).astype(np.float32) if residual else None
+        wt = _oihw(k)
+        n, h, w, _ = x.shape
+        fp32 = np.empty(n * h * w * 64, np.float32)
+        emulate_tc_stage(x.reshape(-1), c, c, pack_conv_weight(wt).numpy(), b, n, h, w, 64,
+                         LRELU if leaky else ADD, fp32, 64,
+                         None if r is None else r.reshape(-1), 64)
+        want = conv3x3_fused(torch.from_numpy(x), wt, torch.from_numpy(b), leaky,
+                             None if r is None else torch.from_numpy(r), mxu_bf16=True).numpy()
+        _hold(f"emulated K10 bf16 route, C_in {c}", _emulated_k10(x, wt, b, leaky, r), want,
+              fp32.reshape(n, h, w, 64))
+
+
+@pytest.mark.parametrize("grid", [1, 4, 132])
+def test_emulated_bf16_route_walks_every_tile_once(grid):
+    # conv3x3_tc.cuh's persistent blocks at the ragged shape (3, 37, 9): 9
+    # tiles walked by one block, by four (three tiles for the first, two for
+    # the others) and by as many as the card has SMs (one each); the rings
+    # start poisoned with NaN, so a slot read before its copy lands, or a
+    # tile that no block stores, shows in the output
+    ks, bs = _block(seed=65)
+    tk, tb = [_oihw(k) for k in ks], [torch.from_numpy(b) for b in bs]
+    x = np.random.RandomState(66).randn(3, 37, 9, F).astype(np.float32)
+    n, h, w, _ = x.shape
+    w16, b16 = pack_rdb_weights(tk, tb, mxu_bf16=True)
+    bits, b16 = bf16_bits(w16), b16.numpy()
+    ws = np.zeros((n * h * w, 192), np.float32)
+    ws[:, :F] = x.reshape(-1, F)
+    ws = ws.reshape(-1)
+    out = np.full(n * h * w * G, np.nan, np.float32)
+    # stage 1 of the dense block, as K1's first launch
+    emulate_tc_stage_bf16(ws, 192, F, bits, b16, n, h, w, G, LRELU, out, G, grid=grid)
+    assert not np.isnan(out).any()
+    got = out.reshape(n, h, w, G)
+    want = torch.nn.functional.leaky_relu(
+        torch.nn.functional.conv2d(round_bf16(torch.from_numpy(x)).permute(0, 3, 1, 2),
+                                   round_bf16(tk[0]), torch.from_numpy(bs[0]), padding=1),
+        0.2).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("c_out", [32, 64])
+def test_bf16_weight_pack_is_the_b_descriptor_layout(c_out):
+    # pack_conv_weight(mxu_bf16=True) read back through the wgmma B
+    # descriptor (core matrices 128 B apart along K, 256 B along N) gives,
+    # for every 16 input channels and tap, the bf16-rounded weight with k
+    # slot s holding channel BF16_SLOT_CHANNELS[s]
+    c_in = 96
+    wt = torch.from_numpy(np.random.RandomState(c_out).randn(c_out, c_in, 3, 3)
+                          .astype(np.float32))
+    packed = pack_conv_weight(wt, True)
+    assert packed.dtype == torch.bfloat16 and packed.numel() == wt.numel()
+    bits, rounded = bf16_bits(packed), round_bf16(wt).double().numpy()
+    chunk = 16 * 9 * c_out
+    for c16 in range(c_in // 16):
+        for tap in range(9):
+            b = bf16_b_operand(bits[c16 * chunk:], 0, tap, c_out)  # (16 slots, C_out)
+            want = rounded[:, 16 * c16 + np.asarray(BF16_SLOT_CHANNELS), tap // 3, tap % 3].T
+            np.testing.assert_array_equal(b, want)
+    # the slot order: a lane's four k slots 2t, 2t + 1, 2t + 8, 2t + 9 are
+    # the adjacent channels 4t..4t + 3, every channel once
+    assert sorted(BF16_SLOT_CHANNELS) == list(range(16))
+    for t in range(4):
+        assert [BF16_SLOT_CHANNELS[k] for k in (2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9)] == [
+            4 * t, 4 * t + 1, 4 * t + 2, 4 * t + 3]
+
+
+def test_k16_a_fragments_read_the_tap_shifted_pixels_and_slot_channels():
+    # the lanes' 8-byte loads of the rounded halo ([k16 step][pixel][16]),
+    # put where the wgmma A fragment layout puts registers, give each warp
+    # (tile row) the 16 pixels of its row shifted by the tap, with k slot s
+    # holding channel BF16_SLOT_CHANNELS[s] of the step's 16: checked with a
+    # halo that holds its halo row, its column, or its channel (all exact in
+    # bf16)
+    hpix = TC_HALO_W * TC_HALO_H
+    p, ch = np.meshgrid(np.arange(2 * hpix) % hpix, np.arange(16), indexing="ij")
+    step = np.repeat([0, 1], hpix)[:, None] + 0 * ch
+    rows, pix = np.meshgrid(np.arange(16), np.arange(16), indexing="ij")
+    for name, value in (("halo row", p // TC_HALO_W), ("halo column", p % TC_HALO_W),
+                        ("channel", ch + 16 * step)):
+        halo = (bf16_rn(value.astype(np.float32)).view(np.uint32) >> 16).astype(np.uint16)
+        for k in range(2):
+            for tap in range(9):
+                a = bf16_a_fragments(halo.reshape(-1), k, tap)
+                want = {"halo row": (rows + tap // 3)[..., None] + 0 * a,
+                        "halo column": (pix + tap % 3)[..., None] + 0 * a,
+                        "channel": 16 * k + np.asarray(BF16_SLOT_CHANNELS) + 0 * a}[name]
+                np.testing.assert_array_equal(a, want, err_msg=f"{name}, step {k}, tap {tap}")

@@ -18,10 +18,20 @@ index arithmetic against the plain PyTorch versions.
   workspace's channel pitch, the hi/lo splits into the kernel's shared-memory
   layouts, the wgmma fragments read back from them, the partial sum per
   kernel row). Products are exact and sums float64, so these show the
-  split's precision, not the tensor cores' own rounding. ``bf16=True``
-  emulates the bf16-multiplicand route of both headers: A rounded to bf16
-  to nearest even (``bf16_rn``, the kernels' ``cvt.rn.bf16x2.f32``), the
-  weights as packed (rounded by the packers), one pass, hi.hi;
+  split's precision, not the tensor cores' own rounding. ``bf16=True`` on
+  ``dense_block_tile_tc`` / ``emulate_k6`` emulates ``rdb_tile.cuh``'s bf16
+  route: A rounded to bf16 to nearest even (``bf16_rn``, the kernels'
+  ``cvt.rn.bf16x2.f32``), the weights as packed (rounded by the packer),
+  one TF32 pass, hi.hi;
+- ``emulate_tc_stage_bf16`` and ``bf16=True`` on ``emulate_k1_tc`` /
+  ``emulate_k4_tc``: ``conv3x3_tc.cuh``'s bf16 route,
+  ``conv3x3_tc_stage_bf16`` (persistent blocks walking the tiles, the
+  2-slot rings of weights, rounded halo and fp32 landing area stepped as
+  the kernel steps them and poisoned with NaN before first use, each
+  thread's own landing pieces, the halo rounded by ``bf16_rn`` into
+  [k16 step][pixel][16], the k16 A fragments read back lane by lane,
+  ``pack_conv_weight(mxu_bf16=True)``'s bf16 core matrices read as the B
+  descriptor reads them, every product of a stage on one accumulator);
 - ``emulate_k2_tc``: K2 / K7 in ``csrc/deform_tail.cu`` (the 64 -> 64
   deformable conv as a 3xTF32 implicit GEMM: the 16 x 16 tile's window with
   zero fill in 16-channel blocks, each lane's blended corners split into
@@ -250,12 +260,6 @@ def bf16_rn(a):
     return (bits & np.uint32(0xFFFF0000)).view(np.float32)
 
 
-def _bf16_4(a, b):
-    """``bf16_pair``: {bf16(a), bf16(b), 0, 0} along the last axis."""
-    z = np.zeros(np.shape(a), np.float32)
-    return np.stack([bf16_rn(a), bf16_rn(b), z, z], -1)
-
-
 def split_tf32(a):
     """x = hi + lo, both TF32; the kernel's ``split_pair``."""
     a = np.asarray(a, np.float32)
@@ -273,15 +277,12 @@ _G, _T = np.arange(32) >> 2, np.arange(32) & 3  # lane -> (group, thread in grou
 
 
 def emulate_tc_stage(ws_in, in_pitch, cin, w, bias, n, h, wd, cout, mode, out, out_pitch,
-                     res=None, res_pitch=0, skip=None, scaling=0.0, passes=3, bf16=False):
+                     res=None, res_pitch=0, skip=None, scaling=0.0, passes=3):
     """One launch of ``conv3x3_tc_stage``: flat float32 arrays with the
     kernel's pitches (``ws_in``: pixel p channel c at ``p * in_pitch + c``);
     ``w``, ``bias``: the stage's packed weights [C_out/32][C_in][9][32] and
     biases. Writes ``out`` in place. ``passes`` 3 is the kernel (lo.hi, hi.lo,
-    hi.hi); 1 keeps hi.hi only, a single TF32 pass. ``bf16``: the bf16 route
-    (the halo rounded by ``bf16_pair``, one pass)."""
-    if bf16:
-        passes = 1
+    hi.hi); 1 keeps hi.hi only, a single TF32 pass."""
     slice_ = TC_CK * 9 * 32
     hpix = TC_HALO_W * TC_HALO_H
     p = np.arange(hpix)
@@ -303,8 +304,7 @@ def emulate_tc_stage(ws_in, in_pitch, cin, w, bias, n, h, wd, cout, mode, out, o
                         raw_w[ct * slice_ + 4 * r + k] = w[(ct * cin + c0) * 288 + 4 * r + k]
                     # the splits, in the kernel's shared-memory layouts
                     pairs = raw_halo.reshape(-1, 2)
-                    pair = _bf16_4 if bf16 else _split4
-                    s_halo = pair(pairs[:, 0], pairs[:, 1])  # [pixel * 4 + t][4]
+                    s_halo = _split4(pairs[:, 0], pairs[:, 1])  # [pixel * 4 + t][4]
                     i = np.arange(9 * cout * 2)
                     tap, co, kc = i // (2 * cout), (i >> 1) % cout, i & 1
                     rw = (co >> 5) * slice_ + kc * 9 * 32 + tap * 32 + (co & 31)
@@ -339,80 +339,226 @@ def emulate_tc_stage(ws_in, in_pitch, cin, w, bias, n, h, wd, cout, mode, out, o
                             if passes == 3:
                                 part += al @ bh64 + ah @ bl64
                         acc += part
-                # epilogue, in float32, in the plain composition's order
-                rows = y0 + np.arange(TC_TILE_ROWS)[:, None]
-                cols = x0 + np.arange(16)[None, :]
-                keep = (rows < h) & (cols < wd)
-                pix = ((img * h + rows) * wd + cols)[keep]
-                v = acc[keep].astype(np.float32) + bias[:cout].astype(np.float32)
-                ch = np.arange(cout)
-                if mode == LRELU:
-                    o = np.where(v >= 0, v, np.float32(0.2) * v)
-                elif mode == LINEAR:
-                    o = v
-                elif mode in (ADD, ADD_LRELU):
-                    o = v + res[pix[:, None] * res_pitch + ch]
-                    if mode == ADD_LRELU:
-                        o = np.where(o >= 0, o, np.float32(0.2) * o)
-                else:
-                    rv = res[pix[:, None] * res_pitch + ch]
-                    o = rv + np.float32(scaling) * v
-                    if mode == DOUBLE_SKIP:
-                        o = skip[pix[:, None] * F + ch] + np.float32(scaling) * o
-                out[pix[:, None] * out_pitch + ch] = o
+                _store_tile(acc, img, y0, x0, h, wd, cout, bias, mode, out, out_pitch, res,
+                            res_pitch, skip, scaling)
+
+
+def _store_tile(acc, img, y0, x0, h, wd, cout, bias, mode, out, out_pitch, res, res_pitch,
+                skip, scaling):
+    """``store_row`` for a whole 16 x 16 tile: v = acc + bias through the
+    epilogue mode, in float32, in the plain composition's order."""
+    rows = y0 + np.arange(TC_TILE_ROWS)[:, None]
+    cols = x0 + np.arange(16)[None, :]
+    keep = (rows < h) & (cols < wd)
+    pix = ((img * h + rows) * wd + cols)[keep]
+    v = acc[keep].astype(np.float32) + bias[:cout].astype(np.float32)
+    ch = np.arange(cout)
+    if mode == LRELU:
+        o = np.where(v >= 0, v, np.float32(0.2) * v)
+    elif mode == LINEAR:
+        o = v
+    elif mode in (ADD, ADD_LRELU):
+        o = v + res[pix[:, None] * res_pitch + ch]
+        if mode == ADD_LRELU:
+            o = np.where(o >= 0, o, np.float32(0.2) * o)
+    else:
+        rv = res[pix[:, None] * res_pitch + ch]
+        o = rv + np.float32(scaling) * v
+        if mode == DOUBLE_SKIP:
+            o = skip[pix[:, None] * F + ch] + np.float32(scaling) * o
+    out[pix[:, None] * out_pitch + ch] = o
+
+
+# conv3x3_tc.cuh's bf16 route
+BF_CHUNK = 32  # kBfChunk: input channels per chunk
+BF_POISON = np.uint16(0x7FC0)  # a bf16 NaN: what an unwritten ring slot holds here
+
+
+def bf16_bits(t):
+    """A ``torch.bfloat16`` tensor's raw bits as a flat numpy uint16 array."""
+    import torch
+
+    return t.contiguous().view(torch.int16).numpy().view(np.uint16).reshape(-1)
+
+
+def _bf16_value(bits):
+    """bf16 bits -> their exact value, float64."""
+    return (np.asarray(bits, np.uint16).astype(np.uint32) << 16).view(np.float32).astype(
+        np.float64)
+
+
+def _bf16_of(values):
+    """float32 values -> the bits of ``bf16_rn`` (round to nearest even)."""
+    return (bf16_rn(values).view(np.uint32) >> 16).astype(np.uint16)
+
+
+def bf16_a_fragments(halo, k, tap):
+    """The A operands of wgmma.m64nNk16 at k16 step ``k`` and ``tap`` for the
+    tile's 16 warps (warp = tile row), read lane by lane from the rounded
+    halo slot ``halo`` ([k16 step][pixel][16] bf16 bits) as the kernel reads
+    them: lane (g, t) loads 8 bytes at pixel g of its row shifted by the tap
+    (v0) and 8 at pixel g + 8 (v8), channels 4t..4t + 3 of the plane, into
+    registers {v0.x, v8.x, v0.y, v8.y}; register r, low half first, holds row
+    g + 8 (r % 2) at k slots 2t + 8 (r // 2) and the next (the wgmma A
+    fragment layout). Returns (16 rows, 16 pixels, 16 slots) float64."""
+    hpix = TC_HALO_W * TC_HALO_H
+    row, g, t, r, half = np.meshgrid(np.arange(TC_TILE_ROWS), np.arange(8), np.arange(4),
+                                     np.arange(4), np.arange(2), indexing="ij")
+    lane_load = (k * hpix + (row + tap // 3) * TC_HALO_W + g + tap % 3) * 16 + 4 * t
+    src = lane_load + 8 * 16 * (r % 2) + 2 * (r // 2) + half  # v8 for odd r, .y for r >= 2
+    a = np.full((TC_TILE_ROWS, 16, 16), np.nan)
+    a[row, g + 8 * (r % 2), 2 * t + 8 * (r // 2) + half] = _bf16_value(halo[src])
+    return a
+
+
+def bf16_b_operand(slot_w, k, tap, cout):
+    """The B operand (16 k slots, C_out) of k16 step ``k`` and ``tap`` from a
+    weight slot (bf16 bits), read through the descriptor: core matrices of 8
+    rows x 16 bytes, 128 B apart along K (leading byte offset), 256 B apart
+    along N (stride byte offset)."""
+    base = (k * 9 + tap) * 16 * cout
+    kk, nn = np.meshgrid(np.arange(16), np.arange(cout), indexing="ij")
+    idx = base + (nn // 8) * 128 + (kk // 8) * 64 + (nn % 8) * 8 + kk % 8
+    return _bf16_value(slot_w[idx])
+
+
+def emulate_tc_stage_bf16(ws_in, in_pitch, cin, w_bits, bias, n, h, wd, cout, mode, out,
+                          out_pitch, res=None, res_pitch=0, skip=None, scaling=0.0, grid=3):
+    """One launch of ``conv3x3_tc_stage_bf16`` on ``grid`` persistent blocks:
+    as ``emulate_tc_stage``, with ``w_bits`` the stage's bf16 weights as
+    ``pack_conv_weight(mxu_bf16=True)`` packs them (raw bits). Each block
+    steps through (tile, chunk) as the kernel does, with its own rings
+    poisoned with NaN; a read of a slot before its copy lands makes the
+    output NaN."""
+    hpix = TC_HALO_W * TC_HALO_H
+    steps_k = BF_CHUNK // 16
+    w_elems, halo_elems = BF_CHUNK * 9 * cout, hpix * BF_CHUNK
+    pieces = halo_elems // 4
+    tiles_x, tiles_y = -(-wd // TC_TILE_W), -(-h // TC_TILE_ROWS)
+    tiles, chunks = tiles_x * tiles_y * n, cin // BF_CHUNK
+    assert cin % BF_CHUNK == 0
+    i = np.arange(pieces)
+    pp, c4 = i // (BF_CHUNK // 4), i % (BF_CHUNK // 4)
+    # each piece's place in the rounded halo: [k16 step][pixel][16]
+    halo_at = ((c4 >> 2) * hpix + pp) * 16 + 4 * (c4 & 3)
+    for block in range(min(tiles, grid)):
+        s_w = np.full((2, w_elems), BF_POISON)
+        s_halo = np.full((2, halo_elems), BF_POISON)
+        s_land = np.full((2, halo_elems), np.nan, np.float32)
+        steps = ((tiles - 1 - block) // grid + 1) * chunks
+
+        def tile_of(s):
+            tile = block + (s // chunks) * grid
+            return tile // (tiles_x * tiles_y), tile // tiles_x % tiles_y * TC_TILE_ROWS, \
+                tile % tiles_x * TC_TILE_W
+
+        def land(s):
+            img, y0, x0 = tile_of(s)
+            gy, gx = y0 + pp // TC_HALO_W - 1, x0 + pp % TC_HALO_W - 1
+            inside = (gy >= 0) & (gy < h) & (gx >= 0) & (gx < wd)
+            src = (img * h + np.where(inside, gy, 0)) * wd + np.where(inside, gx, 0)
+            cols = src[:, None] * in_pitch + s % chunks * BF_CHUNK + 4 * c4[:, None] \
+                + np.arange(4)
+            s_land[s & 1] = np.where(inside[:, None], ws_in[cols], 0).reshape(-1)
+
+        def stage_w(s):
+            s_w[s & 1] = w_bits[s % chunks * w_elems:(s % chunks + 1) * w_elems]
+
+        def round_halo(s):
+            dst = s_halo[s & 1]
+            for e in range(4):
+                dst[halo_at + e] = _bf16_of(s_land[s & 1][4 * i + e])
+
+        stage_w(0)
+        land(0)
+        if steps > 1:
+            land(1)
+        round_halo(0)
+        acc = None
+        for s in range(steps):
+            q = s % chunks
+            if s + 1 < steps:
+                stage_w(s + 1)
+            if s + 2 < steps:
+                land(s + 2)
+            if q == 0:
+                acc = np.zeros((TC_TILE_ROWS, 16, cout))
+            halo, ws = s_halo[s & 1], s_w[s & 1]
+            for k in range(steps_k):  # nine products a k16 step, all on acc
+                for tap in range(9):
+                    acc += bf16_a_fragments(halo, k, tap) @ bf16_b_operand(ws, k, tap, cout)
+                if k == 0 and s + 1 < steps:
+                    round_halo(s + 1)
+            if q == chunks - 1:
+                img, y0, x0 = tile_of(s)
+                _store_tile(acc, img, y0, x0, h, wd, cout, bias, mode, out, out_pitch, res,
+                            res_pitch, skip, scaling)
+
+
+def _stage_fn(passes, bf16):
+    """One stage launch: ``emulate_tc_stage`` at ``passes``, or the bf16
+    route's ``emulate_tc_stage_bf16``."""
+    if bf16:
+        return emulate_tc_stage_bf16
+    return lambda *a, **kw: emulate_tc_stage(*a, **kw, passes=passes)
+
+
+def _weights(w_packed, bf16):
+    """The packed weights as the kernel reads them: float32, or bf16 bits."""
+    return bf16_bits(w_packed) if bf16 else np.asarray(w_packed, np.float32)
 
 
 def _dense_stages(ws, w, b, n, h, wd, passes, bf16=False):
     """rdb.cu ``dense_stages``: stages 1-4 on the flat workspace; returns the
     offsets of stage 5's weights and biases."""
-    off = 0
+    stage, off = _stage_fn(passes, bf16), 0
     for j in range(4):
         cin = F + G * j
         view = ws[cin:]  # out = ws + cin, pitch 192
-        emulate_tc_stage(ws, WS, cin, w[off:], b[G * j:], n, h, wd, G, LRELU, view, WS,
-                         passes=passes, bf16=bf16)
+        stage(ws, WS, cin, w[off:], b[G * j:], n, h, wd, G, LRELU, view, WS)
         off += cin * 9 * G
     return off, 4 * G
 
 
 def emulate_k1_tc(x, w_packed, b_packed, scaling, passes=3, bf16=False):
     """csrc/rdb.cu ``rdb_forward``: x into the workspace, four stages, stage 5
-    with out = x + s * (conv + b)."""
+    with out = x + s * (conv + b). ``bf16``: the bf16 route, ``w_packed``
+    being ``pack_rdb_weights(mxu_bf16=True)``'s bf16 tensor."""
     n, h, wd, _ = x.shape
     x = np.ascontiguousarray(x, np.float32)
     ws = np.zeros(n * h * wd * WS, np.float32)
     ws.reshape(-1, WS)[:, :F] = x.reshape(-1, F)
-    w, b = np.asarray(w_packed, np.float32), np.asarray(b_packed, np.float32)
+    w, b = _weights(w_packed, bf16), np.asarray(b_packed, np.float32)
     wo, bo = _dense_stages(ws, w, b, n, h, wd, passes, bf16)
     out = np.empty(x.size, np.float32)
-    emulate_tc_stage(ws, WS, WS, w[wo:], b[bo:], n, h, wd, F, SCALED_SKIP, out, F,
-                     res=x.reshape(-1), res_pitch=F, scaling=scaling, passes=passes,
-                     bf16=bf16)
+    _stage_fn(passes, bf16)(ws, WS, WS, w[wo:], b[bo:], n, h, wd, F, SCALED_SKIP, out, F,
+                            res=x.reshape(-1), res_pitch=F, scaling=scaling)
     return out.reshape(x.shape)
 
 
-def emulate_k4_tc(x, w_packed, b_packed, scaling, passes=3):
+def emulate_k4_tc(x, w_packed, b_packed, scaling, passes=3, bf16=False):
     """csrc/rdb.cu ``rrdb_forward``: two workspaces in ping-pong, stage 5 of
     blocks 1 and 2 writing the next block's input into the other workspace,
-    the outer skip folded into block 3's last epilogue."""
+    the outer skip folded into block 3's last epilogue. ``bf16`` as
+    ``emulate_k1_tc``'s."""
     n, h, wd, _ = x.shape
     x = np.ascontiguousarray(x, np.float32)
     cur, nxt = (np.zeros(n * h * wd * WS, np.float32) for _ in range(2))
     cur.reshape(-1, WS)[:, :F] = x.reshape(-1, F)
     block = sum(9 * (F + G * j) * (G if j < 4 else F) for j in range(5))
     out = np.empty(x.size, np.float32)
+    stage, weights = _stage_fn(passes, bf16), _weights(w_packed, bf16)
     for p in range(3):
-        w = np.asarray(w_packed[p * block:(p + 1) * block], np.float32)
+        w = weights[p * block:(p + 1) * block]
         b = np.asarray(b_packed[p * WS:(p + 1) * WS], np.float32)
-        wo, bo = _dense_stages(cur, w, b, n, h, wd, passes)
+        wo, bo = _dense_stages(cur, w, b, n, h, wd, passes, bf16)
         if p < 2:
-            emulate_tc_stage(cur, WS, WS, w[wo:], b[bo:], n, h, wd, F, SCALED_SKIP, nxt, WS,
-                             res=cur, res_pitch=WS, scaling=scaling, passes=passes)
+            stage(cur, WS, WS, w[wo:], b[bo:], n, h, wd, F, SCALED_SKIP, nxt, WS,
+                  res=cur, res_pitch=WS, scaling=scaling)
             cur, nxt = nxt, cur
         else:
-            emulate_tc_stage(cur, WS, WS, w[wo:], b[bo:], n, h, wd, F, DOUBLE_SKIP, out, F,
-                             res=cur, res_pitch=WS, skip=x.reshape(-1), scaling=scaling,
-                             passes=passes)
+            stage(cur, WS, WS, w[wo:], b[bo:], n, h, wd, F, DOUBLE_SKIP, out, F,
+                  res=cur, res_pitch=WS, skip=x.reshape(-1), scaling=scaling)
     return out.reshape(x.shape)
 
 
