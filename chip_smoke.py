@@ -233,10 +233,12 @@ Phases (any failure ends the run with a non-zero exit code):
     four forced trunks in the mode (``k1_mxu`` ``rdb_resident='always'``,
     ``k4_mxu`` with K10's mode, ``k6_mxu``, ``k5_mxu``) through phase 6's
     ``main_path`` with phase 6's weights: exact launches of the bf16 routes,
-    tiled vs untiled, the canvas against phase 6's within ``TOL_BF16``;
-    ``k1_mxu`` is the default configuration with the mode honoured, the
-    decision measurement (its canvas's distance from float32 as a share of
-    the range, its ms/tile beside phase 6's); (c) each forced trunk at 12
+    tiled vs untiled, the canvas against phase 6's within ``TOL_BF16``, the
+    trunk's device time per forward; ``k1_mxu`` is the default
+    configuration with the mode honoured, the decision measurement (its
+    canvas's distance from float32 as a share of the range); ``k1_mxu``,
+    ``k6_mxu`` and ``k5_mxu`` are timed in ms/tile in turns with the default
+    (``mode_tile_ms``); (c) each forced trunk at 12
     RRDBs and init scale 1.0 card vs CPU (``hold_mxu_generator``); (d)
     growth 16 under 'auto' (the plain trunk), ``out_channels=2`` on the
     unfused tail and ``compute_dtype='float16'``, card vs CPU with their
@@ -4324,14 +4326,12 @@ MODE_TIMING_ROUNDS = 3  # rounds of default, mode, mode, default
 def bound_bf16(mm_flops: float, nbytes: float) -> dict:
     """``bound`` for work on bf16 multiplicands: the matrix products at the
     bf16 tensor-core peak (the least time the card could take for them),
-    against the bytes; ``bound_tf32_ms`` is the bound of one TF32 pass at
-    the TF32 peak (K6's and K5's bf16 route), for the log lines."""
+    against the bytes."""
     t_mm = 1e3 * mm_flops / PEAK_BF16_TC
     t_bytes = 1e3 * nbytes / PEAK_HBM_BYTES
     return {"bound_ms": max(t_mm, t_bytes),
             "bound_by": "operations" if t_mm >= t_bytes else "bytes",
-            "bound_route": "bf16 tensor cores" if t_mm >= t_bytes else "HBM bytes",
-            "bound_tf32_ms": max(1e3 * mm_flops / PEAK_TF32_TC, t_bytes)}
+            "bound_route": "bf16 tensor cores" if t_mm >= t_bytes else "HBM bytes"}
 
 
 def hold_mxu(label: str, got, want, tf32x3) -> dict:
@@ -4469,8 +4469,7 @@ def mxu_kernels(card_name: str) -> dict:
             f"[{card_name}]")
     conv = {"max_abs_err": max(p["max_abs_err"] for p in parts),
             "mean_rel_err": max(p["mean_rel_err"] for p in parts)}
-    for key in ("ms", "tf32x3_ms", "plain_ms", "library_ms", "library_fn_ms", "bound_ms",
-                "bound_tf32_ms"):
+    for key in ("ms", "tf32x3_ms", "plain_ms", "library_ms", "library_fn_ms", "bound_ms"):
         conv[key] = sum(p[key] for p in parts)
     top = max(parts, key=lambda p: p["bound_ms"])
     conv.update(bound_by=top["bound_by"], bound_route=" / ".join(
@@ -4482,8 +4481,8 @@ def mxu_kernels(card_name: str) -> dict:
             f"{r['library_fn_ms']:.3f} ms")
         log(f"  {name} at the main-path shape: {r['ms']:.3f} ms against 3xTF32 "
             f"{r['tf32x3_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms{lib}, bound "
-            f"{r['bound_ms']:.3f} ms at the bf16 peak ({100 * r['bound_ms'] / r['ms']:.0f}%), "
-            f"{r['bound_tf32_ms']:.3f} ms for one TF32 pass  [{card_name}]")
+            f"{r['bound_ms']:.3f} ms at the bf16 peak ({100 * r['bound_ms'] / r['ms']:.0f}%)  "
+            f"[{card_name}]")
     return out
 
 
@@ -4712,12 +4711,17 @@ def determinism_phase(card_name: str, tmp: str) -> dict:
     return out
 
 
+# the forced trunks in the mode timed in ms/tile in turns with the default
+TIMED_MXU_CONFIGS = ("k1_mxu", "k6_mxu", "k5_mxu")
+
+
 def mode_tile_ms(card_name: str, params) -> dict:
-    """Phase 28 (b), the decision measurement's time: warm
-    ``predict_continent`` ms/tile on phase 6's region and weights of the
-    default configuration and of ``k1_mxu`` (the default with the mode
-    honoured), in turns default, mode, mode, default, ``MODE_TIMING_ROUNDS``
-    times; the medians and every run."""
+    """Phase 28 (b), the decision measurement's time and the tile-local
+    trunks' in the mode: warm ``predict_continent`` ms/tile on phase 6's
+    region and weights of the default configuration, ``k1_mxu`` (the default
+    with the mode honoured), ``k6_mxu`` and ``k5_mxu``, in turns default,
+    each mode configuration, the same backwards, default,
+    ``MODE_TIMING_ROUNDS`` times; the medians and every run."""
     import torch
 
     from deepbedmap_tpu_torch import DeepBedMap
@@ -4725,22 +4729,22 @@ def mode_tile_ms(card_name: str, params) -> dict:
 
     inputs, bounds, kw = continent_region()
     tiles = 4
+    configs = ("default",) + TIMED_MXU_CONFIGS
     dbms = {c: DeepBedMap(params, cfg=GeneratorConfig(**CONFIGS[c]), device=DEVICE)
-            for c in ("default", "k1_mxu")}
+            for c in configs}
     runs = {c: [] for c in dbms}
     for c in dbms:  # warm
         dbms[c].predict_continent(inputs, bounds, **kw)
     for _ in range(MODE_TIMING_ROUNDS):
-        for c in ("default", "k1_mxu", "k1_mxu", "default"):
+        for c in configs + configs[::-1]:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             dbms[c].predict_continent(inputs, bounds, **kw)
             torch.cuda.synchronize()
             runs[c].append(1e3 * (time.perf_counter() - t0) / tiles)
     out = {c: {"median_ms": float(np.median(r)), "runs_ms": r} for c, r in runs.items()}
-    log(f"  ms/tile in turns: default {out['default']['median_ms']:.1f} (median of "
-        f"{len(runs['default'])}), the mode honoured {out['k1_mxu']['median_ms']:.1f}  "
-        f"[{card_name}]")
+    log(f"  ms/tile in turns (median of {len(runs['default'])}): "
+        + ", ".join(f"{c} {out[c]['median_ms']:.1f}" for c in configs) + f"  [{card_name}]")
     return out
 
 
@@ -4749,10 +4753,11 @@ def bf16_routes_phase(card_name: str, params, default_out, default_tile_ms: floa
     """Phase 28: (a) the five bf16 routes (``mxu_kernels``); (b) the four
     forced trunks in the mode through ``main_path`` on phase 6's region and
     weights (exact launches of the bf16 routes, tiled vs untiled, the canvas
-    against phase 6's within ``TOL_BF16``); the first, the default
-    configuration with the trunk forced, is the decision measurement: the
-    default canvas's distance from float32 and its ms/tile, timed in turns
-    with the default's (``mode_tile_ms``); (c) each forced
+    against phase 6's within ``TOL_BF16``, the trunk's device time per
+    forward); the first, the default configuration with the trunk forced, is
+    the decision measurement: the default canvas's distance from float32;
+    ``k1_mxu``, ``k6_mxu`` and ``k5_mxu`` timed in ms/tile in turns with
+    the default (``mode_tile_ms``); (c) each forced
     trunk card vs CPU (``mxu_card_vs_cpu``); (d) growth 16 under 'auto',
     ``out_channels=2`` and float16 card vs CPU (``surfaces_card_vs_cpu``);
     (e) the non-blocking checkpoint; (f) the determinism finding. Returns
@@ -4770,12 +4775,14 @@ def bf16_routes_phase(card_name: str, params, default_out, default_tile_ms: floa
         launches[config] = r["launches"]
         vs = float((r["out"].double() - default_out.double()).abs().max())
         rng = float(default_out.abs().max())
+        trunk_ms = next(ms for name, ms in r["stages_ms"].items() if name.startswith("trunk"))
         out[config] = {"launches": r["launches"], "tile_ms": r["tile_ms"],
-                       "forward_ms": r["forward_ms"], "vs_default": vs,
-                       "vs_default_share": vs / rng}
+                       "forward_ms": r["forward_ms"], "trunk_ms": trunk_ms,
+                       "vs_default": vs, "vs_default_share": vs / rng}
         log(f"  {config}: canvas {vs:.3e} from the float32 default's = {vs / rng:.3e} of its "
-            f"range {rng:.3e}; {r['tile_ms']:.1f} ms/tile against the default's "
-            f"{default_tile_ms:.1f}  [{card_name}]")
+            f"range {rng:.3e}; trunk {trunk_ms:.2f} ms of a {r['forward_ms']:.2f} ms forward; "
+            f"{r['tile_ms']:.1f} ms/tile against the default's {default_tile_ms:.1f}  "
+            f"[{card_name}]")
         del r
         torch.cuda.empty_cache()
         out[config]["card_vs_cpu"] = mxu_card_vs_cpu(config)
@@ -4973,9 +4980,8 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                      "launches": launches, **r})
     for name, src, rep, config in MXU_KERNELS:
-        r = {k: v for k, v in mxu_results[name].items() if k != "bound_tf32_ms"}
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
-                     "launches": mxu_launches[config][name], **r})
+                     "launches": mxu_launches[config][name], **mxu_results[name]})
     if not all(row["launches"] > 0 for row in rows):
         raise AssertionError("a kernel was never launched on its path")
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")

@@ -138,27 +138,6 @@ __device__ __forceinline__ float4 split_pair(float a, float b) {
                      __uint_as_float(lb));
 }
 
-// For rdb_tile.cuh's bf16 route (K6, K5: one TF32 pass on bf16-rounded
-// operands): {bf16(a), bf16(b), 0, 0}, both rounded to nearest even
-// (cvt.rn.bf16x2.f32 puts a in the upper half), widened back to fp32 (exact,
-// and exact in TF32)
-__device__ __forceinline__ float4 bf16_pair(float a, float b) {
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(a), "f"(b));
-  return make_float4(__uint_as_float(r & 0xFFFF0000u), __uint_as_float(r << 16), 0.f, 0.f);
-}
-
-// a pair as an rdb_tile.cuh stage's A operand takes it: TF32 hi/lo (3xTF32)
-// or bf16
-template <bool kBf16>
-__device__ __forceinline__ float4 operand_pair(float a, float b) {
-  if constexpr (kBf16) {
-    return bf16_pair(a, b);
-  } else {
-    return split_pair(a, b);
-  }
-}
-
 // 16-byte cp.async; with valid false it reads nothing and writes zeros
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));

@@ -22,6 +22,14 @@
 // kernel's design carried over to shared memory; K1 is the other design
 // (workspace in device memory, five conv launches), kept for the resident
 // trunk, so the card gives an A/B of the two.
+//
+// bf16 multiplicands (bf16 nonzero) take rdb_tile.cuh's bf16 route: bf16
+// wgmma k16 on weights packed in bf16 (pack_rdb_weights_tc(mxu_bf16=True)),
+// the input window rounded to bf16 once per tile and kept for all five
+// stages, a1..a4 stored in bf16, 205 KB of shared memory. Its bound is the
+// flops at the bf16 peak, 0.079 ms at the main-path shape; its own floor is
+// the 1.58x halo recompute plus 479 KB of weights from L2 per tile, 621 MB
+// over the launch's 1296 tiles.
 
 #include <cuda_runtime.h>
 
@@ -52,38 +60,39 @@ struct SkipStore {  // out = x + s * v
 template <bool kBf16>
 __global__ void __launch_bounds__(rdbtile::kThreads, 1)
 rdb_banded_kernel(const float* __restrict__ x, float* __restrict__ out,
-                  const float* __restrict__ w, const float* __restrict__ bias,
-                  int H, int W, float scaling) {
+                  const rdbtile::WeightT<kBf16>* __restrict__ w,
+                  const float* __restrict__ bias, int H, int W, float scaling) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
   const size_t img = (size_t)blockIdx.z * H * W * rdbtile::kFeat;
-  rdbtile::dense_block_tile<kBf16>(smem, ImageSource{x + img, W}, w, bias,
-                            blockIdx.y * rdbtile::kTH, blockIdx.x * rdbtile::kTW, H,
-                            W, SkipStore{x + img, out + img, W, scaling});
+  rdbtile::dense_block_tile<kBf16>(smem4, ImageSource{x + img, W}, w, bias,
+                                   blockIdx.y * rdbtile::kTH, blockIdx.x * rdbtile::kTW, H,
+                                   W, SkipStore{x + img, out + img, W, scaling});
 }
 
 template <bool kBf16>
-cudaError_t rdb_banded(const float* x, float* out, const float* w_packed,
+cudaError_t rdb_banded(const float* x, float* out, const void* w_packed,
                        const float* bias, int N, int H, int W, float scaling,
                        cudaStream_t s) {
+  constexpr size_t smem = rdbtile::kTileSmemBytes<kBf16>;
   cudaError_t err = cudaFuncSetAttribute(rdb_banded_kernel<kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)rdbtile::kSmemBytes);
+                                         (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((W + rdbtile::kTW - 1) / rdbtile::kTW,
                   (H + rdbtile::kTH - 1) / rdbtile::kTH, N);
-  rdb_banded_kernel<kBf16><<<grid, rdbtile::kThreads, rdbtile::kSmemBytes, s>>>(
-      x, out, w_packed, bias, H, W, scaling);
+  rdb_banded_kernel<kBf16><<<grid, rdbtile::kThreads, smem, s>>>(
+      x, out, static_cast<const rdbtile::WeightT<kBf16>*>(w_packed), bias, H, W, scaling);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // x, out: (N, H, W, 64), out must not alias x; w_packed: the five stages'
-// split weights back to back (ops/rdb.py:pack_rdb_weights_tc, rounded to bf16
-// first when bf16 is nonzero); bias: b1|b2|b3|b4|b5 (192 floats); bf16:
-// nonzero for bf16 multiplicands. Returns cudaGetLastError().
-extern "C" int rdb_banded_forward(const float* x, float* out, const float* w_packed,
+// weights back to back, split into TF32 hi/lo (ops/rdb.py:pack_rdb_weights_tc,
+// floats), or with bf16 nonzero (bf16 multiplicands) in bf16
+// (pack_rdb_weights_tc(mxu_bf16=True)); bias: b1|b2|b3|b4|b5 (192 floats).
+// Returns cudaGetLastError().
+extern "C" int rdb_banded_forward(const float* x, float* out, const void* w_packed,
                                   const float* bias, int N, int H, int W,
                                   float scaling, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -30,6 +30,14 @@
 // read zero, never ring contents (the TPU's assemble()). Each dense block's
 // intermediates stay in shared memory; the last stage folds the outer skip,
 // out = x + s * (t2 + s * (conv5 + b5)), in rrdb_reference's rounding order.
+//
+// bf16 multiplicands (bf16 nonzero) run each tile on rdb_tile.cuh's bf16
+// route (bf16 wgmma k16, bf16-packed weights, the block input's window
+// rounded once per tile from x or the rings, a1..a4 in bf16; 205 KB, still
+// one block per SM). Its bound is 0.238 ms at the bf16 peak; its own floor
+// the 1.58x halo recompute plus 479 KB of weights from L2 per tile, 1.86 GB
+// per launch. The sweep's 40 wavefront steps hold at most 108 tiles each,
+// under one wave on 132 SMs, so one tile's latency sets each step's pace.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -94,9 +102,9 @@ struct SweepStore {  // t1, t2 = a + s * v; out = x + s * (t2 + s * v)
 
 template <bool kBf16>
 __global__ void __launch_bounds__(rdbtile::kThreads, 1)
-rrdb_sweep_kernel(Sweep sw, const float* __restrict__ w, const float* __restrict__ bias) {
+rrdb_sweep_kernel(Sweep sw, const rdbtile::WeightT<kBf16>* __restrict__ w,
+                  const float* __restrict__ bias) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
   cg::grid_group grid = cg::this_grid();
   const int tiles_x = (sw.W + rdbtile::kTW - 1) / rdbtile::kTW;
   const int bands = (sw.H + rdbtile::kTH - 1) / rdbtile::kTH;
@@ -118,7 +126,7 @@ rrdb_sweep_kernel(Sweep sw, const float* __restrict__ w, const float* __restrict
       const int band = step - kLag * p;
       const int n = (t % per_band) / tiles_x, tx = t % tiles_x;
       rdbtile::dense_block_tile<kBf16>(
-          smem, SweepSource{sw, p, n}, w + p * rdbtile::kBlockWeights,
+          smem4, SweepSource{sw, p, n}, w + p * rdbtile::kTileWeights<kBf16>,
           bias + p * (rdbtile::kFeat + 4 * rdbtile::kGrowth), band * rdbtile::kTH,
           tx * rdbtile::kTW, sw.H, sw.W, SweepStore{sw, p, n});
     }
@@ -128,11 +136,12 @@ rrdb_sweep_kernel(Sweep sw, const float* __restrict__ w, const float* __restrict
 
 template <bool kBf16>
 cudaError_t rrdb_sweep(const float* x, float* ring1, float* ring2, float* out,
-                       const float* w_packed, const float* bias, int N, int H, int W,
+                       const void* w_packed, const float* bias, int N, int H, int W,
                        float scaling, cudaStream_t s) {
+  constexpr size_t smem = rdbtile::kTileSmemBytes<kBf16>;
   cudaError_t err = cudaFuncSetAttribute(rrdb_sweep_kernel<kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)rdbtile::kSmemBytes);
+                                         (int)smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
@@ -140,15 +149,16 @@ cudaError_t rrdb_sweep(const float* x, float* ring1, float* ring2, float* out,
       cudaSuccess)
     return err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, rrdb_sweep_kernel<kBf16>, rdbtile::kThreads, rdbtile::kSmemBytes)) !=
+           &per_sm, rrdb_sweep_kernel<kBf16>, rdbtile::kThreads, smem)) !=
       cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   Sweep sw{x, {ring1, ring2}, out, N, H, W, scaling};
-  void* args[] = {&sw, (void*)&w_packed, (void*)&bias};
+  const rdbtile::WeightT<kBf16>* w = static_cast<const rdbtile::WeightT<kBf16>*>(w_packed);
+  void* args[] = {&sw, (void*)&w, (void*)&bias};
   err = cudaLaunchCooperativeKernel((const void*)rrdb_sweep_kernel<kBf16>,
                                     dim3(per_sm * sms), dim3(rdbtile::kThreads), args,
-                                    rdbtile::kSmemBytes, s);
+                                    smem, s);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -157,13 +167,13 @@ cudaError_t rrdb_sweep(const float* x, float* ring1, float* ring2, float* out,
 
 // x, out: (N, H, W, 64), out must not alias x; ring1, ring2: (4, N, 8, W, 64)
 // scratch each; w_packed: the three blocks' pack_rdb_weights_tc weights back
-// to back (ops/rdb.py:pack_rrdb_weights_tc, rounded to bf16 first when bf16
-// is nonzero); bias: the three blocks' 192 biases back to back; bf16: nonzero
-// for bf16 multiplicands. One cooperative launch. Returns the launch's error
+// to back (ops/rdb.py:pack_rrdb_weights_tc: floats, or with bf16 nonzero,
+// bf16 multiplicands, bf16 values); bias: the three blocks' 192 biases back
+// to back. One cooperative launch. Returns the launch's error
 // (cudaErrorCooperativeLaunchTooLarge if the card cannot hold one block per
 // SM) or cudaGetLastError().
 extern "C" int rrdb_sweep_forward(const float* x, float* ring1, float* ring2,
-                                  float* out, const float* w_packed,
+                                  float* out, const void* w_packed,
                                   const float* bias, int N, int H, int W,
                                   float scaling, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);

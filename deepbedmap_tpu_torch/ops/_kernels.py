@@ -13,8 +13,8 @@ Each ``launch_*`` function is the one place its kernel is launched: it adds one
 to ``launches[name]`` and raises if the C entry point reports a CUDA error.
 The five kernels with a bf16-multiplicand route (K1, K4, K5, K6, K10; the TPU
 kernels' ``mxu_bf16``) take it through an ``int bf16`` argument of their C
-entry and count it under their name with ``_bf16`` appended; K1, K4 and K10
-then take their packed weights in bf16 (``const void*`` in C).
+entry and count it under their name with ``_bf16`` appended, and then take
+their packed weights in bf16 (``const void*`` in C).
 Tensor checks (device, dtype, shape, contiguity) are the callers' job
 (``ops.rdb``, ``ops.conv3x3``, ``ops.deform_conv``, ``ops.tail``); outputs
 and scratch are allocated by the callers with ``torch.empty``. Kernels run on

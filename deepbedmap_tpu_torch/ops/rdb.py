@@ -18,8 +18,9 @@ skip), the function of the JAX ``rrdb_pallas_flat`` and
 two workspaces in ping-pong) and ``rrdb_sweep`` as K5
 (``csrc/rrdb_sweep.cu``, one cooperative launch sweeping row bands, the
 block outputs in band rings). K5 and K6 share ``csrc/rdb_tile.cuh``, one
-8 x 16 tile of a dense block on the tensor cores (3xTF32 ``wgmma``) with its
-intermediates in shared memory. Each wrapper takes its kernel for a CUDA tensor
+8 x 16 tile of a dense block on the tensor cores (3xTF32 ``wgmma``, or bf16
+``wgmma`` with ``mxu_bf16``) with its intermediates in shared memory. Each
+wrapper takes its kernel for a CUDA tensor
 and the plain version for a CPU tensor. There is no size rule and no
 fallback: any N, H, W >= 1 go through the kernels on the card.
 
@@ -36,10 +37,11 @@ bf16 (to nearest even) and everything else stays float32: accumulation,
 biases, LeakyReLU, the dense concat and both skips. A later stage reads the
 float32 activations of the earlier ones and rounds them only at its own dot.
 ``rdb_reference(mxu_bf16=True)`` is the plain version; the kernels take
-their bf16 route with weights the packers rounded: K1 and K4 bf16 ``wgmma``
-k16 on bf16 weights (``csrc/conv3x3_tc.cuh``, ``pack_rdb_weights`` /
-``pack_rrdb_weights`` with ``mxu_bf16``), K6 and K5 one TF32 pass on rounded
-operands (``csrc/rdb_tile.cuh``). As in JAX
+their bf16 route, bf16 ``wgmma`` k16 on weights the packers round and pack
+in bf16: K1 and K4 in ``csrc/conv3x3_tc.cuh`` (``pack_rdb_weights`` /
+``pack_rrdb_weights`` with ``mxu_bf16``), K6 and K5 in ``csrc/rdb_tile.cuh``
+(``pack_rdb_weights_tc`` / ``pack_rrdb_weights_tc`` with ``mxu_bf16``, the
+same bytes), which keep the tile's input and intermediates in bf16. As in JAX
 (``pallas_rdb.py:321-329, 686-692``) the mode's gradient is that of the
 float32 plain version: the rounding is not differentiated, on either
 device.
@@ -48,7 +50,8 @@ Layout: NHWC at every function; the JAX kernels' flat row-band layout is not
 carried over. Conv weights are OIHW, as everywhere in the port; each kernel's
 packer repacks them once per model: ``pack_rdb_weights`` /
 ``pack_rrdb_weights`` for K1 / K4, ``pack_rdb_weights_tc`` /
-``pack_rrdb_weights_tc`` (split into TF32 hi/lo) for K6 / K5.
+``pack_rrdb_weights_tc`` (split into TF32 hi/lo; in bf16 with ``mxu_bf16``)
+for K6 / K5.
 """
 
 from __future__ import annotations
@@ -66,7 +69,7 @@ from deepbedmap_tpu_torch.ops.deform_conv import tf32_split
 FEATURES = 64
 GROWTH = 32
 WORKSPACE = FEATURES + 4 * GROWTH  # channels of the kernels' dense workspace
-# floats of one block's packed weights: 9 x sum_j C_in_j x C_out_j
+# values of one block's packed weights: 9 x sum_j C_in_j x C_out_j
 _BLOCK_WEIGHTS = sum(
     9 * (FEATURES + GROWTH * j) * (GROWTH if j < 4 else FEATURES) for j in range(5)
 )
@@ -120,11 +123,14 @@ def _pack_stage_tc(kernel: torch.Tensor, mxu_bf16: bool = False) -> torch.Tensor
     (``tf32_split``), each the (8, C_out) B operand of one wgmma k8 step in
     its K-major core-matrix layout [n / 8][k / 4][n % 8][k % 4]. Slot k takes
     channel 8 c + 2 (k % 4) + k // 4, the order in which a lane reads its A
-    values (conv3x3_tc.cuh's). With ``mxu_bf16`` the kernel is rounded to
-    bf16 first: its hi halves are the bf16 values, its lo halves zero."""
+    values (conv3x3_tc.cuh's). With ``mxu_bf16`` the bf16 route's: the
+    kernel rounded to bf16 as ``pack_conv_weight(mxu_bf16=True)`` packs it,
+    per 16 input channels and tap the k16 B descriptor's core matrices
+    (stage 5's second N half 4 core-matrix rows further on)."""
+    if mxu_bf16:
+        return pack_conv_weight(kernel, True)
     c_out, c_in = kernel.shape[:2]
-    w = kernel.detach().float()
-    w = (round_bf16(w) if mxu_bf16 else w).permute(1, 2, 3, 0)  # (C_in, ky, kx, C_out)
+    w = kernel.detach().float().permute(1, 2, 3, 0)  # (C_in, ky, kx, C_out)
     w = w.reshape(c_in // 8, 8, 3, 3, c_out)[:, _SLOT_CHANNELS.to(w.device)]
     w = w.reshape(c_in // 8, 2, 4, 3, 3, c_out // 8, 8).permute(0, 3, 4, 5, 1, 6, 2)
     return torch.stack(tf32_split(w), dim=3).reshape(-1)
@@ -135,7 +141,8 @@ def pack_rdb_weights_tc(
     mxu_bf16: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6's layout: the five stages' ``_pack_stage_tc`` back to back (twice
-    ``pack_rdb_weights``' floats: hi and lo), and the five biases
+    ``pack_rdb_weights``' floats: hi and lo; with ``mxu_bf16`` the bf16
+    tensor ``pack_rdb_weights(mxu_bf16=True)`` gives), and the five biases
     concatenated."""
     w = torch.cat([_pack_stage_tc(k, mxu_bf16) for k in kernels]).contiguous()
     b = torch.cat([b_.detach() for b_ in biases]).contiguous()
@@ -156,9 +163,9 @@ def _kernel_args(x: torch.Tensor, kernels, biases, packed, name: str,
                  blocks: int, split: bool, mxu_bf16: bool) -> tuple:
     """What every dense-block kernel takes, checked: (N, H, W) and the packed
     weights of ``blocks`` dense blocks (1, or 3 for a whole RRDB), split into
-    TF32 hi/lo for the tile-local kernels (``split``), for the bf16 route
-    (``mxu_bf16``: bf16 for K1/K4, rounded to bf16 first for K6/K5), from
-    ``packed`` when the caller cached them."""
+    TF32 hi/lo for the tile-local kernels (``split``), in bf16 for the bf16
+    route (``mxu_bf16``, every kernel), from ``packed`` when the caller
+    cached them."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     n, h, w, _ = x.shape
@@ -170,9 +177,9 @@ def _kernel_args(x: torch.Tensor, kernels, biases, packed, name: str,
         with torch.no_grad():
             packed = packer[blocks, split](kernels, biases, mxu_bf16)
     w_packed, b_packed = packed
-    floats = blocks * _BLOCK_WEIGHTS * (2 if split else 1)
-    _kernels.check_tensor(w_packed, "packed weights", (floats,),
-                          torch.bfloat16 if mxu_bf16 and not split else torch.float32)
+    values = blocks * _BLOCK_WEIGHTS * (2 if split and not mxu_bf16 else 1)
+    _kernels.check_tensor(w_packed, "packed weights", (values,),
+                          torch.bfloat16 if mxu_bf16 else torch.float32)
     _kernels.check_tensor(b_packed, "packed biases", (blocks * WORKSPACE,))
     return n, h, w, w_packed, b_packed
 

@@ -5,7 +5,10 @@ its margin, 8, on 22 x 14 px), and the bf16 routes of the CUDA kernels as
 numpy emulations (``tests/torch_port_emulation.py``): K1's, K4's and K10's
 (``csrc/conv3x3_tc.cuh``, bf16 ``wgmma`` k16 on bf16-packed weights, its
 layouts checked one by one and the whole route held against JAX and the
-rounded plain version), K6's (``csrc/rdb_tile.cuh``, one TF32 pass).
+rounded plain version), and K6's and K5's (``csrc/rdb_tile.cuh``'s bf16
+route: bf16 ``wgmma`` k16 on bf16-packed weights with the tile's input and
+intermediates resident in bf16, held against JAX and the rounded plain
+version at a ragged shape too).
 
 The mode rounds each dot's multiplicands to bf16 (to nearest even) and keeps
 everything else float32. Products of bf16 values are exact in float32, so
@@ -50,6 +53,7 @@ from deepbedmap_tpu_torch.ops.rdb import (
     pack_rdb_weights,
     pack_rdb_weights_tc,
     pack_rrdb_weights,
+    pack_rrdb_weights_tc,
     rdb_banded,
     rdb_fused,
     rdb_reference,
@@ -70,6 +74,7 @@ from tests.torch_port_emulation import (
     bf16_rn,
     emulate_k1_tc,
     emulate_k4_tc,
+    emulate_k5,
     emulate_k6,
     emulate_tc_stage,
     emulate_tc_stage_bf16,
@@ -143,6 +148,13 @@ DENSE = {
     "K4": ("rrdb_fused_flat", rrdb_fused, 3, (1, 13, 14, F), 4),
     "K5": ("rrdb_sweep_flat", rrdb_sweep, 3, (2, 22, 14, F), 8),
 }
+# each kernel's packer and the emulation of its bf16 route
+ROUTES = {
+    "K1": (pack_rdb_weights, emulate_k1_tc),
+    "K4": (pack_rrdb_weights, emulate_k4_tc),
+    "K6": (pack_rdb_weights_tc, emulate_k6),
+    "K5": (pack_rrdb_weights_tc, emulate_k5),
+}
 
 
 @pytest.mark.parametrize("kernel", list(DENSE))
@@ -190,14 +202,12 @@ def test_dense_block_kernels_match_jax_in_the_mode(kernel):
         else:
             fp32 = out.detach().numpy()
     _hold(f"{kernel} ({entry}) {shape}", got, np.asarray(want), fp32)
-    if kernel in ("K1", "K4"):
-        # the CUDA kernel's bf16 route (conv3x3_tc.cuh), emulated, against
-        # JAX's kernel in the mode
-        pack, emulate = ((pack_rdb_weights, emulate_k1_tc) if blocks == 1
-                         else (pack_rrdb_weights, emulate_k4_tc))
-        w16, b16 = pack(*args, True)
-        _hold(f"emulated {kernel} bf16 route vs {entry}",
-              emulate(x, w16, b16.numpy(), SCALING, bf16=True), np.asarray(want), fp32)
+    # the CUDA kernel's bf16 route (conv3x3_tc.cuh's for K1/K4, rdb_tile.cuh's
+    # for K6/K5), emulated, against JAX's kernel in the mode
+    pack, emulate = ROUTES[kernel]
+    w16, b16 = pack(*args, True)
+    _hold(f"emulated {kernel} bf16 route vs {entry}",
+          emulate(x, w16, b16.numpy(), SCALING, bf16=True), np.asarray(want), fp32)
     # the mode's gradient is the float32 plain version's, on both sides
     for a, b in zip(grads[True], grads[False]):
         assert torch.equal(a, b)
@@ -272,33 +282,88 @@ def test_bf16_rounding_is_round_to_nearest_even(bits_in, rne, rna):
     np.testing.assert_array_equal(bf16_rn(v), round_bf16(torch.from_numpy(v)).numpy())
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K4", "K6"])
-def test_emulated_bf16_route_matches_the_rounded_plain_version(kernel):
+@pytest.mark.parametrize("kernel,shape", [
+    pytest.param("K1", (2, 13, 19, F), id="K1"),
+    pytest.param("K4", (2, 13, 19, F), id="K4"),
+    pytest.param("K6", (2, 13, 19, F), id="K6"),
+    pytest.param("K5", (2, 13, 19, F), id="K5"),
+    # narrower than a tile and not a multiple of the 8-row band
+    pytest.param("K6", (2, 13, 9, F), id="K6-ragged"),
+    pytest.param("K5", (2, 13, 9, F), id="K5-ragged"),
+])
+def test_emulated_bf16_route_matches_the_rounded_plain_version(kernel, shape):
     # the CUDA kernels' bf16 routes step for step: conv3x3_tc.cuh's for
     # K1/K4/K10 (bf16 weights as packed, the halo rounded once per chunk,
-    # bf16 k16 products), rdb_tile.cuh's for K6/K5 (the packer's rounded
-    # weights, A rounded at each dot, one TF32 pass); the same criterion
-    # against the rounded plain version as the port against JAX (sums in
-    # float64 here, float32 there)
-    sets = [_block(seed=61)] if kernel != "K4" else [_block(seed=64 + i) for i in range(3)]
+    # bf16 k16 products), rdb_tile.cuh's for K6/K5 (bf16 weights as packed,
+    # x rounded once per tile, a1..a4 stored in bf16, bf16 k16 products);
+    # the same criterion against the rounded plain version as the port
+    # against JAX (sums in float64 here, float32 there)
+    blocks = 3 if kernel in ("K4", "K5") else 1
+    sets = [_block(seed=61)] if blocks == 1 else [_block(seed=64 + i) for i in range(3)]
     tk = [[_oihw(k) for k in s_[0]] for s_ in sets]
     tb = [[torch.from_numpy(b) for b in s_[1]] for s_ in sets]
-    if kernel != "K4":
+    if blocks == 1:
         tk, tb = tk[0], tb[0]
-    x = np.random.RandomState(62).randn(2, 13, 19, F).astype(np.float32)
-    if kernel == "K6":
-        w, b = pack_rdb_weights_tc(tk, tb, mxu_bf16=True)
-        got = emulate_k6(x, w.numpy(), b.numpy(), SCALING, bf16=True)
-        fp32 = emulate_k6(x, *[t.numpy() for t in pack_rdb_weights_tc(tk, tb)], SCALING)
-    else:
-        pack, emulate = ((pack_rdb_weights, emulate_k1_tc) if kernel == "K1"
-                         else (pack_rrdb_weights, emulate_k4_tc))
-        w, b = pack(tk, tb, mxu_bf16=True)
-        got = emulate(x, w, b.numpy(), SCALING, bf16=True)
-        fp32 = emulate(x, *[t.numpy() for t in pack(tk, tb)], SCALING)
-    plain = rrdb_reference if kernel == "K4" else rdb_reference
+    x = np.random.RandomState(62).randn(*shape).astype(np.float32)
+    pack, emulate = ROUTES[kernel]
+    w, b = pack(tk, tb, mxu_bf16=True)
+    got = emulate(x, w, b.numpy(), SCALING, bf16=True)
+    fp32 = emulate(x, *[t.numpy() for t in pack(tk, tb)], SCALING)
+    plain = rrdb_reference if blocks == 3 else rdb_reference
     want = plain(torch.from_numpy(x), tk, tb, SCALING, mxu_bf16=True).numpy()
-    _hold(f"emulated {kernel} bf16 route", got, want, fp32)
+    _hold(f"emulated {kernel} bf16 route {shape}", got, want, fp32)
+
+
+def test_emulated_tile_bf16_route_with_16_channel_units():
+    # rdb_tile.cuh's bf16 route with kBfSteps 1 (chip_tile_variants.py's
+    # "unit16"): one k16 step a unit, a 3-slot ring two units ahead, one x
+    # plane landed per unit; the same answer as the shipped 32-channel units,
+    # bit for bit (products exact, sums float64)
+    ks, bs = _block(seed=67)
+    tk, tb = [_oihw(k) for k in ks], [torch.from_numpy(b) for b in bs]
+    x = np.random.RandomState(68).randn(1, 13, 19, F).astype(np.float32)
+    w, b = pack_rdb_weights_tc(tk, tb, mxu_bf16=True)
+    got = emulate_k6(x, w, b.numpy(), SCALING, bf16=True, unit_steps=1)
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(got, emulate_k6(x, w, b.numpy(), SCALING, bf16=True))
+
+
+@pytest.mark.parametrize("blocks", [1, 3])
+def test_tile_bf16_pack_is_the_b_descriptor_layout(blocks):
+    # pack_rdb_weights_tc / pack_rrdb_weights_tc with mxu_bf16: bf16, the
+    # bytes of K1's pack (pack_rdb_weights(mxu_bf16=True)), and read back as
+    # rdb_tile.cuh's bf16 route reads it (per stage and k16 step a unit of
+    # nine taps' descriptors; stage 5's two N halves 512 values apart) the
+    # bf16-rounded weights, block after block
+    sets = [_block(seed=69 + i, scale=1.0) for i in range(blocks)]
+    tk = [[_oihw(k) for k in s_[0]] for s_ in sets]
+    tb = [[torch.from_numpy(b) for b in s_[1]] for s_ in sets]
+    if blocks == 1:
+        w, b = pack_rdb_weights_tc(tk[0], tb[0], mxu_bf16=True)
+        w1, b1 = pack_rdb_weights(tk[0], tb[0], mxu_bf16=True)
+    else:
+        w, b = pack_rrdb_weights_tc(tk, tb, mxu_bf16=True)
+        w1, b1 = pack_rrdb_weights(tk, tb, mxu_bf16=True)
+    per_block = sum(k.numel() for k in tk[0])
+    assert w.dtype == torch.bfloat16 and w.shape == (blocks * per_block,)
+    assert torch.equal(w.view(torch.int16), w1.view(torch.int16)) and torch.equal(b, b1)
+    bits, off = bf16_bits(w), 0
+    for ks in tk:
+        for wt in ks:
+            cout, cin = wt.shape[:2]
+            rounded = round_bf16(wt).double().numpy()
+            unit = 16 * 9 * cout
+            for c16 in range(cin // 16):
+                for tap in range(9):
+                    for half in range(cout // 32):
+                        got = bf16_b_operand(bits[off + c16 * unit:], 0, tap, cout, n=32,
+                                             start=512 * half)
+                        want = rounded[32 * half:32 * (half + 1),
+                                       16 * c16 + np.asarray(BF16_SLOT_CHANNELS),
+                                       tap // 3, tap % 3].T
+                        np.testing.assert_array_equal(got, want)
+            off += cin * unit // 16
+    assert off == blocks * per_block
 
 
 def test_emulated_k10_bf16_route_matches_the_rounded_plain_version():

@@ -18,11 +18,16 @@ index arithmetic against the plain PyTorch versions.
   workspace's channel pitch, the hi/lo splits into the kernel's shared-memory
   layouts, the wgmma fragments read back from them, the partial sum per
   kernel row). Products are exact and sums float64, so these show the
-  split's precision, not the tensor cores' own rounding. ``bf16=True`` on
-  ``dense_block_tile_tc`` / ``emulate_k6`` emulates ``rdb_tile.cuh``'s bf16
-  route: A rounded to bf16 to nearest even (``bf16_rn``, the kernels'
-  ``cvt.rn.bf16x2.f32``), the weights as packed (rounded by the packer),
-  one TF32 pass, hi.hi;
+  split's precision, not the tensor cores' own rounding;
+- ``dense_block_tile_bf16`` and ``bf16=True`` on ``emulate_k6`` /
+  ``emulate_k5``: ``rdb_tile.cuh``'s bf16 route (one flat shared memory of
+  bf16 words poisoned with NaN, stepped unit by unit as the kernel steps it:
+  the weight ring, x's fp32 landing slots aliasing the a-region, x rounded
+  once by ``bf16_rn`` into its resident planes, a1..a4 stored in bf16 by the
+  epilogues with zero outside the image, the k16 A fragments read lane by
+  lane, ``pack_rdb_weights_tc(mxu_bf16=True)``'s bf16 core matrices read as
+  the B descriptor reads them for both N halves of stage 5, one float64
+  chain per stage);
 - ``emulate_tc_stage_bf16`` and ``bf16=True`` on ``emulate_k1_tc`` /
   ``emulate_k4_tc``: ``conv3x3_tc.cuh``'s bf16 route,
   ``conv3x3_tc_stage_bf16`` (persistent blocks walking the tiles, the
@@ -47,6 +52,8 @@ index arithmetic against the plain PyTorch versions.
   corners per pixel; C_out 1: a 32 x 32 tile's window projected onto the
   nine tap fields 8 channels at a time, then K3's sampling).
 """
+
+import functools
 
 import numpy as np
 
@@ -97,7 +104,7 @@ def _swizzled(q, chunk):
     return q * G + ((chunk ^ (q & 3)) << 3)
 
 
-def dense_block_tile_tc(load, b_tc, biases, ty0, tx0, h, w, passes=3, bf16=False):
+def dense_block_tile_tc(load, b_tc, biases, ty0, tx0, h, w, passes=3):
     """One 8 x 16 tile of ``csrc/rdb_tile.cuh``: ``load(gy, gx)`` gives the
     block input at in-image pixels (index arrays). x is staged chunk by chunk
     as the kernel's [pixel][8] slot with zero outside the image; a1..a4 live in
@@ -106,8 +113,7 @@ def dense_block_tile_tc(load, b_tc, biases, ty0, tx0, h, w, passes=3, bf16=False
     window read its last pixel), A gathered per tap in the permuted k order
     and split into TF32 hi/lo, B from ``_stage_b_tc``, a partial sum per
     (chunk, kernel row) added to the running sum; products exact, sums
-    float64. ``passes`` 1 keeps hi.hi only; ``bf16`` is the bf16 route (A
-    rounded by ``bf16_rn``, one pass). Returns (conv5 + b5 in float32,
+    float64. ``passes`` 1 keeps hi.hi only. Returns (conv5 + b5 in float32,
     in-image mask) over the whole tile."""
     xr, xc = _win(0)
     gy, iny = _inside(ty0 - MARGIN, xr, h)
@@ -143,9 +149,6 @@ def dense_block_tile_tc(load, b_tc, biases, ty0, tx0, h, w, passes=3, bf16=False
                     q = (oy + ky + d) * kcols + ox + kx + d
                     a = store[offset(q)[:, None] + SLOT_CHANNELS[None, :]]
                     bh, bl = b_tc[j - 1][c, ky, kx]
-                    if bf16:
-                        part += bf16_rn(a).astype(np.float64) @ bh
-                        continue
                     ah, al = (v.astype(np.float64) for v in split_tf32(a))
                     part += ah @ bh
                     if passes == 3:
@@ -173,36 +176,51 @@ def _tile_span(t0, limit, size):
     return slice(t0, min(t0 + size, limit)), min(t0 + size, limit) - t0
 
 
-def emulate_k6(x, w_packed, b_packed, scaling, passes=3, bf16=False):
+def _tile_fn(w_packed, b_packed, passes, bf16, unit_steps):
+    """One dense block's tile body: ``tile(load, ty0, tx0, h, w)``, the 3xTF32
+    route (``passes``) or the bf16 route (``unit_steps``)."""
+    if bf16:
+        bits = _weights(w_packed, True)
+        return lambda load, ty0, tx0, h, w: dense_block_tile_bf16(
+            load, bits, b_packed, ty0, tx0, h, w, unit_steps)
+    b_tc = _stage_b_tc(w_packed)
+    return lambda load, ty0, tx0, h, w: dense_block_tile_tc(
+        load, b_tc, b_packed, ty0, tx0, h, w, passes)
+
+
+def emulate_k6(x, w_packed, b_packed, scaling, passes=3, bf16=False, unit_steps=2):
     """csrc/rdb_banded.cu: every 8 x 16 tile from its own input window, out =
-    x + s * v in float32."""
+    x + s * v in float32. ``bf16``: the bf16 route, ``w_packed`` being
+    ``pack_rdb_weights_tc(mxu_bf16=True)``'s bf16 tensor."""
     n, h, w, _ = x.shape
     x = np.asarray(x, np.float32)
-    b_tc = _stage_b_tc(w_packed)
+    tile = _tile_fn(w_packed, b_packed, passes, bf16, unit_steps)
     out = np.full(x.shape, np.nan, np.float32)
     for i in range(n):
         for ty0 in range(0, h, TH):
             for tx0 in range(0, w, TW):
-                v, _ = dense_block_tile_tc(lambda gy, gx: x[i, gy, gx], b_tc, b_packed,
-                                           ty0, tx0, h, w, passes, bf16)
+                v, _ = tile(lambda gy, gx: x[i, gy, gx], ty0, tx0, h, w)
                 (ys, ny), (xs, nx) = _tile_span(ty0, h, TH), _tile_span(tx0, w, TW)
                 out[i, ys, xs] = x[i, ys, xs] + np.float32(scaling) * v[:ny, :nx]
     return out
 
 
-def emulate_k5(x, w_packed, b_packed, scaling):
+def emulate_k5(x, w_packed, b_packed, scaling, bf16=False, unit_steps=2):
     """csrc/rrdb_sweep.cu: step s runs RDB1 band s, RDB2 band s-2 and RDB3
     band s-4 (bands of the tile's 8 rows, 8 x 16 tiles), every tile of a step
     reading the state before the step; the block outputs live in 4-slot rings
     that start as NaN, so a read of a slot that holds no band yet poisons the
-    result. Asserts that no step writes a ring slot it also reads."""
+    result. Asserts that no step writes a ring slot it also reads. ``bf16``:
+    the bf16 route, ``w_packed`` being ``pack_rrdb_weights_tc(mxu_bf16=True)``'s
+    bf16 tensor."""
     n, h, w, _ = x.shape
     x = np.asarray(x, np.float32)
     bands = -(-h // TH)
-    block = 2 * sum(9 * _stage_cin(j) * _stage_cout(j) for j in range(1, 6))
+    weights = _weights(w_packed, bf16)
+    block = (1 if bf16 else 2) * sum(9 * _stage_cin(j) * _stage_cout(j) for j in range(1, 6))
     nb = F + 4 * G
-    params = [(_stage_b_tc(w_packed[p * block:(p + 1) * block]),
-               b_packed[p * nb:(p + 1) * nb]) for p in range(3)]
+    tiles = [_tile_fn(weights[p * block:(p + 1) * block], b_packed[p * nb:(p + 1) * nb], 3,
+                      bf16, unit_steps) for p in range(3)]
     rings = [np.full((SLOTS, n, TH, w, F), np.nan, np.float32) for _ in range(2)]
     out = np.full(x.shape, np.nan, np.float32)
     s = np.float32(scaling)
@@ -221,7 +239,7 @@ def emulate_k5(x, w_packed, b_packed, scaling):
                     return before[p - 1][gy // TH % SLOTS, i, gy % TH, gx]
 
                 for tx0 in range(0, w, TW):
-                    v, _ = dense_block_tile_tc(load, *params[p], band * TH, tx0, h, w)
+                    v, _ = tiles[p](load, band * TH, tx0, h, w)
                     (ys, ny), (xs, nx) = _tile_span(band * TH, h, TH), _tile_span(tx0, w, TW)
                     a = (x[i, ys, xs] if p == 0
                          else before[p - 1][band % SLOTS, i, :ny, xs])
@@ -392,32 +410,50 @@ def _bf16_of(values):
     return (bf16_rn(values).view(np.uint32) >> 16).astype(np.uint16)
 
 
-def bf16_a_fragments(halo, k, tap):
-    """The A operands of wgmma.m64nNk16 at k16 step ``k`` and ``tap`` for the
-    tile's 16 warps (warp = tile row), read lane by lane from the rounded
-    halo slot ``halo`` ([k16 step][pixel][16] bf16 bits) as the kernel reads
-    them: lane (g, t) loads 8 bytes at pixel g of its row shifted by the tap
-    (v0) and 8 at pixel g + 8 (v8), channels 4t..4t + 3 of the plane, into
-    registers {v0.x, v8.x, v0.y, v8.y}; register r, low half first, holds row
+def k16_a_fragments(mem, base, q):
+    """The A operands of wgmma.m64nNk16 for M rows whose pixels are ``q``
+    (one per row, 16 rows a warp), read lane by lane from the bf16 plane at
+    ``mem[base:]`` ([pixel][16] bf16 bits) as the kernels read them: lane
+    (g, t) of a warp loads 8 bytes at the pixel of its row g (v0) and 8 at
+    that of row g + 8 (v8), channels 4t..4t + 3 of the plane, into registers
+    {v0.x, v8.x, v0.y, v8.y}; register r, low half first, holds row
     g + 8 (r % 2) at k slots 2t + 8 (r // 2) and the next (the wgmma A
-    fragment layout). Returns (16 rows, 16 pixels, 16 slots) float64."""
-    hpix = TC_HALO_W * TC_HALO_H
-    row, g, t, r, half = np.meshgrid(np.arange(TC_TILE_ROWS), np.arange(8), np.arange(4),
-                                     np.arange(4), np.arange(2), indexing="ij")
-    lane_load = (k * hpix + (row + tap // 3) * TC_HALO_W + g + tap % 3) * 16 + 4 * t
-    src = lane_load + 8 * 16 * (r % 2) + 2 * (r // 2) + half  # v8 for odd r, .y for r >= 2
-    a = np.full((TC_TILE_ROWS, 16, 16), np.nan)
-    a[row, g + 8 * (r % 2), 2 * t + 8 * (r // 2) + half] = _bf16_value(halo[src])
+    fragment layout). Returns (rows, 16 slots) float64."""
+    row, lane_off, slot = _k16_lanes(len(q))
+    a = np.full((len(q), 16), np.nan)
+    a[row, slot] = _bf16_value(mem[base + q[row] * 16 + lane_off])
     return a
 
 
-def bf16_b_operand(slot_w, k, tap, cout):
-    """The B operand (16 k slots, C_out) of k16 step ``k`` and ``tap`` from a
-    weight slot (bf16 bits), read through the descriptor: core matrices of 8
-    rows x 16 bytes, 128 B apart along K (leading byte offset), 256 B apart
-    along N (stride byte offset)."""
-    base = (k * 9 + tap) * 16 * cout
-    kk, nn = np.meshgrid(np.arange(16), np.arange(cout), indexing="ij")
+@functools.lru_cache(maxsize=None)
+def _k16_lanes(rows):
+    """``k16_a_fragments``' lanes for ``rows`` M rows: each register half's
+    row, its offset in the lane's 8-byte loads, and its k slot."""
+    warp, g, t, r, half = np.meshgrid(np.arange(rows // 16), np.arange(8), np.arange(4),
+                                      np.arange(4), np.arange(2), indexing="ij")
+    row = 16 * warp + g + 8 * (r % 2)  # v8 for odd r
+    return row, 4 * t + 2 * (r // 2) + half, 2 * t + 8 * (r // 2) + half  # .y for r >= 2
+
+
+def bf16_a_fragments(halo, k, tap):
+    """``k16_a_fragments`` for ``conv3x3_tc_stage_bf16``'s tile at k16 step
+    ``k`` and ``tap``: the 16 warps are the tile rows, a warp's rows its 16
+    pixels shifted by the tap in the rounded halo slot ``halo`` ([k16
+    step][pixel][16] bf16 bits). Returns (16 rows, 16 pixels, 16 slots)."""
+    hpix = TC_HALO_W * TC_HALO_H
+    row, pix = np.meshgrid(np.arange(TC_TILE_ROWS), np.arange(16), indexing="ij")
+    q = (row + tap // 3) * TC_HALO_W + pix + tap % 3
+    return k16_a_fragments(halo, k * hpix * 16, q.reshape(-1)).reshape(TC_TILE_ROWS, 16, 16)
+
+
+def bf16_b_operand(slot_w, k, tap, cout, n=None, start=0):
+    """The B operand (16 k slots, ``n`` columns, default C_out) of k16 step
+    ``k`` and ``tap`` from a weight slot (bf16 bits) packed at C_out, read
+    through the descriptor from ``start`` values further on: core matrices
+    of 8 rows x 16 bytes, 128 B apart along K (leading byte offset), 256 B
+    apart along N (stride byte offset)."""
+    base = (k * 9 + tap) * 16 * cout + start
+    kk, nn = np.meshgrid(np.arange(16), np.arange(n or cout), indexing="ij")
     idx = base + (nn // 8) * 128 + (kk // 8) * 64 + (nn % 8) * 8 + kk % 8
     return _bf16_value(slot_w[idx])
 
@@ -504,8 +540,11 @@ def _stage_fn(passes, bf16):
 
 
 def _weights(w_packed, bf16):
-    """The packed weights as the kernel reads them: float32, or bf16 bits."""
-    return bf16_bits(w_packed) if bf16 else np.asarray(w_packed, np.float32)
+    """The packed weights as the kernel reads them: float32, or bf16 bits
+    (of a ``torch.bfloat16`` tensor, or already bits)."""
+    if not bf16:
+        return np.asarray(w_packed, np.float32)
+    return w_packed if isinstance(w_packed, np.ndarray) else bf16_bits(w_packed)
 
 
 def _dense_stages(ws, w, b, n, h, wd, passes, bf16=False):
@@ -560,6 +599,116 @@ def emulate_k4_tc(x, w_packed, b_packed, scaling, passes=3, bf16=False):
             stage(cur, WS, WS, w[wo:], b[bo:], n, h, wd, F, DOUBLE_SKIP, out, F,
                   res=cur, res_pitch=WS, skip=x.reshape(-1), scaling=scaling)
     return out.reshape(x.shape)
+
+
+# --- csrc/rdb_tile.cuh's bf16 route ------------------------------------------
+
+
+def _pix(k):
+    rows, cols = _win(k)
+    return rows * cols
+
+
+def dense_block_tile_bf16(load, w_bits, biases, ty0, tx0, h, w, unit_steps=2):
+    """One 8 x 16 tile of ``rdb_tile.cuh``'s bf16 route (``stage_bf16``):
+    ``load(gy, gx)`` gives the block input at in-image pixels, ``w_bits``
+    the block's ``pack_rdb_weights_tc(mxu_bf16=True)`` bits. Shared memory is
+    one flat array of bf16 words laid out as the kernel's, poisoned with NaN:
+    a1..a4 ([plane][pixel][16] each), the resident x ([plane][pixel][16]),
+    the weight ring (2 slots of two k16 steps, ``kBfSteps``, or 3 of one
+    with ``unit_steps`` 1); x's two fp32 landing slots alias the a-region.
+    Unit u
+    (stage, k16 steps) is issued ``ahead`` units before it runs: its weights
+    into slot u % ring and, for stage 1's units, their x planes into landing
+    slot plane % 2, zero outside the image; at unit u's barrier its planes
+    are rounded by ``bf16_rn`` into the resident x. Per stage: M = the
+    window's pixels padded to 64-row blocks (rows past the window read its
+    last pixel), A from ``k16_a_fragments``, B through the descriptor
+    (``bf16_b_operand``, stage 5's second N half 512 values further on), one
+    float64 sum per stage; stages 1-4 store bf16(lrelu(v)), zero outside the
+    image. Returns (conv5 + b5 in float32, in-image mask) over the tile."""
+    ring = 3 if unit_steps == 1 else 2
+    ahead = ring - 1
+    act_off = [int(sum(_pix(m) * G for m in range(1, k))) for k in range(1, 6)]
+    x_off, plane = act_off[4], _pix(0) * 16
+    slot_elems = unit_steps * 16 * 9 * F
+    ring_off = x_off + 4 * plane
+    smem = np.full(ring_off + ring * slot_elems, BF_POISON, np.uint16)
+    land = smem[:4 * plane].view(np.float32).reshape(2, plane)  # aliases a1, a2
+    units, woff, off = [], {}, 0
+    for j in range(1, 6):
+        woff[j] = off
+        units += [(j, uu) for uu in range(_stage_cin(j) // 16 // unit_steps)]
+        off += 9 * _stage_cin(j) * _stage_cout(j)
+    x_units = 4 // unit_steps
+    piece = np.arange(plane // 4)
+    pp, c4 = piece >> 2, piece & 3
+    xc = _win(0)[1]
+    gy, gx = ty0 - MARGIN + pp // xc, tx0 - MARGIN + pp % xc
+    inside = (gy >= 0) & (gy < h) & (gx >= 0) & (gx < w)
+
+    def issue(u):
+        if u >= len(units):
+            return
+        j, uu = units[u]
+        n = unit_steps * 16 * 9 * _stage_cout(j)
+        dst = ring_off + (u % ring) * slot_elems
+        smem[dst:dst + n] = w_bits[woff[j] + uu * n:][:n]
+        for e in range(unit_steps if u < x_units else 0):
+            pl = u * unit_steps + e
+            vals = np.zeros((len(piece), 4), np.float32)
+            ch = 16 * pl + 4 * c4[inside][:, None] + np.arange(4)
+            vals[inside] = np.asarray(load(gy[inside], gx[inside]), np.float32)[
+                np.arange(int(inside.sum()))[:, None], ch]
+            land[pl % 2] = vals.reshape(-1)
+
+    def advance(u):
+        for e in range(unit_steps if u < x_units else 0):
+            pl = u * unit_steps + e
+            smem[x_off + pl * plane:x_off + (pl + 1) * plane] = _bf16_of(land[pl % 2])
+        issue(u + ahead)
+
+    for u in range(ahead):
+        issue(u)
+    u, b_off = 0, 0
+    for j in range(1, 6):
+        rows, cols = _win(j)
+        npix = rows * cols
+        r = np.arange(-(-npix // 64) * 64)
+        p = np.minimum(r, npix - 1)
+        oy, ox = p // cols, p % cols
+        cout = _stage_cout(j)
+        acc = np.zeros((len(r), cout))
+        for uu in range(_stage_cin(j) // 16 // unit_steps):
+            advance(u)
+            slot = smem[ring_off + (u % ring) * slot_elems:][:slot_elems]
+            for e in range(unit_steps):
+                s = uu * unit_steps + e
+                k = 0 if s < 4 else 1 + (s - 4) // 2
+                base = x_off + s * plane if s < 4 else act_off[k - 1] + (s - 4) % 2 * _pix(k) * 16
+                kcols, d = _win(k)[1], j - 1 - k
+                for tap in range(9):
+                    a = k16_a_fragments(smem, base,
+                                        (oy + tap // 3 + d) * kcols + ox + tap % 3 + d)
+                    for half in range(cout // 32):
+                        acc[:, 32 * half:32 * (half + 1)] += a @ bf16_b_operand(
+                            slot, e, tap, cout, n=32, start=512 * half)
+            u += 1
+        # epilogue, in float32
+        v = acc[:npix].astype(np.float32) + np.asarray(biases[b_off:b_off + cout], np.float32)
+        b_off += cout
+        ogy = ty0 - (MARGIN - j) + oy[:npix]
+        ogx = tx0 - (MARGIN - j) + ox[:npix]
+        keep = (ogy >= 0) & (ogy < h) & (ogx >= 0) & (ogx < w)
+        if j == 5:
+            return v.reshape(TH, TW, F), keep.reshape(TH, TW)
+        val = np.where(keep[:, None], np.where(v >= 0, v, np.float32(0.2) * v), np.float32(0))
+        co = np.arange(G)
+        dst = act_off[j - 1] + ((co >> 4) * npix + r[:npix, None]) * 16 + (co & 15)
+        smem[dst] = _bf16_of(val.astype(np.float32))
+        region = smem[act_off[j - 1]:act_off[j - 1] + npix * G]
+        assert not np.isnan(_bf16_value(region)).any(), "a_j storage not fully written"
+    raise AssertionError("unreachable")
 
 
 # --- csrc/deform_tail.cu ----------------------------------------------------
