@@ -54,6 +54,7 @@ from deepbedmap_tpu_torch.inference.multihost import (
 from deepbedmap_tpu_torch.models.api import build_generator, check_generator_device
 from deepbedmap_tpu_torch.models.generator import Generator
 from deepbedmap_tpu_torch.parallel.mesh import mesh_rank
+from deepbedmap_tpu_torch.utils.profiling import count, span
 from deepbedmap_tpu_torch.train.checkpoint import (
     import_chainer_generator_npz,
     load_generator_state_dict,
@@ -185,23 +186,29 @@ class DeepBedMap:
         velocity_x, velocity_y, accumulation (the reference's five inputs).
         The inputs are cut on ``self.device`` (``data.groundtruth``) and go
         through the generator unclipped, as in JAX (only
-        ``predict_continent`` clips the conditioning)."""
-        inputs = get_model_inputs(
-            window_bound,
-            rasters["bed_lowres"],
-            rasters["surface"],
-            rasters["velocity_x"],
-            rasters["velocity_y"],
-            rasters["accumulation"],
-            padding=padding,
-            device=self.device,
-        )
-        pred = self.forward_fn()(
-            *(inputs[k].permute(0, 2, 3, 1).contiguous() for k in ("X", "W1", "W2", "W3"))
-        )
+        ``predict_continent`` clips the conditioning). One call is the
+        telemetry's ``predict``: ``predict.inputs`` (the ``tiler.*`` spans),
+        ``predict.forward``, ``predict.fetch``."""
+        with span("predict", range=False):
+            count("predict.requests")
+            with span("predict.inputs", range=False):
+                inputs = get_model_inputs(
+                    window_bound,
+                    rasters["bed_lowres"],
+                    rasters["surface"],
+                    rasters["velocity_x"],
+                    rasters["velocity_y"],
+                    rasters["accumulation"],
+                    padding=padding,
+                    device=self.device,
+                )
+            with span("predict.forward"):
+                pred = self.forward_fn()(*(inputs[k].permute(0, 2, 3, 1).contiguous()
+                                           for k in ("X", "W1", "W2", "W3")))
+            with span("predict.fetch"):
+                dem = pred[0, :, :, 0].cpu().numpy()
         xmin, ymin, xmax, ymax = window_bound
-        return Raster(pred[0, :, :, 0].cpu().numpy(), left=xmin, top=ymax,
-                      res=self.resolution)
+        return Raster(dem, left=xmin, top=ymax, res=self.resolution)
 
     def predict_continent(
         self,

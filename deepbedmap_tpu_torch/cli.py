@@ -24,7 +24,10 @@ stdout; human logs go to stderr. ``--checkpoint`` reads the port's own
 train-state checkpoints (``train``'s ``--out``; a JAX Orbax directory raises
 ``ValueError``). ``--mesh-devices`` and ``--multihost`` raise
 ``NotImplementedError``. ``grid`` writes a GeoTIFF for ``-o *.tif`` and
-NetCDF otherwise; ``build`` reads ``*.nc`` and ``*.tif`` surveys. ``train
+NetCDF otherwise; ``build`` reads ``*.nc`` and ``*.tif`` surveys.
+``--telemetry PATH``, before the command, records the port's spans and
+counters (``utils.profiling``) and writes them when the command ends: PATH
+(a Chrome trace) and PATH.summary.json (``snapshot()``). ``train
 --live-term`` prints sparklines of the metrics after each epoch and
 ``--live-png`` redraws their curves into a PNG (``viz.live.LiveCurves``;
 JAX's ``--live-term`` acts only beside ``--live-png``); ``figures`` writes
@@ -655,6 +658,12 @@ def build_parser() -> argparse.ArgumentParser:
         prog="deepbedmap_tpu_torch", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
+    p.add_argument(
+        "--telemetry", default=None, metavar="PATH",
+        help="record the port's spans and counters (utils.profiling) and write them "
+        "when the command ends: PATH, a Chrome trace for Perfetto, and "
+        "PATH.summary.json, the per-span totals and counters",
+    )
     sub = p.add_subparsers(dest="command", required=True)
 
     v = sub.add_parser("verify-data", help="check manifest files against sha256")
@@ -893,7 +902,17 @@ def main(argv=None) -> int:
 
     args = build_parser().parse_args(argv)
     disable_tf32()
-    return args.fn(args)
+    if args.telemetry is None:
+        return args.fn(args)
+    from deepbedmap_tpu_torch.utils import profiling
+
+    profiling.enable()
+    try:
+        return args.fn(args)
+    finally:
+        profiling.export(args.telemetry)
+        with open(args.telemetry + ".summary.json", "w") as f:
+            json.dump(profiling.snapshot(), f, indent=1)
 
 
 if __name__ == "__main__":

@@ -32,6 +32,7 @@ from deepbedmap_tpu_torch.ops.interp import (
     sample_grid_bilinear,
     sample_grid_nearest,
 )
+from deepbedmap_tpu_torch.utils.profiling import count, span
 
 
 def _reach(raster: Raster, xs_f64: np.ndarray, ys_f64: np.ndarray):
@@ -67,43 +68,54 @@ def selective_tile(
 
     ``window_bounds`` are (xmin, ymin, xmax, ymax); all must share one shape
     (the reference sizes every window from the first, data_prep.py:679-680).
+    Telemetry spans (``utils.profiling``): ``tiler.cut`` (the grid, the
+    reach, the masked host slice), ``tiler.upload`` (grid and slice to the
+    device; ``tiler.upload_bytes``), ``tiler.sample`` (sampler and fill),
+    and without a ``gapfiller`` ``tiler.nan_check`` (a host sync).
     """
     assert len(window_bounds), "no windows"
     dev = resolve_device(device)
     res = float(raster.res if resolution is None else resolution)
     half = res / 2.0
 
-    x0, y0, x1, y1 = window_bounds[0]
-    ny = int(round(((y1 + padding) - (y0 - padding)) / res))
-    nx = int(round(((x1 + padding) - (x0 - padding)) / res))
+    with span("tiler.cut"):
+        x0, y0, x1, y1 = window_bounds[0]
+        ny = int(round(((y1 + padding) - (y0 - padding)) / res))
+        nx = int(round(((x1 + padding) - (x0 - padding)) / res))
 
-    bounds = np.asarray(window_bounds, np.float64)
-    lefts = bounds[:, 0] - padding
-    bottoms = bounds[:, 1] - padding
-    rights = bounds[:, 2] + padding
-    tops = bounds[:, 3] + padding
+        bounds = np.asarray(window_bounds, np.float64)
+        lefts = bounds[:, 0] - padding
+        bottoms = bounds[:, 1] - padding
+        rights = bounds[:, 2] + padding
+        tops = bounds[:, 3] + padding
 
-    # per-window target cell centers, shape (N, ny) / (N, nx)
-    ys = as_f32(np.linspace(tops - half, bottoms + half, num=ny, axis=-1), dev)
-    xs = as_f32(np.linspace(lefts + half, rights - half, num=nx, axis=-1), dev)
-    n = len(bounds)
-    gx = xs[:, None, :].expand(n, ny, nx)
-    gy = ys[:, :, None].expand(n, ny, nx)
+        # per-window target cell centers, shape (N, ny) / (N, nx)
+        ys64 = np.linspace(tops - half, bottoms + half, num=ny, axis=-1)
+        xs64 = np.linspace(lefts + half, rights - half, num=nx, axis=-1)
 
-    # only the cells the samples reach go to the device (a continental
-    # source holds gigabytes); the grid's own edges keep JAX's float32
-    # arithmetic
-    r0, r1, c0, c1 = _reach(raster, xs_f64=np.concatenate([lefts + half, rights - half]),
-                            ys_f64=np.concatenate([tops - half, bottoms + half]))
-    data = as_f32(replace(raster, data=raster.data[r0:r1, c0:c1]).masked(), dev)
-    sampler = sample_grid_bilinear if interpolate else sample_grid_nearest
-    tiles = sampler(data, gx, gy, raster.left, raster.top, raster.res,
-                    window=(r0, c0, raster.height, raster.width))[:, None]
-
-    mask = torch.isnan(tiles)
+        # only the cells the samples reach go to the device (a continental
+        # source holds gigabytes); the grid's own edges keep JAX's float32
+        # arithmetic
+        r0, r1, c0, c1 = _reach(raster, xs_f64=np.concatenate([lefts + half, rights - half]),
+                                ys_f64=np.concatenate([tops - half, bottoms + half]))
+        cut = replace(raster, data=raster.data[r0:r1, c0:c1]).masked()
+    with span("tiler.upload"):
+        ys, xs, data = as_f32(ys64, dev), as_f32(xs64, dev), as_f32(cut, dev)
+    count("tiler.upload_bytes", 4 * (ys64.size + xs64.size + cut.size))
+    with span("tiler.sample"):
+        n = len(bounds)
+        gx = xs[:, None, :].expand(n, ny, nx)
+        gy = ys[:, :, None].expand(n, ny, nx)
+        sampler = sample_grid_bilinear if interpolate else sample_grid_nearest
+        tiles = sampler(data, gx, gy, raster.left, raster.top, raster.res,
+                        window=(r0, c0, raster.height, raster.width))[:, None]
+        mask = torch.isnan(tiles)
+        if gapfiller is not None:
+            tiles = tiles.masked_fill(mask, gapfiller)
     if gapfiller is not None:
-        return tiles.masked_fill(mask, gapfiller)
-    bad = torch.nonzero(mask.flatten(1).any(dim=1)).flatten().tolist()
+        return tiles
+    with span("tiler.nan_check"):
+        bad = torch.nonzero(mask.flatten(1).any(dim=1)).flatten().tolist()
     if bad:
         warnings.warn(
             f"tiles {bad} have missing data, pass a gapfiller value",

@@ -28,6 +28,7 @@ import torch
 from deepbedmap_tpu_torch.data import geotiff
 from deepbedmap_tpu_torch.device import resolve_device
 from deepbedmap_tpu_torch.inference.engine import INPUT_RATIOS, TilePlan, pad_edge
+from deepbedmap_tpu_torch.utils.profiling import count, recording, span
 
 
 def _make_band_predictor(
@@ -76,13 +77,15 @@ def _make_band_predictor(
         return pred[:, d : pred.shape[1] - d, d : pred.shape[2] - d, 0]
 
     def band_predict(band_inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
-        padded = prep(band_inputs)
-        strip = torch.zeros((t_out, plan.out_w), device=band_inputs["X"].device)
-        for g in range(-(-gx // b)):
-            txs = [min(g * b + i, gx - 1) for i in range(b)]
-            preds = tile_group(padded, txs)
-            for i, tx in enumerate(txs):
-                strip[:, tx * t_out : (tx + 1) * t_out] = preds[i]
+        count("continent.tiles", gx)
+        with span("continent.dispatch"):
+            padded = prep(band_inputs)
+            strip = torch.zeros((t_out, plan.out_w), device=band_inputs["X"].device)
+            for g in range(-(-gx // b)):
+                txs = [min(g * b + i, gx - 1) for i in range(b)]
+                preds = tile_group(padded, txs)
+                for i, tx in enumerate(txs):
+                    strip[:, tx * t_out : (tx + 1) * t_out] = preds[i]
         return strip
 
     return band_predict
@@ -103,28 +106,37 @@ def _run_band_pipeline(
     host-to-device copy does not: ``_band_inputs`` copies from pageable
     memory without ``non_blocking``, and that copy waits until the stream
     has finished the current band's forward. ``prefetch=0`` is the strict
-    serial loop."""
+    serial loop. One loop is the telemetry's ``continent.pass``: per band
+    ``continent.fetch`` and ``continent.consume`` here, the slice, upload
+    and dispatch spans inside ``dispatch``."""
     pending: deque = deque()
 
     def drain_one():
         band, fut = pending.popleft()
-        consume(band, fetch(fut))
+        with span("continent.fetch"):
+            strip = fetch(fut)
+        with span("continent.consume"):
+            consume(band, strip)
         if progress is not None:
             progress(band + 1, gy)
 
-    for band in range(gy):
-        pending.append((band, dispatch(inputs_host, band)))
-        while len(pending) > max(prefetch, 0):
+    with span("continent.pass", range=False):
+        for band in range(gy):
+            count("continent.bands")
+            pending.append((band, dispatch(inputs_host, band)))
+            while len(pending) > max(prefetch, 0):
+                drain_one()
+        while pending:
             drain_one()
-    while pending:
-        drain_one()
 
 
 def _band_inputs(
     inputs_host: Dict[str, np.ndarray], plan: TilePlan, band: int, device="cuda"
 ) -> Dict[str, torch.Tensor]:
     """Slice one vertical-halo'd row band out of the host rasters (edge
-    padding at region borders) and move it to ``device``."""
+    padding at region borders) and move it to ``device``: per raster the
+    spans ``continent.slice`` and ``continent.upload``, and the uploaded
+    bytes counted by whether the host copy is page-locked."""
     lh, lw = plan.lr_shape
     pad = plan.pad_lr
     r0 = band * plan.tile_lr - pad
@@ -135,13 +147,19 @@ def _band_inputs(
         if a.shape[1] != ratio * lh or a.shape[2] != ratio * lw:
             raise ValueError(f"{key}: shape {a.shape}, expected "
                              f"{(ratio * lh, ratio * lw)} spatially")
-        rr0, rr1 = r0 * ratio, r1 * ratio
-        top_pad = max(0, -rr0)
-        bot_pad = max(0, rr1 - ratio * lh)
-        sl = a[:, max(0, rr0) : min(ratio * lh, rr1)]
-        if top_pad or bot_pad:
-            sl = np.pad(sl, ((0, 0), (top_pad, bot_pad), (0, 0), (0, 0)), mode="edge")
-        out[key] = torch.from_numpy(np.ascontiguousarray(sl, np.float32)).to(device)
+        with span("continent.slice"):
+            rr0, rr1 = r0 * ratio, r1 * ratio
+            top_pad = max(0, -rr0)
+            bot_pad = max(0, rr1 - ratio * lh)
+            sl = a[:, max(0, rr0) : min(ratio * lh, rr1)]
+            if top_pad or bot_pad:
+                sl = np.pad(sl, ((0, 0), (top_pad, bot_pad), (0, 0), (0, 0)), mode="edge")
+            host = torch.from_numpy(np.ascontiguousarray(sl, np.float32))
+        with span("continent.upload"):
+            out[key] = host.to(device)
+        if recording():
+            count("continent.upload_bytes." + ("pinned" if host.is_pinned() else "pageable"),
+                  host.nbytes)
     return out
 
 
@@ -203,17 +221,19 @@ def _make_sharded_band_pipeline(
 
     def dispatch_band(band_inputs) -> torch.Tensor:
         """Predict ONE halo'd band (numpy or tensors, NHWC) over the mesh."""
-        prepped = {}
-        for key, ratio in INPUT_RATIOS.items():
-            a = torch.as_tensor(band_inputs[key], dtype=torch.float32).to(device)
-            if clip_conditioning and key != "X":
-                a = a.clamp_min(0.0)
-            # horizontal halo: edge padding; the vertical halo rows are real
-            # data from _band_inputs
-            p = band_plan.pad_lr * ratio
-            prepped[key] = pad_edge(a, 0, 0, p, p)
-        tiles = sharded_predict_tiles(forward_fn, prepped, band_plan, mesh, prepadded=True,
-                                      tiles_per_dispatch=tiles_per_dispatch)
+        count("continent.tiles", gx)
+        with span("continent.dispatch"):
+            prepped = {}
+            for key, ratio in INPUT_RATIOS.items():
+                a = torch.as_tensor(band_inputs[key], dtype=torch.float32).to(device)
+                if clip_conditioning and key != "X":
+                    a = a.clamp_min(0.0)
+                # horizontal halo: edge padding; the vertical halo rows are
+                # real data from _band_inputs
+                p = band_plan.pad_lr * ratio
+                prepped[key] = pad_edge(a, 0, 0, p, p)
+            tiles = sharded_predict_tiles(forward_fn, prepped, band_plan, mesh,
+                                          prepadded=True, tiles_per_dispatch=tiles_per_dispatch)
         if tiles.shape != (gx, plan.tile_out, plan.tile_out):
             raise AssertionError(f"band tiles {tuple(tiles.shape)}")
         return tiles

@@ -39,6 +39,7 @@ from deepbedmap_tpu_torch.ops.deform_conv import (
     sample_tap_fields,
     tap_projection,
 )
+from deepbedmap_tpu_torch.utils.profiling import device_span
 
 
 def tail_reference(x, o1k, o1b, w1, b1, o2k, o2b, w2, b2, padding=1, clamp=2,
@@ -105,11 +106,22 @@ def fused_deform_tail(
     ``compute_dtype`` ('bfloat16') runs the two offset convs at that
     precision and returns their offsets in float32, as ``tail_reference``;
     x is cast to float32 before K2, and K2, the projection and K3 compute
-    in float32."""
+    in float32. Device spans (``utils.profiling``): ``tail.offset_convs``
+    (both offset convs and their float32 copies, twice a call),
+    ``tail.deform64`` (K2, once a call), ``tail.projection``, ``tail.zproj``
+    (K3)."""
     if w2.shape[0] != 1:
         raise ValueError("the fused tail needs a single output channel")
     dt = torch_dtype(compute_dtype)
-    off1 = conv_nhwc(x, o1k, o1b, 1, dt).float().contiguous()
-    a5 = deform64_lrelu(x.float().contiguous(), off1, w1, b1, clamp, w1_packed)
-    off2 = conv_nhwc(a5, o2k, o2b, 1, dt).float().contiguous()
-    return deform_zproj1(tap_projection(a5, w2), off2, b2, clamp)
+    dev = x.device
+    with device_span("tail.offset_convs", dev):
+        off1 = conv_nhwc(x, o1k, o1b, 1, dt).float().contiguous()
+        x32 = x.float().contiguous()
+    with device_span("tail.deform64", dev):
+        a5 = deform64_lrelu(x32, off1, w1, b1, clamp, w1_packed)
+    with device_span("tail.offset_convs", dev):
+        off2 = conv_nhwc(a5, o2k, o2b, 1, dt).float().contiguous()
+    with device_span("tail.projection", dev):
+        z = tap_projection(a5, w2)
+    with device_span("tail.zproj", dev):
+        return deform_zproj1(z, off2, b2, clamp)

@@ -21,14 +21,16 @@ from deepbedmap_tpu_torch.config import LossConfig, TrainConfig
 from deepbedmap_tpu_torch.data.dataset import TileDataset, epoch_batches, train_dev_split
 from deepbedmap_tpu_torch.train.state import GANState
 from deepbedmap_tpu_torch.train.steps import StepMetrics, make_eval_step, make_train_step
+from deepbedmap_tpu_torch.utils.profiling import span
 
 
 def _metrics_to_host(metrics: List[StepMetrics], prefix: str) -> Dict[str, float]:
-    return {
-        f"{prefix}{f.name}": float(np.mean(
-            torch.stack([getattr(m, f.name) for m in metrics]).cpu().numpy()))
-        for f in dataclasses.fields(StepMetrics)
-    }
+    with span("train.epoch_metrics"):
+        return {
+            f"{prefix}{f.name}": float(np.mean(
+                torch.stack([getattr(m, f.name) for m in metrics]).cpu().numpy()))
+            for f in dataclasses.fields(StepMetrics)
+        }
 
 
 def make_epoch_fns(
@@ -38,7 +40,9 @@ def make_epoch_fns(
 ):
     """(train_epoch, eval_epoch) over the device dataset: each takes the
     state and a (num_batches, batch_size) index matrix; ``train_epoch``
-    returns the state and the steps' metrics, ``eval_epoch`` the metrics."""
+    returns the state and the steps' metrics, ``eval_epoch`` the metrics.
+    Each train step is the telemetry's root ``train.step``: ``train.take``
+    (the minibatch's gather), then the step's own spans."""
     train_step = make_train_step(t_cfg, loss_cfg)
     eval_step = make_eval_step(loss_cfg)
 
@@ -48,7 +52,10 @@ def make_epoch_fns(
     def train_epoch_fn(state: GANState, batch_indices) -> Tuple[GANState, List[StepMetrics]]:
         metrics = []
         for idx in rows(batch_indices):
-            state, m = train_step(state, dataset.take(idx))
+            with span("train.step", range=False):
+                with span("train.take"):
+                    batch = dataset.take(idx)
+                state, m = train_step(state, batch)
             metrics.append(m)
         return state, metrics
 

@@ -56,6 +56,7 @@ from deepbedmap_tpu_torch.ops.losses import binary_accuracy, generator_loss, rag
 from deepbedmap_tpu_torch.ops.metrics import psnr
 from deepbedmap_tpu_torch.ops.ssim import ssim
 from deepbedmap_tpu_torch.train.state import GANState, learning_rate, set_learning_rate
+from deepbedmap_tpu_torch.utils.profiling import count, span
 
 
 @dataclasses.dataclass
@@ -193,30 +194,38 @@ def make_train_step(
     group=None,
 ) -> Callable[[GANState, Batch], Tuple[GANState, StepMetrics]]:
     """The D+G train step (module docstring); it updates the state in place.
-    ``group``: the data-parallel reduction group (None: one device)."""
+    ``group``: the data-parallel reduction group (None: one device).
+    Telemetry (``utils.profiling``): spans ``train.d_update``,
+    ``train.g_update``, ``train.ema``; counters ``train.steps``,
+    ``train.tiles`` (this rank's rows)."""
 
     def train_step(state: GANState, batch: Batch) -> Tuple[GANState, StepMetrics]:
         g, d = state.g, state.d
+        count("train.steps")
+        count("train.tiles", batch["Y"].shape[0])
         # ---- discriminator update (G frozen) ----
-        with torch.no_grad():
-            fake = _generate(g, batch)
-        real = batch["Y"]
-        if loss_cfg.d_instance_noise > 0:
-            fake, real = _instance_noise(loss_cfg, state.step, fake, real, group)
-        d_params = list(d.parameters())
-        d_loss, d_accu = make_d_loss_fn(d, group)(fake, real)
-        d_grads = _mean_grads(torch.autograd.grad(d_loss, d_params), group)
-        apply_gradients(state.d_opt, d_params, d_grads,
-                   learning_rate(t_cfg, state.step, t_cfg.d_lr_scale))
+        with span("train.d_update"):
+            with torch.no_grad():
+                fake = _generate(g, batch)
+            real = batch["Y"]
+            if loss_cfg.d_instance_noise > 0:
+                fake, real = _instance_noise(loss_cfg, state.step, fake, real, group)
+            d_params = list(d.parameters())
+            d_loss, d_accu = make_d_loss_fn(d, group)(fake, real)
+            d_grads = _mean_grads(torch.autograd.grad(d_loss, d_params), group)
+            apply_gradients(state.d_opt, d_params, d_grads,
+                            learning_rate(t_cfg, state.step, t_cfg.d_lr_scale))
 
         # ---- generator update (D frozen, post-update D) ----
-        g_params = list(g.parameters())
-        g_loss, (g_psnr, g_ssim) = make_g_loss_fn(g, d, loss_cfg, group)(batch)
-        g_grads = _mean_grads(torch.autograd.grad(g_loss, g_params), group)
-        apply_gradients(state.g_opt, g_params, g_grads, learning_rate(t_cfg, state.step))
+        with span("train.g_update"):
+            g_params = list(g.parameters())
+            g_loss, (g_psnr, g_ssim) = make_g_loss_fn(g, d, loss_cfg, group)(batch)
+            g_grads = _mean_grads(torch.autograd.grad(g_loss, g_params), group)
+            apply_gradients(state.g_opt, g_params, g_grads, learning_rate(t_cfg, state.step))
 
         if t_cfg.ema_decay > 0:
-            ema_update(state.g_ema, g, t_cfg.ema_decay)
+            with span("train.ema"):
+                ema_update(state.g_ema, g, t_cfg.ema_decay)
         state.step += 1
         d_loss, g_loss = d_loss.detach(), g_loss.detach()
         if group is not None:
@@ -231,28 +240,30 @@ def make_eval_step(
     loss_cfg: LossConfig = LossConfig(),
 ) -> Callable[[GANState, Batch], StepMetrics]:
     """The same metrics with no update: D in eval mode throughout
-    (srgan_train.py:1311-1327)."""
+    (srgan_train.py:1311-1327). One call is the telemetry span
+    ``train.eval_step``."""
 
     @torch.no_grad()
     def eval_step(state: GANState, batch: Batch) -> StepMetrics:
-        state.d.eval()
-        fake = _generate(state.g, batch)
-        real_logits = state.d(batch["Y"])
-        fake_logits = state.d(fake)
-        terms = generator_loss(
-            y_pred=fake,
-            y_true=batch["Y"],
-            fake_logits=fake_logits,
-            real_logits=torch.ones_like(fake_logits),
-            x_topo=batch["X"][:, 1:-1, 1:-1, :],
-            cfg=loss_cfg,
-        )
-        return StepMetrics(
-            ragan_loss(real_logits, fake_logits),
-            _accuracy(real_logits, fake_logits),
-            terms.total,
-            psnr(fake, batch["Y"]),
-            ssim(fake, batch["Y"], loss_cfg.ssim_window),
-        )
+        with span("train.eval_step"):
+            state.d.eval()
+            fake = _generate(state.g, batch)
+            real_logits = state.d(batch["Y"])
+            fake_logits = state.d(fake)
+            terms = generator_loss(
+                y_pred=fake,
+                y_true=batch["Y"],
+                fake_logits=fake_logits,
+                real_logits=torch.ones_like(fake_logits),
+                x_topo=batch["X"][:, 1:-1, 1:-1, :],
+                cfg=loss_cfg,
+            )
+            return StepMetrics(
+                ragan_loss(real_logits, fake_logits),
+                _accuracy(real_logits, fake_logits),
+                terms.total,
+                psnr(fake, batch["Y"]),
+                ssim(fake, batch["Y"], loss_cfg.ssim_window),
+            )
 
     return eval_step
