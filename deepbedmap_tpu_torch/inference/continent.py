@@ -10,8 +10,9 @@ as JAX's single-host mesh path does, and every rank computes. The
 full-resolution conditioning rasters stay on the host as numpy arrays; one
 row band of tiles at a time moves to the device with its vertical halo taken
 from the neighbouring bands' real rows, so band-streamed output equals the
-whole-region engine. Edge bands use the engine's edge padding, and the
-conditioning rasters are clipped to >= 0 on the device (deepbedmap.py:663-665).
+whole-region engine. Only a band's real rows leave the host; its edge rows
+are the engine's edge padding, made on the device, and the conditioning
+rasters are clipped to >= 0 on the device (deepbedmap.py:663-665).
 The int16 LZW GeoTIFF goes through ``data.geotiff`` and its native codec.
 """
 
@@ -101,14 +102,14 @@ def _run_band_pipeline(
     prefetch: int,
 ) -> None:
     """Band loop that dispatches ``prefetch`` bands ahead of the blocking
-    fetch. CUDA launches are asynchronous, so the next band's host slicing
-    and edge padding run while the device works on the current band. Its
-    host-to-device copy does not: ``_band_inputs`` copies from pageable
-    memory without ``non_blocking``, and that copy waits until the stream
-    has finished the current band's forward. ``prefetch=0`` is the strict
-    serial loop. One loop is the telemetry's ``continent.pass``: per band
-    ``continent.fetch`` and ``continent.consume`` here, the slice, upload
-    and dispatch spans inside ``dispatch``."""
+    fetch; ``prefetch=0`` is the strict serial loop. On a card nothing in a
+    dispatch waits for the card: ``_band_inputs`` copies a band's real rows
+    on an upload stream and the current stream waits on their event, and
+    the single-device fetch (``_StripDownloads``) copies each strip on a
+    download stream once the band's launches are issued, so a fetch waits
+    for its own band alone. One loop is the telemetry's ``continent.pass``:
+    per band ``continent.fetch`` and ``continent.consume`` here, the slice,
+    upload and dispatch spans inside ``dispatch``."""
     pending: deque = deque()
 
     def drain_one():
@@ -130,37 +131,186 @@ def _run_band_pipeline(
             drain_one()
 
 
+class _UploadRing:
+    """The state of ``_band_inputs`` on a CUDA device: the upload stream and
+    a ring of ``slots`` device buffers for the bands' real rows (per raster
+    NCHW, allocated at a slot's first use). A slot is written again only
+    after the event recorded on the current stream once its last band was
+    read out of it; the upload stream waits on that event alone, never on
+    the current stream's queue."""
+
+    def __init__(self, device: torch.device, slots: int):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.slots = [None] * max(slots, 1)
+        self.calls = 0
+
+    def take(self, shapes: Dict[str, Tuple[int, ...]]
+             ) -> Tuple[Dict[str, torch.Tensor], "torch.cuda.Event"]:
+        """The next slot (at its first use, a float32 buffer of each
+        raster's shape): its buffers, and the event after which they may be
+        written."""
+        i = self.calls % len(self.slots)
+        self.calls += 1
+        if self.slots[i] is None:
+            bufs = {k: torch.empty(s, dtype=torch.float32, device=self.device)
+                    for k, s in shapes.items()}
+            # new buffers' memory may have served work still queued on the
+            # current stream: their first writer waits for it
+            self.slots[i] = (bufs, torch.cuda.current_stream(self.device).record_event())
+        return self.slots[i]
+
+    def release(self) -> None:
+        """The slot last taken has been read out on the current stream."""
+        i = (self.calls - 1) % len(self.slots)
+        self.slots[i] = (self.slots[i][0],
+                         torch.cuda.current_stream(self.device).record_event())
+
+
+def _page_locked(plane: torch.Tensor, pinned: bool) -> torch.Tensor:
+    """``plane`` where it is a page-locked contiguous float32 block, else its
+    copy in a staging buffer from torch's page-locked cache (which does not
+    hand the buffer out again before the copy out of it is done)."""
+    if pinned and plane.dtype == torch.float32 and plane.is_contiguous():
+        return plane
+    return torch.empty(plane.shape, dtype=torch.float32, pin_memory=True).copy_(plane)
+
+
 def _band_inputs(
-    inputs_host: Dict[str, np.ndarray], plan: TilePlan, band: int, device="cuda"
+    inputs_host: Dict[str, np.ndarray], plan: TilePlan, band: int, device="cuda",
+    ring: Optional[_UploadRing] = None,
 ) -> Dict[str, torch.Tensor]:
-    """Slice one vertical-halo'd row band out of the host rasters (edge
-    padding at region borders) and move it to ``device``: per raster the
-    spans ``continent.slice`` and ``continent.upload``, and the uploaded
-    bytes counted by whether the host copy is page-locked."""
+    """One vertical-halo'd row band of the host rasters on ``device``: per
+    raster NHWC float32, edge-padded at the region's borders. Only the rows
+    that exist leave the host, as views of the caller's arrays; the edge
+    rows are replicated and each raster put channel-last on the device.
+
+    On a CUDA device each raster's channel planes are copied without a host
+    wait on ``ring``'s upload stream (a one-slot ring of this call's own
+    when none is given), from the caller's memory where it is page-locked,
+    else once through a page-locked staging buffer; the current stream
+    waits on the copies' event, so every caller reads the band in stream
+    order. On the CPU the padding runs on views of the host arrays.
+
+    Telemetry per raster: ``continent.slice`` (the cut of views and any
+    staging copy), ``continent.upload`` (issuing the copies and the device
+    side's padding), the bytes sent in ``continent.upload_bytes.pinned`` or
+    ``.pageable`` by their source, and the copy in ``continent.copies.async``
+    (on a side stream) or ``continent.copies.sync``."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
     lh, lw = plan.lr_shape
-    pad = plan.pad_lr
-    r0 = band * plan.tile_lr - pad
-    r1 = (band + 1) * plan.tile_lr + pad
+    r0 = band * plan.tile_lr - plan.pad_lr
+    r1 = (band + 1) * plan.tile_lr + plan.pad_lr
+    shapes = {}  # of the device buffers: NCHW, the band's rows with their halo
+    for key, ratio in INPUT_RATIOS.items():
+        n, h, w, c = inputs_host[key].shape
+        if h != ratio * lh or w != ratio * lw:
+            raise ValueError(f"{key}: shape {inputs_host[key].shape}, expected "
+                             f"{(ratio * lh, ratio * lw)} spatially")
+        shapes[key] = (n, c, (r1 - r0) * ratio, w)
+    if cuda:
+        ring = ring if ring is not None else _UploadRing(device, 1)
+        bufs, writable = ring.take(shapes)
+        ring.stream.wait_event(writable)
+        current = torch.cuda.current_stream(device)
     out = {}
     for key, ratio in INPUT_RATIOS.items():
-        a = inputs_host[key]
-        if a.shape[1] != ratio * lh or a.shape[2] != ratio * lw:
-            raise ValueError(f"{key}: shape {a.shape}, expected "
-                             f"{(ratio * lh, ratio * lw)} spatially")
+        lo, hi = max(0, r0 * ratio), min(ratio * lh, r1 * ratio)
         with span("continent.slice"):
-            rr0, rr1 = r0 * ratio, r1 * ratio
-            top_pad = max(0, -rr0)
-            bot_pad = max(0, rr1 - ratio * lh)
-            sl = a[:, max(0, rr0) : min(ratio * lh, rr1)]
-            if top_pad or bot_pad:
-                sl = np.pad(sl, ((0, 0), (top_pad, bot_pad), (0, 0), (0, 0)), mode="edge")
-            host = torch.from_numpy(np.ascontiguousarray(sl, np.float32))
+            # (N, C, rows, W): each channel's rows are one block of an NCHW
+            # caller's memory (api.py hands the loop NHWC views of NCHW)
+            sl = np.asarray(inputs_host[key][:, lo:hi])
+            if min(sl.strides) < 0:  # torch has no negative strides
+                sl = np.ascontiguousarray(sl)
+            real = torch.as_tensor(sl).permute(0, 3, 1, 2)
+            pinned = (cuda or recording()) and real.is_pinned()
+            if cuda:
+                planes = {(n, c): _page_locked(real[n, c], pinned)
+                          for n in range(real.shape[0]) for c in range(real.shape[1])}
         with span("continent.upload"):
-            out[key] = host.to(device)
+            if cuda:
+                buf = bufs[key]
+                with torch.cuda.stream(ring.stream):
+                    for (n, c), p in planes.items():
+                        buf[n, c, : hi - lo].copy_(p, non_blocking=True)
+                    copied = ring.stream.record_event()
+                current.wait_event(copied)
+                real = buf[:, :, : hi - lo]
+            out[key] = pad_edge(real.permute(0, 2, 3, 1).float(), lo - r0 * ratio,
+                                r1 * ratio - hi, 0, 0).contiguous()
+        count("continent.copies." + ("async" if cuda else "sync"))
         if recording():
-            count("continent.upload_bytes." + ("pinned" if host.is_pinned() else "pageable"),
-                  host.nbytes)
+            count("continent.upload_bytes." + ("pinned" if pinned else "pageable"),
+                  4 * real.numel())
+    if cuda:
+        ring.release()
     return out
+
+
+class _StripDownloads:
+    """The single-device fetch. On a CUDA device ``start`` records an event
+    on the current stream once a band's launches are issued; a download
+    stream waits on it alone and copies the strip into a page-locked buffer
+    of its own from torch's caching allocator, and ``fetch`` waits on that
+    copy's event only (``continent.fetch.waited`` counts the bands whose
+    copy was not done when asked). Every strip owns its buffer, so a
+    consumer may hold it as long as it likes (the product's writer queue).
+    On the CPU the strip is the result."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def start(self, strip: torch.Tensor):
+        if self.stream is None:
+            count("continent.copies.sync")
+            return strip, None, None
+        host = torch.empty(strip.shape, dtype=strip.dtype, pin_memory=True)
+        launched = torch.cuda.current_stream(self.device).record_event()
+        with torch.cuda.stream(self.stream):
+            self.stream.wait_event(launched)
+            host.copy_(strip, non_blocking=True)
+            done = self.stream.record_event()
+        count("continent.copies.async")
+        # the device strip stays referenced until its copy has been waited on
+        return strip, host, done
+
+    def fetch(self, pending) -> np.ndarray:
+        strip, host, done = pending
+        if done is None:
+            return strip.numpy()
+        if not done.query():
+            count("continent.fetch.waited")
+        done.synchronize()
+        return host.numpy()
+
+
+def _make_band_pipeline(
+    forward_fn: Callable[..., torch.Tensor],
+    plan: TilePlan,
+    clip_conditioning: bool,
+    tile_loop: str,
+    tiles_per_dispatch: int,
+    device,
+    prefetch: int,
+):
+    """(dispatch, fetch) of the single-device band loop on ``device`` (see
+    ``device.resolve_device``): each band's upload into a ring of
+    ``prefetch + 1`` slots, its tiles, its strip's download."""
+    band_predict = _make_band_predictor(
+        forward_fn, plan, clip_conditioning, tile_loop=tile_loop,
+        tiles_per_dispatch=tiles_per_dispatch,
+    )
+    device = resolve_device(device)
+    ring = _UploadRing(device, max(prefetch, 0) + 1) if device.type == "cuda" else None
+    downloads = _StripDownloads(device)
+
+    def dispatch(inputs_host: Dict[str, np.ndarray], band: int):
+        return downloads.start(band_predict(_band_inputs(inputs_host, plan, band, device,
+                                                         ring)))
+
+    return dispatch, downloads.fetch
 
 
 def predict_continent(
@@ -178,21 +328,14 @@ def predict_continent(
     card unless the caller asks for the CPU; see ``device.resolve_device``);
     returns the host canvas (float32)."""
     gy, _ = plan.grid
-    band_predict = _make_band_predictor(
-        forward_fn, plan, clip_conditioning, tile_loop=tile_loop,
-        tiles_per_dispatch=tiles_per_dispatch,
-    )
-    device = resolve_device(device)
+    dispatch, fetch = _make_band_pipeline(forward_fn, plan, clip_conditioning, tile_loop,
+                                          tiles_per_dispatch, device, prefetch)
     canvas = np.empty((plan.out_h, plan.out_w), np.float32)
 
     def consume(band: int, strip: np.ndarray) -> None:
         canvas[band * plan.tile_out : (band + 1) * plan.tile_out] = strip
 
-    _run_band_pipeline(
-        lambda ih, band: band_predict(_band_inputs(ih, plan, band, device)),
-        lambda strip: strip.cpu().numpy(),
-        inputs_host, gy, consume, progress, prefetch,
-    )
+    _run_band_pipeline(dispatch, fetch, inputs_host, gy, consume, progress, prefetch)
     return canvas
 
 
@@ -319,10 +462,10 @@ def predict_continent_to_geotiff(
     ``predict_continent_sharded``'s canvas rows.
 
     A writer thread LZW-encodes and writes band strip i while the device
-    computes band i+1
-    (the native LZW call and the main thread's ``strip.cpu()`` release the
-    GIL); what the writer has left when the band loop ends, at least the
-    last band and with ``overviews`` the pyramid's pages, is paid after it.
+    computes band i+1 (the native LZW call and the main thread's wait on a
+    strip's download release the GIL); what the writer has left when the
+    band loop ends, at least the last band and with ``overviews`` the
+    pyramid's pages, is paid after it.
     On an H100 host (8 cores, 3 x 3 tiles of 1000^2) the streamed product
     took 4-10% less time per tile than the buffered one with the same
     single-page output, and ~10% more with 2 overview pages and
@@ -367,13 +510,8 @@ def predict_continent_to_geotiff(
                                lambda band, strip: None, None, prefetch)
             return None
     else:
-        band_predict = _make_band_predictor(
-            forward_fn, plan, clip_conditioning, tile_loop=tile_loop,
-            tiles_per_dispatch=tiles_per_dispatch,
-        )
-        device = resolve_device(device)
-        dispatch = lambda ih, band: band_predict(_band_inputs(ih, plan, band, device))
-        fetch = lambda strip: strip.cpu().numpy()
+        dispatch, fetch = _make_band_pipeline(forward_fn, plan, clip_conditioning, tile_loop,
+                                              tiles_per_dispatch, device, prefetch)
     tw = _ThreadedStripWriter(
         outfilepath, plan, bounds, nodataval, compress,
         rows_per_strip or None, overviews, predictor,

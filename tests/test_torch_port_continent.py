@@ -19,7 +19,8 @@ from deepbedmap_tpu_torch.inference import (
     predict_region,
     predict_region_tiled,
 )
-from deepbedmap_tpu_torch.inference.engine import pad_inputs
+from deepbedmap_tpu_torch.inference import continent
+from deepbedmap_tpu_torch.inference.engine import INPUT_RATIOS, pad_inputs
 from deepbedmap_tpu_torch.models import build_generator
 
 CFG = dict(num_residual_blocks=2)
@@ -107,6 +108,53 @@ def test_port_tiled_equals_untiled():
                                atol=1e-6 * scale)
     np.testing.assert_allclose(pair[1].numpy(), tiled[0:32, 32:64], rtol=1e-6,
                                atol=1e-6 * scale)
+
+
+def _host_padded_band(inputs_host, plan, band, device="cpu", ring=None):
+    """The band as the host used to make it: the rows cut and edge-padded
+    with ``np.pad``, made contiguous, then moved to ``device``."""
+    lh = plan.lr_shape[0]
+    r0, r1 = band * plan.tile_lr - plan.pad_lr, (band + 1) * plan.tile_lr + plan.pad_lr
+    out = {}
+    for key, ratio in INPUT_RATIOS.items():
+        a = inputs_host[key]
+        rr0, rr1 = r0 * ratio, r1 * ratio
+        sl = a[:, max(0, rr0) : min(ratio * lh, rr1)]
+        sl = np.pad(sl, ((0, 0), (max(0, -rr0), max(0, rr1 - ratio * lh)), (0, 0), (0, 0)),
+                    mode="edge")
+        out[key] = torch.from_numpy(np.ascontiguousarray(sl, np.float32)).to(device)
+    return out
+
+
+# a region of 3 bands x 2 tiles of 32 px: the top edge band, an interior band
+# and the bottom edge band; and a one-band region, padded at both ends
+BAND_CASES = [("band", 24, 0), ("band", 24, 1), ("band", 24, 2), ("band", 8, 0)]
+
+
+@pytest.mark.parametrize("case", BAND_CASES + [("prefetch", 24, p) for p in range(4)],
+                         ids=lambda c: f"{c[0]}{c[2]}-lh{c[1]}")
+def test_band_inputs_equal_the_host_padded_band(port, monkeypatch, case):
+    # the real rows leave the host as views of NCHW arrays (one channel, and
+    # two in W2), the edge rows are replicated afterwards: the same band, bit
+    # for bit, and so the same canvas for every prefetch depth
+    what, lh, n = case
+    nchw = _inputs_nchw(lh, 16, seed=5)
+    host = {k: v.transpose(0, 2, 3, 1) for k, v in nchw.items()}
+    plan = TilePlan(out_h=4 * lh, out_w=64, tile_out=32, halo_lr=3)
+    if what == "band":
+        got = continent._band_inputs(host, plan, n, "cpu")
+        want = _host_padded_band(host, plan, n)
+        for key in INPUT_RATIOS:
+            assert got[key].is_contiguous() and got[key].dtype == torch.float32
+            assert got[key].shape == want[key].shape, key
+            assert torch.equal(got[key], want[key]), key
+        return
+    kw = dict(tile_out=32, halo_lr=3, tiles_per_dispatch=2)
+    bounds = (0.0, 0.0, 64 * 250.0, 4 * lh * 250.0)
+    got = port.predict_continent(nchw, bounds, prefetch=n, **kw).data
+    monkeypatch.setattr(continent, "_band_inputs", _host_padded_band)
+    want = port.predict_continent(nchw, bounds, prefetch=0, **kw).data
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("option", [dict(mesh=object()), dict(multihost=True)])

@@ -188,13 +188,17 @@ def test_band_loop_counts_the_plans_tiles_and_every_byte_as_pageable(dbm):
     dbm.predict_continent(_inputs_nchw(), BOUNDS, **CONTINENT)
     plan = TilePlan(out_h=64, out_w=96, tile_out=32, halo_lr=3)
     gy, gx = plan.grid
-    rows_lr = plan.tile_lr + 2 * plan.pad_lr
+    # only the rows that exist are sent: each of the two bands loses its
+    # halo beyond the region's edge, which the device replicates
+    rows_lr = plan.tile_lr + plan.pad_lr
     channels = {"X": 1, "W1": 1, "W2": 2, "W3": 1}
     band_bytes = sum(4 * rows_lr * r * plan.lr_shape[1] * r * channels[k]
                      for k, r in INPUT_RATIOS.items())
     snap = profiling.snapshot()
+    # on the CPU every band's four rasters and its strip are plain copies
     assert snap["counters"] == {"continent.tiles": gy * gx, "continent.bands": gy,
-                                "continent.upload_bytes.pageable": gy * band_bytes}
+                                "continent.upload_bytes.pageable": gy * band_bytes,
+                                "continent.copies.sync": 5 * gy}
     spans = snap["spans"]
     assert spans["continent.pass"]["calls"] == 1
     assert spans["continent.slice"]["calls"] == spans["continent.upload"]["calls"] == 4 * gy
