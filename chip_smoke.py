@@ -248,16 +248,31 @@ Phases (any failure ends the run with a non-zero exit code):
     (``determinism_worker`` in a new process with
     ``CUBLAS_WORKSPACE_CONFIG=:4096:8``: a 12-RRDB step twice by default,
     with ``cudnn.deterministic`` and with ``use_deterministic_algorithms``,
-    what differs, what PyTorch names as nondeterministic, the step's time).
+    what differs, what PyTorch names as nondeterministic, the step's time);
+29. SwinIR-M x4 (``SwinIRConfig()``, ``swinir_phase``): the window-attention
+    kernel ``window_attn`` against its plain version at (1,16,24,540),
+    (2,8,16,192) and (1,24,8,36) with 6, 2 and 6 heads and at the continent
+    cell's (2,288,288,540) with 6 heads of 30 channels, each at shift 0 and
+    4, one launch a call, and at the cell's shape the precision check
+    against the plain version in float64 (``TOL_TF32X3``: the kernel's
+    products are fp32, a TF32 pass fails it), timed beside the plain version
+    and ``F.scaled_dot_product_attention`` with the bias plus the mask as
+    ``attn_mask`` over the partitioned windows; the whole model at full
+    width and depth on a 36-px crop, card vs CPU, with bias tables at std 1;
+    one forward at the cell's shapes (2 tiles of 288-px crops) launching
+    the kernel 36 times and nothing else (``PER_FORWARD['swinir']``);
+    ``predict_continent`` on phase 6's region with its launch counts and
+    warm per-tile time; the forward's stages by CUDA events.
+    ``python3 chip_smoke.py --swinir`` runs phases 0, 1 and 29 alone.
 
 Each main path checks its own configuration's launch counts (``PER_FORWARD``).
 It prints the script's wall time, one JSON line of phase 22's training
 numbers, one of phase 23's search numbers, one of phase 24's data-prep
 numbers, one of phase 25's evaluation numbers, one of phase 26's parallel
 numbers, one of phase 27's options numbers, one of phase 28's
-(``bf16_routes``), one JSON line with each kernel's launches (from the main
-path that runs it; the five bf16 routes from phase 28's), error, times and
-bound,
+(``bf16_routes``), one of phase 29's (``swinir``), one JSON line with each
+kernel's launches (from the main path that runs it; the five bf16 routes
+from phase 28's, ``window_attn`` from phase 29's), error, times and bound,
 and ends with
 ``{"ok": true, "device": {...}}``. It refuses to run without a CUDA device and
 imports nothing of JAX.
@@ -430,6 +445,10 @@ PER_FORWARD = {
     "growth16": {"deform64_lrelu": 1, "deform_zproj1": 1},
     "out2": {"rdb_forward": 36, "deform_conv": 1},
     "fp16": {"deform64_lrelu": 1, "deform_zproj1": 1},
+    # phase 29's SwinIR-M x4 (SwinIRConfig(), not a GeneratorConfig): one
+    # window-attention launch a Swin layer, its convs and linears on cuDNN
+    # and cuBLAS
+    "swinir": {"window_attn": 36},
 }
 
 # operations per pixel: a 3x3 conv with C_in -> C_out channels does
@@ -953,31 +972,9 @@ def forward_breakdown(model, xs, reps: int = 3) -> dict:
             "offset conv + K7 + LeakyReLU + offset conv + projection + K8"
             + (", HCW views" if cfg.tail_hcw else ""))
 
-    def stages():
-        a1 = model.head(*xs)
-        yield f"input block + pre-residual conv ({conv})"
-        t = model.trunk(a1)
-        yield f"trunk: {trunk}"
-        a4 = model.upsample(t, a1)
-        yield f"post-residual conv ({conv}) + {upsample}"
-        model.tail(a4)
-        yield f"tail: {tail}"
-
-    totals: dict = {}
-    with torch.inference_mode():
-        for _ in range(reps):
-            prev = torch.cuda.Event(enable_timing=True)
-            prev.record()
-            marks = []
-            for name in stages():
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
-                marks.append((name, ev))
-            torch.cuda.synchronize()
-            for name, ev in marks:
-                totals[name] = totals.get(name, 0.0) + prev.elapsed_time(ev) / reps
-                prev = ev
-    return totals
+    return _timed_stages(model, xs, [
+        f"input block + pre-residual conv ({conv})", f"trunk: {trunk}",
+        f"post-residual conv ({conv}) + {upsample}", f"tail: {tail}"], reps)
 
 
 def check_launches(launches: dict, expected: dict) -> None:
@@ -4796,6 +4793,238 @@ def bf16_routes_phase(card_name: str, params, default_out, default_tile_ms: floa
     return out, kernels, launches
 
 
+# phase 29: SwinIR-M x4 (``SwinIRConfig()``), the port's second generator.
+# The window-attention kernel's cases (N, H, W, 3C, heads), each at both
+# shifts: SwinIR-M's heads of 30 channels (padded to 32 inside the kernel)
+# on 2 x 3 windows, heads of 32 (no padding) at batch 2, heads of 2 on a
+# grid one window wide; the main shape is the continent cell's qkv, 2 tiles
+# of 288^2 tokens
+SMALL_WINDOW_ATTN = [(1, 16, 24, 540, 6), (2, 8, 16, 192, 2), (1, 24, 8, 36, 6)]
+MAIN_WINDOW_ATTN = (2, 288, 288, 540, 6)
+SWINIR_WINDOW, SWINIR_SHIFT = 8, 4  # SwinIR-M's odd layers shift by half the window
+SWINIR_GEN_LR = 36  # the card-vs-CPU crop: latent 34, padded to 40 (5 x 5 windows)
+# the library's attention (F.scaled_dot_product_attention) only has to be
+# the same function as the kernel, whatever its fp32 route: a TF32 pass
+# lies ~1e-4 of the range off, a lost bias or mask O(1)
+TOL_LIBRARY_ATTN = 1e-2
+
+
+def check_window_attn(shape, gen, timed: bool) -> dict:
+    """The window-attention kernel (``window_attn``) against its plain
+    version on the card at shift 0 and ``SWINIR_SHIFT``, one launch each;
+    when ``timed``, also against the plain version in float64 (the
+    precision check: the kernel's products are fp32, while a TF32 pass lies
+    ~1e-4 of the range off, above ``TOL_TF32X3``), and the mean of both
+    shifts timed beside the plain version and beside
+    ``F.scaled_dot_product_attention`` over the partitioned windows with the
+    bias plus the mask as its ``attn_mask`` (``library_ms``; the roll and
+    the partition it needs are not timed)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepbedmap_tpu_torch.ops import _kernels
+    from deepbedmap_tpu_torch.ops import window_attn as wa
+
+    n, h, w, c3, heads = shape
+    ws, shifts = SWINIR_WINDOW, (0, SWINIR_SHIFT)
+    c, tok = c3 // 3, SWINIR_WINDOW ** 2
+    d, nw = c // heads, (h // ws) * (w // ws)
+    qkv = _randn((n, h, w, c3), gen)
+    table = _randn(((2 * ws - 1) ** 2, heads), gen)
+    res = {"max_abs_err": 0.0}
+    for shift in shifts:
+        before = _kernels.launches["window_attn"]
+        got = wa.window_attention(qkv, table, heads, ws, shift)
+        want = wa.window_attention_plain(qkv, table, heads, ws, shift)
+        torch.cuda.synchronize()
+        if _kernels.launches["window_attn"] != before + 1:
+            raise AssertionError("window_attention did not launch the kernel once")
+        label = f"window_attn {(n, h, w, c3)}, {heads} heads of {d}, shift {shift}"
+        res["max_abs_err"] = max(res["max_abs_err"], compare(label, got, want, TOL_KERNEL))
+        if timed:
+            want = wa.window_attention_plain(qkv.double(), table.double(), heads, ws, shift)
+            torch.cuda.synchronize()
+            compare(f"{label} vs float64 (precision check)", got, want, TOL_TF32X3)
+        del got, want
+    if not timed:
+        return res
+
+    def kernel():
+        for shift in shifts:
+            wa.window_attention(qkv, table, heads, ws, shift)
+
+    def plain():
+        for shift in shifts:
+            wa.window_attention_plain(qkv, table, heads, ws, shift)
+
+    bias = table[wa.relative_position_index(ws, DEVICE)].permute(2, 0, 1)  # (heads, tok, tok)
+    library = []
+    for shift in shifts:
+        x = torch.roll(qkv, (-shift, -shift), (1, 2)) if shift else qkv
+        x = x.reshape(n, h // ws, ws, w // ws, ws, 3, heads, d)
+        q, k, v = x.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, n * nw, heads, tok, d)
+        mask = bias
+        if shift:
+            mask = (bias + wa.shift_mask(h, w, ws, shift, DEVICE)[:, None]).expand(
+                n, nw, heads, tok, tok).reshape(n * nw, heads, tok, tok)
+        library.append((q.contiguous(), k.contiguous(), v.contiguous(), mask))
+        o = F.scaled_dot_product_attention(*library[-1])
+        o = o.view(n, h // ws, w // ws, heads, ws, ws, d).permute(0, 1, 4, 2, 5, 3, 6)
+        o = o.reshape(n, h, w, c)
+        o = torch.roll(o, (shift, shift), (1, 2)) if shift else o
+        compare(f"F.scaled_dot_product_attention, shift {shift}, vs the plain version "
+                "(the library's timing measures the same function)", o,
+                wa.window_attention_plain(qkv, table, heads, ws, shift), TOL_LIBRARY_ATTN)
+
+    def sdpa():
+        for args in library:
+            F.scaled_dot_product_attention(*args)
+
+    res["ms"] = time_ms(kernel, 10) / len(shifts)
+    res["plain_ms"] = time_ms(plain, 5) / len(shifts)
+    res["library_ms"] = time_ms(sdpa, 10) / len(shifts)
+    # q k^T and P v over each window's 64 tokens, masked pairs included;
+    # qkv and the table read once, the output written once
+    res.update(bound(4 * tok * n * h * w * c, 4 * (qkv.numel() + n * h * w * c
+                                                   + table.numel())))
+    return res
+
+
+def _timed_stages(model, xs, names, reps: int = 3) -> dict:
+    """Device time of each stage of one forward (the model's ``head``,
+    ``trunk``, ``upsample`` and ``tail``, logged under ``names``), by CUDA
+    events."""
+    import torch
+
+    def stages():
+        a1 = model.head(*xs)
+        yield names[0]
+        t = model.trunk(a1)
+        yield names[1]
+        a4 = model.upsample(t, a1)
+        yield names[2]
+        model.tail(a4)
+        yield names[3]
+
+    totals: dict = {}
+    with torch.inference_mode():
+        for _ in range(reps):
+            prev = torch.cuda.Event(enable_timing=True)
+            prev.record()
+            marks = []
+            for name in stages():
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                marks.append((name, ev))
+            torch.cuda.synchronize()
+            for name, ev in marks:
+                totals[name] = totals.get(name, 0.0) + prev.elapsed_time(ev) / reps
+                prev = ev
+    return totals
+
+
+def swinir_phase(card_name: str) -> tuple:
+    """Phase 29: (a) the window-attention kernel (``check_window_attn``) at
+    ``SMALL_WINDOW_ATTN`` and at ``MAIN_WINDOW_ATTN``, timed; (b) SwinIR-M x4
+    at full width and depth on a ``SWINIR_GEN_LR``-px crop at batch 2, card
+    against the same port on the CPU (the plain attention), with seeded
+    weights whose bias tables are drawn at std 1 and whose LayerNorm affines
+    are moved off 1 and 0, so that the bias and the mask weigh in; (c) one
+    forward at the continent cell's shapes (2 tiles of 288-px crops), which
+    launches the kernel once a Swin layer (``PER_FORWARD['swinir']``) and
+    nothing else; (d) ``predict_continent`` on phase 6's region with the
+    published initialisation, its launch counts, a finite canvas and the
+    warm per-tile time; (e) the forward's stages at batch 2 by CUDA events.
+    Returns the phase's numbers and the kernel's row of the kernels line."""
+    import torch
+
+    from deepbedmap_tpu_torch import DeepBedMap
+    from deepbedmap_tpu_torch.config import SwinIRConfig
+    from deepbedmap_tpu_torch.inference import TilePlan
+    from deepbedmap_tpu_torch.models import build_generator
+    from deepbedmap_tpu_torch.ops import _kernels
+
+    r = check_kernel("window_attn", check_window_attn, SMALL_WINDOW_ATTN, MAIN_WINDOW_ATTN,
+                     29, card_name)
+    del r["bound_fp32_ms"]  # computed, not measured: the log line carries it
+
+    def expected(forwards: int) -> dict:
+        return {k: forwards * PER_FORWARD["swinir"].get(k, 0) for k in _kernels.launches}
+
+    cfg = SwinIRConfig()
+    cpu_model = build_generator(cfg, seed=0, device="cpu").eval()
+    g = torch.Generator().manual_seed(29)
+    with torch.no_grad():
+        for m in cpu_model.modules():
+            if isinstance(m, torch.nn.LayerNorm):
+                m.weight.add_(0.1 * torch.randn(m.weight.shape, generator=g))
+                m.bias.add_(0.1 * torch.randn(m.bias.shape, generator=g))
+            elif hasattr(m, "relative_position_bias_table"):
+                m.relative_position_bias_table.normal_(0.0, 1.0, generator=g)
+    gpu_model = copy.deepcopy(cpu_model).to(DEVICE)
+    xs = [torch.from_numpy(a) for a in _crop_inputs(SWINIR_GEN_LR, 2, seed=1)]
+    _kernels.reset_launches()
+    with torch.inference_mode():
+        want = cpu_model(*xs)
+        got = gpu_model(*[a.to(DEVICE) for a in xs])
+        torch.cuda.synchronize()
+    check_launches(dict(_kernels.launches), expected(1))
+    err = compare(f"SwinIR-M x4, {SWINIR_GEN_LR}-px crop -> {tuple(got.shape)}, card vs CPU",
+                  got.cpu(), want, TOL_GENERATOR)
+    del cpu_model, gpu_model, want, got
+
+    inputs, bounds, kw = continent_region()
+    dbm = DeepBedMap(None, cfg=cfg, device=DEVICE)
+    plan = TilePlan(out_h=2 * TILE_OUT, out_w=2 * TILE_OUT, tile_out=TILE_OUT,
+                    halo_lr=HALO_LR)
+    xs = [torch.from_numpy(a).to(DEVICE)
+          for a in _crop_inputs(plan.crop_lr, TILES_PER_DISPATCH, seed=3)]
+    _kernels.reset_launches()
+    with torch.inference_mode():
+        out = dbm.model(*xs)
+        torch.cuda.synchronize()
+    log(f"  one forward at batch {TILES_PER_DISPATCH} x {plan.crop_lr} px -> "
+        f"{tuple(out.shape)}: launches {dict(_kernels.launches)}")
+    check_launches(dict(_kernels.launches), expected(1))
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("SwinIR's forward at the cell's shapes is not finite")
+
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    raster = dbm.predict_continent(inputs, bounds, **kw)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = dict(_kernels.launches)
+    forwards = plan.grid[0] * -(-plan.grid[1] // TILES_PER_DISPATCH)
+    log(f"  launches in predict_continent ({forwards} forwards): {launches}")
+    check_launches(launches, expected(forwards))
+    if raster.data.shape != (2 * TILE_OUT,) * 2 or not np.isfinite(raster.data).all():
+        raise AssertionError(f"bad SwinIR continent output {raster.data.shape}")
+    t0 = time.perf_counter()
+    dbm.predict_continent(inputs, bounds, **kw)
+    torch.cuda.synchronize()
+    tile_ms = 1e3 * (time.perf_counter() - t0) / plan.num_tiles
+    log(f"  predict_continent {plan.num_tiles} tiles: cold {cold_s:.3f} s, warm "
+        f"{tile_ms:.1f} ms/tile  [{card_name}]")
+
+    stages_ms = _timed_stages(dbm.model, xs, [
+        "input block + window padding + conv_first (cuDNN fp32)",
+        f"trunk: {sum(cfg.depths)} Swin layers ({sum(cfg.depths)} x window_attn, cuBLAS "
+        f"fp32 linears) + {len(cfg.depths)} RSTB convs",
+        "conv_after_body + 3 convs and 2 pixel shuffles (cuDNN fp32)",
+        "conv_last (cuDNN fp32)"])
+    for name, ms in stages_ms.items():
+        log(f"  forward at batch {TILES_PER_DISPATCH} x {plan.crop_lr} px, {name}: "
+            f"{ms:.2f} ms  [{card_name}]")
+    forward_ms = sum(stages_ms.values())
+    log(f"  forward total: {forward_ms:.2f} ms  [{card_name}]")
+    row = {"name": "window_attn", "route": "cuda",
+           "source": "deepbedmap_tpu_torch/csrc/window_attn.cu", "replaces": None,
+           "launches": launches["window_attn"], **r}
+    return {"card_vs_cpu_max_abs_err": err, "tile_ms": tile_ms, "cold_s": cold_s,
+            "forward_ms": forward_ms, "stages_ms": stages_ms}, row
+
+
 # (launch-counter name, source, TPU kernel it replaces, check, small shapes,
 # main-path shape, phase, the configuration whose main path gives its
 # launches); K9's launches come from its own path in phase 15
@@ -4866,7 +5095,7 @@ def check_kernel(name, check, smalls, main_shape, phase: int, card_name: str) ->
     return r
 
 
-def main() -> int:
+def main(argv=()) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -4889,6 +5118,19 @@ def main() -> int:
     for line in _kernels.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
+
+    if list(argv) == ["--swinir"]:
+        log("phase 29: SwinIR-M x4 (the window-attention kernel, card vs CPU, the cell's "
+            "forward, the continent path)")
+        swinir, row = swinir_phase(card_name)
+        print(json.dumps({"swinir": swinir}), flush=True)
+        print(json.dumps({"kernels": [row]}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if argv:
+        raise SystemExit(f"chip_smoke.py: unknown arguments {list(argv)} (only --swinir)")
 
     results = {}
 
@@ -4971,6 +5213,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         routes, mxu_results, mxu_launches = bf16_routes_phase(
             card_name, params, default_out, default_tile_ms, tmp)
+    log("phase 29: SwinIR-M x4 (the window-attention kernel, card vs CPU, the cell's "
+        "forward, the continent path)")
+    swinir, swinir_row = swinir_phase(card_name)
 
     rows = []
     for name, src, rep, *_, path in KERNELS:
@@ -4982,6 +5227,7 @@ def main() -> int:
     for name, src, rep, config in MXU_KERNELS:
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                      "launches": mxu_launches[config][name], **mxu_results[name]})
+    rows.append(swinir_row)
     if not all(row["launches"] > 0 for row in rows):
         raise AssertionError("a kernel was never launched on its path")
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
@@ -4992,6 +5238,7 @@ def main() -> int:
     print(json.dumps({"parallel": parallel}), flush=True)
     print(json.dumps({"options": options}), flush=True)
     print(json.dumps({"bf16_routes": routes}), flush=True)
+    print(json.dumps({"swinir": swinir}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5000,4 +5247,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

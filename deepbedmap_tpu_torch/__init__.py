@@ -5,10 +5,12 @@ NVIDIA H100. It imports torch and numpy only, never JAX. Layout mirrors the
 JAX package:
 
 - ``config``    : Generator/Discriminator/Loss/Train/Inference/TilingConfig
-                  (copied field for field)
+                  (copied field for field); SwinIRConfig (the port's own)
 - ``ops``       : resize, dense block (K1, K6) and whole RRDB (K4, K5), fused
                   3x3 conv (K10), deformable conv (K7, K8, K9) and fused tail
-                  (K2, K3), the CUDA build and binding (``ops._kernels``);
+                  (K2, K3), Swin's shifted-window attention
+                  (``ops.window_attn``), the CUDA build and binding
+                  (``ops._kernels``);
                   grid sampling (``ops.interp``), metrics (``ops.metrics``),
                   losses and SSIM (``ops.losses``, ``ops.ssim``), the
                   kernels' gradients (``ops._autograd``), and the gridders:
@@ -16,7 +18,8 @@ JAX package:
                   (``ops.spline``) and the exact GMT-surface solve on the
                   host (``ops.gmt_surface``)
 - ``csrc``      : the hand-written CUDA C++ kernels (sm_90a)
-- ``models``    : generator building blocks, the generator and the
+- ``models``    : generator building blocks, the generator, SwinIR as a
+                  second generator (``models.swinir``) and the
                   discriminator; NCHW helpers (``models.api``)
 - ``bridge``    : JAX flax params <-> the port's state_dict
 - ``train``     : the GAN's train state, steps, epoch loop and ``fit``;
@@ -55,6 +58,7 @@ from deepbedmap_tpu_torch.config import (  # noqa: F401
     GeneratorConfig,
     InferenceConfig,
     LossConfig,
+    SwinIRConfig,
     TrainConfig,
 )
 from deepbedmap_tpu_torch.api import DeepBedMap  # noqa: F401

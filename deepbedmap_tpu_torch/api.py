@@ -28,14 +28,14 @@ TF32). The port's CLI and ``serve.serve_forever`` do so themselves.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from deepbedmap_tpu_torch.bridge import jax_params_to_state_dict
-from deepbedmap_tpu_torch.config import GeneratorConfig
+from deepbedmap_tpu_torch.config import GeneratorConfig, SwinIRConfig
 from deepbedmap_tpu_torch.data.groundtruth import get_model_inputs
 from deepbedmap_tpu_torch.data.raster import Raster
 from deepbedmap_tpu_torch.device import resolve_device
@@ -51,8 +51,7 @@ from deepbedmap_tpu_torch.inference.multihost import (
     predict_continent_multihost,
     predict_continent_multihost_to_geotiff,
 )
-from deepbedmap_tpu_torch.models.api import build_generator, check_generator_device
-from deepbedmap_tpu_torch.models.generator import Generator
+from deepbedmap_tpu_torch.models.api import build_generator, make_generator
 from deepbedmap_tpu_torch.parallel.mesh import mesh_rank
 from deepbedmap_tpu_torch.utils.profiling import count, span
 from deepbedmap_tpu_torch.train.checkpoint import (
@@ -70,12 +69,16 @@ class DeepBedMap:
     def __init__(
         self,
         params: Optional[Mapping[str, torch.Tensor]] = None,
-        cfg: GeneratorConfig = GeneratorConfig(),
+        cfg: Union[GeneratorConfig, SwinIRConfig] = GeneratorConfig(),
         resolution: float = 250.0,
         device="cuda",
     ):
         """``params``: a port ``state_dict``; None draws seeded random
-        weights (``models.build_generator``'s default seed). ``device``
+        weights (``models.build_generator``'s default seed). ``cfg`` selects
+        the generator: DeepBedMap's for a ``GeneratorConfig``, SwinIR for a
+        ``SwinIRConfig`` (``models.swinir``), which ``predict_continent``
+        runs as it runs DeepBedMap's (the region, serving and training
+        paths are DeepBedMap's alone). ``device``
         defaults to the card and raises where there is none; pass
         ``device="cpu"`` for the CPU. On a CUDA device, widths a forced
         (``'always'``) kernel does not take raise ``NotImplementedError``
@@ -85,8 +88,7 @@ class DeepBedMap:
         if params is None:
             self.model = build_generator(cfg, device=device)
         else:
-            check_generator_device(cfg, device)
-            self.model = Generator(cfg)
+            self.model = make_generator(cfg, device)
             self.model.load_state_dict(params)
         self.device = resolve_device(device)
         self.model.to(self.device).eval()

@@ -8,6 +8,12 @@ same model and the same training run here. They are copied rather than
 imported because importing anything from ``deepbedmap_tpu`` loads JAX, which
 the port never needs.
 
+``SwinIRConfig`` is the port's own, with no JAX counterpart: it selects
+SwinIR as the generator (``models/swinir.py``) where
+``models.make_generator`` builds one (``models.build_generator``,
+``DeepBedMap``), and holds none of DeepBedMap's kernel flags, so those
+cannot be forced on it.
+
 Every generator field the JAX package reads is ported. ``check_supported``
 raises where JAX asserts: ``upsample_phase_conv`` with ``tail_hcw``,
 ``tail_fused`` with ``tail_hcw`` (so ``tail_hcw=True`` needs
@@ -131,6 +137,41 @@ class GeneratorConfig:
     @property
     def concat_channels(self) -> int:
         return 4 * self.inblock_channels
+
+
+# SwinIR-M's widths that no configuration varies, as the published class
+# fixes them: the upscale (the engine's geometry, 4 output px a low-res px),
+# the MLP's hidden width over the embedding, conv_before_upsample's width;
+# and the port's own: one output channel (a bed DEM), DeepBedMap's input
+# block of 4 x 32 channels in front of conv_first
+SWINIR_UPSCALE = 4
+SWINIR_MLP_RATIO = 2
+SWINIR_NUM_FEAT = 64
+SWINIR_OUT_CHANNELS = 1
+SWINIR_INBLOCK_CHANNELS = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class SwinIRConfig:
+    """SwinIR as the port's second generator (Liang et al., "SwinIR: Image
+    Restoration Using Swin Transformer", ICCV Workshops 2021,
+    arXiv:2108.10257; the defaults are the classical SR x4 "SwinIR-M" of
+    its ``main_test_swinir.py``), behind DeepBedMap's four-raster input
+    block (``models/swinir.py`` lists the departures). It has no JAX
+    counterpart. ``depths`` and ``num_heads`` give one entry per residual
+    Swin transformer block (RSTB); lists are taken as tuples. The published
+    options the port builds are fixed: the pixel-shuffle upsampler at x4,
+    one conv closing each RSTB, a qkv bias, the patch norm, no absolute
+    position embedding, and the widths of the ``SWINIR_*`` constants."""
+
+    embed_dim: int = 180
+    depths: Tuple[int, ...] = (6, 6, 6, 6, 6, 6)
+    num_heads: Tuple[int, ...] = (6, 6, 6, 6, 6, 6)
+    window_size: int = 8
+
+    def __post_init__(self):
+        object.__setattr__(self, "depths", tuple(self.depths))
+        object.__setattr__(self, "num_heads", tuple(self.num_heads))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -267,6 +308,18 @@ def check_supported(cfg: GeneratorConfig) -> None:
     if cfg.tail_fused and cfg.out_channels != 1:
         raise ValueError("the fused tail requires a single output channel "
                          "(out_channels != 1 needs tail_fused=False)")
+
+
+def check_swinir(cfg: SwinIRConfig) -> None:
+    """Raise ``ValueError`` for ``depths`` and ``num_heads`` of other lengths
+    (or empty) and for heads that do not divide ``embed_dim``."""
+    bad = []
+    if len(cfg.depths) != len(cfg.num_heads) or not cfg.depths:
+        bad.append(f"depths {cfg.depths} and num_heads {cfg.num_heads} differ in length")
+    bad += [f"{h} heads do not divide embed_dim={cfg.embed_dim}" for h in cfg.num_heads
+            if cfg.embed_dim % h]
+    if bad:
+        raise ValueError("SwinIRConfig not supported: " + "; ".join(bad))
 
 
 # the widths the hand-written kernels are built for: the dense-block kernels

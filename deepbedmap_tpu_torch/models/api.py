@@ -19,11 +19,13 @@ from torch import nn
 from deepbedmap_tpu_torch.config import (
     DiscriminatorConfig,
     GeneratorConfig,
+    SwinIRConfig,
     check_card_supported,
 )
 from deepbedmap_tpu_torch.device import resolve_device
 from deepbedmap_tpu_torch.models.discriminator import Discriminator
 from deepbedmap_tpu_torch.models.generator import Generator
+from deepbedmap_tpu_torch.models.swinir import SwinIR
 
 
 def count_params(model: Union[nn.Module, Mapping[str, torch.Tensor]]) -> int:
@@ -42,17 +44,32 @@ def check_generator_device(cfg: GeneratorConfig, device) -> None:
         check_card_supported(cfg)
 
 
+def make_generator(cfg: Union[GeneratorConfig, SwinIRConfig] = GeneratorConfig(),
+                   device="cpu") -> nn.Module:
+    """The generator a configuration selects, its parameters not drawn, on
+    the CPU: ``SwinIR`` for a ``SwinIRConfig``; DeepBedMap's ``Generator``
+    for a ``GeneratorConfig``, whose widths are first held against the
+    kernels of ``device`` (``check_generator_device``). SwinIR's window
+    kernel refuses the sizes it does not take at its first launch
+    (``ops.window_attn``)."""
+    if isinstance(cfg, SwinIRConfig):
+        return SwinIR(cfg)
+    check_generator_device(cfg, device)
+    return Generator(cfg)
+
+
 def build_generator(
-    cfg: GeneratorConfig = GeneratorConfig(), seed: int = 42, device="cuda"
-) -> Generator:
-    """The generator with seeded initial weights, on ``device`` (the card
-    unless the caller asks for the CPU; see ``device.resolve_device``). The
+    cfg: Union[GeneratorConfig, SwinIRConfig] = GeneratorConfig(), seed: int = 42,
+    device="cuda",
+) -> nn.Module:
+    """The generator ``cfg`` selects (``make_generator``) with seeded initial
+    weights, on ``device`` (the card unless the caller asks for the CPU; see
+    ``device.resolve_device``). The
     weights are drawn on the CPU, so every device gets the same numbers.
     Widths the kernels do not take raise ``NotImplementedError`` on a CUDA
     device (``check_generator_device``)."""
-    check_generator_device(cfg, device)
+    model = make_generator(cfg, device)
     dev = resolve_device(device)
-    model = Generator(cfg)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.to(dev)
 

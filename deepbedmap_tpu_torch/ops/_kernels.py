@@ -35,7 +35,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCES = ("rdb.cu", "conv3x3.cu", "deform_tail.cu", "rdb_banded.cu",
-            "rrdb_sweep.cu", "deform_zform.cu")
+            "rrdb_sweep.cu", "deform_zform.cu", "window_attn.cu")
 _HEADERS = ("conv3x3_tc.cuh", "rdb_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -50,6 +50,8 @@ launches = {
     "rrdb_forward": 0, "conv3x3_forward": 0, "deform_conv": 0,
     "deform_conv_zproj1": 0, "rdb_banded_forward": 0, "rrdb_sweep_forward": 0,
     "deform_zform": 0,
+    # the Swin layers' shifted-window attention (SwinIR)
+    "window_attn": 0,
     # the bf16-multiplicand routes of K1, K4, K10, K6 and K5
     "rdb_forward_bf16": 0, "rrdb_forward_bf16": 0, "conv3x3_forward_bf16": 0,
     "rdb_banded_forward_bf16": 0, "rrdb_sweep_forward_bf16": 0,
@@ -81,6 +83,8 @@ _SIGNATURES = {
     "rrdb_sweep_forward": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # x, off, w_packed, bias, out, N, H, W, cin, cout, clamp, stream
     "deform_zform": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # qkv, table, out, N, H, W, C, heads, shift, scale, stream
+    "window_attn": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 
@@ -250,3 +254,8 @@ def launch_deform_zform(x, off, w_packed, bias, out, n, h, w, cin, cout,
                         clamp) -> None:
     _call("deform_zform", x.data_ptr(), off.data_ptr(), w_packed.data_ptr(),
           bias.data_ptr(), out.data_ptr(), n, h, w, cin, cout, float(clamp))
+
+
+def launch_window_attn(qkv, table, out, n, h, w, c, heads, shift, scale) -> None:
+    _call("window_attn", qkv.data_ptr(), table.data_ptr(), out.data_ptr(), n, h, w, c,
+          heads, int(shift), float(scale))

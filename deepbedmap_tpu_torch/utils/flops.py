@@ -28,7 +28,17 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
-from deepbedmap_tpu_torch.config import DiscriminatorConfig, GeneratorConfig, LossConfig
+from deepbedmap_tpu_torch.config import (
+    DiscriminatorConfig,
+    GeneratorConfig,
+    SWINIR_INBLOCK_CHANNELS,
+    SWINIR_MLP_RATIO,
+    SWINIR_NUM_FEAT,
+    SWINIR_OUT_CHANNELS,
+    SWINIR_UPSCALE,
+    LossConfig,
+    SwinIRConfig,
+)
 
 # NVIDIA H100 SXM 80GB (HBM3), data sheet, dense, 700 W
 H100_BF16_TC_PEAK_FLOPS = 989e12  # bf16 / fp16 on the tensor cores
@@ -113,6 +123,45 @@ def generator_mfu(
         "achieved_tflops": achieved / 1e12,
         "mfu": achieved / peak_flops,
     }
+
+
+def swinir_tile_flops(cfg: Optional[SwinIRConfig] = None, lr: int = 288) -> Dict[str, float]:
+    """Minimal FLOPs of one SwinIR forward (``models/swinir.py``) on an
+    ``lr`` x ``lr`` low-res crop, as ``generator_tile_flops`` counts: the
+    input block at the (lr-2)^2 latent, everything after at the side the
+    published model pads it to (a multiple of the window, ``check_image_size``),
+    the output at ``SWINIR_UPSCALE`` times that. A Swin layer per token: the qkv and
+    proj linears (4 C^2 MACs), the MLP (2 C hidden), the attention (q k^T
+    and P v over the window's w^2 tokens: 2 w^2 C, masked pairs included);
+    LayerNorm, GELU, softmax, the bias and residual adds are O(tokens) and
+    excluded. Returns a per-stage breakdown plus 'total'."""
+    cfg = cfg or SwinIRConfig()
+    c, f, ws = cfg.embed_dim, SWINIR_NUM_FEAT, cfg.window_size
+    lat = lr - 2
+    side = -(-lat // ws) * ws
+    layers = sum(cfg.depths)
+    tokens = float(side) ** 2
+
+    def conv(px_side: int, c_in: int, c_out: int) -> float:
+        return float(px_side) ** 2 * 9 * c_in * c_out
+
+    ib = SWINIR_INBLOCK_CHANNELS
+    stages = {
+        "input_block": float(lat) ** 2 * (9 + 900 + 36 * 2 + 9) * ib,
+        "conv_first": conv(side, 4 * ib, c),
+        "msa_linears": layers * tokens * 4 * c * c,
+        "window_attention": layers * tokens * 2 * ws * ws * c,
+        "mlp": layers * tokens * 2 * c * SWINIR_MLP_RATIO * c,
+        "rstb_convs": len(cfg.depths) * conv(side, c, c),
+        "conv_after_body": conv(side, c, c),
+        "conv_before_upsample": conv(side, c, f),
+        "upsample_convs": sum(conv(side * 2**i, f, 4 * f)
+                              for i in range(SWINIR_UPSCALE.bit_length() - 1)),
+        "conv_last": conv(side * SWINIR_UPSCALE, f, SWINIR_OUT_CHANNELS),
+    }
+    out = {name: 2.0 * macs for name, macs in stages.items()}
+    out["total"] = 2.0 * sum(stages.values())
+    return out
 
 
 def discriminator_tile_flops(d_cfg=None, hr: int = 36) -> float:

@@ -1,0 +1,16 @@
+"""Device ms per forward of the window attention kernel alone (`swin.attn`,
+CUDA events around its launch), in the traced pass: the span's ms over its
+calls per forward (one a Swin layer)."""
+
+from portbench.spans import snapshot
+
+
+def read(ctx):
+    snap = snapshot()
+    if snap is None:
+        return None
+    s = snap["spans"].get("swin.attn", {})
+    if not s.get("device_ms") or not s.get("calls"):
+        return None
+    layers = sum(ctx["cell"].config["generator"]["depths"])
+    return s["device_ms"] * layers / s["calls"]
