@@ -103,14 +103,17 @@ Phases (any failure ends the run with a non-zero exit code):
 22. training: each kernel wrapper of a generator path (K1, K4, K5, K6 at
     (3,37,9,64); K7, K8, K10 at (2,37,45,64); K1, K2, K3 at a batch-128
     training step's shapes (128,9,9,64), (128,36,36,64) and (128,36,36,9),
-    their forward and backward timed) against autograd of its plain version
-    on the card, output and every input's gradient; K9 refuses a gradient;
+    their forward and backward timed; K2 and K3 also with the backward route
+    they replaced, autograd of the plain version) against autograd of its
+    plain version on the card, output and every input's gradient; K2, K3, K7
+    and K8 must launch their backward kernels; K9 refuses a gradient;
     every generator parameter gets a nonzero gradient on the card; one
     ``make_train_step`` step at 12 RRDBs and batch 16 of seeded reference
     tiles (X 11^2, W1 110^2, W2 22^2, W3 11^2, Y 36^2), card vs CPU from the
     same weights: the five metrics, every gradient, the BatchNorm statistics
     and the updated parameters, with its launch counts (K1 72, K2 2, K3 2:
-    two generator forwards; the backward recomputes plain versions); the
+    two generator forwards; the backward one each of K2's and K3's backward
+    kernels and recomputes K1's plain version); the
     same at 2 RRDBs and batch 8 in the kernel, banded and sweep
     configurations; ``fit`` on 3826 synthetic tiles (3634 / 192 at 95/5, 28
     batches of 128 and one dev batch) for 2 epochs at 12 RRDBs with its launch
@@ -264,6 +267,8 @@ Phases (any failure ends the run with a non-zero exit code):
     ``predict_continent`` on phase 6's region with its launch counts and
     warm per-tile time; the forward's stages by CUDA events.
     ``python3 chip_smoke.py --swinir`` runs phases 0, 1 and 29 alone.
+``python3 chip_smoke.py --training`` runs phases 0, 1 and 22 alone (phase
+19's rasters built as phase 19 builds them).
 
 Each main path checks its own configuration's launch counts (``PER_FORWARD``).
 It prints the script's wall time, one JSON line of phase 22's training
@@ -1180,6 +1185,15 @@ def region_kernels(model, nhwc, dem: np.ndarray) -> None:
                 sample_tap_fields(z[..., None], off2, b2, 1, clamp), TOL_KERNEL)
 
 
+def region_windows():
+    """Phase 19's 286 km window and the 48 km window inside it that the CPU
+    also predicts, as (xmin, ymin, xmax, ymax)."""
+    x0, y0 = REGION_ORIGIN
+    side, cpu_side = 1e3 * REGION_KM, 1e3 * REGION_CPU_KM
+    cx, cy = x0 + REGION_CPU_AT[0], y0 + REGION_CPU_AT[1]
+    return (x0, y0, x0 + side, y0 + side), (cx, cy, cx + cpu_side, cy + cpu_side)
+
+
 def single_region(card_name: str, params) -> dict:
     """Phase 19: the reference's single-region workflow with phase 6's
     weights (``params``, a state_dict on the card). Returns the five source
@@ -1228,10 +1242,8 @@ def single_region(card_name: str, params) -> dict:
         del tracked
 
     x0, y0 = REGION_ORIGIN
-    side, cpu_side = 1e3 * REGION_KM, 1e3 * REGION_CPU_KM
-    window = (x0, y0, x0 + side, y0 + side)
-    cx, cy = x0 + REGION_CPU_AT[0], y0 + REGION_CPU_AT[1]
-    cpu_window = (cx, cy, cx + cpu_side, cy + cpu_side)
+    side = 1e3 * REGION_KM
+    window, cpu_window = region_windows()
     rasters = region_rasters(window, cpu_window, seed=19)
     names = ("bed_lowres", "surface", "velocity_x", "velocity_y", "accumulation")
     sources = [rasters[k] for k in names]
@@ -1806,26 +1818,38 @@ def _kernel_launched(name: str, before: int) -> None:
         raise AssertionError(f"{name} was not launched by its gradient check")
 
 
-def check_grad(label: str, name: str, fn, plain, inputs, gen, timed: bool = False) -> dict:
-    """Phase 22: ``fn`` (a kernel wrapper, whose backward is autograd of its
-    plain twin recomputed) against ``plain`` on the card: output and the
-    gradient of every input, each within ``TOL_KERNEL`` of its range, with
-    one seeded upstream gradient. ``timed``: the kernel route's forward and
-    its backward (the plain recompute and its autograd), by CUDA events."""
+def check_grad(label: str, name: str, fn, plain, inputs, gen, timed: bool = False,
+               bwd: str = None, plain_takes_out: bool = False) -> dict:
+    """Phase 22: ``fn`` (a kernel wrapper) against ``plain`` on the card:
+    output and the gradient of every input, each within ``TOL_KERNEL`` of
+    its range, with one seeded upstream gradient. ``bwd``: the backward
+    kernel that the gradient must launch (the tail's); without it the
+    backward is autograd of the plain twin recomputed. ``plain_takes_out``:
+    ``plain`` also takes the kernel's output, as ``out=``. ``timed``: the
+    kernel route's forward and its
+    backward by CUDA events, and for a backward kernel also the route it
+    replaced, the plain version recomputed under autograd and differentiated
+    (``twin_bwd_ms``)."""
     import torch
 
     from deepbedmap_tpu_torch.ops import _kernels
 
     before = _kernels.launches[name]
+    bwd_before = _kernels.launches[bwd] if bwd else 0
     leaves = [t.detach().clone().requires_grad_() for t in inputs]
     out = fn(*leaves)
     _kernel_launched(name, before)
     if out.grad_fn is None:
         raise AssertionError(f"{label}: the kernel's output has no autograd history")
+    if bwd and "PlainTwin" in type(out.grad_fn).__name__:
+        raise AssertionError(f"{label}: the gradient recomputes the plain version")
     up = _randn(tuple(out.shape), gen)
     got = torch.autograd.grad(out, leaves, up)
+    if bwd:
+        _kernel_launched(bwd, bwd_before)
     ref_leaves = [t.detach().clone().requires_grad_() for t in inputs]
-    ref = plain(*ref_leaves)
+    call = functools.partial(plain, out=out.detach()) if plain_takes_out else plain
+    ref = call(*ref_leaves)
     want = torch.autograd.grad(ref, ref_leaves, up)
     torch.cuda.synchronize()
     shape = tuple(inputs[0].shape)
@@ -1840,7 +1864,22 @@ def check_grad(label: str, name: str, fn, plain, inputs, gen, timed: bool = Fals
             torch.autograd.grad(fn(*leaves), leaves, up)
         res["fwd_bwd_ms"] = time_ms(fwd_bwd, 5)
         res["bwd_ms"] = res["fwd_bwd_ms"] - res["fwd_ms"]
+        if bwd:
+            res["twin_bwd_ms"] = time_ms(
+                lambda: torch.autograd.grad(call(*ref_leaves), ref_leaves, up), 5)
     return res
+
+
+def _lrelu_as_kernel(y, out):
+    """LeakyReLU of the plain pre-activation ``y`` on the branch K2's output
+    ``out`` took. K2's 3xTF32 forward and the plain fp32 one round a few
+    pre-activations within ~1e-7 of zero to opposite signs at a training
+    step's 10^7 outputs; K2's backward kernel follows its own forward's
+    sign, so its reference does too (``tests/test_torch_port_tail_backward.py``
+    checks the branches agree outside that band)."""
+    import torch
+
+    return torch.where(out >= 0, y, 0.2 * y)
 
 
 def _rdb_params(gen, blocks: int):
@@ -1900,11 +1939,13 @@ def grad_checks(card_name: str) -> dict:
     res["deform_conv"] = check_grad(
         "K7 deform_conv2d(method='pallas')", "deform_conv",
         lambda *a: deform_conv2d(*a, method="pallas"),
-        lambda *a: deform_conv_shifts(*a, 1, 2), [x, off, w64, b64], gen)
+        lambda *a: deform_conv_shifts(*a, 1, 2), [x, off, w64, b64], gen,
+        bwd="deform_conv_bwd")
     res["deform_conv_zproj1"] = check_grad(
         "K8 deform_conv2d(method='pallas'), one output", "deform_conv_zproj1",
         lambda *a: deform_conv2d(*a, method="pallas"),
-        lambda *a: deform_conv_shifts_zproj(*a, 1, 2), [x, off, w1, b1], gen)
+        lambda *a: deform_conv_shifts_zproj(*a, 1, 2), [x, off, w1, b1], gen,
+        bwd="deform_conv_zproj1_bwd")
     res["conv3x3_forward"] = check_grad(
         "K10 conv3x3_fused (residual, LeakyReLU)", "conv3x3_forward",
         lambda x, w_, b_, r: conv3x3_fused(x, w_, b_, True, r),
@@ -1921,17 +1962,21 @@ def grad_checks(card_name: str) -> dict:
     res["deform64_lrelu_train"] = check_grad(
         "K2 deform64_lrelu", "deform64_lrelu",
         lambda *a: tail.deform64_lrelu(*a, 2),
-        lambda *a: tail.leaky_relu(deform_conv_shifts(*a, 1, 2)), [x, off, w64, b64], gen,
-        True)
+        lambda *a, out: _lrelu_as_kernel(deform_conv_shifts(*a, 1, 2), out),
+        [x, off, w64, b64], gen, True, bwd="deform64_bwd", plain_takes_out=True)
     res["deform_zproj1_train"] = check_grad(
         "K3 deform_zproj1", "deform_zproj1",
         lambda z, o, b_: tail.deform_zproj1(z, o, b_, 2),
         lambda z, o, b_: sample_tap_fields(z[..., None], o, b_, 1, 2),
-        [_randn((n, h, w, 9), gen), off, b1], gen, True)
-    for key in ("rdb_forward_train", "deform64_lrelu_train", "deform_zproj1_train"):
+        [_randn((n, h, w, 9), gen), off, b1], gen, True, bwd="deform_zproj1_bwd")
+    r = res["rdb_forward_train"]
+    log(f"  rdb_forward_train: forward {r['fwd_ms']:.3f} ms, backward (plain recompute + "
+        f"autograd) {r['bwd_ms']:.3f} ms  [{card_name}]")
+    for key in ("deform64_lrelu_train", "deform_zproj1_train"):
         r = res[key]
-        log(f"  {key}: forward {r['fwd_ms']:.3f} ms, backward (plain recompute + "
-            f"autograd) {r['bwd_ms']:.3f} ms  [{card_name}]")
+        log(f"  {key}: forward {r['fwd_ms']:.3f} ms, backward kernel {r['bwd_ms']:.3f} ms, "
+            f"the plain recompute + autograd it replaced {r['twin_bwd_ms']:.3f} ms  "
+            f"[{card_name}]")
 
     zx = _randn((1, 9, 13, 8), gen).requires_grad_()
     try:
@@ -1953,13 +1998,22 @@ def train_batch(n: int, seed: int) -> dict:
             for k, s in REFERENCE_SHAPES_NCHW.items()}
 
 
+# the tail kernels' backward kernels, by the forward's name
+TAIL_BWD = {"deform64_lrelu": "deform64_bwd", "deform_conv": "deform_conv_bwd",
+            "deform_zproj1": "deform_zproj1_bwd",
+            "deform_conv_zproj1": "deform_conv_zproj1_bwd"}
+
+
 def per_step(config: str, blocks: int) -> dict:
     """Kernel launches of one train step: two generator forwards (the D
-    update's, with no gradient, and the G update's); the backward
-    recomputes plain versions and launches none."""
+    update's, with no gradient, and the G update's) and the G update's
+    backward, which launches each tail kernel's backward kernel once
+    (``TAIL_BWD``) and recomputes the other kernels' plain versions."""
     scale = {"rdb_forward": blocks / 12, "rdb_banded_forward": blocks / 12,
              "rrdb_forward": blocks / 12, "rrdb_sweep_forward": blocks / 12}
-    return {k: int(2 * v * scale.get(k, 1)) for k, v in PER_FORWARD[config].items()}
+    out = {k: int(2 * v * scale.get(k, 1)) for k, v in PER_FORWARD[config].items()}
+    out.update({TAIL_BWD[k]: v for k, v in PER_FORWARD[config].items() if k in TAIL_BWD})
+    return out
 
 
 def _step_tensors(state, b1: float) -> dict:
@@ -2225,7 +2279,8 @@ def training(card_name: str, rasters: dict, window, tmp: str) -> dict:
     log("  gradient checks: each kernel wrapper against autograd of its plain version")
     grads = grad_checks(card_name)
     out["grad_max_abs_err"] = {k: v["max_abs_err"] for k, v in grads.items()}
-    out["train_shape_ms"] = {k: {m: grads[k][m] for m in ("fwd_ms", "bwd_ms")}
+    out["train_shape_ms"] = {k: {m: grads[k][m] for m in ("fwd_ms", "bwd_ms", "twin_bwd_ms")
+                                 if m in grads[k]}
                              for k in grads if k.endswith("_train")}
 
     log(f"  one train step, 12 RRDBs, batch {STEP_BATCH}: card vs CPU")
@@ -2258,7 +2313,8 @@ def training(card_name: str, rasters: dict, window, tmp: str) -> dict:
     dev_batches = TRAIN_EPOCHS  # one dev batch, evaluated after each epoch
     want = {"rdb_forward": 72 * train_steps + 36 * dev_batches,
             "deform64_lrelu": 2 * train_steps + dev_batches,
-            "deform_zproj1": 2 * train_steps + dev_batches}
+            "deform_zproj1": 2 * train_steps + dev_batches,
+            "deform64_bwd": train_steps, "deform_zproj1_bwd": train_steps}
     log(f"  fit launches ({train_steps} steps, {dev_batches} dev batches): {launches}")
     check_launches(launches, want)
     for rec in history:
@@ -2295,7 +2351,8 @@ def training(card_name: str, rasters: dict, window, tmp: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     r_times = _timed_steps(r_step, r_state, dataset, rs, 5)
     r_launches = {k: v // 5 for k, v in _kernels.launches.items() if v}
-    check_launches(r_launches, {"rdb_forward": 108, "deform64_lrelu": 2, "deform_zproj1": 2})
+    check_launches(r_launches, {"rdb_forward": 108, "deform64_lrelu": 2, "deform_zproj1": 2,
+                                "deform64_bwd": 1, "deform_zproj1_bwd": 1})
     out["remat"] = {"launches_per_step": r_launches,
                     "ms_per_step_median": float(np.median(r_times)),
                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
@@ -2407,11 +2464,14 @@ def search_space(trial) -> dict:
 
 def _search_launches(blocks: int, steps: int, evaluations: int) -> dict:
     """K1 / K2 / K3 launches of ``steps`` train steps (two generator
-    forwards each) and ``evaluations`` forwards at batch 1 or of a dev batch."""
+    forwards each, and K2's and K3's backward kernels once) and
+    ``evaluations`` forwards at batch 1 or of a dev batch."""
     from deepbedmap_tpu_torch.ops import _kernels
 
     per = {"rdb_forward": 3 * blocks, "deform64_lrelu": 1, "deform_zproj1": 1}
-    return {k: (2 * steps + evaluations) * per.get(k, 0) for k in _kernels.launches}
+    bwd = {"deform64_bwd": steps, "deform_zproj1_bwd": steps}
+    return {k: (2 * steps + evaluations) * per.get(k, 0) + bwd.get(k, 0)
+            for k in _kernels.launches}
 
 
 def _odd_deform(card_name: str) -> None:
@@ -4203,7 +4263,8 @@ def option_training(card_name: str) -> dict:
     state, history = fit(state, dataset, t_cfg)
     launches = {k: v for k, v in _kernels.launches.items() if v}
     steps = (OPTION_FIT_TILES * 95 // 100) // TRAIN_BATCH
-    check_launches(launches, {"deform64_lrelu": 2 * steps + 1, "deform_zproj1": 2 * steps + 1})
+    check_launches(launches, {"deform64_lrelu": 2 * steps + 1, "deform_zproj1": 2 * steps + 1,
+                              "deform64_bwd": steps, "deform_zproj1_bwd": steps})
     for rec in history:
         if not all(np.isfinite(v) for v in rec.values()):
             raise AssertionError(f"non-finite bf16 training metrics {rec}")
@@ -5119,6 +5180,18 @@ def main(argv=()) -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
 
+    if list(argv) == ["--training"]:
+        log("phase 22 alone: training, with phase 19's rasters (the CLI's predict "
+            "--checkpoint)")
+        window, cpu_window = region_windows()
+        rasters = region_rasters(window, cpu_window, seed=19)
+        with tempfile.TemporaryDirectory() as tmp:
+            train = training(card_name, rasters, window, tmp)
+        print(json.dumps({"training": train}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if list(argv) == ["--swinir"]:
         log("phase 29: SwinIR-M x4 (the window-attention kernel, card vs CPU, the cell's "
             "forward, the continent path)")
@@ -5130,7 +5203,8 @@ def main(argv=()) -> int:
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
     if argv:
-        raise SystemExit(f"chip_smoke.py: unknown arguments {list(argv)} (only --swinir)")
+        raise SystemExit(f"chip_smoke.py: unknown arguments {list(argv)} (only --swinir or "
+                         "--training)")
 
     results = {}
 

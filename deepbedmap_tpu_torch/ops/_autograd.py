@@ -9,7 +9,11 @@ forward is the kernel launch, whose output has no autograd history of its
 own, and the backward recomputes the plain twin on the saved inputs under
 ``torch.enable_grad()`` and returns ``torch.autograd.grad`` of it. The
 kernel's wrapper calls it on a CUDA tensor; on a CPU tensor the wrappers run
-the plain twin directly, so autograd differentiates it as it stands.
+the plain twin directly, so autograd differentiates it as it stands. K1, K4,
+K5, K6, K10 and the window attention take it; the deformable tail's kernels
+(K2, K3, K7, K8) have backward kernels of their own
+(``ops.deform_conv.deform64`` / ``deform_tap_fields``) and share only
+``needs_grad``.
 
 Packed weights are closed over by ``kernel``, never inputs: they are packed
 under ``torch.no_grad()`` and the gradient goes to the source parameters,
@@ -42,6 +46,11 @@ class _PlainTwinGrad(torch.autograd.Function):
         return (None, None, *(next(grads) if need else None for need in needs))
 
 
+def needs_grad(*inputs: Optional[torch.Tensor]) -> bool:
+    """Whether gradients are on and an input (a tensor or None) requires one."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs)
+
+
 def kernel_with_plain_grad(
     kernel: Callable[..., torch.Tensor],
     plain: Callable[..., torch.Tensor],
@@ -52,7 +61,7 @@ def kernel_with_plain_grad(
     ``autograd.Function`` whose backward is autograd of ``plain`` recomputed
     on the saved inputs; otherwise ``kernel`` runs bare and nothing is
     saved. ``inputs`` are tensors or None, passed to both positionally."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+    if needs_grad(*inputs):
         return _PlainTwinGrad.apply(kernel, plain, *inputs)
     return kernel(*inputs)
 
@@ -60,7 +69,7 @@ def kernel_with_plain_grad(
 def refuse_grad(name: str, *inputs: Optional[torch.Tensor]) -> None:
     """Raise ``ValueError`` when gradients are on and an input requires one:
     for an entry whose JAX counterpart has no VJP."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+    if needs_grad(*inputs):
         raise ValueError(
             f"{name} has no gradient (as in JAX, whose kernel has no VJP); "
             "call it under torch.no_grad() or on inputs that need none"

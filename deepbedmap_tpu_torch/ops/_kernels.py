@@ -55,6 +55,10 @@ launches = {
     # the bf16-multiplicand routes of K1, K4, K10, K6 and K5
     "rdb_forward_bf16": 0, "rrdb_forward_bf16": 0, "conv3x3_forward_bf16": 0,
     "rdb_banded_forward_bf16": 0, "rrdb_sweep_forward_bf16": 0,
+    # the deformable tail's backward kernels, counted as their forwards are:
+    # K2's and K7's C entry "deform64_bwd", K3's and K8's "deform_zproj1_bwd"
+    "deform64_bwd": 0, "deform_conv_bwd": 0, "deform_zproj1_bwd": 0,
+    "deform_conv_zproj1_bwd": 0,
 }
 
 _lib = None
@@ -77,6 +81,11 @@ _SIGNATURES = {
     "deform_conv": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     # z, off, bias, out, N, H, W, clamp, stream
     "deform_zproj1": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # x, off, w, out, grad, dx, doff, dw, db, ds, part, N, H, W, clamp, lrelu,
+    # blocks, stream
+    "deform64_bwd": (_P,) * 11 + (_I, _I, _I, _F, _I, _I, _P),
+    # z, off, grad, dz, doff, db, part, N, H, W, clamp, stream
+    "deform_zproj1_bwd": (_P,) * 7 + (_I, _I, _I, _F, _P),
     # x, out, w_packed, bias, N, H, W, scaling, bf16, stream
     "rdb_banded_forward": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # x, ring1, ring2, out, w_packed, bias, N, H, W, scaling, bf16, stream
@@ -235,6 +244,23 @@ def launch_deform_zproj1(z, off, bias, out, n, h, w, clamp,
     ``deform_conv_zproj1``."""
     _call(name, z.data_ptr(), off.data_ptr(), bias.data_ptr(), out.data_ptr(),
           n, h, w, float(clamp), entry="deform_zproj1")
+
+
+def launch_deform64_bwd(x, off, weight, out, grad, dx, doff, dweight, dbias, ds, part, n,
+                        h, w, clamp, lrelu: bool, blocks: int) -> None:
+    """The backward of K2 (lrelu; counted as ``deform64_bwd``) or K7
+    (``deform_conv_bwd``): one C entry, three kernels."""
+    _call("deform64_bwd" if lrelu else "deform_conv_bwd",
+          *(t.data_ptr() for t in (x, off, weight, out, grad, dx, doff, dweight, dbias, ds,
+                                   part)),
+          n, h, w, float(clamp), int(bool(lrelu)), blocks, entry="deform64_bwd")
+
+
+def launch_deform_zproj1_bwd(z, off, grad, dz, doff, db, part, n, h, w, clamp,
+                             name: str = "deform_zproj1") -> None:
+    """The backward of K3 or K8, counted as ``name + '_bwd'``."""
+    _call(name + "_bwd", *(t.data_ptr() for t in (z, off, grad, dz, doff, db, part)),
+          n, h, w, float(clamp), entry="deform_zproj1_bwd")
 
 
 def launch_rdb_banded_forward(x, out, w_packed, bias, n, h, w, scaling,

@@ -32,12 +32,23 @@ and 16 the projection on the tensor cores with K2's split weights, for
 C_out 1 on the fp32 units). No model path takes it, as in JAX; it is a
 public function of its own.
 
-Gradients: ``deform64`` (K2, K7) and ``deform_tap_fields`` (K3, K8) go
-through ``_autograd.kernel_with_plain_grad``, their backward autograd of
-``deform_conv_shifts`` [+ LeakyReLU] / ``sample_tap_fields`` recomputed on
-the saved inputs, as JAX's ``deform_conv.py:_pallas_bwd`` and
-``pallas_tail.py:_fused_bwd`` are. ``deform_conv2d_zform`` (K9) has no VJP
-in JAX and raises ``ValueError`` here when a gradient is asked of it.
+Gradients: on a CUDA tensor ``deform64`` (K2, K7) and ``deform_tap_fields``
+(K3, K8) are ``torch.autograd.Function``s whose backward is a kernel of
+``csrc/deform_tail.cu`` (``deform64_backward``, ``tap_fields_backward``;
+launches counted as ``deform64_bwd`` / ``deform_conv_bwd`` and
+``deform_zproj1_bwd`` / ``deform_conv_zproj1_bwd``, each inside the device
+span ``tail.backward``). They compute exactly the gradient that autograd of
+``deform_conv_shifts`` [+ LeakyReLU] / ``sample_tap_fields`` gives, which is
+what JAX's ``deform_conv.py:_pallas_bwd`` and ``pallas_tail.py:_fused_bwd``
+differentiate: the offsets' gradient passes where -clamp <= d <= clamp, the
+bilinear fraction's derivative is 1 (so at an integer offset the sample's
+derivative is x(iy + 1) - x(iy)), zero padding takes no gradient, and K2's
+LeakyReLU passes 1 where its saved output is >= 0, else 0.2.
+``deform64_backward_plain`` and ``tap_fields_backward_plain`` write the
+kernels' closed form (the samples' corners gathered, dx and dz gathered over
+the masked shifts read backwards) in PyTorch. ``deform_conv2d_zform`` (K9)
+has no VJP in JAX and raises ``ValueError`` here when a gradient is asked
+of it.
 """
 
 from __future__ import annotations
@@ -48,8 +59,8 @@ import torch
 import torch.nn.functional as F
 
 from deepbedmap_tpu_torch.ops import _kernels
-from deepbedmap_tpu_torch.ops._autograd import kernel_with_plain_grad, refuse_grad
-from deepbedmap_tpu_torch.ops.conv import leaky_relu
+from deepbedmap_tpu_torch.ops._autograd import needs_grad, refuse_grad
+from deepbedmap_tpu_torch.utils.profiling import device_span
 
 _TAPS = 9
 _C = 64
@@ -116,15 +127,17 @@ def sample_tap_fields(
     kw: int = 3,
 ) -> torch.Tensor:
     """sum_t of tap field t's masked-shift sample at tap t's position, + bias.
-    The plain version of K3 (``deform_zproj1``) when C == 1."""
+    The plain version of K3 (``deform_zproj1``) when C == 1. Computes in
+    float32, or in float64 for a float64 ``z``."""
     n, h, w, k, c = z.shape
+    dt = torch.float64 if z.dtype == torch.float64 else torch.float32
     big = padding + clamp + 1
-    z_big = _pad_hw(z.permute(3, 0, 1, 2, 4).float(), big)  # (K, N, H', W', C)
-    acc = z.new_zeros((n, h, w, c), dtype=torch.float32)
+    z_big = _pad_hw(z.permute(3, 0, 1, 2, 4).to(dt), big)  # (K, N, H', W', C)
+    acc = z.new_zeros((n, h, w, c), dtype=dt)
     shifts = range(-clamp, clamp + 2)
     for t in range(k):
         u, v = divmod(t, kw)
-        wy, wx = _shift_weights(offsets[..., t].float(), offsets[..., k + t].float(), clamp)
+        wy, wx = _shift_weights(offsets[..., t].to(dt), offsets[..., k + t].to(dt), clamp)
         for sy in shifts:
             row0 = big + u - padding + sy
             for sx in shifts:
@@ -132,6 +145,120 @@ def sample_tap_fields(
                 patch = z_big[t, :, row0 : row0 + h, col0 : col0 + w, :]
                 acc = acc + (wy[sy] * wx[sx])[..., None] * patch
     return acc if bias is None else acc + bias
+
+
+def _tap_corners(a_big, offsets, t: int, clamp: int, big: int):
+    """Tap t's bilinear samples of the zero-padded (N, H + 2 big, W + 2 big,
+    ...) ``a_big`` (3x3 taps, padding 1): its four corners (the base corner
+    floor(d) and its right, lower and lower-right neighbours, each
+    (N, H, W, ...)), the fractions fy, fx and where the clamp passes the
+    offsets' gradient (-clamp <= d <= clamp, ``torch.clamp``'s backward)."""
+    n, h, w = offsets.shape[:3]
+    u, v = divmod(t, 3)
+    raw_y, raw_x = offsets[..., t].to(a_big.dtype), offsets[..., _TAPS + t].to(a_big.dtype)
+    dy, dx = raw_y.clamp(-clamp, clamp), raw_x.clamp(-clamp, clamp)
+    iy, ix = torch.floor(dy), torch.floor(dx)
+    dev = offsets.device
+    rows = torch.arange(h, device=dev)[None, :, None] + (big + u - 1) + iy.long()
+    cols = torch.arange(w, device=dev)[None, None, :] + (big + v - 1) + ix.long()
+    nn_ = torch.arange(n, device=dev)[:, None, None]
+    corners = [a_big[nn_, rows + a, cols + b] for a in (0, 1) for b in (0, 1)]
+    passes = ((raw_y >= -clamp) & (raw_y <= clamp), (raw_x >= -clamp) & (raw_x <= clamp))
+    return corners, dy - iy, dx - ix, passes
+
+
+def _shifted_gather(q, offsets, t: int, clamp: int):
+    """sum over the integer shifts (sy, sx) of the masked-shift samplers, at
+    each input pixel r, of wy[sy] wx[sx] q at the output pixel r - tap_t -
+    (sy, sx): the samplers' masked shifts read backwards, which carries the
+    gradient ``q`` (N, H, W, C) of tap t's samples to their input."""
+    n, h, w = q.shape[:3]
+    u, v = divmod(t, 3)
+    big = clamp + 2
+    wy, wx = _shift_weights(offsets[..., t].to(q.dtype), offsets[..., _TAPS + t].to(q.dtype),
+                            clamp)
+    out = torch.zeros_like(q)
+    for sy in wy:
+        for sx in wx:
+            q_big = _pad_hw((wy[sy] * wx[sx])[..., None] * q, big)
+            r0, c0 = big - (u - 1) - sy, big - (v - 1) - sx
+            out = out + q_big[:, r0:r0 + h, c0:c0 + w]
+    return out
+
+
+def deform64_backward_plain(
+    x: torch.Tensor,  # (N, H, W, C_in)
+    offsets: torch.Tensor,  # (N, H, W, 18)
+    weight: torch.Tensor,  # (C_out, C_in, 3, 3) OIHW
+    out: torch.Tensor,  # (N, H, W, C_out): the forward's output
+    grad: torch.Tensor,  # (N, H, W, C_out): its gradient
+    clamp: int = 2,
+    lrelu: bool = True,
+):
+    """The plain version of the backward kernel of K2 (``lrelu``) and K7:
+    the gradient of ``[leaky_relu](deform_conv_shifts(x, offsets, weight,
+    bias, 1, clamp))`` whose output is ``out``, with upstream ``grad``, in
+    the kernel's closed form -> (dx, d_offsets, d_weight (OIHW), d_bias), in
+    x's dtype (float32 or float64). The LeakyReLU passes ``grad`` where
+    ``out >= 0`` and 0.2 of it elsewhere; per tap t, with S_t the samples and
+    W_t the (C_out, C_in) weights: dS_t = g' W_t, dW_t = S_t^T g', the
+    offsets' gradient dS_t against the corners' differences, dx the
+    shifted gather of dS_t (``_shifted_gather``)."""
+    n, h, w, c_in = x.shape
+    c_out = weight.shape[0]
+    dt = x.dtype
+    g = grad.to(dt)
+    if lrelu:
+        g = torch.where(out >= 0, g, 0.2 * g)
+    g2 = g.reshape(-1, c_out)
+    big = clamp + 2
+    x_big = _pad_hw(x, big)
+    rhs = weight.to(dt).permute(2, 3, 1, 0).reshape(_TAPS, c_in, c_out)
+    dx = torch.zeros_like(x)
+    d_off = x.new_zeros((n, h, w, 2 * _TAPS))
+    d_w = torch.zeros_like(rhs)
+    for t in range(_TAPS):
+        (c00, c01, c10, c11), fy, fx, (pass_y, pass_x) = _tap_corners(x_big, offsets, t,
+                                                                      clamp, big)
+        fy, fx = fy[..., None], fx[..., None]
+        s_t = (1 - fy) * (1 - fx) * c00 + (1 - fy) * fx * c01 + fy * (1 - fx) * c10 \
+            + fy * fx * c11
+        ds_t = (g2 @ rhs[t].T).reshape(n, h, w, c_in)
+        d_w[t] = s_t.reshape(-1, c_in).T @ g2
+        d_y = (ds_t * ((1 - fx) * (c10 - c00) + fx * (c11 - c01))).sum(-1)
+        d_x = (ds_t * ((1 - fy) * (c01 - c00) + fy * (c11 - c10))).sum(-1)
+        d_off[..., t] = torch.where(pass_y, d_y, 0.0)
+        d_off[..., _TAPS + t] = torch.where(pass_x, d_x, 0.0)
+        dx = dx + _shifted_gather(ds_t, offsets, t, clamp)
+    d_weight = d_w.reshape(3, 3, c_in, c_out).permute(3, 2, 0, 1)
+    return dx, d_off, d_weight, g2.sum(0)
+
+
+def tap_fields_backward_plain(
+    z: torch.Tensor,  # (N, H, W, 9) tap fields
+    offsets: torch.Tensor,  # (N, H, W, 18)
+    grad: torch.Tensor,  # (N, H, W, 1): the gradient of K3's output
+    clamp: int = 2,
+):
+    """The plain version of the backward kernel of K3 / K8: the gradient of
+    ``sample_tap_fields(z[..., None], offsets, bias, 1, clamp)`` with
+    upstream ``grad``, in the kernel's closed form -> (dz, d_offsets,
+    d_bias (1,)), in z's dtype (float32 or float64)."""
+    n, h, w, _ = z.shape
+    dt = z.dtype
+    g = grad.to(dt).reshape(n, h, w)
+    big = clamp + 2
+    z_big = _pad_hw(z, big)
+    dz = torch.zeros_like(z)
+    d_off = z.new_zeros((n, h, w, 2 * _TAPS))
+    for t in range(_TAPS):
+        (z00, z01, z10, z11), fy, fx, (pass_y, pass_x) = _tap_corners(z_big[..., t], offsets,
+                                                                      t, clamp, big)
+        d_off[..., t] = torch.where(pass_y, g * ((1 - fx) * (z10 - z00) + fx * (z11 - z01)), 0.0)
+        d_off[..., _TAPS + t] = torch.where(
+            pass_x, g * ((1 - fy) * (z01 - z00) + fy * (z11 - z10)), 0.0)
+        dz[..., t] = _shifted_gather(g[..., None], offsets, t, clamp)[..., 0]
+    return dz, d_off, g.sum().reshape(1)
 
 
 def deform_conv_shifts_zproj(
@@ -258,6 +385,59 @@ def check_window_clamp(clamp) -> None:
             f"{WINDOW_MAX_CLAMP}], got {clamp!r}")
 
 
+def _launch_deform64(x, offsets, w_packed, bias, clamp, lrelu) -> torch.Tensor:
+    out = torch.empty_like(x)
+    n, h, w, _ = x.shape
+    _kernels.launch_deform64(x, offsets, w_packed, bias, out, n, h, w, clamp, lrelu)
+    return out
+
+
+def deform64_backward(x, offsets, weight, out, grad, clamp: int, lrelu: bool):
+    """The backward kernel of K2 (``lrelu``) / K7 on the card: the gradient
+    of ``deform64``'s output ``out`` with upstream ``grad`` -> (dx,
+    d_offsets, d_weight (OIHW), d_bias), float32; its plain version is
+    ``deform64_backward_plain``. ``csrc/deform_tail.cu`` splits dW's sum
+    over pixels into one partial per block (``blocks`` a tap, two per SM
+    over the nine taps) and adds them in order: no atomics."""
+    check_window_clamp(clamp)
+    n, h, w, _ = x.shape
+    grad = grad.contiguous()
+    weight = weight.detach().float().contiguous()
+    for t, name, shape in ((x, "x", (n, h, w, _C)), (offsets, "offsets", (n, h, w, 2 * _TAPS)),
+                           (out, "output", (n, h, w, _C)), (grad, "gradient", (n, h, w, _C)),
+                           (weight, "weight", (_C, _C, 3, 3))):
+        _kernels.check_tensor(t, name, shape)
+    tiles = n * -(-h // 8) * -(-w // 8)  # the kernel's 8 x 8 tiles
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    blocks = max(1, min(tiles, 2 * sms // _TAPS))
+    dx, d_off, d_w = torch.empty_like(x), torch.empty_like(offsets), torch.empty_like(weight)
+    d_b = torch.empty(_C, device=x.device)
+    ds = torch.empty((n, h, w, _TAPS, _C), device=x.device)  # dS_t for the dx gather
+    part = torch.empty(blocks * (_TAPS * _C * _C + _C), device=x.device)
+    _kernels.launch_deform64_bwd(x, offsets, weight, out, grad, dx, d_off, d_w, d_b, ds, part,
+                                 n, h, w, clamp, lrelu, blocks)
+    return dx, d_off, d_w, d_b
+
+
+class _Deform64(torch.autograd.Function):
+    """K2 / K7 forward, its backward kernel ``deform64_backward``."""
+
+    @staticmethod
+    def forward(ctx, x, offsets, weight, bias, w_packed, clamp, lrelu):
+        out = _launch_deform64(x, offsets, w_packed, bias, clamp, lrelu)
+        ctx.save_for_backward(x, offsets, weight, out)
+        ctx.clamp, ctx.lrelu = clamp, lrelu
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, offsets, weight, out = ctx.saved_tensors
+        with device_span("tail.backward", grad.device, range=True):
+            dx, d_off, d_w, d_b = deform64_backward(x, offsets, weight, out, grad, ctx.clamp,
+                                                    ctx.lrelu)
+        return dx, d_off, d_w.to(weight.dtype), d_b, None, None, None
+
+
 def deform64(
     x: torch.Tensor,  # (N, H, W, 64) on the card
     offsets: torch.Tensor,  # (N, H, W, 18)
@@ -268,7 +448,8 @@ def deform64(
     w_packed: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """[lrelu](deform_conv(x) + bias) on the card: K2 with ``lrelu``, K7
-    without. ``w_packed`` is ``pack_deform64_weight_tc(weight)``."""
+    without. ``w_packed`` is ``pack_deform64_weight_tc(weight)``. When a
+    gradient is needed the output's backward is ``deform64_backward``."""
     check_window_clamp(clamp)
     n, h, w, _ = x.shape
     _kernels.check_tensor(x, "x", (n, h, w, _C))
@@ -279,17 +460,53 @@ def deform64(
             w_packed = pack_deform64_weight_tc(weight)
     _kernels.check_tensor(w_packed, "packed weight", (_TAPS * 2 * _C * _C,))
     _kernels.check_tensor(bias, "bias", (_C,))
+    if needs_grad(x, offsets, weight, bias):
+        return _Deform64.apply(x, offsets, weight, bias, w_packed, clamp, lrelu)
+    return _launch_deform64(x, offsets, w_packed, bias, clamp, lrelu)
 
-    def launch(x, offsets, weight, bias):
-        out = torch.empty_like(x)
-        _kernels.launch_deform64(x, offsets, w_packed, bias, out, n, h, w, clamp, lrelu)
+
+def _launch_tap_fields(z, offsets, bias, clamp, name) -> torch.Tensor:
+    n, h, w, _ = z.shape
+    out = torch.empty((n, h, w, 1), device=z.device)
+    _kernels.launch_deform_zproj1(z, offsets, bias, out, n, h, w, clamp, name)
+    return out
+
+
+def tap_fields_backward(z, offsets, grad, clamp: int, name: str = "deform_zproj1"):
+    """The backward kernel of K3 / K8 on the card, counted as ``name +
+    '_bwd'``: the gradient of ``deform_tap_fields``' output with upstream
+    ``grad`` -> (dz, d_offsets, d_bias (1,)), float32; its plain version is
+    ``tap_fields_backward_plain``."""
+    check_window_clamp(clamp)
+    n, h, w, _ = z.shape
+    grad = grad.contiguous()
+    for t, label, shape in ((z, "z", (n, h, w, _TAPS)), (offsets, "offsets", (n, h, w, 2 * _TAPS)),
+                            (grad, "gradient", (n, h, w, 1))):
+        _kernels.check_tensor(t, label, shape)
+    dz, d_off = torch.empty_like(z), torch.empty_like(offsets)
+    d_b = torch.empty(1, device=z.device)
+    part = torch.empty(-(-w // 32) * -(-h // 8) * n, device=z.device)  # a sum per 8 x 32 tile
+    _kernels.launch_deform_zproj1_bwd(z, offsets, grad, dz, d_off, d_b, part, n, h, w, clamp,
+                                      name)
+    return dz, d_off, d_b
+
+
+class _TapFields(torch.autograd.Function):
+    """K3 / K8 forward, its backward kernel ``tap_fields_backward``."""
+
+    @staticmethod
+    def forward(ctx, z, offsets, bias, clamp, name):
+        out = _launch_tap_fields(z, offsets, bias, clamp, name)
+        ctx.save_for_backward(z, offsets)
+        ctx.clamp, ctx.name = clamp, name
         return out
 
-    def plain(x, offsets, weight, bias):
-        y = deform_conv_shifts(x, offsets, weight, bias, 1, clamp)
-        return leaky_relu(y) if lrelu else y
-
-    return kernel_with_plain_grad(launch, plain, x, offsets, weight, bias)
+    @staticmethod
+    def backward(ctx, grad):
+        z, offsets = ctx.saved_tensors
+        with device_span("tail.backward", grad.device, range=True):
+            dz, d_off, d_b = tap_fields_backward(z, offsets, grad, ctx.clamp, ctx.name)
+        return dz, d_off, d_b, None, None
 
 
 def deform_tap_fields(
@@ -300,23 +517,17 @@ def deform_tap_fields(
     name: str,
 ) -> torch.Tensor:
     """``sample_tap_fields`` of one-channel fields on the card (K3's kernel),
-    its launches counted under ``name`` (K3 or K8) -> (N, H, W, 1)."""
+    its launches counted under ``name`` (K3 or K8) -> (N, H, W, 1). When a
+    gradient is needed the output's backward is ``tap_fields_backward``."""
     check_window_clamp(clamp)
     n, h, w, _ = z.shape
     _kernels.check_tensor(z, "z", (n, h, w, _TAPS))
     _kernels.check_tensor(offsets, "offsets", (n, h, w, 2 * _TAPS))
     _kernels.check_image_shape(n, h, w, 2 * _TAPS)
     _kernels.check_tensor(bias, "bias", (1,))
-
-    def launch(z, offsets, bias):
-        out = torch.empty((n, h, w, 1), device=z.device)
-        _kernels.launch_deform_zproj1(z, offsets, bias, out, n, h, w, clamp, name)
-        return out
-
-    def plain(z, offsets, bias):
-        return sample_tap_fields(z[..., None], offsets, bias, 1, clamp)
-
-    return kernel_with_plain_grad(launch, plain, z, offsets, bias)
+    if needs_grad(z, offsets, bias):
+        return _TapFields.apply(z, offsets, bias, clamp, name)
+    return _launch_tap_fields(z, offsets, bias, clamp, name)
 
 
 def tap_projection(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:

@@ -19,9 +19,10 @@ The TPU version tiles the image into halo'd lane frames and masks the emitted
 halo by hand; here each kernel reads the whole NHWC image, so zero padding
 outside the image needs no extra step. On a CPU tensor the K2/K3 wrappers use
 their plain versions, so the same sequence runs on both devices. On a CUDA
-tensor K2's and K3's backward is autograd of those plain versions
-(``ops.deform_conv.deform64`` / ``deform_tap_fields``), as JAX's
-``pallas_tail.py:310-333`` differentiates ``_tail_reference``.
+tensor K2's and K3's backward is a kernel each (``ops.deform_conv.deform64``
+/ ``deform_tap_fields``, in the device span ``tail.backward``) that computes
+the gradient autograd of those plain versions gives, which is what JAX's
+``pallas_tail.py:310-333`` differentiates (``_tail_reference``).
 """
 
 from __future__ import annotations

@@ -26,9 +26,11 @@ context: no clock reading, no lock, no ``record_function``.
   are opened with ``range=False``: a profiler names an idle gap of the card
   by the outermost range around it, and a range around a whole pass would
   name every gap after itself.
-- ``device_span(name, device)``: CUDA events on the current stream around
-  work inside one forward, resolved at ``snapshot()``; on the CPU, where the
-  work runs as it is called, the host clock. Never a profiler range.
+- ``device_span(name, device, range=False)``: CUDA events on the current
+  stream around work inside one forward or backward, resolved at
+  ``snapshot()``; on the CPU, where the work runs as it is called, the host
+  clock. A profiler range of the same name only with ``range=True`` (the
+  tail's backward, which runs on autograd's thread outside any span).
 - ``count(name, n=1)``: a counter.
 - ``snapshot()``: per name ``calls``, host ``total_ms`` and ``self_ms`` (the
   duration less what child spans cover), ``device_ms`` of device spans and
@@ -212,16 +214,21 @@ def span(name: str, range: bool = True, **amounts):
 
 
 class _DeviceSpan:
-    __slots__ = ("name", "cuda", "start", "stop", "t0", "parent", "root")
+    __slots__ = ("name", "cuda", "range", "start", "stop", "t0", "parent", "root", "_rf")
 
-    def __init__(self, name: str, device):
+    def __init__(self, name: str, device, range_: bool):
         self.name = name
         self.cuda = torch.device(device).type == "cuda"
+        self.range = range_
 
     def __enter__(self) -> "_DeviceSpan":
         parent = _open.get()
         self.parent = None if parent is None else parent.id
         self.root = None if parent is None else parent.root
+        self._rf = None
+        if self.range and _profiling():
+            self._rf = torch.profiler.record_function(self.name)
+            self._rf.__enter__()
         self.t0 = _clock()
         if self.cuda:
             self.start = torch.cuda.Event(enable_timing=True)
@@ -235,15 +242,18 @@ class _DeviceSpan:
             _registry.add_device(self)
         else:
             _registry.add_device(self, (_clock() - self.t0) / 1e6)
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
         return False
 
 
-def device_span(name: str, device="cuda"):
+def device_span(name: str, device="cuda", range: bool = False):
     """Context manager timing the block's device work on ``device`` as the
-    device span ``name`` (module docstring)."""
+    device span ``name`` (module docstring); with ``range`` also a profiler
+    range of that name while a profiler runs."""
     if not (_enabled or _profiling()):
         return _NOOP
-    return _DeviceSpan(name, device)
+    return _DeviceSpan(name, device, range)
 
 
 def count(name: str, n=1) -> None:
