@@ -120,11 +120,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_conv_variants.py: no CUDA device; it does not run on the CPU")
     from deepbedmap_tpu_torch.ops import _kernels, rdb
-    from deepbedmap_tpu_torch.ops.conv3x3 import (
-        conv3x3_fused,
-        conv3x3_reference,
-        pack_conv_weight,
-    )
+    from deepbedmap_tpu_torch.ops.conv3x3 import conv3x3_fused, conv3x3_reference
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -140,19 +136,15 @@ def main() -> int:
                [cs._randn((co,), gen, 0.1) for co in couts]) for _ in range(3)]
     k1, b1 = blocks[0]
     ks, bs = [k for k, _ in blocks], [b for _, b in blocks]
-    p1 = {m: rdb.pack_rdb_weights(k1, b1, m) for m in (True, False)}
-    p3 = {m: rdb.pack_rrdb_weights(ks, bs, m) for m in (True, False)}
     s = cs.MXU_SCALING
     convs = []
     for n, h, w, cin, leaky, residual in cs.MAIN_CONVS:
         wt, b = cs._randn((64, cin, 3, 3), gen, 0.05), cs._randn((64,), gen, 0.1)
-        convs.append(((n, h, w, cin), wt, b, leaky, residual,
-                      {m: pack_conv_weight(wt, m).contiguous() for m in (True, False)}))
+        convs.append(((n, h, w, cin), wt, b, leaky, residual))
 
     def k10(x, c, mode):
-        _, wt, b, leaky, residual, packed = c
-        return conv3x3_fused(x, wt, b, leaky, x[..., :64] if residual else None,
-                             packed[mode], mode)
+        _, wt, b, leaky, residual = c
+        return conv3x3_fused(x, wt, b, leaky, x[..., :64] if residual else None, mode)
 
     # the checks: K1 and K4 at the ragged and main-path shapes, K10 at its four
     xs = {shape: cs._randn(shape, gen) for shape in (cs.RAGGED_RDB, cs.MAIN_RDB)}
@@ -162,7 +154,7 @@ def main() -> int:
         want["K1", shape] = rdb.rdb_reference(x, k1, b1, s, mxu_bf16=True)
         want["K4", shape] = rdb.rrdb_reference(x, ks, bs, s, mxu_bf16=True)
     for c, x in zip(convs, xc):
-        _, wt, b, leaky, residual, _ = c
+        _, wt, b, leaky, residual = c
         want["K10", c[0]] = conv3x3_reference(x, wt, b, leaky,
                                               x[..., :64] if residual else None, True)
     report: dict = {"card": card_name, "errors": {}, "ms": {}}
@@ -171,8 +163,8 @@ def main() -> int:
             continue
         _kernels._lib = lib
         for shape, x in xs.items():
-            for kname, got in (("K1", rdb.rdb_fused(x, k1, b1, s, p1[True], True)),
-                               ("K4", rdb.rrdb_fused(x, ks, bs, s, p3[True], True))):
+            for kname, got in (("K1", rdb.rdb_fused(x, k1, b1, s, True)),
+                               ("K4", rdb.rrdb_fused(x, ks, bs, s, True))):
                 e = errors(got, want[kname, shape])
                 report["errors"][f"{name}/{kname} {shape}"] = e
                 print(f"  {name} {kname} {shape}: max {e['max']:.3e}, mean {e['mean']:.3e} "
@@ -187,8 +179,8 @@ def main() -> int:
 
     x = xs[cs.MAIN_RDB]
     timed = {
-        "K1": lambda m: rdb.rdb_fused(x, k1, b1, s, p1[m], m),
-        "K4": lambda m: rdb.rrdb_fused(x, ks, bs, s, p3[m], m),
+        "K1": lambda m: rdb.rdb_fused(x, k1, b1, s, m),
+        "K4": lambda m: rdb.rrdb_fused(x, ks, bs, s, m),
         "K10": lambda m: [k10(xi, c, m) for c, xi in zip(convs, xc)],
     }
     for _ in range(args.rounds):

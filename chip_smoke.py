@@ -572,12 +572,12 @@ def _double(ts):
     return [_double(t) for t in ts] if isinstance(ts, (list, tuple)) else ts.double()
 
 
-def check_precision(label: str, fn, reference, x, kernels, biases, packed) -> float:
+def check_precision(label: str, fn, reference, x, kernels, biases) -> float:
     """Phases 2, 7, 13 and 14: the kernel at scaling 1.0 against its plain
     version run in float64 on the card, within ``TOL_TF32X3`` of the range."""
     import torch
 
-    got = fn(x, kernels, biases, 1.0, packed)
+    got = fn(x, kernels, biases, 1.0)
     want = reference(x.double(), _double(kernels), _double(biases), 1.0)
     torch.cuda.synchronize()
     return compare(f"{label} {tuple(x.shape)}, scaling 1.0, vs float64 (precision check)",
@@ -592,23 +592,21 @@ def check_rdb(shape, gen, timed: bool, kernel: str = "rdb_fused") -> dict:
     from deepbedmap_tpu_torch.ops.rdb import rdb_reference
 
     fn = getattr(rdb, kernel)
-    label, pack = {"rdb_fused": ("K1 rdb_forward", rdb.pack_rdb_weights),
-                   "rdb_banded": ("K6 rdb_banded_forward", rdb.pack_rdb_weights_tc)}[kernel]
+    label = {"rdb_fused": "K1 rdb_forward", "rdb_banded": "K6 rdb_banded_forward"}[kernel]
 
     f, g = 64, 32
     cins, couts = [f + g * j for j in range(5)], [g, g, g, g, f]
     kernels = [_randn((co, ci, 3, 3), gen, 0.05) for ci, co in zip(cins, couts)]
     biases = [_randn((co,), gen, 0.1) for co in couts]
     x = _randn(shape, gen)
-    packed = pack(kernels, biases)
-    got = fn(x, kernels, biases, 0.1, packed)
+    got = fn(x, kernels, biases, 0.1)
     want = rdb_reference(x, kernels, biases, 0.1)
     torch.cuda.synchronize()
     res = {"max_abs_err": compare(f"{label} {shape}", got, want, TOL_KERNEL)}
     del want
     if timed:
-        check_precision(label, fn, rdb_reference, x, kernels, biases, packed)
-        res["ms"] = time_ms(lambda: fn(x, kernels, biases, 0.1, packed), 10)
+        check_precision(label, fn, rdb_reference, x, kernels, biases)
+        res["ms"] = time_ms(lambda: fn(x, kernels, biases, 0.1), 10)
         res["plain_ms"] = time_ms(lambda: rdb_reference(x, kernels, biases, 0.1), 10)
         pix = x.numel() // 64
         # the function's own inputs: x and the unsplit weights and biases
@@ -641,30 +639,26 @@ def check_deform_precision(label: str, got, x, off, wt, b, clamp, lrelu: bool) -
 def check_deform64(shape, gen, timed: bool) -> dict:
     import torch
 
-    from deepbedmap_tpu_torch.ops.deform_conv import (
-        deform_conv_shifts,
-        pack_deform64_weight_tc,
-    )
+    from deepbedmap_tpu_torch.ops.deform_conv import deform_conv_shifts
     from deepbedmap_tpu_torch.ops.tail import deform64_lrelu
 
     (n, h, w, c), clamp = _tail_case(shape)
     x = _randn((n, h, w, c), gen)
     off = _offsets((n, h, w, 18), gen)
     w1, b1 = _randn((c, c, 3, 3), gen, 0.05), _randn((c,), gen, 0.1)
-    packed = pack_deform64_weight_tc(w1)
 
     def plain():
         y = deform_conv_shifts(x, off, w1, b1, 1, clamp)
         return torch.where(y >= 0, y, 0.2 * y)
 
-    got = deform64_lrelu(x, off, w1, b1, clamp, packed)
+    got = deform64_lrelu(x, off, w1, b1, clamp)
     want = plain()
     torch.cuda.synchronize()
     res = {"max_abs_err": compare(f"K2 deform64_lrelu {shape}", got, want, TOL_KERNEL)}
     del want
     if timed:
         check_deform_precision("K2 deform64_lrelu", got, x, off, w1, b1, clamp, True)
-        res["ms"] = time_ms(lambda: deform64_lrelu(x, off, w1, b1, clamp, packed), 5)
+        res["ms"] = time_ms(lambda: deform64_lrelu(x, off, w1, b1, clamp), 5)
         res["plain_ms"] = time_ms(plain, 2)
         res.update(_deform64_bound(x, off, w1, b1), library_ms=None)
     return res
@@ -713,8 +707,7 @@ def check_rrdb(shape, gen, timed: bool, kernel: str = "rrdb_fused") -> dict:
     from deepbedmap_tpu_torch.ops.rdb import rrdb_reference
 
     fn = getattr(rdb, kernel)
-    label, pack = {"rrdb_fused": ("K4 rrdb_forward", rdb.pack_rrdb_weights),
-                   "rrdb_sweep": ("K5 rrdb_sweep_forward", rdb.pack_rrdb_weights_tc)}[kernel]
+    label = {"rrdb_fused": "K4 rrdb_forward", "rrdb_sweep": "K5 rrdb_sweep_forward"}[kernel]
 
     f, g = 64, 32
     cins, couts = [f + g * j for j in range(5)], [g, g, g, g, f]
@@ -722,15 +715,14 @@ def check_rrdb(shape, gen, timed: bool, kernel: str = "rrdb_fused") -> dict:
                for _ in range(3)]
     biases = [[_randn((co,), gen, 0.1) for co in couts] for _ in range(3)]
     x = _randn(shape, gen)
-    packed = pack(kernels, biases)
-    got = fn(x, kernels, biases, 0.1, packed)
+    got = fn(x, kernels, biases, 0.1)
     want = rrdb_reference(x, kernels, biases, 0.1)
     torch.cuda.synchronize()
     res = {"max_abs_err": compare(f"{label} {shape}", got, want, TOL_KERNEL)}
     del want
     if timed:
-        check_precision(label, fn, rrdb_reference, x, kernels, biases, packed)
-        res["ms"] = time_ms(lambda: fn(x, kernels, biases, 0.1, packed), 10)
+        check_precision(label, fn, rrdb_reference, x, kernels, biases)
+        res["ms"] = time_ms(lambda: fn(x, kernels, biases, 0.1), 10)
         res["plain_ms"] = time_ms(lambda: rrdb_reference(x, kernels, biases, 0.1), 10)
         pix = x.numel() // 64
         res.update(bound(3 * 2 * pix * RDB_MACS,
@@ -743,18 +735,13 @@ def _check_conv(shape, gen, timed: bool) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from deepbedmap_tpu_torch.ops.conv3x3 import (
-        conv3x3_fused,
-        conv3x3_reference,
-        pack_conv_weight,
-    )
+    from deepbedmap_tpu_torch.ops.conv3x3 import conv3x3_fused, conv3x3_reference
 
     n, h, w, cin, leaky, residual = shape
     x = _randn((n, h, w, cin), gen)
     wt, b = _randn((64, cin, 3, 3), gen, 0.05), _randn((64,), gen, 0.1)
     r = _randn((n, h, w, 64), gen) if residual else None
-    packed = pack_conv_weight(wt).contiguous()
-    got = conv3x3_fused(x, wt, b, leaky, r, packed)
+    got = conv3x3_fused(x, wt, b, leaky, r)
     want = conv3x3_reference(x, wt, b, leaky, r)
     torch.cuda.synchronize()
     label = f"K10 conv3x3_forward {(n, h, w, cin)} -> 64, leaky {leaky}, residual {residual}"
@@ -766,12 +753,12 @@ def _check_conv(shape, gen, timed: bool) -> dict:
     del want
     if timed:
         x_nchw = x.permute(0, 3, 1, 2)  # channels_last, as the port keeps it
-        res["ms"] = time_ms(lambda: conv3x3_fused(x, wt, b, leaky, r, packed), 10)
+        res["ms"] = time_ms(lambda: conv3x3_fused(x, wt, b, leaky, r), 10)
         res["plain_ms"] = time_ms(lambda: conv3x3_reference(x, wt, b, leaky, r), 10)
         res["library_ms"] = time_ms(lambda: F.conv2d(x_nchw, wt, b, padding=1), 10)
         res["flops"] = 2 * n * h * w * 9 * cin * 64
         res["bytes"] = 4 * (x.numel() + n * h * w * 64 * (2 if residual else 1)
-                            + _numel(packed, b))
+                            + _numel(wt, b))
     return res
 
 
@@ -797,25 +784,20 @@ def check_conv3x3(shapes, gen, timed: bool) -> dict:
 def check_deform_conv(shape, gen, timed: bool) -> dict:
     import torch
 
-    from deepbedmap_tpu_torch.ops.deform_conv import (
-        deform_conv2d,
-        deform_conv_shifts,
-        pack_deform64_weight_tc,
-    )
+    from deepbedmap_tpu_torch.ops.deform_conv import deform_conv2d, deform_conv_shifts
 
     (n, h, w, c), clamp = _tail_case(shape)
     x = _randn((n, h, w, c), gen)
     off = _offsets((n, h, w, 18), gen)
     wt, b = _randn((c, c, 3, 3), gen, 0.05), _randn((c,), gen, 0.1)
-    packed = pack_deform64_weight_tc(wt)
-    got = deform_conv2d(x, off, wt, b, 1, clamp, packed)
+    got = deform_conv2d(x, off, wt, b, 1, clamp)
     want = deform_conv_shifts(x, off, wt, b, 1, clamp)
     torch.cuda.synchronize()
     res = {"max_abs_err": compare(f"K7 deform_conv {shape}", got, want, TOL_KERNEL)}
     del want
     if timed:
         check_deform_precision("K7 deform_conv", got, x, off, wt, b, clamp, False)
-        res["ms"] = time_ms(lambda: deform_conv2d(x, off, wt, b, 1, 2, packed), 5)
+        res["ms"] = time_ms(lambda: deform_conv2d(x, off, wt, b, 1, 2), 5)
         res["plain_ms"] = time_ms(lambda: deform_conv_shifts(x, off, wt, b, 1, 2), 2)
         res.update(_deform64_bound(x, off, wt, b), library_ms=None)
     return res
@@ -1156,7 +1138,7 @@ def region_kernels(model, nhwc, dem: np.ndarray) -> None:
         # ops.tail.fused_deform_tail's steps, in its order and layouts
         off1 = conv_nhwc(a4, o1k, o1b).contiguous()
         x = a4.contiguous()
-        a5 = deform64_lrelu(x, off1, w1, b1, clamp, l1.packed_weight())
+        a5 = deform64_lrelu(x, off1, w1, b1, clamp)
         off2 = conv_nhwc(a5, o2k, o2b).contiguous()
         z = tap_projection(a5, w2)
         out = deform_zproj1(z, off2, b2, clamp)
@@ -1168,12 +1150,11 @@ def region_kernels(model, nhwc, dem: np.ndarray) -> None:
         rdb = model.residual_network[0].residual_dense_block1
         kernels = [c.weight for c in rdb.convs()]
         biases = [c.bias for c in rdb.convs()]
-        packed = rdb._packed.get(kernels + biases)
         compare(f"K1 rdb_forward {tuple(rdb_in.shape)} (predict's input)",
-                rdb_fused(rdb_in, kernels, biases, rdb.residual_scaling, packed),
+                rdb_fused(rdb_in, kernels, biases, rdb.residual_scaling),
                 rdb_reference(rdb_in, kernels, biases, rdb.residual_scaling), TOL_KERNEL)
         check_precision("K1 rdb_forward (predict's input)", rdb_fused, rdb_reference, rdb_in,
-                        kernels, biases, packed)
+                        kernels, biases)
 
         plain = deform_conv_shifts(x, off1, w1, b1, 1, clamp)
         compare(f"K2 deform64_lrelu {tuple(x.shape)} (predict's input)", a5,
@@ -4128,7 +4109,7 @@ def option_kernels(name: str, model, xs) -> dict:
             x = a1.float().contiguous()
             errs["rdb_forward"] = compare(
                 f"{name}: K1 rdb_forward {tuple(x.shape)} (the path's input)",
-                rdb_fused(x, ks, bs, rdb.residual_scaling, rdb._packed.get(ks + bs)),
+                rdb_fused(x, ks, bs, rdb.residual_scaling),
                 rdb_reference(x, ks, bs, rdb.residual_scaling), TOL_KERNEL)
         a4 = model.upsample(model.trunk(a1), a1)
         want = model.tail(a4)
@@ -4140,11 +4121,11 @@ def option_kernels(name: str, model, xs) -> dict:
         off1 = conv_nhwc(x_in, o1k, o1b, 1, dt).float().contiguous()
         x = x_in.float().contiguous()
         if cfg.tail_fused:
-            a5 = deform64_lrelu(x, off1, w1, b1, clamp, l1.packed_weight())
+            a5 = deform64_lrelu(x, off1, w1, b1, clamp)
             plain = leaky_relu(deform_conv_shifts(x, off1, w1, b1, 1, clamp))
             k64, k1 = "deform64_lrelu", "deform_zproj1"
         else:
-            a5 = deform_conv2d(x, off1, w1, b1, 1, clamp, l1.packed_weight())
+            a5 = deform_conv2d(x, off1, w1, b1, 1, clamp)
             plain = deform_conv_shifts(x, off1, w1, b1, 1, clamp)
             k64, k1 = "deform_conv", "deform_conv_zproj1"
         errs[k64] = compare(f"{name}: {k64} {tuple(x.shape)} (the path's input)", a5, plain,
@@ -4425,8 +4406,6 @@ def _mxu_dense(kind: str, shape, gen, timed: bool) -> dict:
 
     fn = getattr(rdb, kind)
     blocks = 3 if kind.startswith("rrdb") else 1
-    pack = {"rdb_fused": rdb.pack_rdb_weights, "rdb_banded": rdb.pack_rdb_weights_tc,
-            "rrdb_fused": rdb.pack_rrdb_weights, "rrdb_sweep": rdb.pack_rrdb_weights_tc}[kind]
     ref = rdb.rdb_reference if blocks == 1 else rdb.rrdb_reference
     f, g = 64, 32
     cins, couts = [f + g * j for j in range(5)], [g, g, g, g, f]
@@ -4436,16 +4415,15 @@ def _mxu_dense(kind: str, shape, gen, timed: bool) -> dict:
     if blocks == 1:
         kernels, biases = kernels[0], biases[0]
     x = _randn(shape, gen)
-    p16, p32 = pack(kernels, biases, True), pack(kernels, biases)
-    got = fn(x, kernels, biases, MXU_SCALING, p16, True)
+    got = fn(x, kernels, biases, MXU_SCALING, True)
     want = ref(x, kernels, biases, MXU_SCALING, mxu_bf16=True)
-    other = fn(x, kernels, biases, MXU_SCALING, p32)
+    other = fn(x, kernels, biases, MXU_SCALING)
     torch.cuda.synchronize()
     res = hold_mxu(f"{kind} bf16 route {shape}", got, want, other)
     del got, want, other
     if timed:
-        res["ms"] = time_ms(lambda: fn(x, kernels, biases, MXU_SCALING, p16, True), 10)
-        res["tf32x3_ms"] = time_ms(lambda: fn(x, kernels, biases, MXU_SCALING, p32), 10)
+        res["ms"] = time_ms(lambda: fn(x, kernels, biases, MXU_SCALING, True), 10)
+        res["tf32x3_ms"] = time_ms(lambda: fn(x, kernels, biases, MXU_SCALING), 10)
         res["plain_ms"] = time_ms(lambda: ref(x, kernels, biases, MXU_SCALING, mxu_bf16=True), 10)
         flat = sum(kernels + biases, []) if blocks == 3 else kernels + biases
         res.update(bound_bf16(blocks * 2 * (x.numel() // 64) * RDB_MACS,
@@ -4463,28 +4441,22 @@ def _mxu_conv(shape, gen, timed: bool) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from deepbedmap_tpu_torch.ops.conv3x3 import (
-        conv3x3_fused,
-        conv3x3_reference,
-        pack_conv_weight,
-    )
+    from deepbedmap_tpu_torch.ops.conv3x3 import conv3x3_fused, conv3x3_reference
 
     n, h, w, cin, leaky, residual = shape
     x = _randn((n, h, w, cin), gen)
     wt, b = _randn((64, cin, 3, 3), gen, 0.05), _randn((64,), gen, 0.1)
     r = _randn((n, h, w, 64), gen) if residual else None
-    p16 = pack_conv_weight(wt, True).contiguous()
-    p32 = pack_conv_weight(wt).contiguous()
-    got = conv3x3_fused(x, wt, b, leaky, r, p16, True)
+    got = conv3x3_fused(x, wt, b, leaky, r, True)
     want = conv3x3_reference(x, wt, b, leaky, r, True)
-    other = conv3x3_fused(x, wt, b, leaky, r, p32)
+    other = conv3x3_fused(x, wt, b, leaky, r)
     torch.cuda.synchronize()
     res = hold_mxu(f"conv3x3_forward bf16 route {(n, h, w, cin)}, leaky {leaky}, residual "
                    f"{residual}", got, want, other)
     del got, want, other
     if timed:
-        res["ms"] = time_ms(lambda: conv3x3_fused(x, wt, b, leaky, r, p16, True), 10)
-        res["tf32x3_ms"] = time_ms(lambda: conv3x3_fused(x, wt, b, leaky, r, p32), 10)
+        res["ms"] = time_ms(lambda: conv3x3_fused(x, wt, b, leaky, r, True), 10)
+        res["tf32x3_ms"] = time_ms(lambda: conv3x3_fused(x, wt, b, leaky, r), 10)
         res["plain_ms"] = time_ms(lambda: conv3x3_reference(x, wt, b, leaky, r, True), 10)
         xb = x.permute(0, 3, 1, 2).bfloat16()  # channels_last, as the port keeps it
         wb, bb = wt.bfloat16(), b.bfloat16()

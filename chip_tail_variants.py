@@ -87,7 +87,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_tail_variants.py: no CUDA device; it does not run on the CPU")
     from deepbedmap_tpu_torch.ops import _kernels
-    from deepbedmap_tpu_torch.ops.deform_conv import pack_deform64_weight_tc
     from deepbedmap_tpu_torch.ops.tail import deform64_lrelu
 
     card_name = cs.card()
@@ -99,13 +98,12 @@ def main() -> int:
     offsets = {"random": cs._offsets((n, h, w, 18), gen),
                "uniform": torch.full((n, h, w, 18), 0.3, device="cuda")}
     w1, b1 = cs._randn((c, c, 3, 3), gen, 0.05), cs._randn((c,), gen, 0.1)
-    packed = pack_deform64_weight_tc(w1)
     times: dict = {}
     for _ in range(args.rounds):
         for name, lib in libs.items():
             _kernels._lib = lib
             for kind, off in offsets.items():
-                ms = cs.time_ms(lambda: deform64_lrelu(x, off, w1, b1, 2, packed), 10)
+                ms = cs.time_ms(lambda: deform64_lrelu(x, off, w1, b1, 2), 10)
                 times.setdefault(f"{name}/{kind}", []).append(ms)
                 print(f"  K2 {name}, {kind} offsets: {ms:.3f} ms  [{card_name}]", flush=True)
     print(json.dumps({"card": card_name, "shape": list(cs.MAIN_TAIL), "ms": times}))

@@ -147,8 +147,6 @@ def main() -> int:
         raise SystemExit("chip_tile_variants.py: no CUDA device; it does not run on the CPU")
     from deepbedmap_tpu_torch.ops import _kernels
     from deepbedmap_tpu_torch.ops.rdb import (
-        pack_rdb_weights_tc,
-        pack_rrdb_weights_tc,
         rdb_banded,
         rdb_reference,
         rrdb_reference,
@@ -168,11 +166,9 @@ def main() -> int:
                [cs._randn((co,), gen, 0.1) for co in couts]) for _ in range(3)]
     k1, b1 = blocks[0]
     ks, bs = [k for k, _ in blocks], [b for _, b in blocks]
-    p1 = {m: pack_rdb_weights_tc(k1, b1, m) for m in (True, False)}
-    p3 = {m: pack_rrdb_weights_tc(ks, bs, m) for m in (True, False)}
     s = cs.MXU_SCALING
-    k6 = lambda x, m: rdb_banded(x, k1, b1, s, p1[m], m)  # noqa: E731
-    k5 = lambda x, m: rrdb_sweep(x, ks, bs, s, p3[m], m)  # noqa: E731
+    k6 = lambda x, m: rdb_banded(x, k1, b1, s, m)  # noqa: E731
+    k5 = lambda x, m: rrdb_sweep(x, ks, bs, s, m)  # noqa: E731
 
     report: dict = {"card": card_name, "shape": list(cs.MAIN_RDB), "errors": {}, "ms": {}}
     xs = {shape: cs._randn(shape, gen) for shape in (cs.RAGGED_RDB, cs.MAIN_RDB)}

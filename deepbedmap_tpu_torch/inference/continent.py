@@ -32,6 +32,20 @@ from deepbedmap_tpu_torch.inference.engine import INPUT_RATIOS, TilePlan, pad_ed
 from deepbedmap_tpu_torch.utils.profiling import count, recording, span
 
 
+def _prep_band(band_inputs: Dict[str, torch.Tensor], pad_lr: int,
+               clip_conditioning: bool) -> Dict[str, torch.Tensor]:
+    """A band's inputs on the device as the tiles read them: the conditioning
+    rasters clipped to >= 0, and the horizontal halo edge-padded (the
+    vertical halo rows are real data from ``_band_inputs``)."""
+    padded = {}
+    for key, ratio in INPUT_RATIOS.items():
+        a = band_inputs[key]
+        if clip_conditioning and key != "X":
+            a = a.clamp_min(0.0)
+        padded[key] = pad_edge(a, 0, 0, pad_lr * ratio, pad_lr * ratio)
+    return padded
+
+
 def _make_band_predictor(
     forward_fn: Callable[..., torch.Tensor],
     plan: TilePlan,
@@ -55,17 +69,6 @@ def _make_band_predictor(
     b = tiles_per_dispatch
     t_out = plan.tile_out
 
-    def prep(band_inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        padded = {}
-        for key, ratio in INPUT_RATIOS.items():
-            a = band_inputs[key]
-            if clip_conditioning and key != "X":
-                a = a.clamp_min(0.0)
-            # horizontal halo: edge padding; the vertical halo is in the band
-            p = plan.pad_lr * ratio
-            padded[key] = pad_edge(a, 0, 0, p, p)
-        return padded
-
     def tile_group(padded: Dict[str, torch.Tensor], txs) -> torch.Tensor:
         crops = {}
         for key, ratio in INPUT_RATIOS.items():
@@ -80,7 +83,7 @@ def _make_band_predictor(
     def band_predict(band_inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
         count("continent.tiles", gx)
         with span("continent.dispatch"):
-            padded = prep(band_inputs)
+            padded = _prep_band(band_inputs, plan.pad_lr, clip_conditioning)
             strip = torch.zeros((t_out, plan.out_w), device=band_inputs["X"].device)
             for g in range(-(-gx // b)):
                 txs = [min(g * b + i, gx - 1) for i in range(b)]
@@ -366,15 +369,9 @@ def _make_sharded_band_pipeline(
         """Predict ONE halo'd band (numpy or tensors, NHWC) over the mesh."""
         count("continent.tiles", gx)
         with span("continent.dispatch"):
-            prepped = {}
-            for key, ratio in INPUT_RATIOS.items():
-                a = torch.as_tensor(band_inputs[key], dtype=torch.float32).to(device)
-                if clip_conditioning and key != "X":
-                    a = a.clamp_min(0.0)
-                # horizontal halo: edge padding; the vertical halo rows are
-                # real data from _band_inputs
-                p = band_plan.pad_lr * ratio
-                prepped[key] = pad_edge(a, 0, 0, p, p)
+            on_device = {key: torch.as_tensor(band_inputs[key], dtype=torch.float32).to(device)
+                         for key in INPUT_RATIOS}
+            prepped = _prep_band(on_device, band_plan.pad_lr, clip_conditioning)
             tiles = sharded_predict_tiles(forward_fn, prepped, band_plan, mesh,
                                           prepadded=True, tiles_per_dispatch=tiles_per_dispatch)
         if tiles.shape != (gx, plan.tile_out, plan.tile_out):

@@ -32,20 +32,15 @@ maps one onto the other) under every configuration.
 from __future__ import annotations
 
 import math
-import threading
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from deepbedmap_tpu_torch.ops.conv import conv_nhwc, leaky_relu, scaled
-from deepbedmap_tpu_torch.ops.conv3x3 import conv3x3_fused, pack_conv_weight
-from deepbedmap_tpu_torch.ops.deform_conv import deform_conv2d, pack_deform64_weight_tc
+from deepbedmap_tpu_torch.ops.conv3x3 import conv3x3_fused
+from deepbedmap_tpu_torch.ops.deform_conv import deform_conv2d
 from deepbedmap_tpu_torch.ops.rdb import (
-    pack_rdb_weights,
-    pack_rdb_weights_tc,
-    pack_rrdb_weights,
-    pack_rrdb_weights_tc,
     rdb_banded,
     rdb_fused,
     rdb_reference,
@@ -63,39 +58,6 @@ def he_normal_chainer_(
     std = scale * math.sqrt(2.0 / fan_in)
     with torch.no_grad():
         return weight.normal_(0.0, std, generator=generator)
-
-
-class _Cached:
-    """Weights repacked for a kernel, recomputed only when a source parameter
-    changes (a new ``load_state_dict``, a move to another device). A lock
-    makes threads that need the packing together (a server's first requests)
-    pack once and read a key and a value that belong together."""
-
-    def __init__(self, pack):
-        self._pack = pack
-        self._key = None
-        self._value = None
-        self._lock = threading.Lock()
-
-    def __getstate__(self):
-        # a copy of the module packs its own parameters again (a lock cannot
-        # be copied, and the key names the source's tensors)
-        return {"pack": self._pack}
-
-    def __setstate__(self, state):
-        self.__init__(state["pack"])
-
-    def get(self, params: Sequence[torch.Tensor]):
-        """The packing of ``params``, made under ``torch.no_grad()``: packed
-        weights are never differentiated (the kernels' backward differentiates
-        the plain version in the source parameters); an optimizer's in-place
-        update bumps ``_version`` and so repacks."""
-        key = tuple((p.device, p.data_ptr(), p._version) for p in params)
-        with self._lock, torch.no_grad():
-            if key != self._key:
-                self._value = self._pack(*params)
-                self._key = key
-            return self._value
 
 
 class Conv3x3(nn.Module):
@@ -167,16 +129,14 @@ class FusedConv3x3(Conv3x3):
         self.kernel = kernel
         self.dtype = dtype
         self.mxu_bf16 = mxu_bf16
-        self._packed = _Cached(lambda w: pack_conv_weight(w, mxu_bf16).contiguous())
 
     def forward(
         self, x: torch.Tensor, residual: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
         if self.kernel:
-            packed = self._packed.get([self.weight]) if x.is_cuda else None
             return conv3x3_fused(
                 x.float().contiguous(), self.weight, self.bias, self.leaky,
-                None if residual is None else residual.float().contiguous(), packed,
+                None if residual is None else residual.float().contiguous(),
                 self.mxu_bf16,
             )
         z = conv_nhwc(x, self.weight, self.bias, 1, self.dtype)
@@ -224,8 +184,6 @@ class ResidualDenseBlock(nn.Module):
         self.kernel = kernel
         self.dtype = dtype
         self.mxu_bf16 = mxu_bf16
-        pack = pack_rdb_weights_tc if kernel == "rdb_banded" else pack_rdb_weights
-        self._packed = _Cached(lambda *p: pack(p[:5], p[5:], mxu_bf16))
 
     def convs(self) -> Tuple[Conv3x3, ...]:
         return tuple(getattr(self, f"conv_layer{i}") for i in range(1, 6))
@@ -235,10 +193,8 @@ class ResidualDenseBlock(nn.Module):
         biases = [c.bias for c in self.convs()]
         if self.kernel == "plain":
             return rdb_reference(x, kernels, biases, self.residual_scaling, self.dtype)
-        packed = self._packed.get(kernels + biases) if x.is_cuda else None
         block = rdb_banded if self.kernel == "rdb_banded" else rdb_fused
-        return block(x.float(), kernels, biases, self.residual_scaling, packed,
-                     self.mxu_bf16)
+        return block(x.float(), kernels, biases, self.residual_scaling, self.mxu_bf16)
 
 
 class ResInResDenseBlock(nn.Module):
@@ -268,11 +224,6 @@ class ResInResDenseBlock(nn.Module):
         self.residual_scaling = residual_scaling
         self.kernel = kernel
         self.mxu_bf16 = mxu_bf16
-        pack = pack_rrdb_weights_tc if kernel == "rrdb_sweep" else pack_rrdb_weights
-        self._packed = _Cached(lambda *p: pack(
-            [p[i:i + 5] for i in (0, 10, 20)], [p[i + 5:i + 10] for i in (0, 10, 20)],
-            mxu_bf16,
-        ))
 
     def blocks(self) -> Tuple[ResidualDenseBlock, ...]:
         return (self.residual_dense_block1, self.residual_dense_block2,
@@ -283,12 +234,7 @@ class ResInResDenseBlock(nn.Module):
         if whole is not None:
             kernels = [[c.weight for c in b.convs()] for b in self.blocks()]
             biases = [[c.bias for c in b.convs()] for b in self.blocks()]
-            packed = (
-                self._packed.get([t for k, b in zip(kernels, biases) for t in k + b])
-                if x.is_cuda else None
-            )
-            return whole(x.float(), kernels, biases, self.residual_scaling, packed,
-                         self.mxu_bf16)
+            return whole(x.float(), kernels, biases, self.residual_scaling, self.mxu_bf16)
         a = x
         for block in self.blocks():
             a = block(a)
@@ -317,21 +263,13 @@ class DeformableConv(nn.Module):
         self.dtype = dtype
         self.in_hcw = in_hcw
         self.out_hcw = out_hcw
-        self._packed = _Cached(pack_deform64_weight_tc)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x_nhwc = x.permute(0, 1, 3, 2) if self.in_hcw else x
         offsets = conv_nhwc(x_nhwc, self.offset_conv.weight, self.offset_conv.bias, 1,
                             self.dtype)
-        # K7's packed weights, for the one layer shape it takes (64 -> 64); a
-        # narrower trunk's layers run the plain samplers on the card
-        packed = (
-            self.packed_weight() if x.is_cuda and tuple(self.weight.shape) == (64, 64, 3, 3)
-            else None
-        )
         return deform_conv2d(x_nhwc.float().contiguous(), offsets.float().contiguous(),
-                             self.weight, self.bias, 1, self.clamp, packed,
-                             out_hcw=self.out_hcw)
+                             self.weight, self.bias, 1, self.clamp, out_hcw=self.out_hcw)
 
     def reset_parameters(self, init_scale: float, generator: torch.Generator) -> None:
         """Own weight and bias; ``offset_conv`` is a ``Conv3x3`` of its own."""
@@ -341,6 +279,3 @@ class DeformableConv(nn.Module):
 
     def tensors(self):
         return (self.offset_conv.weight, self.offset_conv.bias, self.weight, self.bias)
-
-    def packed_weight(self) -> torch.Tensor:
-        return self._packed.get([self.weight])

@@ -153,11 +153,8 @@ class Generator(nn.Module):
             return tail_reference(a4, *l1.tensors(), *l2.tensors(),
                                   clamp=self.cfg.deform_clamp,
                                   compute_dtype=self.cfg.compute_dtype)
-        return fused_deform_tail(
-            a4, *l1.tensors(), *l2.tensors(), clamp=self.cfg.deform_clamp,
-            w1_packed=l1.packed_weight() if a4.is_cuda else None,
-            compute_dtype=self.cfg.compute_dtype,
-        )
+        return fused_deform_tail(a4, *l1.tensors(), *l2.tensors(), clamp=self.cfg.deform_clamp,
+                                 compute_dtype=self.cfg.compute_dtype)
 
     def forward(self, x, w1, w2, w3) -> torch.Tensor:
         """NHWC inputs: x (N,h,w,1) bed, w1 (N,10h,10w,1) surface,

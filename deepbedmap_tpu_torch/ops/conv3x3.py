@@ -36,6 +36,7 @@ import torch.nn.functional as F
 
 from deepbedmap_tpu_torch.ops import _kernels
 from deepbedmap_tpu_torch.ops._autograd import kernel_with_plain_grad
+from deepbedmap_tpu_torch.ops._packed import packed
 from deepbedmap_tpu_torch.ops.conv import leaky_relu, round_bf16
 
 C_OUT = 64
@@ -88,14 +89,14 @@ def conv3x3_fused(
     bias: torch.Tensor,  # (64,)
     leaky: bool = False,
     residual: Optional[torch.Tensor] = None,
-    w_packed: Optional[torch.Tensor] = None,
     mxu_bf16: bool = False,
 ) -> torch.Tensor:
     """K10 (``csrc/conv3x3.cu``) on a CUDA tensor, the plain
     ``conv3x3_reference`` on a CPU tensor. Shapes the kernel does not take
     (C_in not in {64, 128}, C_out != 64) raise ``ValueError`` on either
-    device. ``w_packed`` is ``pack_conv_weight(weight, mxu_bf16)``, cached
-    by the caller. ``mxu_bf16``: bf16 multiplicands (module docstring)."""
+    device. The kernel reads ``pack_conv_weight(weight, mxu_bf16)``, packed
+    once per version of the weight. ``mxu_bf16``: bf16 multiplicands
+    (module docstring)."""
     n, h, w, c_in = x.shape
     if c_in not in C_INS or tuple(weight.shape) != (C_OUT, c_in, 3, 3):
         raise ValueError(
@@ -116,9 +117,7 @@ def conv3x3_fused(
         raise ValueError(f"conv3x3_fused: unsupported device {x.device}")
     _kernels.check_tensor(x, "x", (n, h, w, c_in))
     _kernels.check_image_shape(n, h, w, max(c_in, C_OUT))
-    if w_packed is None:
-        with torch.no_grad():
-            w_packed = pack_conv_weight(weight, mxu_bf16).contiguous()
+    w_packed = packed(pack_conv_weight, [weight], mxu_bf16)
     _kernels.check_tensor(w_packed, "packed weight", (C_OUT * c_in * 9,),
                           torch.bfloat16 if mxu_bf16 else torch.float32)
     _kernels.check_tensor(bias, "bias", (C_OUT,))

@@ -60,6 +60,7 @@ import torch.nn.functional as F
 
 from deepbedmap_tpu_torch.ops import _kernels
 from deepbedmap_tpu_torch.ops._autograd import needs_grad, refuse_grad
+from deepbedmap_tpu_torch.ops._packed import packed
 from deepbedmap_tpu_torch.utils.profiling import device_span
 
 _TAPS = 9
@@ -445,19 +446,17 @@ def deform64(
     bias: torch.Tensor,  # (64,)
     clamp: int,
     lrelu: bool,
-    w_packed: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """[lrelu](deform_conv(x) + bias) on the card: K2 with ``lrelu``, K7
-    without. ``w_packed`` is ``pack_deform64_weight_tc(weight)``. When a
-    gradient is needed the output's backward is ``deform64_backward``."""
+    without, on ``pack_deform64_weight_tc(weight)``, packed once per version
+    of the weight. When a gradient is needed the output's backward is
+    ``deform64_backward``."""
     check_window_clamp(clamp)
     n, h, w, _ = x.shape
     _kernels.check_tensor(x, "x", (n, h, w, _C))
     _kernels.check_tensor(offsets, "offsets", (n, h, w, 2 * _TAPS))
     _kernels.check_image_shape(n, h, w, _C)
-    if w_packed is None:
-        with torch.no_grad():
-            w_packed = pack_deform64_weight_tc(weight)
+    w_packed = packed(pack_deform64_weight_tc, [weight])
     _kernels.check_tensor(w_packed, "packed weight", (_TAPS * 2 * _C * _C,))
     _kernels.check_tensor(bias, "bias", (_C,))
     if needs_grad(x, offsets, weight, bias):
@@ -571,7 +570,6 @@ def deform_conv2d(
     bias: Optional[torch.Tensor] = None,  # (C_out,) or None
     padding: int = 1,
     clamp: int = 2,
-    w_packed: Optional[torch.Tensor] = None,
     method: str = "auto",
     in_hcw: bool = False,
     out_hcw: bool = False,
@@ -586,9 +584,7 @@ def deform_conv2d(
       the kernels do not take raise ``ValueError`` on either device: padding
       != 1, a kernel that is not 3x3, C_in != 64, C_out not in {1, 64}; on a
       CUDA tensor so does a clamp the kernels' windows do not cover
-      (``check_window_clamp``). ``w_packed`` is
-      ``pack_deform64_weight_tc(weight)`` for C_out = 64, cached by the
-      caller.
+      (``check_window_clamp``).
     - ``'shifts'``, ``'zproj'``: the plain masked-shift samplers
       ``deform_conv_shifts`` / ``deform_conv_shifts_zproj``, any shape.
     - ``'gather'``: ``deform_conv_gather``, the exact sampler without a
@@ -609,12 +605,11 @@ def deform_conv2d(
     if in_hcw:
         x = x.permute(0, 1, 3, 2).contiguous()
         offsets = offsets.permute(0, 1, 3, 2).contiguous()
-    out = _deform_conv2d_nhwc(x, offsets, weight, bias, padding, clamp, w_packed, method)
+    out = _deform_conv2d_nhwc(x, offsets, weight, bias, padding, clamp, method)
     return out.permute(0, 1, 3, 2) if out_hcw else out
 
 
-def _deform_conv2d_nhwc(x, offsets, weight, bias, padding, clamp, w_packed,
-                        method) -> torch.Tensor:
+def _deform_conv2d_nhwc(x, offsets, weight, bias, padding, clamp, method) -> torch.Tensor:
     """``deform_conv2d`` on NHWC tensors."""
     c_out = weight.shape[0]
     if method == "auto":
@@ -641,11 +636,19 @@ def _deform_conv2d_nhwc(x, offsets, weight, bias, padding, clamp, w_packed,
     if c_out == 1:
         z = tap_projection(x, weight)
         return deform_tap_fields(z, offsets, bias, clamp, "deform_conv_zproj1")
-    return deform64(x, offsets, weight, bias, clamp, False, w_packed)
+    return deform64(x, offsets, weight, bias, clamp, False)
 
 
 ZFORM_C_OUTS = (1, 16, 64)  # output widths K9 is built for
 ZFORM_MAX_C_IN = 64
+
+
+def _pack_zform_weight(weight: torch.Tensor) -> torch.Tensor:
+    """K9's weights: ``pack_deform64_weight_tc`` for C_out 64 and 16, the
+    (C_in, 9) tap matrix for C_out 1."""
+    if weight.shape[0] == 1:
+        return weight.detach()[0].reshape(weight.shape[1], _TAPS).contiguous()
+    return pack_deform64_weight_tc(weight)
 
 
 def deform_conv2d_zform(
@@ -658,9 +661,8 @@ def deform_conv2d_zform(
 ) -> torch.Tensor:
     """The deformable conv computed projection first inside one kernel (the
     JAX ``deform_conv2d_pallas_zform``): on a CUDA tensor K9
-    (``csrc/deform_zform.cu``, its weights packed per call by
-    ``pack_deform64_weight_tc`` for C_out 64 and 16, as the (C_in, 9) tap
-    matrix for C_out 1), on a CPU tensor its plain version
+    (``csrc/deform_zform.cu``, on ``_pack_zform_weight``'s packing, made
+    once per version of the weight), on a CPU tensor its plain version
     ``deform_conv_shifts_zproj``. Takes a 3x3 kernel, padding 1, C_in a
     multiple of 4 up to 64, C_out in {1, 16, 64} and an integer clamp in
     [0, 2]; anything else raises ``ValueError`` on either device, and so
@@ -687,12 +689,8 @@ def deform_conv2d_zform(
     _kernels.check_tensor(x, "x", (n, h, w, c_in))
     _kernels.check_tensor(offsets, "offsets", (n, h, w, 2 * _TAPS))
     _kernels.check_image_shape(n, h, w, max(c_in, 2 * _TAPS, c_out))
-    if c_out == 1:
-        w_packed = weight.detach()[0].reshape(c_in, _TAPS).contiguous()
-        packed_shape = (c_in, _TAPS)
-    else:
-        w_packed = pack_deform64_weight_tc(weight)
-        packed_shape = (_TAPS * 2 * (-(-c_in // 16) * 16) * c_out,)
+    w_packed = packed(_pack_zform_weight, [weight])
+    packed_shape = (c_in, _TAPS) if c_out == 1 else (_TAPS * 2 * (-(-c_in // 16) * 16) * c_out,)
     _kernels.check_tensor(w_packed, "packed weight", packed_shape)
     if bias is None:
         bias = torch.zeros(c_out, device=x.device)

@@ -47,11 +47,11 @@ float32 plain version: the rounding is not differentiated, on either
 device.
 
 Layout: NHWC at every function; the JAX kernels' flat row-band layout is not
-carried over. Conv weights are OIHW, as everywhere in the port; each kernel's
-packer repacks them once per model: ``pack_rdb_weights`` /
-``pack_rrdb_weights`` for K1 / K4, ``pack_rdb_weights_tc`` /
-``pack_rrdb_weights_tc`` (split into TF32 hi/lo; in bf16 with ``mxu_bf16``)
-for K6 / K5.
+carried over. Conv weights are OIHW, as everywhere in the port; each wrapper
+packs them for its kernel through ``_packed.packed`` (once per version of
+the weights): ``pack_rdb_weights`` / ``pack_rrdb_weights`` for K1 / K4,
+``pack_rdb_weights_tc`` / ``pack_rrdb_weights_tc`` (split into TF32 hi/lo;
+in bf16 with ``mxu_bf16``) for K6 / K5.
 """
 
 from __future__ import annotations
@@ -62,6 +62,7 @@ import torch
 
 from deepbedmap_tpu_torch.ops import _kernels
 from deepbedmap_tpu_torch.ops._autograd import kernel_with_plain_grad
+from deepbedmap_tpu_torch.ops._packed import packed
 from deepbedmap_tpu_torch.ops.conv import conv_nhwc, leaky_relu, round_bf16, scaled
 from deepbedmap_tpu_torch.ops.conv3x3 import pack_conv_weight
 from deepbedmap_tpu_torch.ops.deform_conv import tf32_split
@@ -159,24 +160,19 @@ def pack_rrdb_weights_tc(
             torch.cat([b for _, b in packs]).contiguous())
 
 
-def _kernel_args(x: torch.Tensor, kernels, biases, packed, name: str,
-                 blocks: int, split: bool, mxu_bf16: bool) -> tuple:
+def _kernel_args(x: torch.Tensor, kernels, biases, name: str, blocks: int,
+                 split: bool, mxu_bf16: bool) -> tuple:
     """What every dense-block kernel takes, checked: (N, H, W) and the packed
     weights of ``blocks`` dense blocks (1, or 3 for a whole RRDB), split into
     TF32 hi/lo for the tile-local kernels (``split``), in bf16 for the bf16
-    route (``mxu_bf16``, every kernel), from ``packed`` when the caller
-    cached them."""
+    route (``mxu_bf16``, every kernel). ``_PACKERS`` is the one map from a
+    kernel to its layout."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     n, h, w, _ = x.shape
     _kernels.check_tensor(x, "x", (n, h, w, FEATURES))
     _kernels.check_image_shape(n, h, w, WORKSPACE)
-    if packed is None:
-        packer = {(1, False): pack_rdb_weights, (3, False): pack_rrdb_weights,
-                  (1, True): pack_rdb_weights_tc, (3, True): pack_rrdb_weights_tc}
-        with torch.no_grad():
-            packed = packer[blocks, split](kernels, biases, mxu_bf16)
-    w_packed, b_packed = packed
+    w_packed, b_packed = packed(_PACKERS[blocks, split], (kernels, biases), mxu_bf16)
     values = blocks * _BLOCK_WEIGHTS * (2 if split and not mxu_bf16 else 1)
     _kernels.check_tensor(w_packed, "packed weights", (values,),
                           torch.bfloat16 if mxu_bf16 else torch.float32)
@@ -232,19 +228,16 @@ def rdb_fused(
     kernels: Sequence[torch.Tensor],
     biases: Sequence[torch.Tensor],
     scaling: float,
-    packed: Tuple[torch.Tensor, torch.Tensor] | None = None,
     mxu_bf16: bool = False,
 ) -> torch.Tensor:
     """One dense block: K1 (``csrc/rdb.cu``) on a CUDA tensor, the plain
-    ``rdb_reference`` on a CPU tensor. ``packed`` is ``pack_rdb_weights``'s
-    result, cached by the caller so the repack happens once per load (with
-    the same ``mxu_bf16``). ``mxu_bf16``: bf16 multiplicands, the kernel's
-    bf16 route or the rounded plain version (module docstring)."""
+    ``rdb_reference`` on a CPU tensor. ``mxu_bf16``: bf16 multiplicands,
+    the kernel's bf16 route or the rounded plain version (module
+    docstring)."""
     if x.device.type == "cpu":
         return _on_cpu(x, kernels, biases, scaling, 1, mxu_bf16)
-    n, h, w, w_packed, b_packed = _kernel_args(x, kernels, biases, packed,
-                                               "rdb_fused", 1, False,
-                                               mxu_bf16)
+    n, h, w, w_packed, b_packed = _kernel_args(x, kernels, biases, "rdb_fused", 1,
+                                               False, mxu_bf16)
 
     def launch(x):
         ws = torch.empty((n, h, w, WORKSPACE), device=x.device)
@@ -282,23 +275,25 @@ def pack_rrdb_weights(
             torch.cat([b for _, b in packs]).contiguous())
 
 
+# (blocks, split) -> the packer of that kernel's layout: K1, K4, K6, K5
+_PACKERS = {(1, False): pack_rdb_weights, (3, False): pack_rrdb_weights,
+            (1, True): pack_rdb_weights_tc, (3, True): pack_rrdb_weights_tc}
+
+
 def rrdb_fused(
     x: torch.Tensor,  # (N, H, W, 64) float32
     kernels: Sequence[Sequence[torch.Tensor]],
     biases: Sequence[Sequence[torch.Tensor]],
     scaling: float,
-    packed: Tuple[torch.Tensor, torch.Tensor] | None = None,
     mxu_bf16: bool = False,
 ) -> torch.Tensor:
     """One whole RRDB: K4 (``csrc/rdb.cu`` ``rrdb_forward``) on a CUDA
-    tensor, the plain ``rrdb_reference`` on a CPU tensor. ``packed`` is
-    ``pack_rrdb_weights``'s result, cached by the caller. The kernel runs on
+    tensor, the plain ``rrdb_reference`` on a CPU tensor. The kernel runs on
     two (N, H, W, 192) workspaces and writes a new output tensor."""
     if x.device.type == "cpu":
         return _on_cpu(x, kernels, biases, scaling, 3, mxu_bf16)
-    n, h, w, w_packed, b_packed = _kernel_args(x, kernels, biases, packed,
-                                               "rrdb_fused", 3, False,
-                                               mxu_bf16)
+    n, h, w, w_packed, b_packed = _kernel_args(x, kernels, biases, "rrdb_fused", 3,
+                                               False, mxu_bf16)
 
     def launch(x):
         ws_a = torch.empty((n, h, w, WORKSPACE), device=x.device)
@@ -316,18 +311,15 @@ def rdb_banded(
     kernels: Sequence[torch.Tensor],
     biases: Sequence[torch.Tensor],
     scaling: float,
-    packed: Tuple[torch.Tensor, torch.Tensor] | None = None,
     mxu_bf16: bool = False,
 ) -> torch.Tensor:
     """One dense block: K6 (``csrc/rdb_banded.cu``) on a CUDA tensor, the
-    plain ``rdb_reference`` on a CPU tensor. ``packed`` is
-    ``pack_rdb_weights_tc``'s result, cached by the caller. The kernel
-    allocates nothing: only the output is created here."""
+    plain ``rdb_reference`` on a CPU tensor. The kernel allocates nothing:
+    only the output is created here."""
     if x.device.type == "cpu":
         return _on_cpu(x, kernels, biases, scaling, 1, mxu_bf16)
-    n, h, w, w_packed, b_packed = _kernel_args(x, kernels, biases, packed,
-                                               "rdb_banded", 1, True,
-                                               mxu_bf16)
+    n, h, w, w_packed, b_packed = _kernel_args(x, kernels, biases, "rdb_banded", 1,
+                                               True, mxu_bf16)
 
     def launch(x):
         out = torch.empty_like(x)
@@ -347,19 +339,15 @@ def rrdb_sweep(
     kernels: Sequence[Sequence[torch.Tensor]],
     biases: Sequence[Sequence[torch.Tensor]],
     scaling: float,
-    packed: Tuple[torch.Tensor, torch.Tensor] | None = None,
     mxu_bf16: bool = False,
 ) -> torch.Tensor:
     """One whole RRDB: K5 (``csrc/rrdb_sweep.cu``) on a CUDA tensor, the
-    plain ``rrdb_reference`` on a CPU tensor. ``packed`` is
-    ``pack_rrdb_weights_tc``'s result, cached by the caller. Its only scratch
-    is the two band rings, (4, N, 8, W, 64) each: their size does not grow
-    with H."""
+    plain ``rrdb_reference`` on a CPU tensor. Its only scratch is the two
+    band rings, (4, N, 8, W, 64) each: their size does not grow with H."""
     if x.device.type == "cpu":
         return _on_cpu(x, kernels, biases, scaling, 3, mxu_bf16)
-    n, h, w, w_packed, b_packed = _kernel_args(x, kernels, biases, packed,
-                                               "rrdb_sweep", 3, True,
-                                               mxu_bf16)
+    n, h, w, w_packed, b_packed = _kernel_args(x, kernels, biases, "rrdb_sweep", 3,
+                                               True, mxu_bf16)
 
     def launch(x):
         ring1 = torch.empty((SWEEP_SLOTS, n, SWEEP_BAND, w, FEATURES), device=x.device)

@@ -62,16 +62,14 @@ def deform64_lrelu(
     w1: torch.Tensor,  # (64, 64, 3, 3) OIHW
     b1: torch.Tensor,  # (64,)
     clamp: int = 2,
-    w_packed: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """lrelu(deform_conv(x, offsets, w1) + b1): K2 on a CUDA tensor, the plain
-    masked-shift version on a CPU tensor. ``w_packed`` is
-    ``ops.deform_conv.pack_deform64_weight_tc(w1)``, cached by the caller."""
+    masked-shift version on a CPU tensor."""
     if x.device.type == "cpu":
         return leaky_relu(deform_conv_shifts(x, offsets, w1, b1, 1, clamp))
     if x.device.type != "cuda":
         raise ValueError(f"deform64_lrelu: unsupported device {x.device}")
-    return deform64(x, offsets, w1, b1, clamp, True, w_packed)
+    return deform64(x, offsets, w1, b1, clamp, True)
 
 
 def deform_zproj1(
@@ -100,7 +98,6 @@ def fused_deform_tail(
     w2: torch.Tensor,  # (1, 64, 3, 3) final deform kernel
     b2: torch.Tensor,  # (1,)
     clamp: int = 2,
-    w1_packed: Optional[torch.Tensor] = None,
     compute_dtype: Optional[str] = None,
 ) -> torch.Tensor:
     """Both deformable output layers (module docstring) -> (N, H, W, 1).
@@ -119,7 +116,7 @@ def fused_deform_tail(
         off1 = conv_nhwc(x, o1k, o1b, 1, dt).float().contiguous()
         x32 = x.float().contiguous()
     with device_span("tail.deform64", dev):
-        a5 = deform64_lrelu(x32, off1, w1, b1, clamp, w1_packed)
+        a5 = deform64_lrelu(x32, off1, w1, b1, clamp)
     with device_span("tail.offset_convs", dev):
         off2 = conv_nhwc(a5, o2k, o2b, 1, dt).float().contiguous()
     with device_span("tail.projection", dev):

@@ -33,8 +33,8 @@ from deepbedmap_tpu.train.steps import make_g_loss_fn as jax_make_g_loss_fn
 from deepbedmap_tpu_torch.bridge import state_dict_to_jax_d_vars, state_dict_to_jax_params
 from deepbedmap_tpu_torch.config import GeneratorConfig, LossConfig
 from deepbedmap_tpu_torch.models import Generator, build_discriminator, build_generator
-from deepbedmap_tpu_torch.models.blocks import _Cached
 from deepbedmap_tpu_torch.ops import rdb
+from deepbedmap_tpu_torch.ops._packed import packed
 from deepbedmap_tpu_torch.ops._autograd import kernel_with_plain_grad, refuse_grad
 from deepbedmap_tpu_torch.ops.deform_conv import deform_conv2d_zform
 from deepbedmap_tpu_torch.train.steps import make_g_loss_fn
@@ -133,8 +133,8 @@ def test_dense_block_glue_routes_gradients_to_the_source_weights(blocks):
 
 def test_packed_weights_carry_no_gradient():
     w = torch.randn(4, 4, requires_grad=True)
-    packed = _Cached(lambda w: w * 2).get([w])
-    assert packed.grad_fn is None and not packed.requires_grad
+    got = packed(torch.mul, [w], 2)
+    assert got.grad_fn is None and not got.requires_grad
 
 
 def test_zform_refuses_a_gradient():

@@ -27,8 +27,7 @@ from deepbedmap_tpu_torch import DeepBedMap, GeneratorConfig
 from deepbedmap_tpu_torch.data import geotiff
 from deepbedmap_tpu_torch.data.raster import Raster, read_netcdf, write_netcdf
 from deepbedmap_tpu_torch.evalx.track import grdtrack
-from deepbedmap_tpu_torch.models import blocks
-from deepbedmap_tpu_torch.ops import _kernels
+from deepbedmap_tpu_torch.ops import _kernels, _packed
 from deepbedmap_tpu_torch.ops.interp import as_f32
 from deepbedmap_tpu_torch.serve import make_server
 
@@ -528,14 +527,13 @@ def test_packed_weights_packed_once_under_concurrent_first_use():
         time.sleep(0.05)
         return w * 2
 
-    cache = blocks._Cached(pack)
     w = torch.ones(3)
     barrier = threading.Barrier(8)
     got = []
 
     def first_use():
         barrier.wait()
-        got.append(cache.get([w]))
+        got.append(_packed.packed(pack, [w]))
 
     threads = [threading.Thread(target=first_use) for _ in range(8)]
     for t in threads:
