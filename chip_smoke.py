@@ -1800,17 +1800,17 @@ def _kernel_launched(name: str, before: int) -> None:
 
 
 def check_grad(label: str, name: str, fn, plain, inputs, gen, timed: bool = False,
-               bwd: str = None, plain_takes_out: bool = False) -> dict:
+               bwd: str = None, plain_takes_out: bool = False, twin=None) -> dict:
     """Phase 22: ``fn`` (a kernel wrapper) against ``plain`` on the card:
     output and the gradient of every input, each within ``TOL_KERNEL`` of
     its range, with one seeded upstream gradient. ``bwd``: the backward
-    kernel that the gradient must launch (the tail's); without it the
+    kernel that the gradient must launch (K1's, the tail's); without it the
     backward is autograd of the plain twin recomputed. ``plain_takes_out``:
     ``plain`` also takes the kernel's output, as ``out=``. ``timed``: the
     kernel route's forward and its
     backward by CUDA events, and for a backward kernel also the route it
     replaced, the plain version recomputed under autograd and differentiated
-    (``twin_bwd_ms``)."""
+    (``twin_bwd_ms``; ``twin``, where ``plain`` is not that version)."""
     import torch
 
     from deepbedmap_tpu_torch.ops import _kernels
@@ -1847,7 +1847,7 @@ def check_grad(label: str, name: str, fn, plain, inputs, gen, timed: bool = Fals
         res["bwd_ms"] = res["fwd_bwd_ms"] - res["fwd_ms"]
         if bwd:
             res["twin_bwd_ms"] = time_ms(
-                lambda: torch.autograd.grad(call(*ref_leaves), ref_leaves, up), 5)
+                lambda: torch.autograd.grad((twin or call)(*ref_leaves), ref_leaves, up), 5)
     return res
 
 
@@ -1861,6 +1861,32 @@ def _lrelu_as_kernel(y, out):
     import torch
 
     return torch.where(out >= 0, y, 0.2 * y)
+
+
+def _rdb_as_kernel(x, *params, scaling: float = 0.1):
+    """The plain dense block (``rdb.rdb_reference``'s convs) with each
+    LeakyReLU on the branch K1's own forward took: K1's 3xTF32 forward and
+    the plain fp32 one round a few pre-activations within ~1e-7 of zero to
+    opposite signs at a training step's 10^6, and K1's backward kernel
+    follows its workspace's signs
+    (``tests/test_torch_port_rdb_backward.py`` checks the branches agree
+    outside that band)."""
+    import torch
+
+    from deepbedmap_tpu_torch.ops import rdb
+    from deepbedmap_tpu_torch.ops.conv import conv_nhwc
+
+    ks, bs = params[:5], params[5:]
+    with torch.no_grad():
+        w_packed, b_packed = rdb.packed(rdb.pack_rdb_weights, (ks, bs), False)
+        _, ws = rdb._launch_rdb(x.detach().contiguous(), w_packed, b_packed, scaling, False)
+    acts = [x]
+    for j in range(5):
+        z = conv_nhwc(torch.cat(acts, -1), ks[j], bs[j])
+        if j < 4:
+            lo = 64 + 32 * j
+            acts.append(torch.where(ws[..., lo:lo + 32] >= 0, z, 0.2 * z))
+    return x + scaling * z
 
 
 def _rdb_params(gen, blocks: int):
@@ -1911,8 +1937,10 @@ def grad_checks(card_name: str) -> dict:
     ):
         fn, plain = dense(kernel, blocks)
         ks, bs = _rdb_params(gen, blocks)
-        res[name] = check_grad(label, name, fn, plain, [_randn(RAGGED_RDB, gen), *ks, *bs],
-                               gen)
+        k1 = kernel == "rdb_fused"  # K1 has a backward kernel, the others the twin
+        res[name] = check_grad(label, name, fn, _rdb_as_kernel if k1 else plain,
+                               [_randn(RAGGED_RDB, gen), *ks, *bs], gen,
+                               bwd="rdb_bwd" if k1 else None)
     n, h, w, c = GRAD_TAIL
     x, off = _randn(GRAD_TAIL, gen), _offsets((n, h, w, 18), gen)
     w64, b64 = _randn((64, 64, 3, 3), gen, 0.05), _randn((64,), gen, 0.1)
@@ -1936,8 +1964,9 @@ def grad_checks(card_name: str) -> dict:
     # at a batch-128 training step's shapes, timed
     fn, plain = dense("rdb_fused", 1)
     ks, bs = _rdb_params(gen, 1)
-    res["rdb_forward_train"] = check_grad("K1 rdb_fused", "rdb_forward", fn, plain,
-                                          [_randn(TRAIN_RDB, gen), *ks, *bs], gen, True)
+    res["rdb_forward_train"] = check_grad("K1 rdb_fused", "rdb_forward", fn, _rdb_as_kernel,
+                                          [_randn(TRAIN_RDB, gen), *ks, *bs], gen, True,
+                                          bwd="rdb_bwd", twin=plain)
     n, h, w, c = TRAIN_TAIL
     x, off = _randn(TRAIN_TAIL, gen), _offsets((n, h, w, 18), gen)
     res["deform64_lrelu_train"] = check_grad(
@@ -1950,13 +1979,12 @@ def grad_checks(card_name: str) -> dict:
         lambda z, o, b_: tail.deform_zproj1(z, o, b_, 2),
         lambda z, o, b_: sample_tap_fields(z[..., None], o, b_, 1, 2),
         [_randn((n, h, w, 9), gen), off, b1], gen, True, bwd="deform_zproj1_bwd")
-    r = res["rdb_forward_train"]
-    log(f"  rdb_forward_train: forward {r['fwd_ms']:.3f} ms, backward (plain recompute + "
-        f"autograd) {r['bwd_ms']:.3f} ms  [{card_name}]")
-    for key in ("deform64_lrelu_train", "deform_zproj1_train"):
+    # K1's backward on the twin route read 3.04 ms a call at this shape
+    for key, was in (("rdb_forward_train", " (3.04 ms as K1's backward)"),
+                     ("deform64_lrelu_train", ""), ("deform_zproj1_train", "")):
         r = res[key]
         log(f"  {key}: forward {r['fwd_ms']:.3f} ms, backward kernel {r['bwd_ms']:.3f} ms, "
-            f"the plain recompute + autograd it replaced {r['twin_bwd_ms']:.3f} ms  "
+            f"the plain recompute + autograd it replaced {r['twin_bwd_ms']:.3f} ms{was}  "
             f"[{card_name}]")
 
     zx = _randn((1, 9, 13, 8), gen).requires_grad_()
@@ -1988,12 +2016,15 @@ TAIL_BWD = {"deform64_lrelu": "deform64_bwd", "deform_conv": "deform_conv_bwd",
 def per_step(config: str, blocks: int) -> dict:
     """Kernel launches of one train step: two generator forwards (the D
     update's, with no gradient, and the G update's) and the G update's
-    backward, which launches each tail kernel's backward kernel once
-    (``TAIL_BWD``) and recomputes the other kernels' plain versions."""
+    backward, which launches K1's backward kernel once a dense block
+    (``rdb_bwd``, fp32 route) and each tail kernel's once (``TAIL_BWD``),
+    and recomputes the other kernels' plain versions."""
     scale = {"rdb_forward": blocks / 12, "rdb_banded_forward": blocks / 12,
              "rrdb_forward": blocks / 12, "rrdb_sweep_forward": blocks / 12}
     out = {k: int(2 * v * scale.get(k, 1)) for k, v in PER_FORWARD[config].items()}
     out.update({TAIL_BWD[k]: v for k, v in PER_FORWARD[config].items() if k in TAIL_BWD})
+    if "rdb_forward" in out:
+        out["rdb_bwd"] = out["rdb_forward"] // 2
     return out
 
 
@@ -2201,7 +2232,7 @@ def step_breakdown(state, batch, t_cfg, reps: int = 3) -> dict:
         g_loss, _ = make_g_loss_fn(g, d, loss_cfg)(batch)
         yield "G update: G forward (kernels) + D eval forward + losses"
         g_grads = torch.autograd.grad(g_loss, g_params)
-        yield "G update: G backward (the kernels' plain recomputes + autograd)"
+        yield "G update: G backward (the backward kernels + autograd)"
         apply_gradients(state.g_opt, g_params, g_grads, learning_rate(t_cfg, state.step))
         yield "Adam (G)"
         ema_update(state.g_ema, g, t_cfg.ema_decay)
@@ -2295,7 +2326,8 @@ def training(card_name: str, rasters: dict, window, tmp: str) -> dict:
     want = {"rdb_forward": 72 * train_steps + 36 * dev_batches,
             "deform64_lrelu": 2 * train_steps + dev_batches,
             "deform_zproj1": 2 * train_steps + dev_batches,
-            "deform64_bwd": train_steps, "deform_zproj1_bwd": train_steps}
+            "deform64_bwd": train_steps, "deform_zproj1_bwd": train_steps,
+            "rdb_bwd": 36 * train_steps}
     log(f"  fit launches ({train_steps} steps, {dev_batches} dev batches): {launches}")
     check_launches(launches, want)
     for rec in history:
@@ -2333,7 +2365,7 @@ def training(card_name: str, rasters: dict, window, tmp: str) -> dict:
     r_times = _timed_steps(r_step, r_state, dataset, rs, 5)
     r_launches = {k: v // 5 for k, v in _kernels.launches.items() if v}
     check_launches(r_launches, {"rdb_forward": 108, "deform64_lrelu": 2, "deform_zproj1": 2,
-                                "deform64_bwd": 1, "deform_zproj1_bwd": 1})
+                                "deform64_bwd": 1, "deform_zproj1_bwd": 1, "rdb_bwd": 36})
     out["remat"] = {"launches_per_step": r_launches,
                     "ms_per_step_median": float(np.median(r_times)),
                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
@@ -2445,12 +2477,12 @@ def search_space(trial) -> dict:
 
 def _search_launches(blocks: int, steps: int, evaluations: int) -> dict:
     """K1 / K2 / K3 launches of ``steps`` train steps (two generator
-    forwards each, and K2's and K3's backward kernels once) and
-    ``evaluations`` forwards at batch 1 or of a dev batch."""
+    forwards each, and the backward kernels once: K1's a dense block, K2's
+    and K3's) and ``evaluations`` forwards at batch 1 or of a dev batch."""
     from deepbedmap_tpu_torch.ops import _kernels
 
     per = {"rdb_forward": 3 * blocks, "deform64_lrelu": 1, "deform_zproj1": 1}
-    bwd = {"deform64_bwd": steps, "deform_zproj1_bwd": steps}
+    bwd = {"deform64_bwd": steps, "deform_zproj1_bwd": steps, "rdb_bwd": 3 * blocks * steps}
     return {k: (2 * steps + evaluations) * per.get(k, 0) + bwd.get(k, 0)
             for k in _kernels.launches}
 

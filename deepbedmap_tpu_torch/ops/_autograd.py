@@ -9,11 +9,11 @@ forward is the kernel launch, whose output has no autograd history of its
 own, and the backward recomputes the plain twin on the saved inputs under
 ``torch.enable_grad()`` and returns ``torch.autograd.grad`` of it. The
 kernel's wrapper calls it on a CUDA tensor; on a CPU tensor the wrappers run
-the plain twin directly, so autograd differentiates it as it stands. K1, K4,
-K5, K6, K10 and the window attention take it; the deformable tail's kernels
-(K2, K3, K7, K8) have backward kernels of their own
-(``ops.deform_conv.deform64`` / ``deform_tap_fields``) and share only
-``needs_grad``.
+the plain twin directly, so autograd differentiates it as it stands. K1's
+bf16 route, K4, K5, K6, K10 and the window attention take it; K1's fp32
+route (``ops.rdb.rdb_fused``, ``rdb_backward``) and the deformable tail's
+kernels (K2, K3, K7, K8: ``ops.deform_conv.deform64`` / ``deform_tap_fields``)
+have backward kernels of their own and share only ``needs_grad``.
 
 Packed weights are closed over by ``kernel``, never inputs: they are packed
 under ``torch.no_grad()`` and the gradient goes to the source parameters,

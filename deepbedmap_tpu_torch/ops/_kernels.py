@@ -35,7 +35,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCES = ("rdb.cu", "conv3x3.cu", "deform_tail.cu", "rdb_banded.cu",
-            "rrdb_sweep.cu", "deform_zform.cu", "window_attn.cu")
+            "rrdb_sweep.cu", "deform_zform.cu", "window_attn.cu", "rdb_backward.cu")
 _HEADERS = ("conv3x3_tc.cuh", "rdb_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -59,6 +59,8 @@ launches = {
     # K2's and K7's C entry "deform64_bwd", K3's and K8's "deform_zproj1_bwd"
     "deform64_bwd": 0, "deform_conv_bwd": 0, "deform_zproj1_bwd": 0,
     "deform_conv_zproj1_bwd": 0,
+    # K1's backward kernel (fp32 route), C entry "rdb_backward": seven launches
+    "rdb_bwd": 0,
 }
 
 _lib = None
@@ -86,6 +88,8 @@ _SIGNATURES = {
     "deform64_bwd": (_P,) * 11 + (_I, _I, _I, _F, _I, _I, _P),
     # z, off, grad, dz, doff, db, part, N, H, W, clamp, stream
     "deform_zproj1_bwd": (_P,) * 7 + (_I, _I, _I, _F, _P),
+    # ws, g_out, wt, g_ws, g_x, part, grad, N, H, W, scaling, splits, stream
+    "rdb_backward": (_P,) * 7 + (_I, _I, _I, _F, _I, _P),
     # x, out, w_packed, bias, N, H, W, scaling, bf16, stream
     "rdb_banded_forward": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # x, ring1, ring2, out, w_packed, bias, N, H, W, scaling, bf16, stream
@@ -215,6 +219,13 @@ def launch_rdb_forward(x, ws, out, w_packed, bias, n, h, w, scaling,
                        bf16: bool = False) -> None:
     _route("rdb_forward", x.data_ptr(), ws.data_ptr(), out.data_ptr(),
            w_packed.data_ptr(), bias.data_ptr(), n, h, w, float(scaling), bf16=bf16)
+
+
+def launch_rdb_backward(ws, g_out, wt, g_ws, g_x, part, grad, n, h, w, scaling,
+                        splits: int) -> None:
+    """K1's backward kernel, counted as ``rdb_bwd``."""
+    _call("rdb_bwd", *(t.data_ptr() for t in (ws, g_out, wt, g_ws, g_x, part, grad)),
+          n, h, w, float(scaling), splits, entry="rdb_backward")
 
 
 def launch_rrdb_forward(x, ws_a, ws_b, out, w_packed, bias, n, h, w, scaling,

@@ -24,7 +24,11 @@ wrapper takes its kernel for a CUDA tensor
 and the plain version for a CPU tensor. There is no size rule and no
 fallback: any N, H, W >= 1 go through the kernels on the card.
 
-Gradients: on a CUDA tensor each wrapper goes through
+Gradients: K1 on its fp32 route has a backward kernel (``_RdbFused``,
+``rdb_backward``, ``csrc/rdb_backward.cu``): it reads the forward's own
+workspace (x and a1..a4) and runs the dgrad chain and the weight gradients in
+3xTF32 on the tensor cores; its plain version is ``rdb_backward_plain``. Every
+other CUDA branch (K1's bf16 route, K4, K5, K6) goes through
 ``_autograd.kernel_with_plain_grad``: the forward is the kernel, the backward
 autograd of ``rdb_reference`` / ``rrdb_reference`` recomputed on the saved
 input and source weights, as the JAX custom VJPs do
@@ -51,29 +55,37 @@ carried over. Conv weights are OIHW, as everywhere in the port; each wrapper
 packs them for its kernel through ``_packed.packed`` (once per version of
 the weights): ``pack_rdb_weights`` / ``pack_rrdb_weights`` for K1 / K4,
 ``pack_rdb_weights_tc`` / ``pack_rrdb_weights_tc`` (split into TF32 hi/lo;
-in bf16 with ``mxu_bf16``) for K6 / K5.
+in bf16 with ``mxu_bf16``) for K6 / K5; ``pack_rdb_dgrad_weights`` for K1's
+backward.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import functools
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from deepbedmap_tpu_torch.ops import _kernels
-from deepbedmap_tpu_torch.ops._autograd import kernel_with_plain_grad
+from deepbedmap_tpu_torch.ops._autograd import kernel_with_plain_grad, needs_grad
 from deepbedmap_tpu_torch.ops._packed import packed
 from deepbedmap_tpu_torch.ops.conv import conv_nhwc, leaky_relu, round_bf16, scaled
 from deepbedmap_tpu_torch.ops.conv3x3 import pack_conv_weight
 from deepbedmap_tpu_torch.ops.deform_conv import tf32_split
+from deepbedmap_tpu_torch.utils.profiling import device_span
 
 FEATURES = 64
 GROWTH = 32
 WORKSPACE = FEATURES + 4 * GROWTH  # channels of the kernels' dense workspace
+
+
+def _stage_shapes() -> List[Tuple[int, int]]:
+    """(C_out, C_in) of the dense block's five convs."""
+    return [(GROWTH if j < 4 else FEATURES, FEATURES + GROWTH * j) for j in range(5)]
+
+
 # values of one block's packed weights: 9 x sum_j C_in_j x C_out_j
-_BLOCK_WEIGHTS = sum(
-    9 * (FEATURES + GROWTH * j) * (GROWTH if j < 4 else FEATURES) for j in range(5)
-)
+_BLOCK_WEIGHTS = sum(9 * c_out * c_in for c_out, c_in in _stage_shapes())
 
 
 def rdb_reference(
@@ -223,6 +235,147 @@ def _on_cpu(x, kernels, biases, scaling: float, blocks: int,
     return (rdb_reference if blocks == 1 else rrdb_reference)(x, kernels, biases, scaling)
 
 
+def _launch_rdb(x, w_packed, b_packed, scaling: float, mxu_bf16: bool):
+    """K1 on ``x``: (output, its (N, H, W, 192) workspace: x and a1..a4)."""
+    n, h, w, _ = x.shape
+    ws = torch.empty((n, h, w, WORKSPACE), device=x.device)
+    out = torch.empty_like(x)
+    _kernels.launch_rdb_forward(x, ws, out, w_packed, b_packed, n, h, w, scaling, mxu_bf16)
+    return out, ws
+
+
+def _pack_dgrad_stage(kernel: torch.Tensor) -> torch.Tensor:
+    """One stage's dgrad weights: the OIHW kernel transposed and flipped,
+    (C_in, C_out, 3, 3), the weight of the SAME conv that takes the stage's
+    output gradient to its input's, in ``pack_conv_weight``'s layout."""
+    return pack_conv_weight(kernel.transpose(0, 1).flip(2, 3))
+
+
+@functools.lru_cache(maxsize=None)
+def _dgrad_index(device: torch.device) -> torch.Tensor:
+    """Where each value of ``pack_rdb_dgrad_weights`` sits in the five
+    kernels flattened and concatenated: ``_pack_dgrad_stage`` of each
+    stage's positions."""
+    idx, at = [], 0
+    for co, ci in _stage_shapes():
+        idx.append(_pack_dgrad_stage(torch.arange(at, at + co * ci * 9).view(co, ci, 3, 3)))
+        at += co * ci * 9
+    return torch.cat(idx).to(device)
+
+
+def pack_rdb_dgrad_weights(kernels: Sequence[torch.Tensor]) -> torch.Tensor:
+    """K1's backward's layout: the five stages' ``_pack_dgrad_stage`` back to
+    back (as many floats as ``pack_rdb_weights``), gathered from the kernels
+    in one index op."""
+    flat = torch.cat([k.detach().float().reshape(-1) for k in kernels])
+    return flat[_dgrad_index(flat.device)]
+
+
+def rdb_backward_plain(
+    ws: torch.Tensor,  # (N, H, W, 192): x and a1..a4, as K1's forward leaves them
+    g_out: torch.Tensor,  # (N, H, W, 64): the block output's gradient
+    kernels: Sequence[torch.Tensor],  # five OIHW
+    scaling: float,
+):
+    """The plain version of K1's backward kernel: the gradient of
+    ``rdb_reference(x, kernels, biases, scaling)``, whose workspace is
+    ``ws``, with upstream ``g_out`` -> (g_x, [dW_1..dW_5] OIHW, [db_1..db_5]),
+    in ws's dtype. g_z5 = s g_out; each dgrad is the SAME conv of g_z_j with
+    the kernel transposed and flipped into the first C_in_j channels of the
+    workspace's gradient, g_z_j its slice j times the LeakyReLU's slope, 1
+    where a_j >= 0 and 0.2 elsewhere; g_x = g_out + its first 64 channels;
+    dW_j per tap the shifted workspace against g_z_j, db_j the sum of g_z_j."""
+    dt = ws.dtype
+    h, w = ws.shape[1:3]
+    g_out = g_out.to(dt)
+    g_z = [None] * 5
+    g_z[4] = scaling * g_out
+    g_ws = torch.zeros_like(ws)
+    for j in range(4, -1, -1):
+        if j < 4:
+            lo = FEATURES + GROWTH * j
+            g_z[j] = torch.where(ws[..., lo:lo + GROWTH] >= 0, g_ws[..., lo:lo + GROWTH],
+                                 0.2 * g_ws[..., lo:lo + GROWTH])
+        c_in = FEATURES + GROWTH * j
+        g_ws[..., :c_in] += conv_nhwc(g_z[j], kernels[j].to(dt).transpose(0, 1).flip(2, 3),
+                                      None)
+    g_x = g_out + g_ws[..., :FEATURES]
+    ws_pad = torch.nn.functional.pad(ws, (0, 0, 1, 1, 1, 1))
+    d_k, d_b = [], []
+    for j, (c_out, c_in) in enumerate(_stage_shapes()):
+        g = g_z[j].reshape(-1, c_out)
+        d_w = ws.new_empty((c_out, c_in, 3, 3))
+        for ky in range(3):
+            for kx in range(3):
+                a = ws_pad[:, ky:ky + h, kx:kx + w, :c_in].reshape(-1, c_in)
+                d_w[:, :, ky, kx] = g.T @ a
+        d_k.append(d_w)
+        d_b.append(g.sum(0))
+    return g_x, d_k, d_b
+
+
+# the backward kernel's weight-gradient launch: (stage, kernel row, 64 input
+# channels) units, one block each per split of the pixels (csrc/rdb_backward.cu)
+_WGRAD_UNITS = 3 * sum(-(-ci // 64) for _, ci in _stage_shapes())
+_GRAD_VALUES = _BLOCK_WEIGHTS + WORKSPACE  # dW_1..dW_5 OIHW, then b1..b5
+
+
+def rdb_backward(ws: torch.Tensor, g_out: torch.Tensor, kernels: Sequence[torch.Tensor],
+                 scaling: float):
+    """K1's backward kernel on the card (``csrc/rdb_backward.cu``, counted
+    as ``rdb_bwd``): the gradient of K1's output with upstream ``g_out``
+    from its forward's workspace ``ws`` -> (g_x, [dW_j] OIHW, [db_j]),
+    float32; its plain version is ``rdb_backward_plain``. The weight
+    gradients are summed over ``splits`` parts of the pixels (two blocks a
+    unit per SM: stage 5's units take twice the others' time, so a second
+    wave evens them out) and the parts added in order: no atomics."""
+    n, h, w, _ = ws.shape
+    g_out = g_out.contiguous()
+    _kernels.check_tensor(ws, "workspace", (n, h, w, WORKSPACE))
+    _kernels.check_tensor(g_out, "gradient", (n, h, w, FEATURES))
+    _kernels.check_image_shape(n, h, w, WORKSPACE)
+    wt = packed(pack_rdb_dgrad_weights, (kernels,))
+    _kernels.check_tensor(wt, "packed dgrad weights", (_BLOCK_WEIGHTS,))
+    sms = torch.cuda.get_device_properties(ws.device).multi_processor_count
+    splits = max(1, 2 * sms // _WGRAD_UNITS)
+    g_ws, g_x = torch.empty_like(ws), torch.empty_like(g_out)
+    part = torch.empty(splits * _GRAD_VALUES, device=ws.device)
+    grad = torch.empty(_GRAD_VALUES, device=ws.device)
+    _kernels.launch_rdb_backward(ws, g_out, wt, g_ws, g_x, part, grad, n, h, w, scaling,
+                                 splits)
+    d_k, d_b, at = [], [], 0
+    for c_out, c_in in _stage_shapes():
+        d_k.append(grad[at:at + c_out * c_in * 9].view(c_out, c_in, 3, 3))
+        at += c_out * c_in * 9
+    for c_out, _ in _stage_shapes():
+        d_b.append(grad[at:at + c_out])
+        at += c_out
+    return g_x, d_k, d_b
+
+
+class _RdbFused(torch.autograd.Function):
+    """K1's forward on the fp32 route, its backward kernel ``rdb_backward``
+    on the saved workspace. The source kernels are kept on ``ctx`` (the
+    backward packs its weights from them); only the workspace is saved, so
+    ``torch.utils.checkpoint`` drops and recomputes it."""
+
+    @staticmethod
+    def forward(ctx, x, w_packed, b_packed, scaling, *params):
+        out, ws = _launch_rdb(x, w_packed, b_packed, scaling, False)
+        ctx.save_for_backward(ws)
+        ctx.kernels, ctx.scaling = params[:5], scaling
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ws,) = ctx.saved_tensors
+        with device_span("rdb.backward", grad.device, range=True):
+            g_x, d_k, d_b = rdb_backward(ws, grad, ctx.kernels, ctx.scaling)
+        needs = ctx.needs_input_grad
+        return (g_x if needs[0] else None, None, None, None,
+                *(g if need else None for g, need in zip([*d_k, *d_b], needs[4:])))
+
+
 def rdb_fused(
     x: torch.Tensor,  # (N, H, W, 64) float32
     kernels: Sequence[torch.Tensor],
@@ -233,20 +386,16 @@ def rdb_fused(
     """One dense block: K1 (``csrc/rdb.cu``) on a CUDA tensor, the plain
     ``rdb_reference`` on a CPU tensor. ``mxu_bf16``: bf16 multiplicands,
     the kernel's bf16 route or the rounded plain version (module
-    docstring)."""
+    docstring). When a gradient is needed the fp32 route's backward is
+    ``rdb_backward``, the bf16 route's autograd of the float32 twin."""
     if x.device.type == "cpu":
         return _on_cpu(x, kernels, biases, scaling, 1, mxu_bf16)
-    n, h, w, w_packed, b_packed = _kernel_args(x, kernels, biases, "rdb_fused", 1,
-                                               False, mxu_bf16)
-
-    def launch(x):
-        ws = torch.empty((n, h, w, WORKSPACE), device=x.device)
-        out = torch.empty_like(x)
-        _kernels.launch_rdb_forward(x, ws, out, w_packed, b_packed, n, h, w, scaling,
-                                    mxu_bf16)
-        return out
-
-    return _differentiable(launch, x, kernels, biases, scaling, 1)
+    _, _, _, w_packed, b_packed = _kernel_args(x, kernels, biases, "rdb_fused", 1, False,
+                                               mxu_bf16)
+    if not mxu_bf16 and needs_grad(x, *kernels, *biases):
+        return _RdbFused.apply(x, w_packed, b_packed, scaling, *kernels, *biases)
+    return _differentiable(lambda x: _launch_rdb(x, w_packed, b_packed, scaling, mxu_bf16)[0],
+                           x, kernels, biases, scaling, 1)
 
 
 def rrdb_reference(
