@@ -267,6 +267,21 @@ Phases (any failure ends the run with a non-zero exit code):
     ``predict_continent`` on phase 6's region with its launch counts and
     warm per-tile time; the forward's stages by CUDA events.
     ``python3 chip_smoke.py --swinir`` runs phases 0, 1 and 29 alone.
+30. HAT x4 (``HATConfig()``, ``hat_phase``): the tiled window-attention
+    kernel's two cases, ``window_attn_tiled`` (self-attention in 16 x 16
+    windows at shift 0 and 8) and ``overlap_attn_tiled`` (each 16 x 16
+    query window onto its zero-padded 24 x 24 key window), against their
+    plain versions at (1,32,48,540), (2,16,32,192) and (1,48,16,36) with 6,
+    2 and 6 heads and at the continent cell's (2,288,288,540) with 6 heads
+    of 30 channels, one launch a call, and at the cell's shape the precision
+    check against the plain version in float64 (``TOL_TF32X3``, with the
+    plain version on TF32-rounded q, k, v shown to lie outside it), timed
+    beside the plain version and ``F.scaled_dot_product_attention``; then
+    phase 29's (b)-(e) for HAT (``transformer_path``): card vs CPU on a
+    36-px crop, one forward at the cell's shapes launching 36 + 6 tiled
+    kernels and nothing else (``PER_FORWARD['hat']``), ``predict_continent``
+    on phase 6's region with its launch counts, the forward's stages.
+    ``python3 chip_smoke.py --hat`` runs phases 0, 1 and 30 alone.
 ``python3 chip_smoke.py --training`` runs phases 0, 1 and 22 alone (phase
 19's rasters built as phase 19 builds them).
 
@@ -275,9 +290,11 @@ It prints the script's wall time, one JSON line of phase 22's training
 numbers, one of phase 23's search numbers, one of phase 24's data-prep
 numbers, one of phase 25's evaluation numbers, one of phase 26's parallel
 numbers, one of phase 27's options numbers, one of phase 28's
-(``bf16_routes``), one of phase 29's (``swinir``), one JSON line with each
-kernel's launches (from the main path that runs it; the five bf16 routes
-from phase 28's, ``window_attn`` from phase 29's), error, times and bound,
+(``bf16_routes``), one of phase 29's (``swinir``), one of phase 30's
+(``hat``), one JSON line with each kernel's launches (from the main path
+that runs it; the five bf16 routes from phase 28's, ``window_attn`` from
+phase 29's, ``window_attn_tiled`` and ``overlap_attn_tiled`` from phase
+30's), error, times and bound,
 and ends with
 ``{"ok": true, "device": {...}}``. It refuses to run without a CUDA device and
 imports nothing of JAX.
@@ -454,6 +471,9 @@ PER_FORWARD = {
     # window-attention launch a Swin layer, its convs and linears on cuDNN
     # and cuBLAS
     "swinir": {"window_attn": 36},
+    # phase 30's HAT x4 (HATConfig()): one tiled self-attention launch a HAB,
+    # one cross-attention launch an OCAB
+    "hat": {"window_attn_tiled": 36, "overlap_attn_tiled": 6},
 }
 
 # operations per pixel: a 3x3 conv with C_in -> C_out channels does
@@ -4866,24 +4886,56 @@ def bf16_routes_phase(card_name: str, params, default_out, default_tile_ms: floa
 # of 288^2 tokens
 SMALL_WINDOW_ATTN = [(1, 16, 24, 540, 6), (2, 8, 16, 192, 2), (1, 24, 8, 36, 6)]
 MAIN_WINDOW_ATTN = (2, 288, 288, 540, 6)
-SWINIR_WINDOW, SWINIR_SHIFT = 8, 4  # SwinIR-M's odd layers shift by half the window
+SWINIR_WINDOW = 8  # SwinIR-M's odd layers shift by half the window
 SWINIR_GEN_LR = 36  # the card-vs-CPU crop: latent 34, padded to 40 (5 x 5 windows)
+# phase 30: HAT x4 (``HATConfig()``), the port's third generator. The tiled
+# kernel's cases (N, H, W, 3C, heads), as phase 29's at 16 x 16 windows
+# (self-attention at shift 0 and 8; cross-attention onto the 24 x 24 key
+# window, zero keys beyond the grid): heads of 30 channels on 2 x 3 windows,
+# heads of 32 at batch 2, heads of 2 on a grid one window wide (every key
+# window padded on both sides); the main shape is the continent cell's qkv
+HAT_WINDOW, HAT_OVERLAP = 16, 24
+SMALL_TILED_ATTN = [(1, 32, 48, 540, 6), (2, 16, 32, 192, 2), (1, 48, 16, 36, 6)]
+MAIN_TILED_ATTN = (2, 288, 288, 540, 6)
+HAT_GEN_LR = 36  # the card-vs-CPU crop: latent 34, padded to 48 (3 x 3 windows)
 # the library's attention (F.scaled_dot_product_attention) only has to be
 # the same function as the kernel, whatever its fp32 route: a TF32 pass
 # lies ~1e-4 of the range off, a lost bias or mask O(1)
 TOL_LIBRARY_ATTN = 1e-2
 
 
-def check_window_attn(shape, gen, timed: bool) -> dict:
-    """The window-attention kernel (``window_attn``) against its plain
-    version on the card at shift 0 and ``SWINIR_SHIFT``, one launch each;
-    when ``timed``, also against the plain version in float64 (the
-    precision check: the kernel's products are fp32, while a TF32 pass lies
-    ~1e-4 of the range off, above ``TOL_TF32X3``), and the mean of both
-    shifts timed beside the plain version and beside
-    ``F.scaled_dot_product_attention`` over the partitioned windows with the
-    bias plus the mask as its ``attn_mask`` (``library_ms``; the roll and
-    the partition it needs are not timed)."""
+def _tf32(t):
+    """``t`` (float32) with its mantissa rounded to TF32's 10 bits."""
+    import torch
+
+    return ((t.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def hold_attn_precision(label: str, got, plain, qkv, table) -> None:
+    """The precision check of an attention kernel: ``got`` against
+    ``plain(qkv, table)`` in float64 within ``TOL_TF32X3``, and the same
+    plain version on q, k and v rounded to TF32 outside it (the kernel's
+    products are fp32; a TF32 pass lies ~1e-4 of the range off)."""
+    want = plain(qkv.double(), table.double())
+    compare(f"{label} vs float64 (precision check)", got, want, TOL_TF32X3)
+    tf32 = plain(_tf32(qkv).double(), table.double())
+    err, scale = float((tf32 - want).abs().max()), float(want.abs().max())
+    log(f"  {label}: the plain version on TF32-rounded q, k, v lies {err:.3e} off "
+        f"({err / scale:.2e} of max|ref|), the control")
+    if not err > TOL_TF32X3 * scale:
+        raise AssertionError(f"{label}: a TF32 pass would pass the precision check")
+
+
+def check_window_attn(shape, gen, timed: bool, window: int = SWINIR_WINDOW,
+                      kernel: str = "window_attn") -> dict:
+    """The window-attention kernel ``kernel`` (``window_attn`` for SwinIR's
+    8 x 8 windows, ``window_attn_tiled`` for HAT's 16 x 16) against its
+    plain version on the card at shift 0 and half the window, one launch
+    each; when ``timed``, also the precision check
+    (``hold_attn_precision``), and the mean of both shifts timed beside the
+    plain version and beside ``F.scaled_dot_product_attention`` over the
+    partitioned windows with the bias plus the mask as its ``attn_mask``
+    (``library_ms``; the roll and the partition it needs are not timed)."""
     import torch
     import torch.nn.functional as F
 
@@ -4891,25 +4943,24 @@ def check_window_attn(shape, gen, timed: bool) -> dict:
     from deepbedmap_tpu_torch.ops import window_attn as wa
 
     n, h, w, c3, heads = shape
-    ws, shifts = SWINIR_WINDOW, (0, SWINIR_SHIFT)
-    c, tok = c3 // 3, SWINIR_WINDOW ** 2
+    ws, shifts = window, (0, window // 2)
+    c, tok = c3 // 3, window ** 2
     d, nw = c // heads, (h // ws) * (w // ws)
     qkv = _randn((n, h, w, c3), gen)
     table = _randn(((2 * ws - 1) ** 2, heads), gen)
     res = {"max_abs_err": 0.0}
     for shift in shifts:
-        before = _kernels.launches["window_attn"]
+        before = _kernels.launches[kernel]
         got = wa.window_attention(qkv, table, heads, ws, shift)
         want = wa.window_attention_plain(qkv, table, heads, ws, shift)
         torch.cuda.synchronize()
-        if _kernels.launches["window_attn"] != before + 1:
-            raise AssertionError("window_attention did not launch the kernel once")
-        label = f"window_attn {(n, h, w, c3)}, {heads} heads of {d}, shift {shift}"
+        if _kernels.launches[kernel] != before + 1:
+            raise AssertionError(f"window_attention did not launch {kernel} once")
+        label = f"{kernel} {(n, h, w, c3)}, window {ws}, {heads} heads of {d}, shift {shift}"
         res["max_abs_err"] = max(res["max_abs_err"], compare(label, got, want, TOL_KERNEL))
         if timed:
-            want = wa.window_attention_plain(qkv.double(), table.double(), heads, ws, shift)
-            torch.cuda.synchronize()
-            compare(f"{label} vs float64 (precision check)", got, want, TOL_TF32X3)
+            hold_attn_precision(label, got, functools.partial(
+                wa.window_attention_plain, heads=heads, window=ws, shift=shift), qkv, table)
         del got, want
     if not timed:
         return res
@@ -4948,10 +4999,68 @@ def check_window_attn(shape, gen, timed: bool) -> dict:
     res["ms"] = time_ms(kernel, 10) / len(shifts)
     res["plain_ms"] = time_ms(plain, 5) / len(shifts)
     res["library_ms"] = time_ms(sdpa, 10) / len(shifts)
-    # q k^T and P v over each window's 64 tokens, masked pairs included;
-    # qkv and the table read once, the output written once
+    # q k^T and P v over each window's tokens, masked pairs included; qkv
+    # and the table read once, the output written once
     res.update(bound(4 * tok * n * h * w * c, 4 * (qkv.numel() + n * h * w * c
                                                    + table.numel())))
+    return res
+
+
+def check_overlap_attn(shape, gen, timed: bool) -> dict:
+    """The tiled kernel's cross-attention (``overlap_attn_tiled``: each
+    ``HAT_WINDOW``^2 query window onto the ``HAT_OVERLAP``^2 key window
+    centred on it, zero keys beyond the grid) against its plain version (a
+    zero-padded ``F.unfold``) on the card, one launch; when ``timed``, the
+    precision check (``hold_attn_precision``), timed beside the plain version
+    and beside ``F.scaled_dot_product_attention`` over the unfolded key
+    windows with the bias as its ``attn_mask`` (``library_ms``; the unfold
+    is not timed)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepbedmap_tpu_torch.ops import _kernels
+    from deepbedmap_tpu_torch.ops import window_attn as wa
+
+    n, h, w, c3, heads = shape
+    ws, ow = HAT_WINDOW, HAT_OVERLAP
+    c, keys = c3 // 3, ow * ow
+    d, nw = c // heads, (h // ws) * (w // ws)
+    qkv = _randn((n, h, w, c3), gen)
+    table = _randn(((ws + ow - 1) ** 2, heads), gen)
+    before = _kernels.launches["overlap_attn_tiled"]
+    got = wa.overlap_attention(qkv, table, heads, ws, ow)
+    want = wa.overlap_attention_plain(qkv, table, heads, ws, ow)
+    torch.cuda.synchronize()
+    if _kernels.launches["overlap_attn_tiled"] != before + 1:
+        raise AssertionError("overlap_attention did not launch overlap_attn_tiled once")
+    label = f"overlap_attn_tiled {(n, h, w, c3)}, window {ws} onto {ow}, {heads} heads of {d}"
+    res = {"max_abs_err": compare(label, got, want, TOL_KERNEL)}
+    if not timed:
+        return res
+    hold_attn_precision(label, got, functools.partial(
+        wa.overlap_attention_plain, heads=heads, window=ws, overlap=ow), qkv, table)
+    del got, want
+
+    q = qkv[..., :c].reshape(n, h // ws, ws, w // ws, ws, heads, d)
+    q = q.permute(0, 1, 3, 5, 2, 4, 6).reshape(n * nw, heads, ws * ws, d).contiguous()
+    kv = F.unfold(qkv[..., c:].permute(0, 3, 1, 2), ow, padding=(ow - ws) // 2, stride=ws)
+    kv = kv.view(n, 2, heads, d, keys, nw).permute(1, 0, 5, 2, 4, 3)
+    k, v = kv.reshape(2, n * nw, heads, keys, d).contiguous()
+    bias = table[wa.overlap_position_index(ws, ow, DEVICE)].permute(2, 0, 1)
+    o = F.scaled_dot_product_attention(q, k, v, bias)
+    o = o.view(n, h // ws, w // ws, heads, ws, ws, d).permute(0, 1, 4, 2, 5, 3, 6)
+    compare("F.scaled_dot_product_attention over the unfolded key windows vs the plain "
+            "version (the library's timing measures the same function)",
+            o.reshape(n, h, w, c), wa.overlap_attention_plain(qkv, table, heads, ws, ow),
+            TOL_LIBRARY_ATTN)
+    del o
+    res["ms"] = time_ms(lambda: wa.overlap_attention(qkv, table, heads, ws, ow), 10)
+    res["plain_ms"] = time_ms(lambda: wa.overlap_attention_plain(qkv, table, heads, ws, ow), 5)
+    res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, bias), 10)
+    # q k^T and P v of each query onto its window's keys, the zero-padded
+    # ones included; qkv and the table read once, the output written once
+    res.update(bound(4 * keys * n * h * w * c, 4 * (qkv.numel() + n * h * w * c
+                                                    + table.numel())))
     return res
 
 
@@ -4988,35 +5097,30 @@ def _timed_stages(model, xs, names, reps: int = 3) -> dict:
     return totals
 
 
-def swinir_phase(card_name: str) -> tuple:
-    """Phase 29: (a) the window-attention kernel (``check_window_attn``) at
-    ``SMALL_WINDOW_ATTN`` and at ``MAIN_WINDOW_ATTN``, timed; (b) SwinIR-M x4
-    at full width and depth on a ``SWINIR_GEN_LR``-px crop at batch 2, card
+def transformer_path(card_name: str, cfg, config: str, gen_lr: int, trunk: str) -> dict:
+    """Phases 29 and 30 after their kernel checks: (b) the generator of
+    ``cfg`` at full width and depth on a ``gen_lr``-px crop at batch 2, card
     against the same port on the CPU (the plain attention), with seeded
     weights whose bias tables are drawn at std 1 and whose LayerNorm affines
-    are moved off 1 and 0, so that the bias and the mask weigh in; (c) one
+    are moved off 1 and 0, so that the biases and the mask weigh in; (c) one
     forward at the continent cell's shapes (2 tiles of 288-px crops), which
-    launches the kernel once a Swin layer (``PER_FORWARD['swinir']``) and
-    nothing else; (d) ``predict_continent`` on phase 6's region with the
-    published initialisation, its launch counts, a finite canvas and the
-    warm per-tile time; (e) the forward's stages at batch 2 by CUDA events.
-    Returns the phase's numbers and the kernel's row of the kernels line."""
+    launches ``PER_FORWARD[config]`` and nothing else; (d)
+    ``predict_continent`` on phase 6's region with the published
+    initialisation, its launch counts (reset just before), a finite canvas
+    and the warm per-tile time; (e) the forward's stages at batch 2 by CUDA
+    events (``trunk`` names the trunk's). Returns the numbers, with the
+    launches of (d) under ``launches``."""
     import torch
 
     from deepbedmap_tpu_torch import DeepBedMap
-    from deepbedmap_tpu_torch.config import SwinIRConfig
     from deepbedmap_tpu_torch.inference import TilePlan
     from deepbedmap_tpu_torch.models import build_generator
     from deepbedmap_tpu_torch.ops import _kernels
 
-    r = check_kernel("window_attn", check_window_attn, SMALL_WINDOW_ATTN, MAIN_WINDOW_ATTN,
-                     29, card_name)
-    del r["bound_fp32_ms"]  # computed, not measured: the log line carries it
-
     def expected(forwards: int) -> dict:
-        return {k: forwards * PER_FORWARD["swinir"].get(k, 0) for k in _kernels.launches}
+        return {k: forwards * PER_FORWARD[config].get(k, 0) for k in _kernels.launches}
 
-    cfg = SwinIRConfig()
+    name = type(cfg).__name__
     cpu_model = build_generator(cfg, seed=0, device="cpu").eval()
     g = torch.Generator().manual_seed(29)
     with torch.no_grad():
@@ -5027,14 +5131,14 @@ def swinir_phase(card_name: str) -> tuple:
             elif hasattr(m, "relative_position_bias_table"):
                 m.relative_position_bias_table.normal_(0.0, 1.0, generator=g)
     gpu_model = copy.deepcopy(cpu_model).to(DEVICE)
-    xs = [torch.from_numpy(a) for a in _crop_inputs(SWINIR_GEN_LR, 2, seed=1)]
+    xs = [torch.from_numpy(a) for a in _crop_inputs(gen_lr, 2, seed=1)]
     _kernels.reset_launches()
     with torch.inference_mode():
         want = cpu_model(*xs)
         got = gpu_model(*[a.to(DEVICE) for a in xs])
         torch.cuda.synchronize()
     check_launches(dict(_kernels.launches), expected(1))
-    err = compare(f"SwinIR-M x4, {SWINIR_GEN_LR}-px crop -> {tuple(got.shape)}, card vs CPU",
+    err = compare(f"{name}, {gen_lr}-px crop -> {tuple(got.shape)}, card vs CPU",
                   got.cpu(), want, TOL_GENERATOR)
     del cpu_model, gpu_model, want, got
 
@@ -5052,7 +5156,7 @@ def swinir_phase(card_name: str) -> tuple:
         f"{tuple(out.shape)}: launches {dict(_kernels.launches)}")
     check_launches(dict(_kernels.launches), expected(1))
     if not bool(torch.isfinite(out).all()):
-        raise AssertionError("SwinIR's forward at the cell's shapes is not finite")
+        raise AssertionError(f"{name}'s forward at the cell's shapes is not finite")
 
     _kernels.reset_launches()
     t0 = time.perf_counter()
@@ -5064,7 +5168,7 @@ def swinir_phase(card_name: str) -> tuple:
     log(f"  launches in predict_continent ({forwards} forwards): {launches}")
     check_launches(launches, expected(forwards))
     if raster.data.shape != (2 * TILE_OUT,) * 2 or not np.isfinite(raster.data).all():
-        raise AssertionError(f"bad SwinIR continent output {raster.data.shape}")
+        raise AssertionError(f"bad {name} continent output {raster.data.shape}")
     t0 = time.perf_counter()
     dbm.predict_continent(inputs, bounds, **kw)
     torch.cuda.synchronize()
@@ -5073,21 +5177,70 @@ def swinir_phase(card_name: str) -> tuple:
         f"{tile_ms:.1f} ms/tile  [{card_name}]")
 
     stages_ms = _timed_stages(dbm.model, xs, [
-        "input block + window padding + conv_first (cuDNN fp32)",
-        f"trunk: {sum(cfg.depths)} Swin layers ({sum(cfg.depths)} x window_attn, cuBLAS "
-        f"fp32 linears) + {len(cfg.depths)} RSTB convs",
+        "input block + window padding + conv_first (cuDNN fp32)", trunk,
         "conv_after_body + 3 convs and 2 pixel shuffles (cuDNN fp32)",
         "conv_last (cuDNN fp32)"])
-    for name, ms in stages_ms.items():
-        log(f"  forward at batch {TILES_PER_DISPATCH} x {plan.crop_lr} px, {name}: "
+    for stage, ms in stages_ms.items():
+        log(f"  forward at batch {TILES_PER_DISPATCH} x {plan.crop_lr} px, {stage}: "
             f"{ms:.2f} ms  [{card_name}]")
     forward_ms = sum(stages_ms.values())
     log(f"  forward total: {forward_ms:.2f} ms  [{card_name}]")
+    return {"card_vs_cpu_max_abs_err": err, "tile_ms": tile_ms, "cold_s": cold_s,
+            "forward_ms": forward_ms, "stages_ms": stages_ms, "launches": launches}
+
+
+def swinir_phase(card_name: str) -> tuple:
+    """Phase 29: (a) the window-attention kernel (``check_window_attn``) at
+    ``SMALL_WINDOW_ATTN`` and at ``MAIN_WINDOW_ATTN``, timed; (b)-(e) SwinIR-M
+    x4 through ``transformer_path`` (``PER_FORWARD['swinir']``: the kernel
+    once a Swin layer and nothing else). Returns the phase's numbers and the
+    kernel's row of the kernels line."""
+    from deepbedmap_tpu_torch.config import SwinIRConfig
+
+    r = check_kernel("window_attn", check_window_attn, SMALL_WINDOW_ATTN, MAIN_WINDOW_ATTN,
+                     29, card_name)
+    del r["bound_fp32_ms"]  # computed, not measured: the log line carries it
+    cfg = SwinIRConfig()
+    out = transformer_path(card_name, cfg, "swinir", SWINIR_GEN_LR,
+                           f"trunk: {sum(cfg.depths)} Swin layers ({sum(cfg.depths)} x "
+                           f"window_attn, cuBLAS fp32 linears) + {len(cfg.depths)} RSTB convs")
+    launches = out.pop("launches")
     row = {"name": "window_attn", "route": "cuda",
            "source": "deepbedmap_tpu_torch/csrc/window_attn.cu", "replaces": None,
            "launches": launches["window_attn"], **r}
-    return {"card_vs_cpu_max_abs_err": err, "tile_ms": tile_ms, "cold_s": cold_s,
-            "forward_ms": forward_ms, "stages_ms": stages_ms}, row
+    return out, row
+
+
+def hat_phase(card_name: str) -> tuple:
+    """Phase 30: (a) the tiled window-attention kernel's two cases,
+    ``window_attn_tiled`` (``check_window_attn`` at 16 x 16 windows) and
+    ``overlap_attn_tiled`` (``check_overlap_attn``), at ``SMALL_TILED_ATTN``
+    and at ``MAIN_TILED_ATTN``, timed; (b)-(e) HAT x4 through
+    ``transformer_path`` (``PER_FORWARD['hat']``: one self-attention launch
+    a HAB, one cross-attention launch an OCAB, nothing else). Returns the
+    phase's numbers and the two cases' rows of the kernels line."""
+    from deepbedmap_tpu_torch.config import HATConfig
+
+    checks = {"window_attn_tiled": functools.partial(
+        check_window_attn, window=HAT_WINDOW, kernel="window_attn_tiled"),
+              "overlap_attn_tiled": check_overlap_attn}
+    results = {}
+    for name, check in checks.items():
+        results[name] = check_kernel(name, check, SMALL_TILED_ATTN, MAIN_TILED_ATTN, 30,
+                                     card_name)
+        del results[name]["bound_fp32_ms"]  # computed, not measured: the log line has it
+    cfg = HATConfig()
+    blocks = sum(cfg.depths)
+    out = transformer_path(card_name, cfg, "hat", HAT_GEN_LR,
+                           f"trunk: {blocks} HABs ({blocks} x window_attn_tiled, cuBLAS fp32 "
+                           f"linears, cuDNN fp32 CAB convs) + {len(cfg.depths)} OCABs "
+                           f"({len(cfg.depths)} x overlap_attn_tiled) + {len(cfg.depths)} "
+                           "RHAG convs")
+    launches = out.pop("launches")
+    rows = [{"name": name, "route": "cuda",
+             "source": "deepbedmap_tpu_torch/csrc/window_attn_tiled.cu", "replaces": None,
+             "launches": launches[name], **r} for name, r in results.items()]
+    return out, rows
 
 
 # (launch-counter name, source, TPU kernel it replaces, check, small shapes,
@@ -5196,19 +5349,25 @@ def main(argv=()) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
-    if list(argv) == ["--swinir"]:
-        log("phase 29: SwinIR-M x4 (the window-attention kernel, card vs CPU, the cell's "
-            "forward, the continent path)")
-        swinir, row = swinir_phase(card_name)
-        print(json.dumps({"swinir": swinir}), flush=True)
-        print(json.dumps({"kernels": [row]}), flush=True)
+    if list(argv) in (["--swinir"], ["--hat"]):
+        if argv[0] == "--swinir":
+            log("phase 29: SwinIR-M x4 (the window-attention kernel, card vs CPU, the "
+                "cell's forward, the continent path)")
+            numbers, row = swinir_phase(card_name)
+            rows = [row]
+        else:
+            log("phase 30: HAT x4 (the tiled window-attention kernel's two cases, card vs "
+                "CPU, the cell's forward, the continent path)")
+            numbers, rows = hat_phase(card_name)
+        print(json.dumps({argv[0][2:]: numbers}), flush=True)
+        print(json.dumps({"kernels": rows}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
     if argv:
-        raise SystemExit(f"chip_smoke.py: unknown arguments {list(argv)} (only --swinir or "
-                         "--training)")
+        raise SystemExit(f"chip_smoke.py: unknown arguments {list(argv)} (only --swinir, "
+                         "--hat or --training)")
 
     results = {}
 
@@ -5294,6 +5453,9 @@ def main(argv=()) -> int:
     log("phase 29: SwinIR-M x4 (the window-attention kernel, card vs CPU, the cell's "
         "forward, the continent path)")
     swinir, swinir_row = swinir_phase(card_name)
+    log("phase 30: HAT x4 (the tiled window-attention kernel's two cases, card vs CPU, the "
+        "cell's forward, the continent path)")
+    hat, hat_rows = hat_phase(card_name)
 
     rows = []
     for name, src, rep, *_, path in KERNELS:
@@ -5306,6 +5468,7 @@ def main(argv=()) -> int:
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                      "launches": mxu_launches[config][name], **mxu_results[name]})
     rows.append(swinir_row)
+    rows.extend(hat_rows)
     if not all(row["launches"] > 0 for row in rows):
         raise AssertionError("a kernel was never launched on its path")
     log(f"total wall time {time.perf_counter() - t_start:.1f} s")
@@ -5317,6 +5480,7 @@ def main(argv=()) -> int:
     print(json.dumps({"options": options}), flush=True)
     print(json.dumps({"bf16_routes": routes}), flush=True)
     print(json.dumps({"swinir": swinir}), flush=True)
+    print(json.dumps({"hat": hat}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,8 @@ NVIDIA H100. It imports torch and numpy only, never JAX. Layout mirrors the
 JAX package:
 
 - ``config``    : Generator/Discriminator/Loss/Train/Inference/TilingConfig
-                  (copied field for field); SwinIRConfig (the port's own)
+                  (copied field for field); SwinIRConfig and HATConfig (the
+                  port's own)
 - ``ops``       : resize, dense block (K1, K6) and whole RRDB (K4, K5), fused
                   3x3 conv (K10), deformable conv (K7, K8, K9) and fused tail
                   (K2, K3), Swin's shifted-window attention
@@ -18,8 +19,9 @@ JAX package:
                   (``ops.spline``) and the exact GMT-surface solve on the
                   host (``ops.gmt_surface``)
 - ``csrc``      : the hand-written CUDA C++ kernels (sm_90a)
-- ``models``    : generator building blocks, the generator, SwinIR as a
-                  second generator (``models.swinir``) and the
+- ``models``    : generator building blocks, the generator, SwinIR and HAT
+                  as second and third generators (``models.swinir``,
+                  ``models.hat``) and the
                   discriminator; NCHW helpers (``models.api``)
 - ``bridge``    : JAX flax params <-> the port's state_dict
 - ``train``     : the GAN's train state, steps, epoch loop and ``fit``;
@@ -56,6 +58,7 @@ __version__ = "0.1.0"
 from deepbedmap_tpu_torch.config import (  # noqa: F401
     DiscriminatorConfig,
     GeneratorConfig,
+    HATConfig,
     InferenceConfig,
     LossConfig,
     SwinIRConfig,

@@ -35,7 +35,7 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from deepbedmap_tpu_torch.bridge import jax_params_to_state_dict
-from deepbedmap_tpu_torch.config import GeneratorConfig, SwinIRConfig
+from deepbedmap_tpu_torch.config import GeneratorConfig, HATConfig, SwinIRConfig
 from deepbedmap_tpu_torch.data.groundtruth import get_model_inputs
 from deepbedmap_tpu_torch.data.raster import Raster
 from deepbedmap_tpu_torch.device import resolve_device
@@ -69,16 +69,17 @@ class DeepBedMap:
     def __init__(
         self,
         params: Optional[Mapping[str, torch.Tensor]] = None,
-        cfg: Union[GeneratorConfig, SwinIRConfig] = GeneratorConfig(),
+        cfg: Union[GeneratorConfig, SwinIRConfig, HATConfig] = GeneratorConfig(),
         resolution: float = 250.0,
         device="cuda",
     ):
         """``params``: a port ``state_dict``; None draws seeded random
         weights (``models.build_generator``'s default seed). ``cfg`` selects
         the generator: DeepBedMap's for a ``GeneratorConfig``, SwinIR for a
-        ``SwinIRConfig`` (``models.swinir``), which ``predict_continent``
-        runs as it runs DeepBedMap's (the region, serving and training
-        paths are DeepBedMap's alone). ``device``
+        ``SwinIRConfig`` (``models.swinir``), HAT for a ``HATConfig``
+        (``models.hat``), which ``predict_continent`` runs as it runs
+        DeepBedMap's (the region, serving and training paths are
+        DeepBedMap's alone). ``device``
         defaults to the card and raises where there is none; pass
         ``device="cpu"`` for the CPU. On a CUDA device, widths a forced
         (``'always'``) kernel does not take raise ``NotImplementedError``

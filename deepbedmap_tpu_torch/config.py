@@ -8,11 +8,11 @@ same model and the same training run here. They are copied rather than
 imported because importing anything from ``deepbedmap_tpu`` loads JAX, which
 the port never needs.
 
-``SwinIRConfig`` is the port's own, with no JAX counterpart: it selects
-SwinIR as the generator (``models/swinir.py``) where
-``models.make_generator`` builds one (``models.build_generator``,
-``DeepBedMap``), and holds none of DeepBedMap's kernel flags, so those
-cannot be forced on it.
+``SwinIRConfig`` and ``HATConfig`` are the port's own, with no JAX
+counterpart: they select SwinIR (``models/swinir.py``) or HAT
+(``models/hat.py``) as the generator where ``models.make_generator`` builds
+one (``models.build_generator``, ``DeepBedMap``), and hold none of
+DeepBedMap's kernel flags, so those cannot be forced on them.
 
 Every generator field the JAX package reads is ported. ``check_supported``
 raises where JAX asserts: ``upsample_phase_conv`` with ``tail_hcw``,
@@ -175,6 +175,42 @@ class SwinIRConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class HATConfig:
+    """HAT, the Hybrid Attention Transformer, as the port's third generator
+    (Chen, Wang, Zhou, Qiao, Dong, "Activating More Pixels in Image
+    Super-Resolution Transformer", CVPR 2023, arXiv:2205.04437; the defaults
+    are the x4 "HAT" of ``HAT_SRx4_ImageNet-pretrain.yml``), behind
+    DeepBedMap's four-raster input block (``models/hat.py`` lists the
+    departures). It has no JAX counterpart. ``depths`` and ``num_heads`` give
+    one entry per residual hybrid attention group (RHAG); ``compress_ratio``
+    and ``squeeze_factor`` set the channel-attention branch's widths
+    (embed / compress, embed / squeeze), ``conv_scale`` its weight in the
+    residual, ``overlap_ratio`` the overlapping cross-attention's key window
+    (window + int(overlap_ratio * window)). The published options the port
+    builds are fixed, as ``SwinIRConfig``'s: the pixel-shuffle upsampler at
+    x4, one conv closing each RHAG, a qkv bias, the patch norm, no absolute
+    position embedding, and the widths of the ``SWINIR_*`` constants."""
+
+    embed_dim: int = 180
+    depths: Tuple[int, ...] = (6, 6, 6, 6, 6, 6)
+    num_heads: Tuple[int, ...] = (6, 6, 6, 6, 6, 6)
+    window_size: int = 16
+    compress_ratio: int = 3
+    squeeze_factor: int = 30
+    conv_scale: float = 0.01
+    overlap_ratio: float = 0.5
+
+    def __post_init__(self):
+        object.__setattr__(self, "depths", tuple(self.depths))
+        object.__setattr__(self, "num_heads", tuple(self.num_heads))
+
+    @property
+    def overlap_window(self) -> int:
+        """The cross-attention's key window, as OCAB's ``overlap_win_size``."""
+        return int(self.window_size * self.overlap_ratio) + self.window_size
+
+
+@dataclasses.dataclass(frozen=True)
 class DiscriminatorConfig:
     """VGG-style discriminator (reference srgan_train.py:591-699).
 
@@ -310,16 +346,37 @@ def check_supported(cfg: GeneratorConfig) -> None:
                          "(out_channels != 1 needs tail_fused=False)")
 
 
-def check_swinir(cfg: SwinIRConfig) -> None:
-    """Raise ``ValueError`` for ``depths`` and ``num_heads`` of other lengths
-    (or empty) and for heads that do not divide ``embed_dim``."""
+def _swin_problems(cfg) -> list:
     bad = []
     if len(cfg.depths) != len(cfg.num_heads) or not cfg.depths:
         bad.append(f"depths {cfg.depths} and num_heads {cfg.num_heads} differ in length")
     bad += [f"{h} heads do not divide embed_dim={cfg.embed_dim}" for h in cfg.num_heads
             if cfg.embed_dim % h]
+    return bad
+
+
+def check_swinir(cfg: SwinIRConfig) -> None:
+    """Raise ``ValueError`` for ``depths`` and ``num_heads`` of other lengths
+    (or empty) and for heads that do not divide ``embed_dim``."""
+    bad = _swin_problems(cfg)
     if bad:
         raise ValueError("SwinIRConfig not supported: " + "; ".join(bad))
+
+
+def check_hat(cfg: HATConfig) -> None:
+    """Raise ``ValueError`` for what ``check_swinir`` refuses, for a compress
+    ratio or squeeze factor that does not divide ``embed_dim``, and for an
+    overlap window whose padding (overlap window - window) / 2 is not whole."""
+    bad = _swin_problems(cfg)
+    bad += [f"{name} {r} does not divide embed_dim={cfg.embed_dim}"
+            for name, r in (("compress_ratio", cfg.compress_ratio),
+                            ("squeeze_factor", cfg.squeeze_factor))
+            if r < 1 or cfg.embed_dim % r]
+    if (cfg.overlap_window - cfg.window_size) % 2:
+        bad.append(f"the overlap window {cfg.overlap_window} leaves a padding of "
+                   f"({cfg.overlap_window} - {cfg.window_size}) / 2, not whole")
+    if bad:
+        raise ValueError("HATConfig not supported: " + "; ".join(bad))
 
 
 # the widths the hand-written kernels are built for: the dense-block kernels

@@ -12,5 +12,6 @@ from deepbedmap_tpu_torch.models.api import (  # noqa: F401
 )
 from deepbedmap_tpu_torch.models.discriminator import Discriminator  # noqa: F401
 from deepbedmap_tpu_torch.models.generator import Generator  # noqa: F401
+from deepbedmap_tpu_torch.models.hat import HAT  # noqa: F401
 from deepbedmap_tpu_torch.models.swinir import SwinIR  # noqa: F401
 from deepbedmap_tpu_torch.models.summary import param_table, summary, to_dot  # noqa: F401

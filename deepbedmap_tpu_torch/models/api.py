@@ -19,13 +19,17 @@ from torch import nn
 from deepbedmap_tpu_torch.config import (
     DiscriminatorConfig,
     GeneratorConfig,
+    HATConfig,
     SwinIRConfig,
     check_card_supported,
 )
 from deepbedmap_tpu_torch.device import resolve_device
 from deepbedmap_tpu_torch.models.discriminator import Discriminator
 from deepbedmap_tpu_torch.models.generator import Generator
+from deepbedmap_tpu_torch.models.hat import HAT
 from deepbedmap_tpu_torch.models.swinir import SwinIR
+
+GeneratorConfigs = Union[GeneratorConfig, SwinIRConfig, HATConfig]
 
 
 def count_params(model: Union[nn.Module, Mapping[str, torch.Tensor]]) -> int:
@@ -44,22 +48,23 @@ def check_generator_device(cfg: GeneratorConfig, device) -> None:
         check_card_supported(cfg)
 
 
-def make_generator(cfg: Union[GeneratorConfig, SwinIRConfig] = GeneratorConfig(),
-                   device="cpu") -> nn.Module:
+def make_generator(cfg: GeneratorConfigs = GeneratorConfig(), device="cpu") -> nn.Module:
     """The generator a configuration selects, its parameters not drawn, on
-    the CPU: ``SwinIR`` for a ``SwinIRConfig``; DeepBedMap's ``Generator``
-    for a ``GeneratorConfig``, whose widths are first held against the
-    kernels of ``device`` (``check_generator_device``). SwinIR's window
-    kernel refuses the sizes it does not take at its first launch
-    (``ops.window_attn``)."""
+    the CPU: ``SwinIR`` for a ``SwinIRConfig``, ``HAT`` for a ``HATConfig``;
+    DeepBedMap's ``Generator`` for a ``GeneratorConfig``, whose widths are
+    first held against the kernels of ``device`` (``check_generator_device``).
+    SwinIR's and HAT's window kernels refuse the sizes they do not take at
+    their first launch (``ops.window_attn``)."""
     if isinstance(cfg, SwinIRConfig):
         return SwinIR(cfg)
+    if isinstance(cfg, HATConfig):
+        return HAT(cfg)
     check_generator_device(cfg, device)
     return Generator(cfg)
 
 
 def build_generator(
-    cfg: Union[GeneratorConfig, SwinIRConfig] = GeneratorConfig(), seed: int = 42,
+    cfg: GeneratorConfigs = GeneratorConfig(), seed: int = 42,
     device="cuda",
 ) -> nn.Module:
     """The generator ``cfg`` selects (``make_generator``) with seeded initial

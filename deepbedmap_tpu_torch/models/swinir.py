@@ -37,8 +37,10 @@ The departures:
   ``img_range`` shift: the rasters enter as DeepBedMap takes them.
 
 On a CUDA tensor the attention of each Swin layer is one launch of the
-window kernel (``csrc/window_attn.cu``), which refuses windows other than
-8 x 8 and heads wider than 32 channels; the LayerNorms, linears (cuBLAS),
+window kernel (``csrc/window_attn.cu`` at 8 x 8 windows, the tiled
+``csrc/window_attn_tiled.cu`` at windows whose square is a multiple of 128;
+``ops.window_attn`` refuses other windows and heads wider than 32
+channels); the LayerNorms, linears (cuBLAS),
 GELU, residuals and convs (cuDNN) are PyTorch, fp32 with TF32 off as the
 caller sets it (``device.disable_tf32``). On a CPU tensor the kernel's plain
 version runs. Telemetry (``utils.profiling``): device spans ``swin.msa``
@@ -74,7 +76,7 @@ UPSAMPLE_SLOPE = 0.01  # nn.LeakyReLU's default, as published
 LINEAR_INIT_STD = 0.02  # trunc_normal_(std=.02); its +-2 cut never binds
 
 
-def _conv(layer: Conv3x3, x: torch.Tensor) -> torch.Tensor:
+def apply_conv(layer: Conv3x3, x: torch.Tensor) -> torch.Tensor:
     return conv_nhwc(x, layer.weight, layer.bias, 1)
 
 
@@ -134,6 +136,13 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x)))
 
 
+def mlp_residual(norm: nn.LayerNorm, mlp: Mlp, x: torch.Tensor) -> torch.Tensor:
+    """``x + mlp(norm(x))``, the MLP under the device span ``swin.mlp``."""
+    with device_span("swin.mlp", x.device):
+        h = mlp(norm(x))
+    return x + h
+
+
 class SwinLayer(nn.Module):
     """The published ``SwinTransformerBlock`` on an NHWC grid."""
 
@@ -145,50 +154,60 @@ class SwinLayer(nn.Module):
         self.norm2 = nn.LayerNorm(dim)
         self.mlp = Mlp(dim, SWINIR_MLP_RATIO * dim)
 
+    def msa(self, h: torch.Tensor) -> torch.Tensor:
+        """The shifted-window attention of LayerNorm 1's output, under the
+        device span ``swin.msa``."""
+        shift = self.shift if min(h.shape[1], h.shape[2]) > self.window else 0
+        with device_span("swin.msa", h.device):
+            return self.attn(h, shift)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shift = self.shift if min(x.shape[1], x.shape[2]) > self.window else 0
-        h = self.norm1(x)
-        with device_span("swin.msa", x.device):
-            h = self.attn(h, shift)
-        x = x + h
-        with device_span("swin.mlp", x.device):
-            h = self.mlp(self.norm2(x))
-        return x + h
+        x = x + self.msa(self.norm1(x))
+        return mlp_residual(self.norm2, self.mlp, x)
 
 
 class RSTB(nn.Module):
-    """Residual Swin transformer block: Swin layers, a 3x3 conv, the
-    group's residual."""
+    """Residual Swin transformer block: ``depth`` layers (``layer(dim, heads,
+    window, shift)``, shift 0 on even layers and window / 2 on odd ones), a
+    3x3 conv under the device span ``conv_span``, the group's residual."""
 
-    def __init__(self, dim: int, depth: int, heads: int, window: int):
+    conv_span = "swin.rstb_conv"
+
+    def __init__(self, dim: int, depth: int, heads: int, window: int, layer=SwinLayer):
         super().__init__()
         self.residual_group = nn.ModuleDict({"blocks": nn.ModuleList(
-            SwinLayer(dim, heads, window, 0 if i % 2 == 0 else window // 2)
+            layer(dim, heads, window, 0 if i % 2 == 0 else window // 2)
             for i in range(depth))})
         self.conv = Conv3x3(dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        t = x
+    def group(self, t: torch.Tensor) -> torch.Tensor:
         for layer in self.residual_group["blocks"]:
             t = layer(t)
-        with device_span("swin.rstb_conv", x.device):
-            return _conv(self.conv, t) + x
+        return t
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        t = self.group(x)
+        with device_span(self.conv_span, x.device):
+            return apply_conv(self.conv, t) + x
 
 
 class SwinIR(nn.Module):
-    """SwinIR behind DeepBedMap's input block (module docstring)."""
+    """SwinIR behind DeepBedMap's input block (module docstring). A subclass
+    sets ``check`` and ``make_group`` to build another model on the same
+    head, trunk loop, upsampler and crop (``models.hat.HAT``)."""
+
+    check = staticmethod(check_swinir)
 
     def __init__(self, cfg: SwinIRConfig = SwinIRConfig()):
         super().__init__()
-        check_swinir(cfg)
+        self.check(cfg)
         self.cfg = cfg
         c, f = cfg.embed_dim, SWINIR_NUM_FEAT
         self.input_block = InputBlock(SWINIR_INBLOCK_CHANNELS)
         self.conv_first = Conv3x3(4 * SWINIR_INBLOCK_CHANNELS, c)
         self.patch_embed = nn.ModuleDict({"norm": nn.LayerNorm(c)})
-        self.layers = nn.ModuleList(
-            RSTB(c, depth, heads, cfg.window_size)
-            for depth, heads in zip(cfg.depths, cfg.num_heads))
+        self.layers = nn.ModuleList(self.make_group(depth, heads)
+                                    for depth, heads in zip(cfg.depths, cfg.num_heads))
         self.norm = nn.LayerNorm(c)
         self.conv_after_body = Conv3x3(c, c)
         self.conv_before_upsample = nn.ModuleList([Conv3x3(c, f)])
@@ -197,6 +216,10 @@ class SwinIR(nn.Module):
         self.upsample_convs = nn.ModuleList(Conv3x3(f, 4 * f)
                                             for _ in range(SWINIR_UPSCALE.bit_length() - 1))
         self.conv_last = Conv3x3(f, SWINIR_OUT_CHANNELS)
+
+    def make_group(self, depth: int, heads: int) -> nn.Module:
+        """One residual group of the trunk: an RSTB."""
+        return RSTB(self.cfg.embed_dim, depth, heads, self.cfg.window_size)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The published initialisation, drawn from ``generator``: linears
@@ -212,10 +235,10 @@ class SwinIR(nn.Module):
                 elif isinstance(m, nn.LayerNorm):
                     m.weight.fill_(1.0)
                     m.bias.zero_()
-                elif isinstance(m, WindowAttention):
+                elif "relative_position_bias_table" in m._parameters:
                     m.relative_position_bias_table.normal_(0.0, LINEAR_INIT_STD,
                                                            generator=generator)
-                elif isinstance(m, Conv3x3):
+                elif isinstance(m, (Conv3x3, nn.Conv2d)):
                     bound = 1.0 / math.sqrt(m.weight[0].numel())
                     m.weight.uniform_(-bound, bound, generator=generator)
                     m.bias.uniform_(-bound, bound, generator=generator)
@@ -228,7 +251,7 @@ class SwinIR(nn.Module):
         n, h, w, _ = z.shape
         z = reflect_pad_to(z, self.cfg.window_size)
         count("swin.pad_px", n * (z.shape[1] * z.shape[2] - h * w))
-        return _conv(self.conv_first, z)
+        return apply_conv(self.conv_first, z)
 
     def trunk(self, a1: torch.Tensor) -> torch.Tensor:
         """``forward_features``: the patch norm, the RSTBs, the final norm."""
@@ -240,15 +263,15 @@ class SwinIR(nn.Module):
     def upsample(self, t: torch.Tensor, a1: torch.Tensor) -> torch.Tensor:
         """``conv_after_body`` and the long residual, ``conv_before_upsample``
         and the pixel-shuffle stages."""
-        a = _conv(self.conv_after_body, t) + a1
-        a = leaky_relu(_conv(self.conv_before_upsample[0], a), UPSAMPLE_SLOPE)
+        a = apply_conv(self.conv_after_body, t) + a1
+        a = leaky_relu(apply_conv(self.conv_before_upsample[0], a), UPSAMPLE_SLOPE)
         for conv in self.upsample_convs:
-            a = pixel_shuffle_nhwc(_conv(conv, a), 2)
+            a = pixel_shuffle_nhwc(apply_conv(conv, a), 2)
         return a
 
     def tail(self, a4: torch.Tensor) -> torch.Tensor:
         """``conv_last`` at the padded size."""
-        return _conv(self.conv_last, a4)
+        return apply_conv(self.conv_last, a4)
 
     def forward(self, x, w1, w2, w3) -> torch.Tensor:
         """NHWC inputs as ``Generator.forward`` -> (N, 4(h-2), 4(w-2), 1)

@@ -35,7 +35,8 @@ import torch
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCES = ("rdb.cu", "conv3x3.cu", "deform_tail.cu", "rdb_banded.cu",
-            "rrdb_sweep.cu", "deform_zform.cu", "window_attn.cu", "rdb_backward.cu")
+            "rrdb_sweep.cu", "deform_zform.cu", "window_attn.cu", "rdb_backward.cu",
+            "window_attn_tiled.cu")
 _HEADERS = ("conv3x3_tc.cuh", "rdb_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -50,8 +51,10 @@ launches = {
     "rrdb_forward": 0, "conv3x3_forward": 0, "deform_conv": 0,
     "deform_conv_zproj1": 0, "rdb_banded_forward": 0, "rrdb_sweep_forward": 0,
     "deform_zform": 0,
-    # the Swin layers' shifted-window attention (SwinIR)
-    "window_attn": 0,
+    # the Swin layers' shifted-window attention: SwinIR's 8 x 8 windows, and
+    # the tiled kernel's two cases (C entry "window_attn_tiled"): HAT's
+    # self-attention and its overlapping cross-attention
+    "window_attn": 0, "window_attn_tiled": 0, "overlap_attn_tiled": 0,
     # the bf16-multiplicand routes of K1, K4, K10, K6 and K5
     "rdb_forward_bf16": 0, "rrdb_forward_bf16": 0, "conv3x3_forward_bf16": 0,
     "rdb_banded_forward_bf16": 0, "rrdb_sweep_forward_bf16": 0,
@@ -98,6 +101,9 @@ _SIGNATURES = {
     "deform_zform": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     # qkv, table, out, N, H, W, C, heads, shift, scale, stream
     "window_attn": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    # qkv, table, out, N, H, W, C, heads, window, key_window, shift, cross,
+    # scale, stream
+    "window_attn_tiled": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 
@@ -296,3 +302,13 @@ def launch_deform_zform(x, off, w_packed, bias, out, n, h, w, cin, cout,
 def launch_window_attn(qkv, table, out, n, h, w, c, heads, shift, scale) -> None:
     _call("window_attn", qkv.data_ptr(), table.data_ptr(), out.data_ptr(), n, h, w, c,
           heads, int(shift), float(scale))
+
+
+def launch_window_attn_tiled(qkv, table, out, n, h, w, c, heads, window, key_window, shift,
+                             cross: bool, scale) -> None:
+    """The tiled window attention: self-attention (counted as
+    ``window_attn_tiled``) or the overlapping cross-attention
+    (``overlap_attn_tiled``), one C entry."""
+    _call("overlap_attn_tiled" if cross else "window_attn_tiled", qkv.data_ptr(),
+          table.data_ptr(), out.data_ptr(), n, h, w, c, heads, window, key_window,
+          int(shift), int(bool(cross)), float(scale), entry="window_attn_tiled")

@@ -50,6 +50,7 @@ caller turns TF32 off (``device.disable_tf32``) as ``serve_forever`` does.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import threading
@@ -58,10 +59,23 @@ from typing import Optional
 
 import numpy as np
 
+from deepbedmap_tpu_torch.config import GeneratorConfig
 from deepbedmap_tpu_torch.data import geotiff
 from deepbedmap_tpu_torch.data.raster import Raster, read_raster, write_netcdf
 from deepbedmap_tpu_torch.device import disable_tf32
 from deepbedmap_tpu_torch.evalx.track import read_track_csv, track_rmse
+
+
+def model_fields(cfg) -> dict:
+    """What ``/healthz`` reports of the model: DeepBedMap's depth and
+    residual scaling for a ``GeneratorConfig``; for another generator's
+    configuration (``SwinIRConfig``, ``HATConfig``) its class name and every
+    field."""
+    if isinstance(cfg, GeneratorConfig):
+        return {"num_residual_blocks": cfg.num_residual_blocks,
+                "residual_scaling": cfg.residual_scaling}
+    return {"generator": type(cfg).__name__.removesuffix("Config"),
+            **dataclasses.asdict(cfg)}
 
 
 def make_server(
@@ -172,8 +186,7 @@ def make_server(
                     {
                         "status": "ok",
                         "model": {
-                            "num_residual_blocks": dbm.cfg.num_residual_blocks,
-                            "residual_scaling": dbm.cfg.residual_scaling,
+                            **model_fields(dbm.cfg),
                             "resolution": dbm.resolution,
                             "device": str(dbm.device),
                         },

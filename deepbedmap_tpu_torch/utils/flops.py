@@ -26,7 +26,7 @@ least 3 x flops / ``H100_TF32_TC_PEAK_FLOPS``.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 from deepbedmap_tpu_torch.config import (
     DiscriminatorConfig,
@@ -36,6 +36,7 @@ from deepbedmap_tpu_torch.config import (
     SWINIR_NUM_FEAT,
     SWINIR_OUT_CHANNELS,
     SWINIR_UPSCALE,
+    HATConfig,
     LossConfig,
     SwinIRConfig,
 )
@@ -125,7 +126,8 @@ def generator_mfu(
     }
 
 
-def swinir_tile_flops(cfg: Optional[SwinIRConfig] = None, lr: int = 288) -> Dict[str, float]:
+def swinir_tile_flops(cfg: Optional[Union[SwinIRConfig, HATConfig]] = None,
+                      lr: int = 288) -> Dict[str, float]:
     """Minimal FLOPs of one SwinIR forward (``models/swinir.py``) on an
     ``lr`` x ``lr`` low-res crop, as ``generator_tile_flops`` counts: the
     input block at the (lr-2)^2 latent, everything after at the side the
@@ -161,6 +163,37 @@ def swinir_tile_flops(cfg: Optional[SwinIRConfig] = None, lr: int = 288) -> Dict
     }
     out = {name: 2.0 * macs for name, macs in stages.items()}
     out["total"] = 2.0 * sum(stages.values())
+    return out
+
+
+def hat_tile_flops(cfg: Optional[HATConfig] = None, lr: int = 288) -> Dict[str, float]:
+    """Minimal FLOPs of one HAT forward (``models/hat.py``) on an ``lr`` x
+    ``lr`` low-res crop, as ``swinir_tile_flops`` counts. Per token of a
+    group: each HAB is a Swin layer (``swinir_tile_flops``'s ``msa_linears``,
+    ``window_attention``, ``mlp``) plus the CAB's two 3x3 convs (C -> C /
+    compress -> C) and, once a crop, its channel attention's two 1x1 convs
+    (C -> C / squeeze -> C); the OCAB its qkv and proj linears (4 C^2), its
+    cross-attention (q k^T and P v over the overlap window's ow^2 keys: 2
+    ow^2 C, the zero-padded keys included) and its MLP; the group's 3x3 conv
+    (``rhag_convs``). The pool, GELU, sigmoid and the CAB's scale are
+    O(tokens) and excluded. Returns a per-stage breakdown plus 'total'."""
+    cfg = cfg or HATConfig()
+    out = swinir_tile_flops(cfg, lr)
+    del out["total"]
+    out["rhag_convs"] = out.pop("rstb_convs")
+    c, ws, ow = cfg.embed_dim, cfg.window_size, cfg.overlap_window
+    side = -(-(lr - 2) // ws) * ws
+    tokens = float(side) ** 2
+    habs, groups = sum(cfg.depths), len(cfg.depths)
+    stages = {
+        "cab_convs": habs * tokens * 9 * 2 * c * (c // cfg.compress_ratio),
+        "channel_attention": habs * 2.0 * c * (c // cfg.squeeze_factor),
+        "oca_linears": groups * tokens * 4 * c * c,
+        "overlap_attention": groups * tokens * 2 * ow * ow * c,
+        "oca_mlp": groups * tokens * 2 * c * SWINIR_MLP_RATIO * c,
+    }
+    out.update({name: 2.0 * macs for name, macs in stages.items()})
+    out["total"] = sum(out.values())
     return out
 
 

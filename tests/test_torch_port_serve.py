@@ -23,7 +23,7 @@ from deepbedmap_tpu import DeepBedMap as JaxDeepBedMap
 from deepbedmap_tpu.config import GeneratorConfig as JaxGeneratorConfig
 from deepbedmap_tpu.models import build_generator as jax_build_generator
 from deepbedmap_tpu.serve import make_server as jax_make_server
-from deepbedmap_tpu_torch import DeepBedMap, GeneratorConfig
+from deepbedmap_tpu_torch import DeepBedMap, GeneratorConfig, HATConfig, SwinIRConfig
 from deepbedmap_tpu_torch.data import geotiff
 from deepbedmap_tpu_torch.data.raster import Raster, read_netcdf, write_netcdf
 from deepbedmap_tpu_torch.evalx.track import grdtrack
@@ -131,6 +131,30 @@ def test_healthz(server):
     assert body["status"] == "ok"
     assert body["model"]["num_residual_blocks"] == 1
     assert body["model"]["device"] == "cpu"
+
+
+@pytest.mark.parametrize("cfg, name", [
+    (SwinIRConfig(embed_dim=12, depths=(2,), num_heads=(2,), window_size=4), "SwinIR"),
+    (HATConfig(embed_dim=12, depths=(2,), num_heads=(2,), window_size=4, compress_ratio=3,
+               squeeze_factor=4), "HAT"),
+], ids=["swinir", "hat"])
+def test_healthz_reports_a_transformer_generators_own_fields(cfg, name):
+    """/healthz of a SwinIR or HAT model names the generator and its
+    configuration's fields, where DeepBedMap's depth would raise."""
+    srv = make_server(DeepBedMap(cfg=cfg, device="cpu"))
+    base, thread = _start(srv)
+    try:
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as resp:
+            body = json.loads(resp.read())
+    finally:
+        _stop(srv, thread)
+    assert body["status"] == "ok"
+    assert body["model"]["generator"] == name
+    assert body["model"]["embed_dim"] == 12 and body["model"]["depths"] == [2]
+    assert body["model"]["window_size"] == 4 and body["model"]["device"] == "cpu"
+    assert "num_residual_blocks" not in body["model"]
+    if name == "HAT":
+        assert body["model"]["overlap_ratio"] == 0.5
 
 
 def test_predict_roundtrip(server, dbm):
